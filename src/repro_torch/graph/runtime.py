@@ -1,0 +1,263 @@
+"""GraphRuntime: one declarative spec → embed / serve; counterpart of
+``repro/graph/runtime.py``.
+
+    spec = RuntimeSpec(graph=GraphSource(n_nodes=20_000),
+                       model=paper_gnn_config("sage", n_nodes=20_000))
+    rt = GraphRuntime.from_spec(spec)            # on the CUDA device
+    engine = rt.serve(cache_capacity=0)          # GraphInferenceEngine
+
+``RuntimeSpec`` has every field of the JAX package's spec, so a JAX
+``RuntimeSpec.to_json()`` loads here unchanged (``from_json``) and
+round-trips.  What this slice of the port runs is the single-device,
+frozen-params serving path; training (``train``, ``evaluate``,
+``resume``), sharding, the continuous-batching tier and elastic training
+are later slices, and a spec that asks for them raises
+``NotImplementedError`` naming the slice.
+
+Graph, codes and init are pure functions of the spec's seeds: the graph
+and the sampler are numpy (identical to the JAX package's), the LSH
+projections and weights come from a ``torch.Generator`` seeded with
+``init_seed`` on the runtime's device.  Parity with a JAX-built runtime
+goes through ``params=`` (``repro_torch.interop.params_from_jax``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import EmbeddingSpec, GNNConfig
+from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.graph.engine import GNNModel
+from repro_torch.graph.sampler import NeighborSampler
+
+FULLGRAPH_MODELS = ("gcn", "sgc", "gin")
+
+
+# -- field-only copies of the JAX package's nested spec configs -------------
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    """Optimizer knobs (``repro/optim/adamw.py``); read by the training
+    slice, carried here so specs round-trip."""
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: Optional[float] = None
+    moments_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchingSpec:
+    """Continuous-batching knobs (``repro/serving/batcher.py``)."""
+    max_batch: int = 8
+    max_delay_ms: float = 2.0
+    queue_depth: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticSpec:
+    """Elastic-training knobs (``repro/elastic/manager.py``)."""
+    lease_steps: int = 2
+    min_shards: int = 1
+    chunk_bytes: int = 1 << 20
+    max_transfer_retries: int = 2
+    heartbeat_timeout_s: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSource:
+    """Declarative graph descriptor (the generators are deterministic in
+    their seed, so the descriptor IS the dataset)."""
+
+    kind: str = "powerlaw"        # powerlaw | sbm | external
+    seed: int = 0
+    n_nodes: int = 10_000
+    n_classes: int = 16
+    avg_degree: int = 10          # powerlaw only
+    homophily: float = 0.85       # powerlaw only
+    p_in: float = 0.02            # sbm only
+    p_out: float = 0.002          # sbm only
+
+    def build(self):
+        from repro_torch.graph.generate import powerlaw_graph, sbm_graph
+        if self.kind == "powerlaw":
+            return powerlaw_graph(self.seed, self.n_nodes,
+                                  avg_degree=self.avg_degree,
+                                  n_classes=self.n_classes,
+                                  homophily=self.homophily)
+        if self.kind == "sbm":
+            return sbm_graph(self.seed, self.n_nodes, self.n_classes,
+                             p_in=self.p_in, p_out=self.p_out)
+        if self.kind == "external":
+            raise ValueError(
+                "GraphSource(kind='external') has no generator — pass the "
+                "graph to GraphRuntime.from_spec(spec, graph=(adj, labels))")
+        raise ValueError(f"unknown graph kind {self.kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeSpec:
+    """Everything needed to build the pipeline; the JAX package's fields,
+    names and defaults.  Fields of later slices (optimizer, loop,
+    checkpointing, prefetch) are carried for the round trip."""
+
+    graph: GraphSource
+    model: GNNConfig
+    optimizer: AdamWConfig = dataclasses.field(
+        default_factory=lambda: AdamWConfig(lr=1e-2, weight_decay=0.0))
+    # -- data pipeline --
+    batch_size: int = 256
+    data_seed: int = 0
+    max_deg: int = 64
+    pad_to: int = 256
+    frontier_cap: Optional[int] = None
+    dedup: bool = True
+    prefetch_depth: int = 2
+    n_shards: int = 1
+    owner_cap: Optional[int] = None
+    owner_unique_cap: Optional[int] = None
+    # -- init / splits --
+    init_seed: int = 0
+    split_seed: int = 0
+    split_frac: Tuple[float, float, float] = (0.7, 0.1, 0.2)
+    # -- loop --
+    total_steps: int = 300
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 100
+    log_every: int = 25
+    # -- eval / serve --
+    eval_batch: int = 512
+    eval_seed: int = 17
+    serve_batch: int = 256
+    batching: Optional[BatchingSpec] = None
+    elastic: Optional[ElasticSpec] = None
+    # Pallas interpret mode of the JAX package; the port has no Pallas and
+    # ignores it (the device decides between kernel and plain version).
+    interpret: Optional[bool] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RuntimeSpec":
+        d = dict(d)
+        graph = GraphSource(**d.pop("graph"))
+        md = dict(d.pop("model"))
+        md["embedding"] = EmbeddingSpec(**md["embedding"])
+        md["fanouts"] = tuple(md["fanouts"])
+        model = GNNConfig(**md)
+        opt = AdamWConfig(**d.pop("optimizer"))
+        d["split_frac"] = tuple(d["split_frac"])
+        if d.get("batching") is not None:
+            d["batching"] = BatchingSpec(**d["batching"])
+        if d.get("elastic") is not None:
+            d["elastic"] = ElasticSpec(**d["elastic"])
+        return cls(graph=graph, model=model, optimizer=opt, **d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RuntimeSpec":
+        return cls.from_dict(json.loads(s))
+
+
+def _check_ported(spec: RuntimeSpec) -> None:
+    """Raise for every spec knob whose slice is not ported yet."""
+    cfg, emb = spec.model, spec.model.embedding
+    later = []
+    if cfg.model in FULLGRAPH_MODELS:
+        later.append(f"model={cfg.model!r}: the full-graph slice (ROADMAP A.12)")
+    if spec.n_shards > 1:
+        later.append(f"n_shards={spec.n_shards}: the multi-GPU slice (ROADMAP A.14)")
+    if spec.batching is not None:
+        later.append("batching: the continuous-batching tier of the cache "
+                     "slice (ROADMAP A.11)")
+    if spec.elastic is not None:
+        later.append("elastic: the elastic-training slice (ROADMAP A.16)")
+    if emb.cache_capacity > 0 or emb.cache_plan_misses:
+        later.append("cache_capacity/cache_plan_misses: the hot-node cache "
+                     "slice (ROADMAP A.11)")
+    if later:
+        raise NotImplementedError("not ported yet — " + "; ".join(later))
+
+
+class GraphRuntime:
+    """Build once from a spec, then ``embed`` / ``serve`` on one device."""
+
+    def __init__(self, spec: RuntimeSpec, *, adj, labels, device: torch.device,
+                 params=None):
+        _check_ported(spec)
+        self.spec = spec
+        cfg = spec.model
+        if spec.graph.kind != "external" and cfg.n_nodes != spec.graph.n_nodes:
+            raise ValueError(f"model.n_nodes {cfg.n_nodes} != graph.n_nodes "
+                             f"{spec.graph.n_nodes}")
+        if adj.shape[0] != cfg.n_nodes:
+            raise ValueError(f"graph has {adj.shape[0]} nodes, model expects {cfg.n_nodes}")
+        self.adj = adj
+        self.labels = np.asarray(labels)
+        self.cfg = cfg
+        self.device = device
+        self.model = GNNModel(cfg, device)
+        if params is None:
+            from repro_torch.core import embedding as emb_lib
+            gen = make_generator(spec.init_seed, device)
+            ecfg = cfg.embedding_config()
+            codes = (emb_lib.make_codes(gen, ecfg, aux=adj)
+                     if ecfg.is_compressed else None)
+            params = self.model.init(gen, codes=codes)
+        self._params = params
+        self.sampler = NeighborSampler(adj, cfg.fanouts, max_deg=spec.max_deg,
+                                       seed=spec.data_seed)
+
+    @classmethod
+    def from_spec(cls, spec: RuntimeSpec,
+                  graph: Optional[Tuple[Any, np.ndarray]] = None,
+                  device: DeviceLike = None, params=None) -> "GraphRuntime":
+        """Build the pipeline from a spec on ``device`` (default: the CUDA
+        card; raises without one unless ``device="cpu"``).  ``graph``
+        overrides the spec's generator with a pre-built ``(adj, labels)``;
+        ``params`` replaces the seeded init (e.g. JAX params through
+        ``interop.params_from_jax``)."""
+        device = resolve_device(device)
+        adj, labels = spec.graph.build() if graph is None else graph
+        return cls(spec, adj=adj, labels=labels, device=device, params=params)
+
+    @property
+    def params(self):
+        return self._params
+
+    @property
+    def codes(self) -> Optional[torch.Tensor]:
+        """The packed code buffer (int64 words), or None for dense kinds."""
+        return self._params["embed"].get("codes_buf")
+
+    def embed(self, node_ids) -> np.ndarray:
+        """Final hidden representations (B, H) for ``node_ids`` through the
+        current params (neighbour draws seeded by ``eval_seed``)."""
+        ids = np.asarray(node_ids, np.int32)
+        rng = np.random.default_rng(self.spec.eval_seed)
+        fb = self.sampler.sample_frontier(ids, pad_to=self.spec.pad_to, rng=rng)
+        return self.model.apply(self._params, fb).cpu().numpy()
+
+    def serve(self, *, batching=None, **overrides):
+        """Freeze the current params into a ``GraphInferenceEngine`` on the
+        runtime's device.  Keyword overrides go to the engine constructor
+        (``cache_capacity`` must stay 0 in this slice)."""
+        if batching or self.spec.batching is not None:
+            raise NotImplementedError(
+                "the continuous-batching tier is not ported yet; it comes "
+                "with the hot-node cache slice (ROADMAP A.11)")
+        from repro_torch.serving.gnn import GraphInferenceEngine
+        kw = dict(serve_batch=self.spec.serve_batch, pad_to=self.spec.pad_to,
+                  device=self.device)
+        kw.update(overrides)
+        return GraphInferenceEngine(self.cfg, self._params, self.sampler, **kw)

@@ -1,0 +1,149 @@
+"""Uniform neighbour sampling (GraphSAGE, paper §4 / Fig. 4); counterpart of
+``repro/graph/sampler.py``.
+
+Sampling runs on the host (numpy) against the padded neighbour table, with
+the same generators and draws as the JAX package, so one seed gives the
+same levels bit for bit:
+
+  step 0: batch of target nodes                     (B,)
+  step 1: fanout[0] first neighbours per target     (B, f1)
+  step 2: fanout[1] second neighbours per first     (B, f1, f2)
+
+Isolated nodes self-sample.  ``FrontierBatch`` carries the *unique* node
+frontier plus int64 index maps per level, so the embedding decoder runs
+once per unique node (``unique[index_maps[i]] == levels[i]``); ``to``
+moves it to the device as tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.graph.csr import CSRMatrix
+
+Array = Union[np.ndarray, torch.Tensor]
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finaliser — a bijective avalanche mix on uint64."""
+    with np.errstate(over="ignore"):
+        x = np.asarray(x, np.uint64)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def stream_key(seed: int, step: int) -> np.uint64:
+    """Per-(seed, step) key for counter-based sampling."""
+    with np.errstate(over="ignore"):
+        k = np.uint64(seed) * np.uint64(0x9E3779B97F4A7C15) + np.uint64(step)
+    return np.uint64(_mix64(k))
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierBatch:
+    """Deduplicated sampled minibatch (numpy on the host, tensors after
+    ``to(device)``).
+
+    ``unique``     (U_pad,) node ids, padded by repeating ``unique[0]``
+                   (padding rows decode to valid embeddings that no index
+                   map points at).
+    ``index_maps`` per level, indices into ``unique`` with the naive level
+                   shapes: (B,), (B, f1), (B, f1, f2), ...
+    ``n_unique``   true unique count before padding.
+    ``codes``      optional (U_pad, n_words) packed code rows of the
+                   frontier (``attach_codes``).
+    """
+
+    unique: Array
+    index_maps: Tuple[Array, ...]
+    n_unique: int
+    codes: Optional[Array] = None
+
+    @classmethod
+    def from_levels(cls, levels: Sequence[np.ndarray], pad_to: int = 256,
+                    cap: Optional[int] = None) -> "FrontierBatch":
+        """Dedup a naive level list into a frontier + per-level index maps.
+        ``cap`` pads the frontier to exactly that many rows instead of the
+        next ``pad_to`` multiple; raises when the unique count exceeds it."""
+        levels = [np.asarray(l) for l in levels]
+        flat = np.concatenate([l.ravel() for l in levels])
+        uniq, inv = np.unique(flat, return_inverse=True)
+        n_unique = uniq.shape[0]
+        if cap is None:
+            cap = -(-n_unique // max(pad_to, 1)) * max(pad_to, 1)
+        elif n_unique > cap:
+            raise ValueError(
+                f"frontier has {n_unique} unique nodes > cap={cap}; raise "
+                f"frontier_cap (or shrink batch/fanout)")
+        if cap > n_unique:
+            uniq = np.concatenate(
+                [uniq, np.full(cap - n_unique, uniq[0], uniq.dtype)])
+        maps, off = [], 0
+        for l in levels:
+            maps.append(inv[off:off + l.size].reshape(l.shape).astype(np.int32))
+            off += l.size
+        return cls(uniq.astype(np.int32), tuple(maps), int(n_unique))
+
+    def to(self, device) -> "FrontierBatch":
+        """Tensors on ``device`` (ids and maps as int64)."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a)).to(device, torch.int64)
+        return FrontierBatch(t(self.unique), tuple(t(m) for m in self.index_maps),
+                             int(self.n_unique),
+                             None if self.codes is None else t(self.codes))
+
+    def levels(self) -> List[Array]:
+        """Rebuild the naive level list."""
+        return [self.unique[m] for m in self.index_maps]
+
+
+def attach_codes(fb: FrontierBatch, host_codes: np.ndarray) -> FrontierBatch:
+    """Gather the frontier's packed code rows (``host_codes[fb.unique]``)
+    into the batch's ``codes`` field."""
+    if fb.codes is not None:
+        return fb
+    rows = np.ascontiguousarray(
+        np.asarray(host_codes, np.uint32)[np.asarray(fb.unique)])
+    return dataclasses.replace(fb, codes=rows)
+
+
+class NeighborSampler:
+    def __init__(self, adj: CSRMatrix, fanouts: Sequence[int], max_deg: int = 64,
+                 seed: int = 0):
+        self.fanouts = tuple(fanouts)
+        self.table, self.deg = adj.neighbor_padded(max_deg)
+        self.max_deg = max_deg
+        self.rng = np.random.default_rng(seed)
+
+    def _sample_level(self, nodes: np.ndarray, fanout: int,
+                      rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """nodes: (...,) -> (..., fanout) sampled neighbour ids."""
+        rng = rng if rng is not None else self.rng
+        flat = nodes.reshape(-1)
+        deg = np.minimum(self.deg[flat], self.max_deg)
+        idx = rng.integers(0, np.maximum(deg, 1)[:, None], (flat.shape[0], fanout))
+        nbr = self.table[flat[:, None], idx]
+        nbr = np.where(nbr < 0, flat[:, None], nbr)   # isolated: self-sample
+        return nbr.reshape(*nodes.shape, fanout).astype(np.int32)
+
+    def sample(self, batch_nodes: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> List[np.ndarray]:
+        """Returns [targets (B,), level1 (B,f1), level2 (B,f1,f2), ...].
+        ``rng`` overrides the sampler's stateful generator."""
+        levels = [batch_nodes.astype(np.int32)]
+        cur = batch_nodes
+        for f in self.fanouts:
+            cur = self._sample_level(cur, f, rng=rng)
+            levels.append(cur)
+        return levels
+
+    def sample_frontier(self, batch_nodes: np.ndarray, pad_to: int = 256,
+                        rng: Optional[np.random.Generator] = None) -> FrontierBatch:
+        """Sample and dedup in one call."""
+        return FrontierBatch.from_levels(self.sample(batch_nodes, rng=rng),
+                                         pad_to=pad_to)

@@ -1,0 +1,33 @@
+"""Bring the JAX package's parameters across as port parameters.
+
+``params_from_jax`` takes the pytree of ``repro.models.gnn.init_gnn`` (or a
+runtime's ``state["params"]``) as numpy arrays — nested dicts of arrays,
+the packed ``embed.codes_buf`` as uint32 — and returns the same tree as
+tensors on ``device``.  The layouts are the same in both packages
+(``x @ w`` with w of shape (in, out)), so nothing is transposed; the code
+words become int64 tensors holding the uint32 bit patterns.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.codes import from_uint32
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    dev = resolve_device(device)
+
+    def convert(key: str, value):
+        if isinstance(value, dict):
+            return {k: convert(k, v) for k, v in value.items()}
+        arr = np.asarray(value)
+        if key == "codes_buf":
+            return from_uint32(arr).to(dev)
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    return {k: convert(k, v) for k, v in tree.items()}

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a).
+
+hash_decode   compositional-code decode as a row gather-sum (replaces the
+              Pallas kernel ``repro/kernels/hash_decode/kernel.py``)
+
+Each package: ``csrc/*.cu`` (the kernel, plain C entry point), ``ops.py``
+(checks, launch through ctypes, launch counter), ``ref.py`` (the plain
+PyTorch version).  ``build.py`` compiles the sources with nvcc at first use.
+Importing these modules builds nothing.
+"""

@@ -1,0 +1,7 @@
+from repro_torch.kernels.hash_decode.ops import (dequantize_codebooks,
+                                                 hash_decode,
+                                                 quantize_codebooks)
+from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+
+__all__ = ["hash_decode", "hash_decode_ref", "quantize_codebooks",
+           "dequantize_codebooks"]

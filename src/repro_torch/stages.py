@@ -1,0 +1,57 @@
+"""Optional per-stage clock for the serving path.
+
+The serving path marks its stages with ``with stage("name"):``.  While no
+``StageTimer`` is active that is a shared no-op context: nothing is timed
+and nothing synchronises.  Inside ``with StageTimer() as t:`` every marked
+stage synchronises the card before and after it and appends its host-clock
+milliseconds to ``t.ms[name]``, so the stages do not overlap and their sum
+is the request's time less what lies between the marks.  One thread at a
+time: the active timer is a module global.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import ContextManager, Dict, List, Optional
+
+import torch
+
+_NULL = contextlib.nullcontext()
+_active: Optional["StageTimer"] = None
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class StageTimer:
+    """Collects ``ms[stage] -> [milliseconds per pass]`` while active."""
+
+    def __init__(self):
+        self.ms: Dict[str, List[float]] = defaultdict(list)
+        self._prev: Optional[StageTimer] = None
+
+    def __enter__(self) -> "StageTimer":
+        global _active
+        self._prev, _active = _active, self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _active
+        _active = self._prev
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        _sync()
+        t0 = time.perf_counter()
+        yield
+        _sync()
+        self.ms[name].append((time.perf_counter() - t0) * 1e3)
+
+
+def stage(name: str) -> ContextManager:
+    """Time the enclosed work as ``name`` under the active ``StageTimer``."""
+    return _NULL if _active is None else _active.span(name)

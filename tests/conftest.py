@@ -12,6 +12,10 @@ def pytest_configure(config):
         "multidevice(n=2): needs >= n jax devices in THIS process; skips "
         "(never errors) on fewer — run via tools/ci.sh --multidevice, which "
         "forces 8 host devices and selects only these tests")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips (never errors) without one — run "
+        "the port's kernel tests on the H100 (see README)")
 
 
 def pytest_runtest_setup(item):

@@ -1,0 +1,135 @@
+"""Port parity: the ``hash_decode`` kernel's plain version and wrapper
+(``repro_torch.kernels.hash_decode``) against the JAX package.
+
+Reference runs: ``repro.core.backend.GatherBackend`` (the m-term gather-sum
+in codebook order) and the Pallas kernel in interpret mode through
+``PallasBackend(interpret=True)``, which pads ragged shapes as it must on a
+TPU.  The plain version repeats the gather's f32 adds in the same order,
+so it must match it bitwise; against the Pallas one-hot matmul the bound is
+the 2e-4 of ``tests/test_kernels.py``.  The CUDA kernel itself runs only on
+a card: ``tests/test_torch_gpu.py`` holds it against the plain version.
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import backend as jbackend
+from repro.kernels.hash_decode import ops as j_ops
+from repro_torch.kernels.hash_decode import ops as t_ops
+from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+
+SHAPES = [(256, 16, 256, 512), (128, 128, 2, 512), (100, 8, 16, 96)]
+VARIANTS = ["float32", "float32+w0", "bfloat16", "bfloat16+w0", "int8", "int8+w0"]
+
+
+def _inputs(B, m, c, d_c, seed=0):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, c, (B, m)).astype(np.int32)
+    cb = rng.standard_normal((m, c, d_c)).astype(np.float32)
+    w0 = rng.standard_normal(d_c).astype(np.float32)
+    return codes, cb, w0
+
+
+def _port(codes, cb, w0, variant):
+    """The port's plain version on the variant's storage (torch tensors)."""
+    dtype, _, with_w0 = variant.partition("+")
+    cb_t = torch.from_numpy(cb)
+    scales = None
+    if dtype == "bfloat16":
+        cb_t = cb_t.to(torch.bfloat16)
+    elif dtype == "int8":
+        cb_t, scales = t_ops.quantize_codebooks(cb_t)
+    w = torch.from_numpy(w0) if with_w0 else None
+    if w is not None and dtype == "bfloat16":
+        w = w.to(torch.bfloat16).float()     # bf16-stored w0, widened as the kernel takes it
+    return torch.from_numpy(codes), cb_t, w, scales
+
+
+def _jax(backend_cls, codes, cb, w0, variant, **kw):
+    dtype, _, with_w0 = variant.partition("+")
+    policy = jbackend.MixedPrecisionPolicy(
+        param_dtype="bfloat16" if dtype == "bfloat16" else None,
+        quantize="int8" if dtype == "int8" else "none")
+    be = backend_cls(policy=policy, **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # Pallas padding / tile fallbacks
+        out = be.decode(jnp.asarray(codes), jnp.asarray(cb),
+                        jnp.asarray(w0) if with_w0 else None)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_version_matches_jax_gather_bitwise(shape, variant):
+    codes, cb, w0 = _inputs(*shape)
+    got = hash_decode_ref(*_port(codes, cb, w0, variant))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (shape[0], shape[3])
+    np.testing.assert_array_equal(
+        got.numpy(), _jax(jbackend.GatherBackend, codes, cb, w0, variant))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wrapper_on_cpu_matches_pallas_interpret(shape, variant):
+    codes, cb, w0 = _inputs(*shape, seed=1)
+    before = t_ops.hash_decode.launches
+    got = t_ops.hash_decode(*_port(codes, cb, w0, variant))
+    assert t_ops.hash_decode.launches == before      # CPU: plain version, no launch
+    ref = _jax(jbackend.PallasBackend, codes, cb, w0, variant, interpret=True)
+    # the Pallas kernel sums one-hot matmul products; 2e-4 as in test_kernels.py
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 512), (16, 2, 96), (3, 5, 7)])
+def test_quantize_codebooks_bitwise(shape):
+    cb = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    cb[0, 0] = 0.0                                   # all-zero vector -> scale 1
+    jq, js = j_ops.quantize_codebooks(jnp.asarray(cb))
+    tq, ts = t_ops.quantize_codebooks(torch.from_numpy(cb))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        t_ops.dequantize_codebooks(tq, ts).numpy(),
+        np.asarray(j_ops.dequantize_codebooks(jq, js)))
+
+
+def test_wrapper_rejects_bad_operands():
+    codes, cb, w0 = (torch.from_numpy(a) for a in _inputs(8, 4, 16, 32))
+    with pytest.raises(TypeError):
+        t_ops.hash_decode(codes.long(), cb)
+    with pytest.raises(ValueError):
+        t_ops.hash_decode(codes[:, :3].contiguous(), cb)
+    with pytest.raises(ValueError):
+        t_ops.hash_decode(codes, cb.to(torch.int8))            # int8 needs scales
+    with pytest.raises(TypeError):
+        t_ops.hash_decode(codes, cb, w0.double())
+    with pytest.raises(ValueError):
+        t_ops.hash_decode(codes.t().contiguous().t(), cb)       # not contiguous
+
+
+@pytest.mark.parametrize("d_c,expect", [(512, (128, 2)), (96, (32, 8)), (2048, (128, 2)),
+                                        (7, (32, 8))])
+def test_launch_shape(d_c, expect):
+    assert t_ops.launch_shape(d_c) == expect
+
+
+def test_cached_build_returns_its_compiler_log(tmp_path, monkeypatch):
+    """A library built earlier is not rebuilt, and its ``-Xptxas -v`` log
+    (kept beside it) is returned again; without the log it is rebuilt."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    lib = build.library_path(t_ops.NAME, t_ops.SOURCE)
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers\n")
+    assert build.build_shared_library(t_ops.NAME, t_ops.SOURCE) == (
+        lib, "ptxas info    : Used 32 registers\n")
+    lib.with_suffix(".log").unlink()
+    monkeypatch.setattr(build, "find_nvcc", lambda: "/bin/false")
+    with pytest.raises(RuntimeError, match="building hash_decode failed"):
+        build.build_shared_library(t_ops.NAME, t_ops.SOURCE)
+
