@@ -5,35 +5,50 @@ in PERF.md):
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from the
-sources in ``src/repro_torch``, holds each against its plain PyTorch
-version at the shapes the serving path gives it, then serves the paper's
-full-width hash-compressed GraphSAGE (``paper_gnn_config("sage")``: c=256,
-m=16, d_c=d_m=512, 3-layer decoder, d_e=64, 2 SAGE layers x 128, fanout 15,
-f32) on a 169,343-node power-law graph (the size of ogbn-arxiv) through the
-port's entry points: ``GraphRuntime.from_spec`` -> ``rt.serve()`` -> 8
-requests of 256 nodes and one ``serve_many`` of 4.  Weights are random,
-from a seed.
+sources in ``src/repro_torch`` (one nvcc per source, all at once), holds
+each against its plain PyTorch version at the shapes its paths give it,
+and drives two paths through the port's entry points, with random weights
+from a seed:
 
-Phases: device, build, kernel check, slice, kernels line.  Every check
-raises on failure, so the script exits nonzero; it prints the
-``{"kernels": ...}`` line and then, as its last line,
-``{"ok": true, "device": {...}}`` only when every phase passed.  It needs
-one card and imports nothing of JAX.
+  serve  the paper's full-width hash-compressed GraphSAGE
+         (``paper_gnn_config("sage")``: c=256, m=16, d_c=d_m=512, 3-layer
+         decoder, d_e=64, 2 SAGE layers x 128, fanout 15, f32) on a
+         169,343-node power-law graph (the size of ogbn-arxiv):
+         ``GraphRuntime.from_spec`` -> ``rt.serve()`` -> 8 requests of 256
+         nodes and one ``serve_many`` of 4;
+  train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
+         vocab 151,936, ``hash_full`` embedding, bf16 activations) with
+         ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
+         launcher's chain (``repro_torch.launch.train.train``: token stream
+         -> co-occurrence pass -> Algorithm 1 -> init -> train step ->
+         loop) for 5 steps of batch 4 x 2048 tokens.
+
+Each path is driven with the kernels' launch counts set to 0 just before
+it and read just after.  A small version of each path (a 3,000-node
+graph, the reduced LM config) runs on the card and on the CPU (plain
+versions), and the two must agree.  Every check raises on
+failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
+line and then, as its last line, ``{"ok": true, "device": {...}}`` only
+when every phase passed.  It needs one card and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores (data sheet)
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores (data sheet)
 # The data sheet's 67 TFLOP/s f32 outside the tensor cores counts each FMA
 # as two operations; a lone add runs at the FMA rate, so adds peak at half.
 F32_ADDS_PER_S = 67e12 / 2
@@ -41,6 +56,9 @@ F32_ADDS_PER_S = 67e12 / 2
 N_NODES = 169_343
 N_CLASSES = 40
 REQUEST = 256
+
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_SEQ, LM_STEPS = 4, 2048, 5
 
 
 def fail(msg: str) -> None:
@@ -89,14 +107,18 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels.hash_decode import ops
+    """One nvcc per kernel source, all started together."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
     t0 = time.perf_counter()
-    path, log = ops.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(lambda m: (m.NAME, m.build()), (hd_ops, fa_ops)))
     secs = time.perf_counter() - t0
-    print(f"[build] hash_decode -> {path.name} in {secs:.2f} s", flush=True)
-    for line in log.splitlines():
-        if re.search(r"registers|spill|Compiling entry", line):
-            print(f"[build]   {line.strip()}", flush=True)
+    for name, (path, log) in built:
+        print(f"[build] {name} -> {path.name} ({secs:.2f} s for both)", flush=True)
+        for line in log.splitlines():
+            if re.search(r"registers|spill|Compiling entry", line):
+                print(f"[build]   {line.strip()}", flush=True)
 
 
 def _operands(B, m, c, d_c, variant, seed):
@@ -155,14 +177,16 @@ def time_at_shape(B: int, m: int, c: int, d_c: int) -> dict:
 def phase_kernel_check(B_main: int):
     """hash_decode vs its plain version, bitwise, at the shapes the serving
     path gives it (one request's frontier, and the coalesced frontier of a
-    ``serve_many`` of 4) and at ragged ones; times at both serving shapes."""
+    ``serve_many`` of 4), at the training path's (batch x seq token rows,
+    bf16 codebooks) and at ragged ones; times at both serving shapes."""
     import torch
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_ref
     m, c, d_c = 16, 256, 512
     cases = [((B_main, m, c, d_c), v) for v in
              ("float32", "float32+w0", "bfloat16", "int8+w0")]
-    cases += [((4 * B_main, m, c, d_c), "float32")]
+    cases += [((4 * B_main, m, c, d_c), "float32"),
+              ((LM_BATCH * LM_SEQ, m, c, d_c), "bfloat16")]
     cases += [((100, 8, 16, 96), "float32+w0"), ((33, 4, 4, 130), "int8"),
               ((7, 3, 8, 5), "bfloat16+w0")]
     max_err = 0.0
@@ -206,6 +230,7 @@ def phase_slice():
     from repro_torch.core import embedding as emb_lib
     from repro_torch.device import make_generator
     from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops
 
     spec = _spec("auto", N_NODES, N_CLASSES)
@@ -226,7 +251,8 @@ def phase_slice():
     requests = [rng.choice(N_NODES, REQUEST, replace=False) for _ in range(12)]
     torch.cuda.reset_peak_memory_stats()
 
-    ops.hash_decode.launches = 0               # the main path's run starts here
+    fa_ops.flash_attention.launches = 0
+    ops.hash_decode.launches = 0               # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
         before = ops.hash_decode.launches
@@ -240,6 +266,7 @@ def phase_slice():
     torch.cuda.synchronize()
     many_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.hash_decode.launches         # ... and ends here
+    check(fa_ops.flash_attention.launches == 0, "the serving path ran attention")
     check(all(n >= 1 for n in per_request), f"a request decoded without the kernel: {per_request}")
     check(launches >= 9, f"kernel launched {launches} times for 9 engine calls")
     stats = engine.stats()
@@ -336,6 +363,322 @@ def phase_small_reference():
     check(diff <= 1e-4, f"card and CPU disagree by {diff}")
 
 
+# ---------------------------------------------------------------------------
+# slice 2: LM training through flash_attention and the hash_decode backward
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
+    (LM_BATCH, 16, 16, LM_SEQ, 64, True, "bfloat16"),
+    (LM_BATCH, 16, 16, LM_SEQ, 64, True, "float32"),
+    (2, 8, 2, LM_SEQ, 128, True, "bfloat16"),          # GQA
+    (2, 16, 16, 1000, 64, True, "float32"),            # ragged S
+    (2, 8, 8, 1024, 128, False, "bfloat16"),           # full attention
+    (2, 4, 4, 333, 32, False, "float32"),              # the reduced config's D
+]
+# tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def _qkv(B, H, K, S, D, dtype, seed=0):
+    import torch
+    from repro_torch.core.backend import torch_dtype
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(torch_dtype(dtype))
+            for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+
+
+def phase_flash_check() -> float:
+    """flash_attention vs its plain version on the card at the path's shape,
+    a GQA, a ragged, a non-causal and the reduced config's shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    worst = 0.0
+    for i, (B, H, K, S, D, causal, dtype) in enumerate(FLASH_CASES):
+        q, k, v = _qkv(B, H, K, S, D, dtype, seed=i)
+        before = ops.flash_attention.launches
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(ops.flash_attention.launches == before + 1, "flash kernel did not launch")
+        ref = attention_ref(q, k, v, causal=causal).float()
+        diff = (got.float() - ref).abs()
+        err = float(diff.max())
+        tol = FLASH_TOL[dtype]
+        within = bool((diff <= tol + tol * ref.abs()).all())
+        finite = bool(torch.isfinite(got).all())
+        print(f"[flash] B={B} H={H} K={K} S={S} D={D} causal={causal} {dtype}: "
+              f"max_abs_err={err}, within rtol=atol={tol}: {within}, finite={finite}",
+              flush=True)
+        check(finite and within,
+              f"flash_attention {(B, H, K, S, D, causal, dtype)} off by {err}")
+        if i == 0:
+            worst = err
+        del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_backward_check() -> float:
+    """The hash_decode backward on the card at the training path's shape:
+    two passes give the same bits, and they match autograd through the
+    plain version to 1e-5 of the largest gradient (8e-3 for the bf16
+    codebook gradient: one bf16 rounding of sums taken in another order)."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+    B = LM_BATCH * LM_SEQ
+    worst = 0.0
+    for variant in ("bfloat16", "float32+w0"):
+        codes, cb, w0, _ = _operands(B, 16, 256, 512, variant, seed=7)
+        g = torch.randn(B, 512, generator=torch.Generator(device="cuda").manual_seed(8),
+                        device="cuda")
+        with_w0 = variant.endswith("+w0")
+
+        def grads(fn):
+            c = cb.clone().requires_grad_(True)
+            w = w0.clone().requires_grad_(True) if with_w0 else None
+            (fn(codes, c, w) * g).sum().backward()
+            return c.grad, (w.grad if with_w0 else None)
+
+        a, b = grads(ops.hash_decode), grads(ops.hash_decode)
+        same = all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+        plain = grads(hash_decode_ref)
+        errs = []
+        for name, mine, ref in zip(("d_cb", "d_w0"), a, plain):
+            if mine is None:
+                continue
+            check(mine.dtype == ref.dtype, f"{name} dtype {mine.dtype} != {ref.dtype}")
+            scale = float(ref.float().abs().max())
+            bound = (8e-3 if name == "d_cb" and variant == "bfloat16" else 1e-5) * scale
+            err = float((mine.float() - ref.float()).abs().max())
+            errs.append(f"{name} max_abs_err={err} (bound {bound:.3g})")
+            check(err <= bound, f"{name} {variant} off by {err} > {bound}")
+            worst = max(worst, err / scale)
+        print(f"[backward] hash_decode B={B} {variant}: two passes bitwise={same}; "
+              + ", ".join(errs), flush=True)
+        check(same, f"two hash_decode backward passes differ ({variant})")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _lm_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    base = get_config(LM_ARCH)
+    return get_config(LM_ARCH, attn_impl="flash", embedding=dataclasses.replace(
+        base.embedding, lookup_impl="auto"))
+
+
+def phase_train():
+    """Full-width qwen1.5-0.5b through the launcher's chain, 5 steps; the
+    launch counts are read around exactly this run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.launch.train import train
+    from repro_torch.stages import StageTimer
+    from repro_torch.train.step import loss_and_grads
+    cfg = _lm_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa_ops.flash_attention.launches = 0
+    hd_ops.hash_decode.launches = 0            # the training path's run starts here
+    res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
+                log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] losses {res.losses}; step ms "
+          f"{[round(t * 1e3, 3) for t in res.step_times]}; chain wall {wall:.2f} s; "
+          f"max_memory_allocated {peak} B; launches {launches}", flush=True)
+    check(all(np.isfinite(res.losses)), f"non-finite loss {res.losses}")
+    per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    check(launches["flash_attention"] == LM_STEPS * per_step,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"expected {LM_STEPS} steps x {per_step}")
+    check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
+
+    # the codebooks' gradient after training, on a fresh batch of the stream
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                           batch_size=LM_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    params = res.state["params"]
+    _, grads = loss_and_grads(params, batch, cfg)
+    cb_norm = float(grads["embed"]["decoder"]["codebooks"].float().norm())
+    n_cb = params["embed"]["decoder"]["codebooks"].numel()
+    print(f"[train] codebook gradient norm {cb_norm} over {n_cb} entries", flush=True)
+    check(cb_norm > 0 and math.isfinite(cb_norm), f"codebook gradient norm {cb_norm}")
+    del grads
+
+    # where one step's time goes: the stage marks, each synchronised
+    from repro_torch.train.step import TrainHyper, make_train_step
+    step = make_train_step(cfg, TrainHyper(total_steps=LM_STEPS + 2))
+    state = res.state
+    state, _ = step(state, batch)               # warm, outside the timer
+    torch.cuda.synchronize()
+    with StageTimer() as timer:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+    med = {k: round(sum(v), 3) for k, v in timer.ms.items()}
+    print(f"[breakdown] one training step under the stage timer: {step_ms:.3f} ms; "
+          f"stages (ms, nested: embed holds unpack/decode/mlp) {med}", flush=True)
+    profile_step(step, state, batch)
+    del res, state, params, batch
+    torch.cuda.empty_cache()
+    return launches, peak
+
+
+def profile_step(step, state, batch) -> None:
+    """Device time of one training step by kernel, from torch.profiler.
+    A profiler that cannot start is reported as not measured; a step that
+    raises under it fails the run like any other phase."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except Exception as exc:  # noqa: BLE001  (the profiler's own failure to start)
+        print(f"[profile] torch.profiler did not start: {exc!r}; device time not "
+              f"measured", flush=True)
+        return
+    try:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        prof.stop()
+    # kernel rows only: an operator's row repeats the time of its kernels
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    if not rows:
+        print("[profile] the profiler recorded no device time: not measured", flush=True)
+        return
+    print(f"[profile] one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%, sum of kernel times; {len(rows)} kernels)",
+          flush=True)
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
+        print(f"[profile]   {ms:10.3f} ms  x{n:<5d} {name[:110]}", flush=True)
+
+
+def phase_lm_reference():
+    """The reduced config, 3 steps from one init on the card (kernels) and
+    on the CPU (plain versions): losses within 1e-4 (f32 throughout; cuBLAS
+    and the CPU's matmuls sum in other orders)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import TrainHyper, make_train_step
+    cfg = reduced(_lm_config())
+    cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
+        cfg.embedding, lookup_impl="pallas"))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    states = {}
+    for dev in ("cuda", "cpu"):
+        p = to(params, dev)
+        states[dev] = {"params": p, "opt": adamw_init(p), "step": 0}
+    step = make_train_step(cfg, TrainHyper(warmup_steps=1, total_steps=3))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                           batch_size=4, seed=3))
+    worst, losses = 0.0, []
+    for _ in range(3):
+        b = stream.next_batch()
+        pair = [float(step(states[dev], {k: torch.from_numpy(v).to(dev)
+                                         for k, v in b.items()})[1]["loss"])
+                for dev in ("cuda", "cpu")]
+        losses.append(pair)
+        worst = max(worst, abs(pair[0] - pair[1]))
+    print(f"[reference] reduced {LM_ARCH}, 3 steps, (card, CPU) losses {losses}; "
+          f"max abs diff {worst}", flush=True)
+    check(worst <= 1e-4, f"card and CPU losses differ by {worst}")
+
+
+def time_lm_kernels() -> dict:
+    """flash_attention at the path's shape beside its plain version and
+    ``scaled_dot_product_attention``; hash_decode forward and backward at
+    the path's B = batch x seq rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+    B, H, K, S, D, causal, dtype = FLASH_CASES[0]
+    q, k, v = _qkv(B, H, K, S, D, dtype)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).transpose(1, 2)
+    lib_err = float((lib.float() - fa_ops.flash_attention(q, k, v).float()).abs().max())
+    kernel_ms, enqueue_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    plain_ms, _ = time_ms(lambda: attention_ref(q, k, v), 5)
+    library_ms, _ = time_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * D * pairs * B * H
+    nbytes = 4 * B * S * H * D * q.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    f32_ms = flops / F32_FLOPS * 1e3
+    flash = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"[time] flash_attention B={B} H={H} S={S} D={D} causal {dtype}: kernel "
+          f"{kernel_ms:.4f} ms (host enqueues in {enqueue_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+          f"(max diff to kernel {lib_err}); {flops} flops: {ops_ms:.4f} ms at the "
+          f"bf16 tensor-core peak, {f32_ms:.4f} ms at the f32 CUDA-core peak; "
+          f"{nbytes} B: {bytes_ms:.4f} ms; kernel at {flops / kernel_ms / 1e9:.1f} "
+          f"TFLOP/s", flush=True)
+    del q, k, v, qh, kh, vh, lib
+
+    rows, m, c, d_c = LM_BATCH * LM_SEQ, 16, 256, 512
+    codes, cb, _, _ = _operands(rows, m, c, d_c, "bfloat16", seed=9)
+    offsets = (torch.arange(m, device="cuda") * c)[None, :]
+    table = cb.float().reshape(m * c, d_c)
+    idx = codes.long() + offsets
+    fwd_ms, _ = time_ms(lambda: hd_ops.hash_decode(codes, cb), 50)
+    fwd_plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, cb), 10)
+    fwd_lib_ms, _ = time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), 50)
+    g = torch.randn(rows, d_c, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    bwd_ms, _ = time_ms(lambda: hd_ops.hash_decode_backward(codes, cb, None, g), 20)
+    cbg = cb.clone().requires_grad_(True)
+    bwd_plain_ms, _ = time_ms(
+        lambda: torch.autograd.grad((hash_decode_ref(codes, cbg) * g).sum(), cbg), 10)
+    fwd_bytes = rows * m * 4 + m * c * d_c * 2 + rows * d_c * 4
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, rows * (m - 1) * d_c / F32_ADDS_PER_S) * 1e3
+    bwd_bytes = rows * m * 4 + rows * d_c * 4 + m * c * d_c * 2
+    bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[time] hash_decode B={rows} m={m} c={c} d_c={d_c} bf16 codebooks: forward "
+          f"kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, embedding_bag "
+          f"{fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms by bytes ({fwd_bytes} B); "
+          f"backward (one-hot contraction) {bwd_ms:.4f} ms, plain autograd "
+          f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.4f} ms by bytes ({bwd_bytes} B)",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(flash=flash, hash_lm=dict(
+        rows=rows, ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
+        bound_ms=fwd_bound, backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms,
+        backward_bound_ms=bwd_bound))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -350,15 +693,29 @@ def main() -> None:
     from repro_torch.graph.engine import default_frontier_cap
     b_main = default_frontier_cap(REQUEST, (15, 15), 256, N_NODES)
     timing = phase_kernel_check(b_main)
-    launches, cap = phase_slice()
+    flash_err = phase_flash_check()
+    phase_backward_check()
+    serve_launches, cap = phase_slice()
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
     phase_small_reference()
-    print(json.dumps({"kernels": [dict(
-        name="hash_decode", route="cuda",
-        source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
-        replaces="src/repro/kernels/hash_decode/kernel.py:67",
-        launches=launches, bitwise=timing["max_abs_err"] == 0.0, **timing)]}),
-        flush=True)
+    train_launches, _ = phase_train()
+    phase_lm_reference()
+    lm = time_lm_kernels()
+    print(json.dumps({"kernels": [
+        dict(name="hash_decode", route="cuda",
+             source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
+             replaces="src/repro/kernels/hash_decode/kernel.py:67",
+             launches=serve_launches + train_launches["hash_decode"],
+             launches_by_path={"serve": serve_launches,
+                               "train": train_launches["hash_decode"]},
+             bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:85",
+             launches=train_launches["flash_attention"],
+             launches_by_path={"serve": 0, "train": train_launches["flash_attention"]},
+             max_abs_err=flash_err, **lm["flash"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)
 

@@ -9,9 +9,10 @@ Registered implementations:
            bit-exactness oracle.
   onehot   one (B, m*c) x (m*c, d_c) f32 matmul.
   pallas   the hand-written Hopper ``hash_decode`` kernel
-           (``kernels/hash_decode``).  It keeps the JAX package's name so a
-           JAX ``RuntimeSpec`` selects its counterpart unchanged; on CPU
-           tensors the wrapper runs the kernel's plain version.
+           (``kernels/hash_decode``), with its autograd backward.  It keeps
+           the JAX package's name so a JAX ``RuntimeSpec`` selects its
+           counterpart unchanged; on CPU tensors the wrapper runs the
+           kernel's plain version.
 
 ``auto`` resolves to ``pallas`` on a CUDA device and to ``onehot`` on the
 CPU, as the JAX package picks its kernel only on its accelerator.
@@ -163,15 +164,22 @@ class KernelBackend(DecodeBackend):
     """The hand-written Hopper ``hash_decode`` kernel (registered as
     ``"pallas"``).  int8 storage goes to the kernel as int8 values plus the
     (m, c) scale table; it dequantizes in-register.  Any batch size and
-    feature width run as they are (the kernel masks ragged edges)."""
+    feature width run as they are (the kernel masks ragged edges).
+
+    Differentiable: the wrapper's ``torch.autograd.Function`` gives the
+    codebooks and ``w0`` their gradients on both devices.  The int8
+    straight-through backward is not ported yet, so an int8 decode that
+    needs a gradient raises instead of returning none."""
 
     name = "pallas"
-    capabilities = BackendCapabilities(grad=False, fused=True)
+    capabilities = BackendCapabilities(grad=True, fused=True)
 
     def decode(self, codes, codebooks, w0=None):
         codebooks, w0 = self._prep(codebooks, w0)
         scales = None
         if self.policy.quantize == "int8":
+            if hd_ops.needs_grad(codebooks, w0):
+                raise NotImplementedError(hd_ops.INT8_GRAD)
             codebooks, scales = hd_ops.quantize_codebooks(codebooks)
         elif codebooks.dtype not in (torch.float32, torch.bfloat16):
             codebooks = codebooks.float()

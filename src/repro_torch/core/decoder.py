@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.backend import (NOT_PORTED, DecodeBackend,
                                       MixedPrecisionPolicy, family_of,
                                       get_backend, torch_dtype)
+from repro_torch.nn.module import dense_init
 from repro_torch.stages import stage
 
 Params = Dict[str, object]
@@ -66,15 +67,6 @@ def mlp_dims(cfg: DecoderConfig):
         return [(cfg.d_c, cfg.d_e)]
     return ([(cfg.d_c, cfg.d_m)] + [(cfg.d_m, cfg.d_m)] * (cfg.n_layers - 2)
             + [(cfg.d_m, cfg.d_e)])
-
-
-def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None
-               ) -> torch.Tensor:
-    """LeCun-normal (fan-in) initialisation by default."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return torch.randn(*shape, generator=generator,
-                       device=generator.device) * s
 
 
 def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> Params:

@@ -1,11 +1,12 @@
 """Bring the JAX package's parameters across as port parameters.
 
-``params_from_jax`` takes the pytree of ``repro.models.gnn.init_gnn`` (or a
-runtime's ``state["params"]``) as numpy arrays — nested dicts of arrays,
-the packed ``embed.codes_buf`` as uint32 — and returns the same tree as
-tensors on ``device``.  The layouts are the same in both packages
-(``x @ w`` with w of shape (in, out)), so nothing is transposed; the code
-words become int64 tensors holding the uint32 bit patterns.
+``params_from_jax`` takes the pytree of ``repro.models.gnn.init_gnn`` or
+``repro.models.lm.init_lm`` (or a runtime's / train state's ``params``) as
+numpy arrays — nested dicts of arrays, the packed ``embed.codes_buf`` as
+uint32 — and returns the same tree as tensors on ``device``.  The layouts
+are the same in both packages (``x @ w`` with w of shape (in, out); the
+LM's ``blocks`` stacked on a leading layer axis), so nothing is transposed;
+the code words become int64 tensors holding the uint32 bit patterns.
 """
 
 from __future__ import annotations

@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a).
 
-hash_decode   compositional-code decode as a row gather-sum (replaces the
-              Pallas kernel ``repro/kernels/hash_decode/kernel.py``)
+hash_decode       compositional-code decode as a row gather-sum (replaces
+                  the Pallas kernel ``repro/kernels/hash_decode/kernel.py``),
+                  with a deterministic autograd backward in plain PyTorch
+flash_attention   online-softmax attention with native GQA (replaces the
+                  Pallas kernel ``repro/kernels/flash_attention/kernel.py``);
+                  its backward recomputes the plain version
 
 Each package: ``csrc/*.cu`` (the kernel, plain C entry point), ``ops.py``
 (checks, launch through ctypes, launch counter), ``ref.py`` (the plain

@@ -1,0 +1,122 @@
+"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+Public layout is ``nn.attention``'s: q (B, S, H, D), k/v (B, S, K, D).
+``flash_attention`` checks its operands and goes through ``_FlashAttention``
+(a ``torch.autograd.Function``): the forward launches the CUDA kernel on
+CUDA tensors and runs the plain version ``ref.attention_ref`` on CPU
+tensors; there is no other route, so a CUDA call launches the kernel or
+raises.  The backward recomputes the plain version under autograd, as the
+JAX wrapper recomputes ``mha_ref`` in XLA (a backward kernel is later work).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.build import build_shared_library, load_library
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+NAME = "flash_attention"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+BLOCK_Q = 64
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernel library (if not built yet); ``(path, nvcc log)``."""
+    return build_shared_library(NAME, SOURCE)
+
+
+def _entry():
+    fn = load_library(NAME, SOURCE).flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, S, H, D) and k, v (B, S, K, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    K = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or K == 0 or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+                         f"(batch, head dim, or H % K != 0)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of float32/bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("q, k, v on several devices")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention operands must be contiguous")
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if B == 0 or Sq == 0:
+        return out
+    if Skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   _DTYPES[q.dtype], B, H, K, Sq, Skv, D, int(causal),
+                   1.0 / math.sqrt(D),
+                   dev.index if dev.index is not None else torch.cuda.current_device(),
+                   stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, causal=causal)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
+                             f"(plain), got {q.device}")
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_ref(*qkv, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Skv, K, D), float32 or bfloat16, D in
+    {32, 64, 128} -> (B, Sq, H, D) in q's dtype.  Differentiable.
+
+    CUDA operands launch the kernel on the current stream (no
+    synchronisation; ``flash_attention.launches`` counts the launches);
+    CPU operands run the plain version."""
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+flash_attention.launches = 0

@@ -5,12 +5,19 @@
 (CPU tensors, which is how the tests reach it on a machine without a card).
 There is no other route: a CUDA call launches the kernel or raises.
 
+Every call goes through ``_HashDecode`` (a ``torch.autograd.Function``) on
+either device.  Its backward ports the JAX package's ``_bwd`` (``kernels/hash_decode/ops.py``):
+
+    d_cb[j, c] = sum_b [codes[b, j] = c] * (g[b] * w0)   one-hot contraction
+    d_w0       = sum_b g[b] * sum_j cb[j, codes[b, j]]   the sum re-decoded
+
+in f32, cast to the operands' dtypes.  Both are matrix products and
+reductions with a fixed order, so two backward passes give the same bits;
+``index_add_``, whose CUDA atomics do not, is never used.  The int8
+straight-through backward is not ported yet and raises.
+
 ``quantize_codebooks`` / ``dequantize_codebooks`` are the per-(codebook,
 code) absmax int8 scheme of the JAX package, bit for bit.
-
-The kernel has no backward yet: serving needs none.  The codebook gradient
-(a deterministic reduction, not ``index_add_`` atomics) comes with the
-training path.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ NAME = "hash_decode"
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 48 * 1024
 _THREADS = 256
+
+INT8_GRAD = ("the int8 straight-through backward of hash_decode is not ported "
+             "yet; it comes with the families-and-precision slice (ROADMAP A.13)")
 
 
 def build() -> Tuple[Path, str]:
@@ -95,16 +105,7 @@ def _check(codes, codebooks, w0, scales) -> None:
         raise ValueError("hash_decode operands must be contiguous")
 
 
-def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
-                w0: Optional[torch.Tensor] = None,
-                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """codes (B, m) int32, codebooks (m, c, d_c) f32/bf16/int8 (+ scales
-    (m, c) f32 for int8), w0 (d_c,) f32 or None -> (B, d_c) f32.
-
-    CUDA operands launch the kernel on the current stream (no
-    synchronisation; ``hash_decode.launches`` counts the launches); CPU
-    operands run the plain version."""
-    _check(codes, codebooks, w0, scales)
+def _forward(codes, codebooks, w0, scales) -> torch.Tensor:
     dev = codes.device
     if dev.type == "cpu":
         return hash_decode_ref(codes, codebooks, w0, scales)
@@ -135,6 +136,63 @@ def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
         raise RuntimeError(f"hash_decode kernel launch failed: cudaError {err}")
     hash_decode.launches += 1
     return out
+
+
+def hash_decode_backward(codes: torch.Tensor, codebooks: torch.Tensor,
+                         w0: Optional[torch.Tensor], g: torch.Tensor,
+                         need_cb: bool = True, need_w0: bool = True):
+    """(d_codebooks in codebooks' dtype or None, d_w0 in w0's dtype or
+    None) for the output cotangent ``g`` (B, d_c)."""
+    c = codebooks.shape[1]
+    g = g.float()
+    d_cb = d_w0 = None
+    if need_cb:
+        gw = g * w0.float()[None, :] if w0 is not None else g
+        iota = torch.arange(c, dtype=codes.dtype, device=codes.device)
+        onehot = (codes[:, :, None] == iota).to(torch.float32)      # (B, m, c)
+        d_cb = torch.einsum("bmc,bd->mcd", onehot, gw).to(codebooks.dtype)
+    if need_w0 and w0 is not None:
+        summed = _forward(codes, codebooks, None, None)
+        d_w0 = (g * summed).sum(dim=0).to(w0.dtype)
+    return d_cb, d_w0
+
+
+class _HashDecode(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, codes, codebooks, w0, scales):
+        ctx.save_for_backward(codes, codebooks, w0)
+        ctx.quantized = scales is not None
+        return _forward(codes, codebooks, w0, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.quantized:
+            raise NotImplementedError(INT8_GRAD)
+        codes, codebooks, w0 = ctx.saved_tensors
+        d_cb, d_w0 = hash_decode_backward(
+            codes, codebooks, w0, g, need_cb=ctx.needs_input_grad[1],
+            need_w0=ctx.needs_input_grad[2])
+        return None, d_cb, d_w0, None
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
+                w0: Optional[torch.Tensor] = None,
+                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """codes (B, m) int32, codebooks (m, c, d_c) f32/bf16/int8 (+ scales
+    (m, c) f32 for int8), w0 (d_c,) f32 or None -> (B, d_c) f32.
+
+    CUDA operands launch the kernel on the current stream (no
+    synchronisation; ``hash_decode.launches`` counts the launches); CPU
+    operands run the plain version.  Differentiable in ``codebooks`` and
+    ``w0`` (not for int8 storage, whose backward raises)."""
+    _check(codes, codebooks, w0, scales)
+    return _HashDecode.apply(codes, codebooks, w0, scales)
 
 
 hash_decode.launches = 0

@@ -1,0 +1,122 @@
+"""End-to-end LM training driver (counterpart of ``repro/launch/train.py``).
+
+Wires: config -> codes from the data pipeline's co-occurrence pass
+(Algorithm 1 on the vocabulary) -> model init -> train loop.  Runs on the
+CUDA card unless ``--device cpu``; ``--preset tiny`` is the reduced config.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --preset tiny --steps 200 [--device cpu]
+
+The ``--ckpt-dir`` flag is kept and raises until checkpointing is ported.
+Unlike the JAX driver, ``--lr`` reaches the optimizer (its default is the
+JAX driver's learning rate, so default runs match).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import LMConfig, get_config, reduced
+from repro_torch.core import lsh
+from repro_torch.core.codes import count_collisions
+from repro_torch.data import TokenStream, TokenStreamConfig, cooccurrence_matrix
+from repro_torch.device import make_generator, resolve_device
+from repro_torch.nn.module import param_count
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train import (LoopConfig, TrainHyper, init_train_state,
+                               make_train_step, run_training)
+from repro_torch.train.loop import CKPT_SLICE
+
+
+def encode_vocab(cfg: LMConfig, generator: torch.Generator, *, batch: int,
+                 seq: int, cooc_batches: int, seed: int,
+                 log: Callable[[str], None] = print) -> Optional[torch.Tensor]:
+    """Packed vocabulary codes for hash kinds (None for the others): a
+    co-occurrence pass over its own token stream (seed + 1), rows padded to
+    the padded vocabulary, then Algorithm 1 on the generator's device."""
+    if not cfg.embedding.kind.startswith("hash"):
+        return None
+    log(f"[encode] co-occurrence pass ({cooc_batches} batches) + "
+        f"Algorithm 1 (c={cfg.embedding.c}, m={cfg.embedding.m})")
+    aux_stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=seed + 1))
+    aux = cooccurrence_matrix(aux_stream, cooc_batches,
+                              projection_dim=min(512, cfg.vocab_size))
+    ecfg = cfg.embedding_config()
+    aux_pad = np.zeros((ecfg.n_entities, aux.shape[1]), np.float32)
+    aux_pad[: cfg.vocab_size] = aux
+    codes = lsh.encode_lsh(aux_pad, ecfg.c, ecfg.m, generator=generator)
+    log(f"[encode] codes {tuple(codes.shape)} uint32 words, "
+        f"collisions={count_collisions(codes[:cfg.vocab_size])}")
+    return codes
+
+
+def train(cfg: LMConfig, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
+          cooc_batches: int = 8, seed: int = 0, device=None, log_every: int = 20,
+          log: Callable[[str], None] = print):
+    """The whole chain on ``device`` (default: the CUDA card); returns the
+    loop's ``LoopResult`` (``.state`` holds the trained params)."""
+    dev = resolve_device(device)
+    generator = make_generator(seed, dev)
+    stream = TokenStream(TokenStreamConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=seed))
+    codes = encode_vocab(cfg, generator, batch=batch, seq=seq,
+                         cooc_batches=cooc_batches, seed=seed, log=log)
+    state = init_train_state(generator, cfg, codes=codes)
+    log(f"[init] {cfg.name} ({cfg.family}) params={param_count(state['params']):,} "
+        f"embedding={cfg.embedding.kind} on {dev}")
+    hyper = TrainHyper(optimizer=AdamWConfig(lr=lr, weight_decay=0.01, clip_norm=1.0),
+                       total_steps=steps)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    return run_training(
+        make_train_step(cfg, hyper), state, stream,
+        LoopConfig(total_steps=steps, log_every=log_every), to_device=to_dev,
+        on_metrics=lambda s, m: log(
+            f"[step {s:5d}] loss={m['loss']:.4f} dt={m['step_time']*1e3:.0f}ms"))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--preset", choices=["tiny", "full"], default="tiny")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--embedding-kind", default=None,
+                    help="dense | hash_full | hash_light | random_full | random_light")
+    ap.add_argument("--cooc-batches", type=int, default=8,
+                    help="co-occurrence pass batches for the LSH auxiliary")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir:
+        raise NotImplementedError(f"--ckpt-dir: checkpointing is not ported "
+                                  f"yet; it comes with {CKPT_SLICE}")
+
+    cfg = get_config(args.arch)
+    if args.preset == "tiny":
+        cfg = reduced(cfg)
+    if args.embedding_kind:
+        cfg = dataclasses.replace(
+            cfg, embedding=dataclasses.replace(cfg.embedding, kind=args.embedding_kind))
+    t0 = time.time()
+    res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+                cooc_batches=args.cooc_batches, seed=args.seed, device=args.device)
+    print(f"[done] steps={len(res.losses)} loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f} wall={time.time() - t0:.1f}s "
+          f"stragglers={res.stragglers}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

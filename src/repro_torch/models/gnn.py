@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core import embedding as emb_lib
-from repro_torch.core.decoder import Params, dense_init
+from repro_torch.core.decoder import Params
 from repro_torch.graph.sampler import FrontierBatch
+from repro_torch.nn.module import dense_init
 from repro_torch.stages import stage
 
 FULLGRAPH_SLICE = "the full-graph slice (ROADMAP A.12)"

@@ -1,11 +1,13 @@
-"""Optional per-stage clock for the serving path.
+"""Optional per-stage clock for the serving and LM training paths.
 
-The serving path marks its stages with ``with stage("name"):``.  While no
+Both paths mark their stages with ``with stage("name"):`` (marks may
+nest: the LM's ``embed`` holds the decoder's ``unpack``, ``decode`` and
+``mlp``).  While no
 ``StageTimer`` is active that is a shared no-op context: nothing is timed
 and nothing synchronises.  Inside ``with StageTimer() as t:`` every marked
 stage synchronises the card before and after it and appends its host-clock
 milliseconds to ``t.ms[name]``, so the stages do not overlap and their sum
-is the request's time less what lies between the marks.  One thread at a
+is the request's (or step's) time less what lies between the marks.  One thread at a
 time: the active timer is a module global.
 """
 

@@ -1,0 +1,92 @@
+"""The LM train step (counterpart of the LM part of ``repro/train/step.py``).
+
+``make_train_step(cfg, hyper)`` returns ``train_step(state, batch) ->
+(state, metrics)``: f32 master params and Adam moments, activations in the
+config's compute dtype, optional global-norm clip, the LR schedule by step
+counter, and gradient accumulation over ``hyper.microbatches``.
+
+The stored params never require grad.  Each step differentiates detached
+views of the trainable leaves (``torch.autograd.grad``, which raises if a
+trainable leaf got no gradient, so a decode path that drops the codebook
+gradient cannot pass unnoticed), then updates the params in place.  The backward and the optimizer are
+marked as stages for ``stages.StageTimer``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.lm import init_lm, lm_loss
+from repro_torch.nn.module import is_trainable, map_tree
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.schedule import linear_warmup_cosine
+from repro_torch.stages import stage
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHyper:
+    optimizer: AdamWConfig = dataclasses.field(default_factory=lambda: AdamWConfig(
+        lr=1e-3, weight_decay=0.01, clip_norm=1.0))
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    microbatches: int = 1      # gradient accumulation (activation-memory knob)
+
+
+def init_train_state(generator: torch.Generator, cfg: LMConfig, codes=None,
+                     aux=None) -> Dict[str, Any]:
+    params = init_lm(generator, cfg, codes=codes, aux=aux)
+    return {"params": params, "opt": adamw_init(params), "step": 0}
+
+
+def loss_and_grads(params, batch, cfg: LMConfig):
+    """(loss, grads): grads has the params' structure, f32 tensors on the
+    trainable leaves and None elsewhere."""
+    paths, leaves = [], []
+
+    def attach(path, p):
+        if not is_trainable(path, p):
+            return p
+        leaf = p.detach().requires_grad_(True)
+        paths.append(path)
+        leaves.append(leaf)
+        return leaf
+
+    live = map_tree(attach, params)
+    loss = lm_loss(live, batch, cfg)
+    with stage("backward"):
+        gs = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+    return loss.detach(), map_tree(lambda path, p: gs.get(path), params)
+
+
+def _microbatch(batch, k: int, i: int):
+    return batch if k == 1 else {n: x.chunk(k, dim=0)[i] for n, x in batch.items()}
+
+
+def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None) -> Callable:
+    hyper = hyper or TrainHyper()
+    k = max(1, hyper.microbatches)
+
+    def train_step(state, batch):
+        params = state["params"]
+        # gradient accumulation over k microbatches, summed in f32, then
+        # scaled by 1/k (one microbatch's activations alive at a time)
+        loss, grads = loss_and_grads(params, _microbatch(batch, k, 0), cfg)
+        for i in range(1, k):
+            loss_i, grads_i = loss_and_grads(params, _microbatch(batch, k, i), cfg)
+            loss = loss + loss_i
+            grads = map_tree(lambda _, a, b: None if a is None else a + b, grads, grads_i)
+        if k > 1:
+            loss = loss / k
+            grads = map_tree(lambda _, g: None if g is None else g * (1.0 / k), grads)
+        lr_scale = linear_warmup_cosine(state["step"], hyper.warmup_steps,
+                                        hyper.total_steps)
+        with stage("optimizer"):
+            adamw_update(params, grads, state["opt"], hyper.optimizer, lr_scale=lr_scale)
+        state["step"] += 1
+        return state, {"loss": loss, "lr_scale": lr_scale}
+
+    return train_step

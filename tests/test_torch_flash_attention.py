@@ -1,0 +1,117 @@
+"""Port parity: the flash-attention kernel's plain version and wrapper
+(``repro_torch.kernels.flash_attention``) against the JAX package.
+
+Reference runs: the Pallas kernel ``flash_attention_bhsd`` in interpret
+mode on ``tests/test_kernels.py``'s shapes, and ``jax.grad`` through the
+JAX wrapper ``flash_attention`` (interpret mode; its backward recomputes
+``mha_ref`` in XLA).  Inputs come from numpy seeds.  Tolerances are
+``test_kernels.py``'s: 2e-5 in float32 and 2e-2 in bfloat16 (the plain
+version takes the scores and ``w @ v`` in bf16 as ``mha_ref`` does, the
+kernel in f32), 1e-3 for the gradients.  The CUDA kernel itself runs only
+on a card: ``tests/test_torch_gpu.py`` holds it against the plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_bhsd
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import mha_ref as j_mha_ref
+from repro_torch.kernels.flash_attention import ops as t_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref, mha_ref
+
+SHAPES = [(2, 4, 2, 256, 64, True), (1, 8, 8, 128, 64, False),
+          (2, 4, 1, 256, 128, True), (1, 2, 2, 512, 64, True)]
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _qkv(B, H, K, Sq, D, seed=0, Skv=None):
+    rng = np.random.default_rng(seed)
+    Skv = Sq if Skv is None else Skv
+    return (rng.standard_normal((B, H, Sq, D)).astype(np.float32),
+            rng.standard_normal((B, K, Skv, D)).astype(np.float32),
+            rng.standard_normal((B, K, Skv, D)).astype(np.float32))
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,K,S,D,causal", SHAPES)
+def test_plain_version_matches_pallas_interpret(B, H, K, S, D, causal, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v = _qkv(B, H, K, S, D)
+    ref = flash_attention_bhsd(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                               jnp.asarray(v, jdt), causal=causal,
+                               block_q=128, block_k=128, interpret=True)
+    got = mha_ref(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal)
+    assert got.dtype == tdt and tuple(got.shape) == (B, H, S, D)
+    np.testing.assert_allclose(_f32(got), _f32(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,K,S,D,causal", SHAPES[:2])
+def test_plain_version_matches_jax_mha_ref(B, H, K, S, D, causal, dtype):
+    """Same arithmetic as the JAX oracle, so f32 agrees to matmul rounding."""
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v = _qkv(B, H, K, S, D, seed=1)
+    ref = j_mha_ref(*(jnp.asarray(a, jdt) for a in (q, k, v)), causal=causal)
+    got = mha_ref(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 100, True), (77, 77, False),
+                                           (64, 130, False)])
+def test_wrapper_on_cpu_ragged_lengths(Sq, Skv, causal):
+    """Any sequence length: the port handles ragged S itself (the JAX
+    wrapper falls back to ``mha_ref`` there, which is the reference)."""
+    q, k, v = _qkv(2, 4, 2, Sq, 32, seed=2, Skv=Skv)
+    sw = lambda a: np.ascontiguousarray(np.swapaxes(a, 1, 2))
+    before = t_ops.flash_attention.launches
+    got = t_ops.flash_attention(*(torch.from_numpy(sw(a)) for a in (q, k, v)),
+                                causal=causal)
+    assert t_ops.flash_attention.launches == before    # CPU: plain version
+    ref = j_mha_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), sw(np.asarray(ref)), rtol=2e-5, atol=2e-5)
+
+
+def test_wrapper_grads_match_jax_grad():
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 128, 4, 64)).astype(np.float32)
+    k = rng.standard_normal((2, 128, 2, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 128, 2, 64)).astype(np.float32)
+    gj = jax.grad(lambda *a: (j_flash(*a, block_q=64, block_k=64,
+                                      interpret=True) ** 2).sum(),
+                  argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (t_ops.flash_attention(*ts) ** 2).sum().backward()
+    for t, g in zip(ts, gj):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-3, atol=1e-3)
+
+
+def test_wrapper_equals_its_plain_version_in_bshd():
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)))
+               for a in _qkv(1, 4, 2, 96, 64, seed=3))
+    assert torch.equal(t_ops.flash_attention(q, k, v), attention_ref(q, k, v))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)))
+               for a in _qkv(1, 4, 2, 16, 64))
+    with pytest.raises(TypeError):
+        t_ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        t_ops.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="head dim"):
+        t_ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                              v[..., :48].contiguous())
+    with pytest.raises(ValueError):
+        t_ops.flash_attention(q[:, :, :3].contiguous(), k, v)      # H % K != 0
+    with pytest.raises(ValueError, match="contiguous"):
+        t_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the hand-written ``hash_decode`` kernel against
-its plain PyTorch version, the kernel backend inside the serving path, and
-the device-side LSH encode.
+its plain PyTorch version, its backward, the kernel backend inside the
+serving path, the device-side LSH encode, the hand-written
+``flash_attention`` kernel against its plain version, and the LM train
+step on the card against the CPU.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -11,7 +13,14 @@ Tolerances: the kernel and the plain version do the same f32 adds in the
 same order without FMA contraction, so they must agree bitwise.  The
 decoder MLP and SAGE layers after the decode are the same cuBLAS calls on
 the same bits, so embeddings through the kernel and the gather backend
-must also agree (checked to 1e-6).
+must also agree (checked to 1e-6).  The ``hash_decode`` backward is a
+one-hot matrix product and fixed-order reductions: two passes must give
+the same bits, and they must match autograd through the plain version to
+1e-5 of the largest gradient (sums in another order).  ``flash_attention``
+against its plain version, as ``assert_allclose(rtol=tol, atol=tol)``:
+2e-5 in float32 (f32 FMAs against f32 cuBLAS products), 2e-2 in bfloat16 (the plain version takes the scores and
+``w @ v`` in bf16 as ``mha_ref`` does; ``tests/test_kernels.py``'s
+tolerances).
 """
 
 import dataclasses
@@ -28,6 +37,8 @@ from repro_torch.core import lsh
 from repro_torch.device import disable_tf32
 from repro_torch.graph.generate import powerlaw_graph
 from repro_torch.graph.runtime import GraphRuntime, GraphSource, RuntimeSpec
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hash_decode import ops
 from repro_torch.kernels.hash_decode.ref import hash_decode_ref
 
@@ -124,3 +135,97 @@ def test_serving_through_kernel_matches_gather(cuda):
     cb = rt.params["embed"]["decoder"]["codebooks"]
     assert torch.equal(kernel.model.backend.decode(codes, cb),
                        gather.model.backend.decode(codes, cb))
+
+
+FLASH_CASES = [(2, 4, 4, 256, 64, True, "bfloat16"), (2, 4, 4, 256, 64, True, "float32"),
+               (1, 8, 2, 300, 128, True, "bfloat16"), (1, 8, 2, 300, 128, True, "float32"),
+               (1, 4, 4, 1000, 64, True, "bfloat16"), (2, 4, 1, 130, 32, False, "float32"),
+               (1, 2, 2, 64, 32, True, "float32"), (3, 2, 2, 1, 64, True, "bfloat16")]
+
+
+def _qkv(B, H, K, S, D, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = backend_mod.torch_dtype(dtype)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dt)
+            for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain_version(cuda, case):
+    B, H, K, S, D, causal, dtype = case
+    q, k, v = _qkv(B, H, K, S, D, dtype, cuda)
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_gradients_are_the_plain_recompute(cuda):
+    q, k, v = (t.requires_grad_(True) for t in _qkv(2, 4, 2, 200, 64, "float32", cuda))
+    G = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    (fa_ops.flash_attention(q, k, v) * G).sum().backward()
+    mine = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (attention_ref(q, k, v, causal=True) * G).sum().backward()
+    for a, t in zip(mine, (q, k, v)):
+        assert torch.equal(a, t.grad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_decode_backward_is_deterministic_and_matches_plain(cuda, dtype):
+    codes, cb, w0, _ = _operands((8192, 16, 256, 512), "float32+w0", cuda)
+    cb = cb.to(backend_mod.torch_dtype(dtype))
+    G = torch.randn(8192, 512, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+
+    def grads(fn):
+        c, w = cb.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        (fn(codes, c, w) * G).sum().backward()
+        return c.grad, w.grad
+
+    a, b = grads(ops.hash_decode), grads(ops.hash_decode)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    ref = grads(hash_decode_ref)
+    for mine, plain in zip(a, ref):
+        assert mine.dtype == plain.dtype
+        bound = 1e-5 * float(plain.float().abs().max())
+        if dtype == "bfloat16" and mine is a[0]:
+            bound = 8e-3 * float(plain.float().abs().max())     # one bf16 rounding
+        assert float((mine.float() - plain.float()).abs().max()) <= bound
+
+
+def test_lm_train_steps_on_card_match_cpu(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import TrainHyper, make_train_step
+    cfg = reduced(get_config("qwen1.5-0.5b", attn_impl="flash"))
+    cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
+        cfg.embedding, lookup_impl="pallas"))
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    states = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        states[str(dev)] = {"params": p, "opt": adamw_init(p), "step": 0}
+    step = make_train_step(cfg, TrainHyper(warmup_steps=1, total_steps=3))
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                           batch_size=2, seed=3))
+    before = (ops.hash_decode.launches, fa_ops.flash_attention.launches)
+    for _ in range(3):
+        b = stream.next_batch()
+        losses = []
+        for dev, st in states.items():
+            _, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-4, losses
+    assert ops.hash_decode.launches > before[0]
+    assert fa_ops.flash_attention.launches == before[1] + 3 * cfg.n_layers
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
