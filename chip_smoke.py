@@ -7,8 +7,8 @@ in PERF.md):
 from the root of a checkout.  It builds the port's CUDA kernels from the
 sources in ``src/repro_torch`` (one nvcc per source, all at once), holds
 each against its plain PyTorch version at the shapes its paths give it,
-and drives two paths through the port's entry points, with random weights
-from a seed:
+and drives three paths through the port's entry points, with random
+weights and data from a seed:
 
   serve  the paper's full-width hash-compressed GraphSAGE
          (``paper_gnn_config("sage")``: c=256, m=16, d_c=d_m=512, 3-layer
@@ -21,12 +21,22 @@ from a seed:
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
          launcher's chain (``repro_torch.launch.train.train``: token stream
          -> co-occurrence pass -> Algorithm 1 -> init -> train step ->
-         loop) for 5 steps of batch 4 x 2048 tokens.
+         loop) for 5 steps of batch 4 x 2048 tokens; its vocabulary encode
+         (Algorithm 1 over a dense 152,064 x 512 co-occurrence matrix) runs
+         through ``lsh_encode``;
+  reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
+         Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
+         embeddings coded by random, hashing (Algorithm 1 through
+         ``lsh_encode``) and learned (autoencoder) codes, each decoder
+         (c=256, m=16, d_c=d_m=512, 3 layers, f32) trained 300 steps of
+         512 through ``hash_decode`` and its backward
+         (``repro_torch.launch.reconstruct.run``).
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
-graph, the reduced LM config) runs on the card and on the CPU (plain
-versions), and the two must agree.  Every check raises on
+graph, the reduced LM config, the reconstruction at the JAX benchmark's
+size) runs on the card and on the CPU (plain versions), and the two must
+agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
 line and then, as its last line, ``{"ok": true, "device": {...}}`` only
 when every phase passed.  It needs one card and imports nothing of JAX.
@@ -59,6 +69,16 @@ REQUEST = 256
 
 LM_ARCH = "qwen1.5-0.5b"
 LM_BATCH, LM_SEQ, LM_STEPS = 4, 2048, 5
+
+# the reconstruction path: Table 6's largest count at GloVe's width, the
+# paper's full decoder (§B.2), the Fig. 1 benchmark's 300 steps
+REC = dict(n=200_000, dim=300, c=256, m=16, d_c=512, d_m=512)
+REC_STEPS, REC_SCHEMES = 300, ("random", "hashing", "learn")
+TABLE6_RATIO = 18.11               # Table 6, GloVe, (c, m) = (256, 16), n = 200,000
+VOCAB = 152_064                    # qwen1.5-0.5b's padded vocabulary
+LSH_PATH_SHAPES = [(REC["n"], REC["dim"], 32), (VOCAB, 512, 32)]   # (n, d, w)
+LSH_INT_SHAPES = [(2048, 512, 32), (1024, 256, 16), (512, 128, 32),  # test_kernels.py
+                  (1000, 300, 32), (333, 7, 5)] + LSH_PATH_SHAPES
 
 
 def fail(msg: str) -> None:
@@ -110,12 +130,14 @@ def phase_build():
     """One nvcc per kernel source, all started together."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    sources = (hd_ops, fa_ops, lsh_ops)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(lambda m: (m.NAME, m.build()), (hd_ops, fa_ops)))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = list(pool.map(lambda m: (m.NAME, m.build()), sources))
     secs = time.perf_counter() - t0
     for name, (path, log) in built:
-        print(f"[build] {name} -> {path.name} ({secs:.2f} s for both)", flush=True)
+        print(f"[build] {name} -> {path.name} ({secs:.2f} s for all)", flush=True)
         for line in log.splitlines():
             if re.search(r"registers|spill|Compiling entry", line):
                 print(f"[build]   {line.strip()}", flush=True)
@@ -232,6 +254,7 @@ def phase_slice():
     from repro_torch.graph.runtime import GraphRuntime
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
 
     spec = _spec("auto", N_NODES, N_CLASSES)
     t0 = time.perf_counter()
@@ -252,6 +275,7 @@ def phase_slice():
     torch.cuda.reset_peak_memory_stats()
 
     fa_ops.flash_attention.launches = 0
+    lsh_ops.lsh_encode_word.launches = 0
     ops.hash_decode.launches = 0               # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
@@ -267,6 +291,7 @@ def phase_slice():
     many_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.hash_decode.launches         # ... and ends here
     check(fa_ops.flash_attention.launches == 0, "the serving path ran attention")
+    check(lsh_ops.lsh_encode_word.launches == 0, "the serving path ran an encode")
     check(all(n >= 1 for n in per_request), f"a request decoded without the kernel: {per_request}")
     check(launches >= 9, f"kernel launched {launches} times for 9 engine calls")
     stats = engine.stats()
@@ -476,6 +501,7 @@ def phase_train():
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
     from repro_torch.launch.train import train
     from repro_torch.stages import StageTimer
     from repro_torch.train.step import loss_and_grads
@@ -484,12 +510,14 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fa_ops.flash_attention.launches = 0
+    lsh_ops.lsh_encode_word.launches = 0
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
                 log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
-                "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
+                "flash_attention": fa_ops.flash_attention.launches,
+                "lsh_encode": lsh_ops.lsh_encode_word.launches}       # ... and ends here
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     print(f"[train] losses {res.losses}; step ms "
@@ -501,6 +529,10 @@ def phase_train():
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {LM_STEPS} steps x {per_step}")
     check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
+    n_words = 4                               # c=256, m=16: 128 bits
+    check(launches["lsh_encode"] == n_words,
+          f"the vocabulary encode launched lsh_encode {launches['lsh_encode']} times, "
+          f"expected one per word ({n_words})")
 
     # the codebooks' gradient after training, on a fresh batch of the stream
     from repro_torch.data import TokenStream, TokenStreamConfig
@@ -679,6 +711,236 @@ def time_lm_kernels() -> dict:
         backward_bound_ms=bwd_bound))
 
 
+# ---------------------------------------------------------------------------
+# slice 3: Algorithm 1 over dense auxiliary matrices through lsh_encode, and
+# the paper's embedding-reconstruction path
+# ---------------------------------------------------------------------------
+
+def _lsh_inputs(n: int, d: int, w: int, kind: str, seed: int):
+    """A (n, d), V (d, w) on the card, integer-valued in [-3, 3] (every f32
+    sum exact, so any order gives the same bits) or Gaussian; t the column
+    median of the plain product."""
+    import torch
+    from repro_torch.kernels.lsh_encode.ref import median0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "integer":
+        A = torch.randint(-3, 4, (n, d), generator=g, device="cuda").float()
+        V = torch.randint(-3, 4, (d, w), generator=g, device="cuda").float()
+    else:
+        A = torch.randn(n, d, generator=g, device="cuda")
+        V = torch.randn(d, w, generator=g, device="cuda")
+    return A, V, median0(A @ V)
+
+
+def lsh_flips(A, V, t, got, ref):
+    """(differing bits, differing bits outside the rounding bound) between
+    two words computed with the thresholds t.  A bit may differ only where
+    |U_ref - t| <= 2 d 2**-24 sum_k |A_rk V_kj|: each of the two f32 sums of
+    d products lies within d 2**-24 sum_k |A_rk V_kj| of the exact sum, and
+    t lies between them."""
+    import torch
+    shifts = torch.arange(V.shape[1], device=A.device)
+    differ = (((got ^ ref)[:, None] >> shifts) & 1).bool()
+    slack = 2 * A.shape[1] * 2.0 ** -24 * (A.abs() @ V.abs())
+    outside = differ & ((A @ V - t[None, :]).abs() > slack)
+    return int(differ.sum()), int(outside.sum())
+
+
+def phase_lsh_check() -> dict:
+    """lsh_encode vs its plain version on the card: bitwise at integer-valued
+    inputs (the three shapes of tests/test_kernels.py, ragged n and d, w < 32
+    and both path shapes), within the rounding bound at Gaussian inputs at
+    the two path shapes."""
+    import torch
+    from repro_torch.kernels.lsh_encode import ops
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    worst, flips = 0, {}
+    cases = [(s, "integer") for s in LSH_INT_SHAPES] + [(s, "gaussian") for s in LSH_PATH_SHAPES]
+    for i, ((n, d, w), kind) in enumerate(cases):
+        A, V, t = _lsh_inputs(n, d, w, kind, seed=i)
+        before = ops.lsh_encode_word.launches
+        got = ops.lsh_encode_word(A, V, t)
+        torch.cuda.synchronize()
+        check(ops.lsh_encode_word.launches == before + 1, "lsh_encode did not launch")
+        ref = lsh_encode_word_ref(A, V, t)
+        check(got.dtype == torch.int64 and got.shape == (n,), f"words {got.dtype} {tuple(got.shape)}")
+        if kind == "integer":
+            err = int((got - ref).abs().max())
+            worst = max(worst, err)
+            print(f"[lsh] lsh_encode n={n} d={d} w={w} integer: bitwise={err == 0}", flush=True)
+            check(err == 0, f"lsh_encode ({n}, {d}, {w}) differs from its plain version")
+        else:
+            differ, outside = lsh_flips(A, V, t, got, ref)
+            flips[f"{n}x{d}x{w}"] = differ
+            print(f"[lsh] lsh_encode n={n} d={d} w={w} gaussian: {differ} of {n * w} bits "
+                  f"differ from the plain version (cuBLAS), {outside} outside the "
+                  f"rounding bound", flush=True)
+            check(outside == 0, f"lsh_encode ({n}, {d}, {w}): {outside} bits differ "
+                                f"beyond rounding")
+        del A, V, t, got, ref
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, gaussian_differing_bits=flips)
+
+
+def phase_lsh_packed_check() -> int:
+    """Algorithm 1 on the LM path's own vocabulary auxiliary (152,064 x 512)
+    on the card: ``lsh_encode_packed`` and ``core.lsh.encode_lsh`` from one
+    generator state give the same words (both through the kernel), and
+    against the plain version on the card (the thresholds, then ``U > t``
+    from the row-blocked cuBLAS product, which is what the port ran before
+    the kernel) every differing bit is within the rounding bound."""
+    import torch
+    from repro_torch.core import lsh
+    from repro_torch.device import make_generator
+    from repro_torch.kernels.lsh_encode import ops
+    from repro_torch.kernels.lsh_encode.ref import pack_word, project_rows
+    from repro_torch.launch.train import vocab_aux
+    cfg = _lm_config()
+    A = torch.from_numpy(vocab_aux(cfg, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8,
+                                   seed=0)).cuda()
+    c, m = cfg.embedding.c, cfg.embedding.m
+    packed = ops.lsh_encode_packed(A, c, m, generator=make_generator(0, A.device))
+    core = lsh.encode_lsh(A, c, m, generator=make_generator(0, A.device))
+    check(torch.equal(packed, core), "lsh_encode_packed and core.lsh.encode_lsh differ")
+    g = make_generator(0, A.device)
+    differ = outside = 0
+    for w in range(packed.shape[1]):
+        V = torch.randn(A.shape[1], 32, generator=g, device=A.device)
+        t = ops.thresholds(A, V)
+        plain = pack_word(project_rows(A, V, ops.ROW_BLOCK), t)
+        dw, ow = lsh_flips(A, V, t, packed[:, w], plain)
+        differ, outside = differ + dw, outside + ow
+    zero_rows = int((A.abs().sum(dim=1) == 0).sum())
+    print(f"[lsh] vocabulary encode ({A.shape[0]} x {A.shape[1]}, c={c}, m={m}): "
+          f"lsh_encode_packed == core.lsh.encode_lsh bitwise; against the plain "
+          f"version on the card {differ} of {A.shape[0] * 32 * packed.shape[1]} bits "
+          f"differ, {outside} outside the rounding bound; {zero_rows} all-zero rows",
+          flush=True)
+    check(outside == 0, f"{outside} vocabulary bits differ beyond rounding")
+    del A, packed, core
+    torch.cuda.empty_cache()
+    return differ
+
+
+def phase_reconstruct() -> dict:
+    """The reconstruction path at full width through
+    ``launch.reconstruct.run``; the launch counts are read around exactly
+    this run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.launch.reconstruct import run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa_ops.flash_attention.launches = 0
+    hd_ops.hash_decode.launches = 0
+    lsh_ops.lsh_encode_word.launches = 0       # the reconstruction path's run starts here
+    res = run(**REC, steps=REC_STEPS, schemes=REC_SCHEMES, device="cuda",
+              log=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "lsh_encode": lsh_ops.lsh_encode_word.launches,
+                "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
+    wall = time.perf_counter() - t0
+    print(f"[reconstruct] schemes {list(res['schemes'])}: wall {wall:.2f} s, launches "
+          f"{launches}, max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+          f"hashing encode (Algorithm 1, 4 words) "
+          f"{res['schemes']['hashing']['encode_s'] * 1e3:.3f} ms; compression ratio "
+          f"{res['compression_ratio']:.4f} (Table 6: {TABLE6_RATIO})", flush=True)
+    for name, r in res["schemes"].items():
+        check(bool(np.isfinite(r["losses"]).all()), f"{name}: non-finite loss")
+        check(0.0 <= r["nmi"] <= 1.0 + 1e-9, f"{name}: nmi {r['nmi']}")
+    check(abs(res["compression_ratio"] - TABLE6_RATIO) <= 0.01,
+          f"compression ratio {res['compression_ratio']} is not Table 6's {TABLE6_RATIO}")
+    check(launches["lsh_encode"] >= 4, f"lsh_encode launched {launches['lsh_encode']} times")
+    check(launches["hash_decode"] >= len(REC_SCHEMES) * REC_STEPS,
+          f"hash_decode launched {launches['hash_decode']} times")
+    check(launches["flash_attention"] == 0, "the reconstruction path ran attention")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_reconstruct_reference():
+    """The reconstruction path at the JAX benchmark's size (n=2,000, dim 64,
+    c=m=16, d_c=d_m=128) on the card (kernels) and on the CPU (plain
+    versions): Algorithm 1 codes of integer-valued embeddings (round(8 x))
+    with integer-valued projections bitwise equal; 5 decoder steps from one
+    init with the same ids within 1e-4 (f32 throughout; cuBLAS and the
+    CPU's matmuls and the kernel's and one-hot's sums round differently)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lsh
+    from repro_torch.core.embedding import init_embedding
+    from repro_torch.graph.generate import clustered_embeddings
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.train.reconstruct import (reconstruction_config,
+                                               train_decoder_on_reconstruction)
+    n, dim, c, m, d = 2000, 64, 16, 16, 128
+    emb_np, _ = clustered_embeddings(0, n, dim)
+    A = torch.from_numpy(np.round(8 * emb_np))
+    g = torch.Generator().manual_seed(0)
+    proj = [torch.round(2 * torch.randn(dim, 32, generator=g)) for _ in range(2)]
+    before = lsh_ops.lsh_encode_word.launches
+    on_card = lsh.encode_lsh(A.cuda(), c, m, projections=[p.cuda() for p in proj])
+    check(lsh_ops.lsh_encode_word.launches == before + 2, "the card's encode missed the kernel")
+    on_cpu = lsh.encode_lsh(A, c, m, projections=proj)
+    check(torch.equal(on_card.cpu(), on_cpu), "codes differ between the card and the CPU")
+    cfg = reconstruction_config(n, dim, c, m, d, d)
+    init = init_embedding(torch.Generator().manual_seed(0), cfg, codes=on_cpu)
+    gi = torch.Generator().manual_seed(1)
+    ids = [torch.randint(0, n, (512,), generator=gi) for _ in range(5)]
+    emb = torch.from_numpy(emb_np)
+
+    def to(tree, dev):       # a copy: the optimizer updates the params in place
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+                for k, v in tree.items()}
+
+    _, card = train_decoder_on_reconstruction(None, emb.cuda(), None, cfg, 5,
+                                              params=to(init, "cuda"), ids=ids)
+    _, cpu = train_decoder_on_reconstruction(None, emb, None, cfg, 5,
+                                             params=to(init, "cpu"), ids=ids)
+    worst = max(abs(a - b) for a, b in zip(card, cpu))
+    print(f"[reference] reconstruction n={n}: codes card == CPU bitwise; 5 decoder "
+          f"steps (card, CPU) losses {list(zip(card, cpu))}; max abs diff {worst}",
+          flush=True)
+    check(worst <= 1e-4, f"card and CPU reconstruction losses differ by {worst}")
+
+
+def time_lsh() -> dict:
+    """lsh_encode at both path shapes beside its plain version and
+    ``torch.mm(A, V)`` (the f32 product alone, without the compare and
+    pack: the one library call that does the function's arithmetic)."""
+    import torch
+    from repro_torch.kernels.lsh_encode import ops
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    out = {}
+    for i, (n, d, w) in enumerate(LSH_PATH_SHAPES):
+        A, V, t = _lsh_inputs(n, d, w, "gaussian", seed=100 + i)
+        kernel_ms, enqueue_ms = time_ms(lambda: ops.lsh_encode_word(A, V, t), 20)
+        plain_ms, _ = time_ms(lambda: lsh_encode_word_ref(A, V, t), 10)
+        mm_ms, _ = time_ms(lambda: torch.mm(A, V), 20)
+        nbytes = (n * d + d * w + w + n) * 4
+        flops = 2 * n * d * w
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS * 1e3
+        out[f"{n}x{d}x{w}"] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=mm_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"[time] lsh_encode n={n} d={d} w={w}: kernel {kernel_ms:.4f} ms (host "
+              f"enqueues in {enqueue_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.mm "
+              f"(product only) {mm_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"({nbytes} B in {bytes_ms:.4f} ms; {flops} flops in {ops_ms:.4f} ms at "
+              f"the f32 peak); kernel at {nbytes / kernel_ms / 1e6:.1f} GB/s, "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s", flush=True)
+        del A, V, t
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -698,23 +960,40 @@ def main() -> None:
     serve_launches, cap = phase_slice()
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
     phase_small_reference()
+    lsh = phase_lsh_check()
+    vocab_flips = phase_lsh_packed_check()
     train_launches, _ = phase_train()
     phase_lm_reference()
+    rec_launches = phase_reconstruct()
+    phase_reconstruct_reference()
     lm = time_lm_kernels()
+    lsh_times = time_lsh()
+    rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
+    hd_by_path = {"serve": serve_launches, "train": train_launches["hash_decode"],
+                  "reconstruct": rec_launches["hash_decode"]}
+    lsh_by_path = {"serve": 0, "train": train_launches["lsh_encode"],
+                   "reconstruct": rec_launches["lsh_encode"]}
     print(json.dumps({"kernels": [
         dict(name="hash_decode", route="cuda",
              source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
              replaces="src/repro/kernels/hash_decode/kernel.py:67",
-             launches=serve_launches + train_launches["hash_decode"],
-             launches_by_path={"serve": serve_launches,
-                               "train": train_launches["hash_decode"]},
+             launches=sum(hd_by_path.values()), launches_by_path=hd_by_path,
              bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",
              launches=train_launches["flash_attention"],
-             launches_by_path={"serve": 0, "train": train_launches["flash_attention"]},
+             launches_by_path={"serve": 0, "train": train_launches["flash_attention"],
+                               "reconstruct": 0},
              max_abs_err=flash_err, **lm["flash"]),
+        dict(name="lsh_encode", route="cuda",
+             source="src/repro_torch/kernels/lsh_encode/csrc/lsh_encode.cu",
+             replaces="src/repro/kernels/lsh_encode/kernel.py:54",
+             launches=sum(lsh_by_path.values()), launches_by_path=lsh_by_path,
+             bitwise=lsh["max_abs_err"] == 0, max_abs_err=lsh["max_abs_err"],
+             gaussian_differing_bits=lsh["gaussian_differing_bits"],
+             vocabulary_differing_bits=vocab_flips, library="torch.mm (product only)",
+             **lsh_times[rec_shape], train_shape=lsh_times[vocab_shape]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -11,6 +11,13 @@ projection through the graph k times (``U = Aᵏ·V``) without forming Aᵏ.
 The projections come from a ``torch.Generator`` or are passed in
 (``projections``), which is how the parity tests hand both packages the same
 draws: JAX's threefry and torch's generators give different numbers.
+
+A dense A takes its last hop through ``kernels.lsh_encode`` (the
+hand-written kernel on a CUDA device, its plain version on the CPU), with
+the thresholds from the plain product, as the JAX package's
+``lsh_encode_packed`` does.  A CSR A (the adjacency) projects with its
+deterministic segment sum (``CSRMatrix.matmat``) and binarises here: the
+JAX package never sends CSR through the kernel.
 """
 
 from __future__ import annotations
@@ -22,25 +29,8 @@ import torch
 
 from repro_torch.core import codes as codes_lib
 from repro_torch.graph.csr import CSRMatrix
-
-
-def _project_dense_block(A: torch.Tensor, V: torch.Tensor,
-                         row_block: Optional[int]) -> torch.Tensor:
-    """U = A @ V computed in row blocks to bound live memory."""
-    if row_block is None or A.shape[0] <= row_block:
-        return A @ V
-    return torch.cat([A[s:s + row_block] @ V
-                      for s in range(0, A.shape[0], row_block)])
-
-
-def median0(U: torch.Tensor) -> torch.Tensor:
-    """Median over dim 0, averaging the two middle values for even n —
-    ``jnp.median``'s midpoint rule, bit for bit (``torch.median`` returns
-    the lower middle value and ``torch.quantile`` refuses inputs above
-    2**24 elements)."""
-    n = U.shape[0]
-    s = torch.sort(U, dim=0).values
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+from repro_torch.kernels.lsh_encode import ops as lsh_ops
+from repro_torch.kernels.lsh_encode.ref import median0, pack_word, project_rows
 
 
 def binarize_word(U: torch.Tensor, threshold: str) -> torch.Tensor:
@@ -51,9 +41,7 @@ def binarize_word(U: torch.Tensor, threshold: str) -> torch.Tensor:
         t = torch.zeros(U.shape[1], dtype=U.dtype, device=U.device)
     else:
         raise ValueError(f"unknown threshold {threshold!r}")
-    bits = (U > t).to(torch.int64)
-    shifts = torch.arange(U.shape[1], dtype=torch.int64, device=U.device)
-    return (bits << shifts).sum(dim=-1)
+    return pack_word(U, t)
 
 
 def encode_lsh(
@@ -85,7 +73,7 @@ def encode_lsh(
     device = (projections[0].device if projections is not None
               else generator.device)
     if not isinstance(A, CSRMatrix):
-        A = torch.as_tensor(A, dtype=torch.float32).to(device)
+        A = torch.as_tensor(A, dtype=torch.float32).to(device).contiguous()
 
     words = []
     for w in range(nw):
@@ -98,10 +86,11 @@ def encode_lsh(
         else:
             V = torch.randn(d, wbits, generator=generator, device=device)
         U = V
-        for _ in range(hops):
+        for _ in range(hops - 1):
             U = (A.matmat(U) if isinstance(A, CSRMatrix)
-                 else _project_dense_block(A, U, row_block))
-        words.append(binarize_word(U, threshold))
+                 else project_rows(A, U, row_block))
+        words.append(binarize_word(A.matmat(U), threshold) if isinstance(A, CSRMatrix)
+                     else lsh_ops.encode_word(A, U, threshold, row_block=row_block))
     return torch.stack(words, dim=1)
 
 
@@ -116,3 +105,22 @@ def encode_random(generator: torch.Generator, n: int, c: int, m: int) -> torch.T
     codes = torch.randint(0, c, (n, m), generator=generator,
                           device=generator.device, dtype=torch.int32)
     return codes_lib.pack_codes(codes, c, m)
+
+
+def collision_experiment(
+    A, c: int, m: int, threshold: str, *,
+    generators: Optional[Sequence[torch.Generator]] = None,
+    projections: Optional[Sequence[Sequence[torch.Tensor]]] = None,
+) -> np.ndarray:
+    """Paper Fig. 3 / Appendix A: encode once per trial and count the code
+    collisions of each.  A trial is one generator (``generators``) or one
+    list of projection blocks (``projections``) — the port's stand-in for
+    the JAX package's ``fold_in(key, trial)`` — so the same trial gives the
+    same projection basis under both thresholds when the caller passes
+    equally seeded generators (or the same blocks) for each."""
+    if (generators is None) == (projections is None):
+        raise ValueError("collision_experiment takes generators or projections, one of them")
+    trials = ([{"generator": g} for g in generators] if generators is not None
+              else [{"projections": p} for p in projections])
+    return np.asarray([codes_lib.count_collisions(
+        encode_lsh(A, c, m, threshold=threshold, **kw)) for kw in trials])

@@ -6,6 +6,8 @@ identical graph and labels as the JAX package's generators.
 * ``powerlaw_graph`` — preferential-attachment graph (heavy-tailed degree)
                        with planted community labels.
 * ``sbm_graph``      — stochastic-block-model graph (clean community signal).
+* ``clustered_embeddings`` — Gaussian-mixture "pre-trained embeddings" with
+                       planted labels (the reconstruction experiment's input).
 """
 
 from __future__ import annotations
@@ -97,6 +99,25 @@ def sbm_graph(
     dst = np.concatenate(dsts)
     keep = src != dst
     return CSRMatrix.from_edges(src[keep], dst[keep], n_nodes, symmetric=True), labels
+
+
+def clustered_embeddings(
+    seed: int,
+    n: int,
+    dim: int,
+    n_clusters: int = 8,
+    noise: float = 0.35,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Gaussian-mixture 'pre-trained embeddings' + planted labels.
+
+    Cluster centres are random orthogonal-ish directions; ``noise`` controls
+    intra-cluster spread (≈ metapath2vec's NMI-recoverable structure)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    labels = rng.integers(0, n_clusters, n).astype(np.int32)
+    emb = centers[labels] + noise * rng.standard_normal((n, dim)).astype(np.float32)
+    return emb.astype(np.float32), labels
 
 
 def train_val_test_split(seed: int, n: int, frac=(0.7, 0.1, 0.2)):

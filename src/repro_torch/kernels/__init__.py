@@ -6,6 +6,10 @@ hash_decode       compositional-code decode as a row gather-sum (replaces
 flash_attention   online-softmax attention with native GQA (replaces the
                   Pallas kernel ``repro/kernels/flash_attention/kernel.py``);
                   its backward recomputes the plain version
+lsh_encode        Algorithm 1's project-binarise-pack for a dense auxiliary
+                  matrix, one 32-bit code word per entity (replaces the
+                  Pallas kernel ``repro/kernels/lsh_encode/kernel.py``);
+                  ``core.lsh.encode_lsh`` sends dense A through it
 
 Each package: ``csrc/*.cu`` (the kernel, plain C entry point), ``ops.py``
 (checks, launch through ctypes, launch counter), ``ref.py`` (the plain

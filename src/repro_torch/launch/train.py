@@ -27,7 +27,7 @@ from repro_torch.configs import LMConfig, get_config, reduced
 from repro_torch.core import lsh
 from repro_torch.core.codes import count_collisions
 from repro_torch.data import TokenStream, TokenStreamConfig, cooccurrence_matrix
-from repro_torch.device import make_generator, resolve_device
+from repro_torch.device import disable_tf32, make_generator, resolve_device
 from repro_torch.nn.module import param_count
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import (LoopConfig, TrainHyper, init_train_state,
@@ -35,24 +35,33 @@ from repro_torch.train import (LoopConfig, TrainHyper, init_train_state,
 from repro_torch.train.loop import CKPT_SLICE
 
 
-def encode_vocab(cfg: LMConfig, generator: torch.Generator, *, batch: int,
-                 seq: int, cooc_batches: int, seed: int,
-                 log: Callable[[str], None] = print) -> Optional[torch.Tensor]:
-    """Packed vocabulary codes for hash kinds (None for the others): a
+def vocab_aux(cfg: LMConfig, *, batch: int, seq: int, cooc_batches: int,
+              seed: int) -> np.ndarray:
+    """The vocabulary's auxiliary matrix (n_entities, <=512) f32: a
     co-occurrence pass over its own token stream (seed + 1), rows padded to
-    the padded vocabulary, then Algorithm 1 on the generator's device."""
-    if not cfg.embedding.kind.startswith("hash"):
-        return None
-    log(f"[encode] co-occurrence pass ({cooc_batches} batches) + "
-        f"Algorithm 1 (c={cfg.embedding.c}, m={cfg.embedding.m})")
+    the padded vocabulary."""
     aux_stream = TokenStream(TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=seed + 1))
     aux = cooccurrence_matrix(aux_stream, cooc_batches,
                               projection_dim=min(512, cfg.vocab_size))
-    ecfg = cfg.embedding_config()
-    aux_pad = np.zeros((ecfg.n_entities, aux.shape[1]), np.float32)
+    aux_pad = np.zeros((cfg.embedding_config().n_entities, aux.shape[1]), np.float32)
     aux_pad[: cfg.vocab_size] = aux
-    codes = lsh.encode_lsh(aux_pad, ecfg.c, ecfg.m, generator=generator)
+    return aux_pad
+
+
+def encode_vocab(cfg: LMConfig, generator: torch.Generator, *, batch: int,
+                 seq: int, cooc_batches: int, seed: int,
+                 log: Callable[[str], None] = print) -> Optional[torch.Tensor]:
+    """Packed vocabulary codes for hash kinds (None for the others):
+    Algorithm 1 on ``vocab_aux`` on the generator's device (a dense A: on a
+    card, through the ``lsh_encode`` kernel)."""
+    if not cfg.embedding.kind.startswith("hash"):
+        return None
+    log(f"[encode] co-occurrence pass ({cooc_batches} batches) + "
+        f"Algorithm 1 (c={cfg.embedding.c}, m={cfg.embedding.m})")
+    aux = vocab_aux(cfg, batch=batch, seq=seq, cooc_batches=cooc_batches, seed=seed)
+    ecfg = cfg.embedding_config()
+    codes = lsh.encode_lsh(aux, ecfg.c, ecfg.m, generator=generator)
     log(f"[encode] codes {tuple(codes.shape)} uint32 words, "
         f"collisions={count_collisions(codes[:cfg.vocab_size])}")
     return codes
@@ -64,6 +73,7 @@ def train(cfg: LMConfig, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
     """The whole chain on ``device`` (default: the CUDA card); returns the
     loop's ``LoopResult`` (``.state`` holds the trained params)."""
     dev = resolve_device(device)
+    disable_tf32()
     generator = make_generator(seed, dev)
     stream = TokenStream(TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=seed))

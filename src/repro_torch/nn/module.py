@@ -15,6 +15,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.stages import stage
+
 Params = Dict[str, Any]
 
 
@@ -64,3 +66,25 @@ def trainable_mask(params: Params) -> Params:
 def param_count(params: Params, trainable_only: bool = False) -> int:
     return sum(leaf.numel() for path, leaf in leaves_with_path(params)
                if not trainable_only or not any(k.endswith("_buf") for k in path))
+
+
+def value_and_grad(fn, params: Params):
+    """(fn(params) detached, grads): grads has the params' structure, f32
+    tensors on the trainable leaves and None elsewhere.  The stored params
+    never require grad: ``fn`` sees detached views of the trainable leaves,
+    and ``torch.autograd.grad`` over them raises if one got no gradient, so
+    a path that drops a gradient cannot pass unnoticed."""
+    paths, leaves = [], []
+
+    def attach(path, p):
+        if not is_trainable(path, p):
+            return p
+        leaf = p.detach().requires_grad_(True)
+        paths.append(path)
+        leaves.append(leaf)
+        return leaf
+
+    value = fn(map_tree(attach, params))
+    with stage("backward"):
+        gs = dict(zip(paths, torch.autograd.grad(value, leaves)))
+    return value.detach(), map_tree(lambda path, p: gs.get(path), params)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.lm import init_lm, lm_loss
-from repro_torch.nn.module import is_trainable, map_tree
+from repro_torch.nn.module import map_tree, value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
 from repro_torch.stages import stage
@@ -45,21 +45,7 @@ def init_train_state(generator: torch.Generator, cfg: LMConfig, codes=None,
 def loss_and_grads(params, batch, cfg: LMConfig):
     """(loss, grads): grads has the params' structure, f32 tensors on the
     trainable leaves and None elsewhere."""
-    paths, leaves = [], []
-
-    def attach(path, p):
-        if not is_trainable(path, p):
-            return p
-        leaf = p.detach().requires_grad_(True)
-        paths.append(path)
-        leaves.append(leaf)
-        return leaf
-
-    live = map_tree(attach, params)
-    loss = lm_loss(live, batch, cfg)
-    with stage("backward"):
-        gs = dict(zip(paths, torch.autograd.grad(loss, leaves)))
-    return loss.detach(), map_tree(lambda path, p: gs.get(path), params)
+    return value_and_grad(lambda p: lm_loss(p, batch, cfg), params)
 
 
 def _microbatch(batch, k: int, i: int):

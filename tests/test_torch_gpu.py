@@ -1,8 +1,10 @@
 """The port on a CUDA card: the hand-written ``hash_decode`` kernel against
 its plain PyTorch version, its backward, the kernel backend inside the
 serving path, the device-side LSH encode, the hand-written
-``flash_attention`` kernel against its plain version, and the LM train
-step on the card against the CPU.
+``flash_attention`` kernel against its plain version, the LM train
+step on the card against the CPU, the hand-written ``lsh_encode`` kernel
+against its plain version, and the reconstruction path on the card against
+the CPU.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -227,5 +229,127 @@ def test_lm_train_steps_on_card_match_cpu(cuda):
     assert fa_ops.flash_attention.launches == before[1] + 3 * cfg.n_layers
 
 
-def _to(tree, dev):
-    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+def _to(tree, dev, copy=False):
+    return {k: _to(v, dev, copy) if isinstance(v, dict) else v.to(dev, copy=copy)
+            for k, v in tree.items()}
+
+
+# ---------------- lsh_encode ----------------
+# Integer-valued A and V in [-3, 3]: every f32 sum is exact, so the kernel
+# and its plain version (a cuBLAS product) must give the same bits.  Gaussian
+# inputs: a bit may differ only where |U_ref - t| <= 2 d 2**-24 sum|A V|
+# (two f32 sums in different orders, each within d 2**-24 sum|A V| of the
+# exact one, with t between them).
+
+LSH_SHAPES = [(2048, 512, 32), (1024, 256, 16), (512, 128, 32), (1000, 300, 32),
+              (333, 7, 5), (65, 33, 1), (1, 1, 32), (64, 32, 31), (3000, 1000, 17)]
+
+
+def _lsh(n, d, w, kind, device, seed=0):
+    from repro_torch.kernels.lsh_encode.ref import median0
+    g = torch.Generator(device).manual_seed(seed)
+    if kind == "integer":
+        A = torch.randint(-3, 4, (n, d), generator=g, device=device).float()
+        V = torch.randint(-3, 4, (d, w), generator=g, device=device).float()
+    else:
+        A = torch.randn(n, d, generator=g, device=device)
+        V = torch.randn(d, w, generator=g, device=device)
+    return A, V, median0(A @ V)
+
+
+@pytest.mark.parametrize("shape", LSH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_lsh_kernel_bitwise_at_integer_inputs(cuda, shape):
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    A, V, t = _lsh(*shape, "integer", cuda)
+    before = lsh_ops.lsh_encode_word.launches
+    got = lsh_ops.lsh_encode_word(A, V, t)
+    torch.cuda.synchronize()
+    assert lsh_ops.lsh_encode_word.launches == before + 1
+    assert got.dtype == torch.int64 and int(got.max()) < 2 ** shape[2]
+    assert torch.equal(got, lsh_encode_word_ref(A, V, t))
+
+
+@pytest.mark.parametrize("shape", [(20000, 300, 32), (4096, 512, 32), (999, 77, 9)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lsh_kernel_flips_only_within_rounding_at_gaussian_inputs(cuda, shape):
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    A, V, t = _lsh(*shape, "gaussian", cuda, seed=1)
+    got, ref = lsh_ops.lsh_encode_word(A, V, t), lsh_encode_word_ref(A, V, t)
+    shifts = torch.arange(shape[2], device=cuda)
+    differ = (((got ^ ref)[:, None] >> shifts) & 1).bool()
+    slack = 2 * shape[1] * 2.0 ** -24 * (A.abs() @ V.abs())
+    assert not (differ & ((A @ V - t).abs() > slack)).any()
+    assert float(differ.float().mean()) <= 1e-3
+
+
+def test_lsh_encode_on_card_goes_through_the_kernel_once_per_word(cuda):
+    """Dense A: one launch per word through ``core.lsh`` and
+    ``lsh_encode_packed``, the same words from one generator state, and the
+    CPU's plain version's words at integer inputs; CSR A: no launch."""
+    from repro_torch.device import make_generator
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    A = torch.randint(-3, 4, (5000, 300), generator=torch.Generator(cuda).manual_seed(0),
+                      device=cuda).float()
+    proj = [torch.randint(-3, 4, (300, w), generator=torch.Generator().manual_seed(w)).float()
+            for w in (32, 32, 16)]                          # c=16, m=20: 80 bits
+    before = lsh_ops.lsh_encode_word.launches
+    on_card = lsh.encode_lsh(A, 16, 20, projections=[p.to(cuda) for p in proj])
+    assert lsh_ops.lsh_encode_word.launches == before + 3
+    assert torch.equal(on_card.cpu(), lsh.encode_lsh(A.cpu(), 16, 20, projections=proj))
+    a = lsh_ops.lsh_encode_packed(A, 256, 16, generator=make_generator(3, cuda))
+    b = lsh.encode_lsh(A, 256, 16, generator=make_generator(3, cuda))
+    assert torch.equal(a, b) and lsh_ops.lsh_encode_word.launches == before + 11
+    sampled = lsh_ops.lsh_encode_packed(A, 256, 16, generator=make_generator(3, cuda),
+                                        median_sample=1000)
+    assert sampled.shape == a.shape
+    adj, _ = powerlaw_graph(0, 500, avg_degree=6, n_classes=4)
+    before = lsh_ops.lsh_encode_word.launches
+    lsh.encode_lsh(adj, 16, 8, generator=make_generator(0, cuda))
+    assert lsh_ops.lsh_encode_word.launches == before
+
+
+def test_lsh_kernel_rejects_bad_operands_on_card(cuda):
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    A, V, t = _lsh(64, 40, 8, "gaussian", cuda)
+    with pytest.raises(TypeError):
+        lsh_ops.lsh_encode_word(A.half(), V, t)
+    with pytest.raises(TypeError):
+        lsh_ops.lsh_encode_word(A, V.double(), t)
+    with pytest.raises(ValueError):
+        lsh_ops.lsh_encode_word(A.t().contiguous().t(), V, t)      # not contiguous
+    with pytest.raises(ValueError):
+        lsh_ops.lsh_encode_word(A[:, ::2], V[::2].contiguous(), t)
+    with pytest.raises(ValueError):
+        lsh_ops.lsh_encode_word(A, V, t.cpu())                      # two devices
+
+
+def test_small_reconstruct_path_on_card_matches_cpu(cuda):
+    """The reconstruction path at the JAX benchmark's size: codes of
+    integer-valued embeddings with integer projections bitwise, 5 decoder
+    steps from one init with the same ids within 1e-4."""
+    from repro_torch.core.embedding import init_embedding
+    from repro_torch.graph.generate import clustered_embeddings
+    from repro_torch.train.reconstruct import (reconstruction_config,
+                                               train_decoder_on_reconstruction)
+    n, dim = 2000, 64
+    emb_np, _ = clustered_embeddings(0, n, dim)
+    A = torch.from_numpy(np.round(8 * emb_np))
+    g = torch.Generator().manual_seed(0)
+    proj = [torch.round(2 * torch.randn(dim, 32, generator=g)) for _ in range(2)]
+    on_card = lsh.encode_lsh(A.to(cuda), 16, 16, projections=[p.to(cuda) for p in proj])
+    on_cpu = lsh.encode_lsh(A, 16, 16, projections=proj)
+    assert torch.equal(on_card.cpu(), on_cpu)
+    cfg = reconstruction_config(n, dim, 16, 16, 128, 128)
+    init = init_embedding(torch.Generator().manual_seed(0), cfg, codes=on_cpu)
+    gi = torch.Generator().manual_seed(1)
+    ids = [torch.randint(0, n, (512,), generator=gi) for _ in range(5)]
+    emb = torch.from_numpy(emb_np)
+    before = ops.hash_decode.launches
+    _, card = train_decoder_on_reconstruction(None, emb.to(cuda), None, cfg, 5,
+                                              params=_to(init, cuda, copy=True), ids=ids)
+    assert ops.hash_decode.launches >= before + 5
+    _, cpu = train_decoder_on_reconstruction(None, emb, None, cfg, 5,
+                                             params=_to(init, "cpu", copy=True), ids=ids)
+    assert max(abs(a - b) for a, b in zip(card, cpu)) <= 1e-4, (card, cpu)

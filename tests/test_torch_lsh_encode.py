@@ -1,0 +1,194 @@
+"""Port parity: the LSH encode kernel's plain version and Algorithm 1 over
+dense auxiliary matrices (``repro_torch.kernels.lsh_encode``,
+``repro_torch.core.lsh``) against ``repro.kernels.lsh_encode`` and
+``repro.core.lsh``.
+
+The reference runs its Pallas kernel in interpret mode, as the JAX
+package's own tests do.  JAX's threefry draws cannot be reproduced in
+torch, so the projections are drawn the JAX way and handed to the port.
+
+Tolerances.  With integer-valued A and V (values in [-3, 3] or rounded
+Gaussians) every product and partial sum is an integer below 2**24, so any
+summation order gives the same f32 sums and the words must match bitwise.
+With Gaussian inputs the two packages sum in other orders: a bit may
+differ only where the entry is within rounding of its threshold.  Each of
+two recursive f32 sums of d products lies within d * 2**-24 * S of the
+exact sum (S = sum_k |A_rk V_kj|), so a bit that differs between two
+results compared with one threshold t lies where |U - t| <= 2 d 2**-24 S
+(U the exact sum, in float64; the bound keeps a factor 2 of margin).
+Where each side also takes its own median as t, the bound adds the two
+thresholds' difference and one more rounding (3 d 2**-24 S + |t - t'|).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import codes as jcodes
+from repro.core import lsh as jlsh
+from repro.kernels.lsh_encode import lsh_encode_packed as j_packed
+from repro.kernels.lsh_encode import lsh_encode_word_ref as j_word_ref
+from repro.kernels.lsh_encode.kernel import lsh_encode_word as j_word_kernel
+from repro_torch.core import codes as tcodes
+from repro_torch.core import lsh as tlsh
+from repro_torch.kernels.lsh_encode import ops
+from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref, median0
+
+SWEEP = [(2048, 512, 32), (1024, 256, 16), (512, 128, 32)]     # tests/test_kernels.py
+
+
+def _bits(words: np.ndarray, w: int) -> np.ndarray:
+    """(n,) or (n, k) uint32-valued words -> (n, k*w) bits, LSB first."""
+    words = np.asarray(words, np.uint64).reshape(words.shape[0], -1)
+    shifts = np.arange(w, dtype=np.uint64)
+    return ((words[:, :, None] >> shifts) & 1).reshape(words.shape[0], -1).astype(bool)
+
+
+def _flip_slack(A, V):
+    """(exact U in float64, d * 2**-24 * S) for A (n, d), V (d, w)."""
+    A64, V64 = np.asarray(A, np.float64), np.asarray(V, np.float64)
+    return A64 @ V64, A.shape[1] * 2.0 ** -24 * (np.abs(A64) @ np.abs(V64))
+
+
+def _inputs(n, d, w, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "integer":
+        A = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        V = rng.integers(-3, 4, (d, w)).astype(np.float32)
+    else:
+        A = rng.standard_normal((n, d)).astype(np.float32)
+        V = rng.standard_normal((d, w)).astype(np.float32)
+    t = np.array(jnp.median(jnp.asarray(A) @ jnp.asarray(V), axis=0))
+    return A, V, t
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("n,d,w", SWEEP)
+def test_word_ref_matches_jax_ref_and_pallas_interpret(n, d, w, kind):
+    A, V, t = _inputs(n, d, w, kind, seed=n + d + w)
+    got = lsh_encode_word_ref(*(torch.from_numpy(x) for x in (A, V, t))).numpy()
+    assert got.dtype == np.int64 and got.min() >= 0 and got.max() < 2 ** w
+    jA, jV, jt = (jnp.asarray(x) for x in (A, V, t))
+    refs = {"ref": np.asarray(j_word_ref(jA, jV, jt)),
+            "pallas": np.asarray(j_word_kernel(jA, jV, jt, block_n=256, block_d=128,
+                                               interpret=True)[:, 0])}
+    U, slack = _flip_slack(A, V)
+    for name, ref in refs.items():
+        if kind == "integer":
+            np.testing.assert_array_equal(got, ref.astype(np.int64), err_msg=name)
+        else:
+            differ = _bits(got, w) != _bits(ref, w)
+            assert (np.abs(U - t[None, :])[differ] <= 2 * slack[differ]).all(), name
+            assert differ.mean() <= 1e-3, (name, differ.sum())
+
+
+def _jax_projections(key, d, c, m):
+    """The (d, w) Gaussian blocks ``lsh_encode_packed`` and
+    ``core.lsh.encode_lsh`` draw from ``key``."""
+    nb, out = jcodes.n_bits(c, m), []
+    for w in range(jcodes.n_words(c, m)):
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.normal(sub, (d, min(32, nb - 32 * w)), jnp.float32)))
+    return out
+
+
+def test_packed_matches_jax_packed_and_core_encode():
+    """tests/test_kernels.py's ``lsh_encode_packed`` = ``encode_lsh`` check,
+    with the port's wrapper (on the CPU: the plain version) as a third
+    side and JAX's projections injected."""
+    A = np.array(jax.random.normal(jax.random.PRNGKey(2), (1024, 256)))
+    key, c, m = jax.random.PRNGKey(7), 16, 16
+    a = np.asarray(j_packed(key, jnp.asarray(A), c, m, block_n=256, block_d=128,
+                            interpret=True))
+    b = np.asarray(jlsh.encode_lsh(key, jnp.asarray(A), c, m))
+    np.testing.assert_array_equal(a, b)
+    Vs = _jax_projections(key, 256, c, m)
+    tA = torch.from_numpy(A)
+    got = ops.lsh_encode_packed(tA, c, m, projections=[torch.from_numpy(V) for V in Vs])
+    assert got.dtype == torch.int64 and tuple(got.shape) == a.shape
+    # the core door gives the same words as the kernel's own door
+    assert torch.equal(got, tlsh.encode_lsh(tA, c, m, projections=[torch.from_numpy(V)
+                                                                   for V in Vs]))
+    for word, V in enumerate(Vs):
+        U, slack = _flip_slack(A, V)
+        t_jax = np.median(np.asarray(jnp.asarray(A) @ jnp.asarray(V)), axis=0)
+        t_port = median0(tA @ torch.from_numpy(V)).numpy()
+        differ = _bits(got[:, word].numpy(), 32) != _bits(a[:, word], 32)
+        bound = 3 * slack + np.abs(t_port - t_jax)[None, :]
+        assert (np.abs(U - t_jax[None, :])[differ] <= bound[differ]).all(), word
+        assert differ.mean() <= 1e-3, (word, differ.sum())
+
+
+@pytest.mark.parametrize("threshold", ["median", "zero"])
+def test_ragged_shape_and_a_16_bit_last_word_bitwise(threshold):
+    """n=1000, d=300 (GloVe's width, not a multiple of the kernel's 32-wide
+    d-chunks), c=16, m=20: 80 bits, so the last word holds 16.  Integer-valued inputs:
+    bitwise against JAX's wrapper (Pallas interpret) and core encode."""
+    rng = np.random.default_rng(5)
+    A = rng.integers(-3, 4, (1000, 300)).astype(np.float32)
+    key, c, m = jax.random.PRNGKey(3), 16, 20
+    Vs = [np.round(2 * V).astype(np.float32) for V in _jax_projections(key, 300, c, m)]
+    assert [V.shape[1] for V in Vs] == [32, 32, 16]
+    ref = []
+    for V in Vs:
+        U = jnp.asarray(A) @ jnp.asarray(V)
+        t = (jnp.median(U, axis=0) if threshold == "median"
+             else jnp.zeros((V.shape[1],), jnp.float32))
+        ref.append(np.asarray(j_word_kernel(jnp.asarray(A), jnp.asarray(V), t,
+                                            block_n=1000, block_d=300, interpret=True)[:, 0]))
+        np.testing.assert_array_equal(ref[-1], np.asarray(jlsh._binarize_word(U, threshold)))
+    got = ops.lsh_encode_packed(torch.from_numpy(A), c, m, threshold=threshold,
+                                projections=[torch.from_numpy(V) for V in Vs])
+    np.testing.assert_array_equal(tcodes.to_uint32(got), np.stack(ref, axis=1))
+    np.testing.assert_array_equal(
+        tcodes.to_uint32(tlsh.encode_lsh(torch.from_numpy(A), c, m, threshold=threshold,
+                                         projections=[torch.from_numpy(V) for V in Vs])),
+        np.stack(ref, axis=1))
+
+
+def test_median_sample_draws_distinct_rows_after_each_projection():
+    """``median_sample`` takes each word's median over rows drawn without
+    replacement from the generator right after that word's projections."""
+    rng = np.random.default_rng(6)
+    A = torch.from_numpy(rng.integers(-3, 4, (700, 40)).astype(np.float32))
+    c, m, k = 256, 8, 97
+    got = ops.lsh_encode_packed(A, c, m, generator=torch.Generator().manual_seed(4),
+                                median_sample=k)
+    g = torch.Generator().manual_seed(4)
+    words = []
+    for w in range(tcodes.n_words(c, m)):
+        V = torch.randn(40, 32, generator=g)
+        rows = torch.randperm(700, generator=g)[:k]
+        assert rows.unique().numel() == k
+        t = median0(A[rows] @ V)
+        assert not torch.equal(t, median0(A @ V))
+        words.append(lsh_encode_word_ref(A, V, t))
+    assert torch.equal(got, torch.stack(words, dim=1))
+    # without a sample: the same words as core.lsh from the same generator state
+    full = ops.lsh_encode_packed(A, c, m, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(full, tlsh.encode_lsh(A, c, m, generator=torch.Generator().manual_seed(4)))
+    with pytest.raises(ValueError, match="median_sample"):
+        ops.lsh_encode_packed(A, c, m, projections=[torch.zeros(40, 32)] * 2,
+                              median_sample=k)
+
+
+def test_wrapper_rejects_bad_operands_and_cuda_without_a_card():
+    A, V, t = torch.zeros(10, 6), torch.zeros(6, 5), torch.zeros(5)
+    assert torch.equal(ops.lsh_encode_word(A, V, t), torch.zeros(10, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        ops.lsh_encode_word(A.double(), V, t)
+    with pytest.raises(ValueError):
+        ops.lsh_encode_word(A, torch.zeros(7, 5), t)           # d mismatch
+    with pytest.raises(ValueError):
+        ops.lsh_encode_word(torch.zeros(10, 6), torch.zeros(6, 33), torch.zeros(33))
+    with pytest.raises(ValueError):
+        ops.lsh_encode_word(A, V, torch.zeros(4))
+    with pytest.raises(ValueError):
+        ops.lsh_encode_word(torch.zeros(6, 10).t(), V, t)      # not contiguous
+    with pytest.raises(ValueError):
+        ops.lsh_encode_word(A.to("meta"), V.to("meta"), t.to("meta"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tlsh.encode_lsh(A, 16, 8, generator=torch.Generator(device="cuda"))
