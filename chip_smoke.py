@@ -5,8 +5,10 @@ in PERF.md):
     python3 chip_smoke.py
 
 from the root of a checkout.  It builds the port's CUDA kernels from the
-sources in ``src/repro_torch`` (one nvcc per source, all at once), holds
-each against its plain PyTorch version at the shapes its paths give it,
+sources in ``src/repro_torch`` (one nvcc per source, all at once), checks
+in the built library's SASS that the bf16 flash_attention kernel runs its
+products on the tensor cores (HGMMA), holds each kernel against its plain
+PyTorch version at the shapes its paths give it,
 and drives three paths through the port's entry points, with random
 weights and data from a seed:
 
@@ -139,8 +141,36 @@ def phase_build():
     for name, (path, log) in built:
         print(f"[build] {name} -> {path.name} ({secs:.2f} s for all)", flush=True)
         for line in log.splitlines():
-            if re.search(r"registers|spill|Compiling entry", line):
+            if re.search(r"registers|spill|Compiling entry|setmaxnreg|warning", line):
                 print(f"[build]   {line.strip()}", flush=True)
+    check_tensor_cores(dict(built)[fa_ops.NAME][0])
+
+
+def check_tensor_cores(library: Path) -> None:
+    """The bf16 flash_attention kernel must do its products on the tensor
+    cores: count the HGMMA instructions in each of its instantiations'
+    SASS (cuobjdump beside nvcc) and fail on any with none."""
+    from repro_torch.kernels.build import find_nvcc
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(library)],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            if "flash_attention_wgmma" in fn:
+                counts[fn] = 0
+        elif fn in counts and re.search(r"\bHGMMA\.", line):
+            counts[fn] += 1
+    check(len(counts) == 3, f"expected the bf16 kernel at D = 32, 64, 128 in "
+                            f"{library.name}, found {sorted(counts)}")
+    for fn, n in sorted(counts.items()):
+        d = re.search(r"wgmmaILi(\d+)E", fn)
+        print(f"[sass] flash_attention bf16 kernel D={d.group(1) if d else '?'}: "
+              f"{n} HGMMA instructions", flush=True)
+        check(n > 0, f"no HGMMA in {fn}: the bf16 products are off the tensor cores")
 
 
 def _operands(B, m, c, d_c, variant, seed):
@@ -399,6 +429,16 @@ FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
     (2, 16, 16, 1000, 64, True, "float32"),            # ragged S
     (2, 8, 8, 1024, 128, False, "bfloat16"),           # full attention
     (2, 4, 4, 333, 32, False, "float32"),              # the reduced config's D
+    # the bf16 kernel's tile edges (128-row query and key tiles): S in
+    # {1, 127, 129, 1000}, every D, GQA K = 1 and 2, causal and full
+    (1, 4, 1, 1, 32, True, "bfloat16"),
+    (1, 8, 2, 1, 128, False, "bfloat16"),
+    (2, 4, 2, 127, 64, True, "bfloat16"),
+    (1, 4, 2, 127, 32, False, "bfloat16"),
+    (2, 4, 1, 129, 64, True, "bfloat16"),
+    (2, 4, 2, 129, 128, False, "bfloat16"),
+    (1, 4, 1, 1000, 128, True, "bfloat16"),
+    (1, 4, 2, 1000, 32, True, "bfloat16"),
 ]
 # tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -510,6 +550,8 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fa_ops.flash_attention.launches = 0
+    by_kernel = fa_ops.flash_attention.launches_by_kernel
+    by_kernel.update(dict.fromkeys(by_kernel, 0))
     lsh_ops.lsh_encode_word.launches = 0
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
@@ -518,6 +560,7 @@ def phase_train():
     launches = {"hash_decode": hd_ops.hash_decode.launches,
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": lsh_ops.lsh_encode_word.launches}       # ... and ends here
+    launches["flash_attention_by_kernel"] = dict(by_kernel)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     print(f"[train] losses {res.losses}; step ms "
@@ -528,6 +571,9 @@ def phase_train():
     check(launches["flash_attention"] == LM_STEPS * per_step,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {LM_STEPS} steps x {per_step}")
+    check(by_kernel == {"bf16_wgmma": LM_STEPS * per_step, "f32_cuda_core": 0},
+          f"the bf16 training path's attention went to {by_kernel}, not only "
+          f"to the tensor-core kernel")
     check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
     n_words = 4                               # c=256, m=16: 128 bits
     check(launches["lsh_encode"] == n_words,
@@ -644,9 +690,11 @@ def phase_lm_reference():
 
 
 def time_lm_kernels() -> dict:
-    """flash_attention at the path's shape beside its plain version and
-    ``scaled_dot_product_attention``; hash_decode forward and backward at
-    the path's B = batch x seq rows."""
+    """flash_attention at the path's shape: the bf16 tensor-core kernel
+    (the path's) beside its plain version and
+    ``scaled_dot_product_attention``, and the f32 CUDA-core kernel on the
+    same values in f32; hash_decode forward and backward at the path's
+    B = batch x seq rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -662,23 +710,35 @@ def time_lm_kernels() -> dict:
     plain_ms, _ = time_ms(lambda: attention_ref(q, k, v), 5)
     library_ms, _ = time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms, f32_enqueue_ms = time_ms(lambda: fa_ops.flash_attention(q32, k32, v32), 10)
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * D * pairs * B * H
     nbytes = 4 * B * S * H * D * q.element_size()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
-    f32_ms = flops / F32_FLOPS * 1e3
-    flash = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    f32_ops_ms = flops / F32_FLOPS * 1e3
+    f32_bytes_ms = 2 * bytes_ms
+    flash = dict(design="wgmma", ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(bytes_ms, ops_ms),
-                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    print(f"[time] flash_attention B={B} H={H} S={S} D={D} causal {dtype}: kernel "
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 tflops=flops / kernel_ms / 1e9,
+                 variants={"bf16_wgmma": dict(ms=kernel_ms, bound_ms=max(bytes_ms, ops_ms)),
+                           "f32_cuda_core": dict(ms=f32_ms,
+                                                 bound_ms=max(f32_bytes_ms, f32_ops_ms))})
+    print(f"[time] flash_attention B={B} H={H} S={S} D={D} causal {dtype}: wgmma kernel "
           f"{kernel_ms:.4f} ms (host enqueues in {enqueue_ms:.4f} ms), plain "
           f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
           f"(max diff to kernel {lib_err}); {flops} flops: {ops_ms:.4f} ms at the "
-          f"bf16 tensor-core peak, {f32_ms:.4f} ms at the f32 CUDA-core peak; "
-          f"{nbytes} B: {bytes_ms:.4f} ms; kernel at {flops / kernel_ms / 1e9:.1f} "
-          f"TFLOP/s", flush=True)
-    del q, k, v, qh, kh, vh, lib
+          f"bf16 tensor-core peak; {nbytes} B: {bytes_ms:.4f} ms; kernel at "
+          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {kernel_ms / max(ops_ms, bytes_ms):.2f}x "
+          f"its bound, {kernel_ms / library_ms:.2f}x scaled_dot_product_attention",
+          flush=True)
+    print(f"[time] flash_attention same shape in float32: CUDA-core kernel {f32_ms:.4f} ms "
+          f"(host enqueues in {f32_enqueue_ms:.4f} ms); bound {max(f32_bytes_ms, f32_ops_ms):.4f} "
+          f"ms at the f32 CUDA-core peak ({f32_ops_ms:.4f} ms) and by bytes "
+          f"({f32_bytes_ms:.4f} ms); kernel at {flops / f32_ms / 1e9:.1f} TFLOP/s", flush=True)
+    del q, k, v, qh, kh, vh, lib, q32, k32, v32
 
     rows, m, c, d_c = LM_BATCH * LM_SEQ, 16, 256, 512
     codes, cb, _, _ = _operands(rows, m, c, d_c, "bfloat16", seed=9)
@@ -985,6 +1045,7 @@ def main() -> None:
              launches=train_launches["flash_attention"],
              launches_by_path={"serve": 0, "train": train_launches["flash_attention"],
                                "reconstruct": 0},
+             launches_by_kernel=train_launches["flash_attention_by_kernel"],
              max_abs_err=flash_err, **lm["flash"]),
         dict(name="lsh_encode", route="cuda",
              source="src/repro_torch/kernels/lsh_encode/csrc/lsh_encode.cu",

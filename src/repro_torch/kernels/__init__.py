@@ -4,8 +4,9 @@ hash_decode       compositional-code decode as a row gather-sum (replaces
                   the Pallas kernel ``repro/kernels/hash_decode/kernel.py``),
                   with a deterministic autograd backward in plain PyTorch
 flash_attention   online-softmax attention with native GQA (replaces the
-                  Pallas kernel ``repro/kernels/flash_attention/kernel.py``);
-                  its backward recomputes the plain version
+                  Pallas kernel ``repro/kernels/flash_attention/kernel.py``):
+                  bf16 on the tensor cores (wgmma on TMA-fed tiles), f32 on
+                  the CUDA cores; its backward recomputes the plain version
 lsh_encode        Algorithm 1's project-binarise-pack for a dense auxiliary
                   matrix, one 32-bit code word per entity (replaces the
                   Pallas kernel ``repro/kernels/lsh_encode/kernel.py``);

@@ -5,41 +5,84 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py,
 // function flash_attention_bhsd (body _flash_body).  It computes what that
-// body computes, in the same order: q, k and v widened to f32; s = (q.k^T)
-// * scale in f32; under the causal mask key positions above the query
-// position get -1e30, and key tiles wholly above the diagonal are skipped;
-// per tile m_new = max(m_prev, max_j s), p = exp(s - m_new), alpha =
-// exp(m_prev - m_new), l = alpha*l + sum_j p, acc = acc*alpha + p.v with p
-// kept in f32; the output acc / max(l, 1e-30) is written once, in q's type.
-// The grid is not carried over block by block: the TPU kernel walks key
-// blocks as the sequential last grid axis with its running state in VMEM;
-// here one block owns a 64-row query tile and loops over the key tiles
+// body computes: s = (q.k^T) * scale with f32 sums; under the causal mask
+// key positions above the query position get -1e30, and key tiles wholly
+// above the diagonal are skipped; per tile m_new = max(m_prev, max_j s),
+// p = exp(s - m_new), alpha = exp(m_prev - m_new), l = alpha*l + sum_j p,
+// acc = acc*alpha + p.v; the output acc / max(l, 1e-30) is written once, in
+// q's type.  The grid is not carried over block by block: the TPU kernel
+// walks key blocks as the sequential last grid axis with its running state
+// in VMEM; here one block owns a query tile and loops over the key tiles
 // itself, with the running state in registers.
 //
 // Layout: q (B, Sq, H, D), k and v (B, Skv, K, D), o (B, Sq, H, D), all
 // contiguous, exactly as nn/attention.py holds them: nothing is transposed
 // and K and V are never replicated (q head h reads kv head h / (H/K) in
 // place).  Any Sq and Skv: out-of-range query rows are not stored, and
-// out-of-range key rows load as zeros and score -1e30.  D in {32, 64, 128};
-// float32 or bfloat16.
+// out-of-range key rows load as zeros and score -1e30.  D in {32, 64, 128}.
 //
-// What bounds it: operations.  At the training shape (B=4, H=16,
-// S=2048, D=64, causal) the work is 4*D flops for each of 2,098,176
-// visible (query, key) pairs per head, 34.4 GFLOP, against 67 MB of q, k,
-// v and o.  This first kernel does the products in f32 on the CUDA cores
-// (fmaf), so it sits far above the tensor-core bound; wgmma on bf16 tiles
-// (exact products, f32 sums) with TMA-fed shared memory is the way down,
-// in a later change.  The design keeps what a simple kernel can: each
-// thread owns a 4 x 4 tile of scores and a 4 x D/16 tile of the output, so
-// one shared-memory value feeds 4 FMAs; the Q and K tiles are padded by
-// one float per row so the 16 threads of a row group read 16 banks; the
-// heaviest causal query tiles are scheduled first.
+// What bounds it: operations.  At the training shape (B=4, H=16, S=2048,
+// D=64, causal, bf16) the work is 4*D flops for each of 2,098,176 visible
+// (query, key) pairs per head, 34.4 GFLOP: 0.0348 ms at the bf16
+// tensor-core peak, against 67 MB of q, k, v and o (0.0200 ms).  Two
+// kernels, chosen by dtype:
+//
+// bfloat16 (the training path): both products on the tensor cores.  A
+// block is one producer warpgroup and two (D = 128) or three (D <= 64)
+// consumer warpgroups of 64 query rows each, as registers allow (setmaxnreg
+// moves the producer's registers to the consumers).  One producer thread
+// issues TMA loads of the Q tile (two slots) and of 128-row K and V tiles
+// into a ring of stages, completed on mbarriers; the tensor maps are 4-D
+// views of the (B, S, heads, D) tensors (dims D, heads, S, B; box (D or 64,
+// 1, rows, 1)), so a tile is one copy, GQA is a coordinate, and rows past S
+// arrive as zeros.  Each consumer warpgroup: S = Q.K^T is a wgmma
+// (m64n128k16, Q and K from shared memory, K as stored is the K-major B
+// operand); the softmax runs on the f32 accumulator fragment in registers
+// (quad shuffles for each row's max, exp2 with scale*log2(e) folded in, a
+// mask only on tiles that cross the diagonal or the end of the keys); P is
+// rounded to bf16 in place, since the accumulator layout of wgmma is its
+// register-A layout, and O += P.V is a second wgmma with V from shared
+// memory as the MN-major B operand (the transpose bit).  The plain version
+// rounds its softmax weights to bf16 before .v as well.  S of tile t and
+// P.V of tile t - 1 share one wgmma window, so tile t's softmax runs while
+// P.V is on the tensor cores.  Q, K and V tiles use the swizzle that the
+// wgmma descriptors name: 128 B for D = 64 and D = 128 (two 64-column
+// panels), 64 B for D = 32.  Under the causal mask a warpgroup skips the
+// key tiles wholly above its own 64 rows.  The grid is persistent, one
+// block per SM, walking (batch, head, query tile) units heaviest causal
+// unit first, dealt to the blocks in a snake.  What is left between this
+// and the bound: the softmax's instructions (at D = 64 one exp2 and about
+// four other operations for every 256 flops) and the K/V tiles read from
+// L2 once per query tile (python -m repro_torch.kernels.flash_attention.ablate
+// times the parts).
+//
+// float32 (the reduced card-vs-CPU reference): the CUDA-core kernel, f32
+// FMAs from shared-memory tiles; on the tensor cores f32 would be TF32,
+// which the 2e-5 tolerance does not allow.  Each thread owns a 4 x 4 tile
+// of scores and a 4 x D/16 tile of the output, so one shared-memory value
+// feeds 4 FMAs; the Q and K tiles are padded by one float per row so the 16
+// threads of a row group read 16 banks; the heaviest causal query tiles of
+// each (batch, head) are scheduled first.
 
+#include <cuda.h>          // CUtensorMap and its encode's types; the encode is fetched at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+// Error codes of the entry point besides cudaError_t (which stays below 1000).
+constexpr int kErrTensorMap = 1000;     // + the CUresult of cuTensorMapEncodeTiled
+constexpr int kErrEntryPoint = 2000;    // + the status of cudaGetDriverEntryPoint's lookup
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+namespace cuda_core {
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // key rows per tile
@@ -49,18 +92,11 @@ constexpr int THREADS = TX * TY;
 constexpr int RQ = BQ / TY;      // query rows per thread (4)
 constexpr int RK = BK / TX;      // key columns per thread (4)
 constexpr int PP = BK + 1;       // padded row stride of the P tile
-constexpr float NEG_INF = -1e30f;
-
-enum DType { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T narrow(float x);
 template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -244,11 +280,607 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+}  // namespace cuda_core
+
+// ---------------------------------------------------------------------------
+// bfloat16: TMA-fed tiles, wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+namespace tensor_core {
+
+constexpr int BK = 128;            // key rows per tile
+constexpr int STAGES = 2;          // K/V ring depth (a third stage gains nothing at D = 64)
+
+template <int D>
+struct Tile {
+  // consumer warpgroups of 64 query rows each, as registers allow: at
+  // D = 128 the O accumulator takes 64 registers a thread
+  static constexpr int CONSUMERS = D == 128 ? 2 : 3;
+  static constexpr int BQ = 64 * CONSUMERS;            // query rows per block
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup (last)
+  // setmaxnreg: the producer gives its registers to the consumers, so that
+  // all of the SM's 65,536 go to one block
+  static constexpr int PRODUCER_REGS = CONSUMERS == 2 ? 40 : 32;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 160;
+  static constexpr int PD = D < 64 ? D : 64;           // columns of one TMA box / swizzle panel
+  static constexpr int PANELS = D / PD;
+  static constexpr int ROW = PD * 2;                   // bytes of a panel row: the swizzle span
+  static constexpr int LAYOUT = PD == 64 ? 1 : 2;      // descriptor layout: 1 = 128 B, 2 = 64 B swizzle
+  static constexpr int Q_PANEL = BQ * ROW;
+  static constexpr int KV_PANEL = BK * ROW;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;          // one K or one V tile
+  static constexpr int BARRIERS = 4 + 4 * STAGES;      // q_full[2], q_free[2], k_full[], v_full[], k_free[], v_free[]
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.  Tiles are 1024-byte aligned,
+// so the base offset field stays 0.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma operands in
+// registers across the asynchronous window (fence, issue, wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j]) :: "memory");
+}
+
+// The wgmma wrappers: scale-d (accumulate into D or overwrite it) is a
+// predicate operand, set from a register.
+// D (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem, K-major)^T
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 registers) . B (16 x 32, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P . V for one V tile at `v`: BK/16 steps of k16 (V rows 16kk ...
+// 16kk + 15), one wgmma per 64-column panel of O.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[Tile<D>::PANELS][Tile<D>::PD / 2],
+                                         const uint32_t (&pa)[BK / 16][4], uint32_t v) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < T::PANELS; ++p) {
+      const uint64_t db = smem_desc(v + p * T::KV_PANEL + kk * 16 * T::ROW, T::KV_PANEL,
+                                    8 * T::ROW, T::LAYOUT);
+      if constexpr (T::PD == 64) wgmma_rs_n64(acc[p], pa[kk], db);
+      else wgmma_rs_n32(acc[p], pa[kk], db);
+    }
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S = Q . K^T for one K tile at `k` and this warpgroup's 64 Q rows at `q`:
+// D/16 steps of k16, each inside one 64-column panel.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q, uint32_t k) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk * 16 / T::PD;
+    const uint32_t off = (kk * 16 % T::PD) * 2;
+    const uint64_t da = smem_desc(q + p * T::Q_PANEL + off, 16, 8 * T::ROW, T::LAYOUT);
+    const uint64_t db = smem_desc(k + p * T::KV_PANEL + off, 16, 8 * T::ROW, T::LAYOUT);
+    wgmma_ss_n128(sc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// The running max and sum of this thread's two rows.
+struct RowState {
+  float m[2];
+  float l[2];                 // this thread's columns only
+};
+
+// Online-softmax update of one S tile in place: mask (tiles that cross the
+// diagonal or the end of the keys only), the rows' new maxima over the
+// quad of lanes that shares a row, p = exp2(s*c - m*c) with c =
+// scale*log2(e), the rows' partial sums.  Returns each row's alpha.
+// Element i of the fragment: row (i >> 1) & 1, column 8 * (i >> 2) + col0 + (i & 1).
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], RowState& st, float (&alpha)[2],
+                                             bool masked, int k0, int Skv, int causal,
+                                             const int (&qpos)[2], int col0, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+      if (kpos >= Skv || (causal && kpos > qpos[(i >> 1) & 1])) sc[i] = NEG_INF;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      if (((i >> 1) & 1) == r) mx = fmaxf(mx, sc[i]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(st.m[r], mx);
+    alpha[r] = ex2((st.m[r] - m_new) * scale_log2);
+    st.m[r] = m_new;
+    const float neg = -m_new * scale_log2;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      if (((i >> 1) & 1) == r) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2, neg));
+        sum += sc[i];
+      }
+    }
+    st.l[r] = st.l[r] * alpha[r] + sum;
+  }
+}
+
+// O *= alpha by rows; P in bf16 from the softmax's f32 p.  K-step kk of
+// P.V takes S's columns 16kk ... 16kk + 15, which the accumulator layout
+// already holds in register-A order.
+template <int D>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[Tile<D>::PANELS][Tile<D>::PD / 2],
+                                                 uint32_t (&pa)[BK / 16][4],
+                                                 const float (&sc)[BK / 2],
+                                                 const float (&alpha)[2]) {
+#pragma unroll
+  for (int p = 0; p < Tile<D>::PANELS; ++p)
+#pragma unroll
+    for (int i = 0; i < Tile<D>::PD / 2; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+}
+
+// One unit of work: a query tile of one (batch, head).  Units are numbered
+// head fastest, then batch, then query tile from the last (the heaviest
+// under the causal mask) to the first, so every block takes the heaviest
+// units left first.
+struct Work {
+  int h, b, q0, kvh, n_tiles;
+};
+
+template <int D>
+__device__ __forceinline__ Work work_unit(int u, int B, int Sq, int Skv, int H, int K,
+                                          int causal) {
+  constexpr int BQ = Tile<D>::BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  Work w;
+  w.h = u % H;
+  u /= H;
+  w.b = u % B;
+  w.q0 = (n_qt - 1 - u / B) * BQ;
+  w.kvh = w.h / (H / K);
+  // causal: key tiles starting past the unit's last query row are skipped
+  const int kv_end = causal ? min(Skv, w.q0 + BQ) : Skv;
+  w.n_tiles = (kv_end + BK - 1) / BK;
+  return w;
+}
+
+// Persistent: in round n a block takes unit n * gridDim.x + blockIdx.x, in
+// odd rounds counted from the other end (a snake, which evens out the
+// causal units' weights across blocks).  The K/V ring and its barrier
+// phases run on across units; Q has two slots, so the next unit's Q and
+// first K/V tiles load while this unit finishes.
+__device__ __forceinline__ int unit_of(int n) {
+  return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
+flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H,
+                      int K, int causal, float scale_log2, int n_units) {
+  using T = Tile<D>;
+  constexpr int PD = T::PD;
+  constexpr int CONSUMERS = T::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;   // swizzle atoms need 1024 B
+  const uint32_t sK = sQ + 2 * T::Q_BYTES;                    // 2 Q slots, then STAGES K tiles
+  const uint32_t sV = sK + STAGES * T::KV_BYTES;              // STAGES V tiles
+  const uint32_t q_full = sV + STAGES * T::KV_BYTES;          // + 8 * slot
+  const uint32_t q_free = q_full + 16;                        // consumers are done with a Q slot
+  const uint32_t k_full = q_free + 16;                        // + 8 * stage
+  const uint32_t v_full = k_full + 8 * STAGES;
+  const uint32_t k_free = v_full + 8 * STAGES;                // consumers are done with a K stage
+  const uint32_t v_free = k_free + 8 * STAGES;                // ... with a V stage
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_free + 8 * i, CONSUMERS * 128);
+    }
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_free + 8 * s, CONSUMERS * 128);
+      mbar_init(v_free + 8 * s, CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == CONSUMERS) {
+    // producer warpgroup: one thread keeps Q's slots and the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(T::PRODUCER_REGS) : "memory");
+    if (tid == CONSUMERS * 128) {
+      int it = 0;                                  // K/V tiles loaded so far
+      int n = 0;                                   // units started so far
+      for (; n * gridDim.x < n_units; ++n) {
+        const int u = unit_of(n);
+        if (u >= n_units) break;                   // the last round is partial
+        const Work w = work_unit<D>(u, B, Sq, Skv, H, K, causal);
+        const int qs = n & 1;
+        if (n >= 2) mbar_wait(q_free + 8 * qs, ((n >> 1) - 1) & 1);
+        mbar_expect_tx(q_full + 8 * qs, T::Q_BYTES);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p)
+          tma_load(sQ + qs * T::Q_BYTES + p * T::Q_PANEL, &tm_q, q_full + 8 * qs, p * PD, w.h,
+                   w.q0, w.b);
+        for (int t = 0; t < w.n_tiles; ++t, ++it) {
+          const int s = it % STAGES;
+          const uint32_t parity = ((it / STAGES) - 1) & 1;   // the stage's previous use
+          const int k0 = t * BK;
+          if (it >= STAGES) mbar_wait(k_free + 8 * s, parity);
+          mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load(sK + s * T::KV_BYTES + p * T::KV_PANEL, &tm_k, k_full + 8 * s, p * PD,
+                     w.kvh, k0, w.b);
+          if (it >= STAGES) mbar_wait(v_free + 8 * s, parity);
+          mbar_expect_tx(v_full + 8 * s, T::KV_BYTES);
+#pragma unroll
+          for (int p = 0; p < T::PANELS; ++p)
+            tma_load(sV + s * T::KV_BYTES + p * T::KV_PANEL, &tm_v, v_full + 8 * s, p * PD,
+                     w.kvh, k0, w.b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64*wg ... + 63 of each unit
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(T::CONSUMER_REGS) : "memory");
+    const int lane = tid % 32;
+    const int row = 16 * ((tid % 128) / 32) + lane / 4;   // this thread's rows: row and row + 8
+    const int col0 = 2 * (lane % 4);                      // accumulator column of element 0
+    int it = 0;                                           // K/V tiles consumed so far
+    int n = 0;
+    for (; n * gridDim.x < n_units; ++n) {
+      const int u = unit_of(n);
+      if (u >= n_units) break;
+      const Work w = work_unit<D>(u, B, Sq, Skv, H, K, causal);
+      const int qs = n & 1;
+      const int qrow0 = w.q0 + 64 * wg;
+      const int qpos[2] = {qrow0 + row, qrow0 + row + 8};
+      const uint32_t q_wg = sQ + qs * T::Q_BYTES + wg * 64 * T::ROW;   // this warpgroup's Q rows
+      // tiles that cross the diagonal or the end of the keys take the mask
+      const int mask_from = min(Skv - BK, causal ? qrow0 - BK + 1 : Skv);   // k0 > mask_from
+      // causal: the unit's key tiles wholly above this warpgroup's last row
+      // are not computed (the ring still passes through them)
+      const int n_mine = causal ? min(w.n_tiles, (min(Skv, qrow0 + 64) + BK - 1) / BK) : w.n_tiles;
+
+      float acc[T::PANELS][PD / 2];
+#pragma unroll
+      for (int p = 0; p < T::PANELS; ++p)
+#pragma unroll
+        for (int i = 0; i < PD / 2; ++i) acc[p][i] = 0.f;
+      uint32_t pa[BK / 16][4];          // P in bf16, the A operand of P.V
+      RowState st = {{NEG_INF, NEG_INF}, {0.f, 0.f}};
+      float sc[BK / 2];
+      float alpha[2];
+
+      // tile 0: S, softmax, P
+      mbar_wait(q_full + 8 * qs, (n >> 1) & 1);
+      {
+        const int s = it % STAGES;
+        mbar_wait(k_full + 8 * s, (it / STAGES) & 1);
+        wgmma_fence();
+        issue_s<D>(sc, q_wg, sK + s * T::KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(k_free + 8 * s);
+        softmax_tile(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, scale_log2);
+        rescale_and_pack<D>(acc, pa, sc, alpha);
+      }
+
+      // tile t >= 1: issue S = Q . K_t^T and then P.V of tile t - 1 in one
+      // wgmma window; tile t's softmax runs while that P.V is on the tensor
+      // cores, and O is rescaled and P rewritten once it is done
+      for (int t = 1; t < n_mine; ++t) {
+        const int s = (it + t) % STAGES;
+        const int sp = (it + t - 1) % STAGES;
+        mbar_wait(k_full + 8 * s, ((it + t) / STAGES) & 1);
+        mbar_wait(v_full + 8 * sp, ((it + t - 1) / STAGES) & 1);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
+        fence_regs(pa);
+        wgmma_fence();
+        issue_s<D>(sc, q_wg, sK + s * T::KV_BYTES);
+        issue_pv<D>(acc, pa, sV + sp * T::KV_BYTES);
+        wgmma_wait<1>();                  // S is done; P.V may still run
+        fence_regs(sc);
+        mbar_arrive(k_free + 8 * s);
+        softmax_tile(sc, st, alpha, t * BK > mask_from, t * BK, Skv, causal, qpos, col0,
+                     scale_log2);
+        wgmma_wait<0>();                  // the previous tile's P.V is done
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
+        fence_regs(pa);
+        mbar_arrive(v_free + 8 * sp);
+        rescale_and_pack<D>(acc, pa, sc, alpha);
+      }
+      mbar_arrive(q_free + 8 * qs);       // every S of this unit is done
+
+      // the last computed tile's P.V
+      const int last = (it + n_mine - 1) % STAGES;
+      mbar_wait(v_full + 8 * last, ((it + n_mine - 1) / STAGES) & 1);
+#pragma unroll
+      for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv<D>(acc, pa, sV + last * T::KV_BYTES);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
+      mbar_arrive(v_free + 8 * last);
+      // ... and the tiles it does not compute: released once loaded, in order
+      for (int t = n_mine; t < w.n_tiles; ++t) {
+        const int s = (it + t) % STAGES;
+        const uint32_t parity = ((it + t) / STAGES) & 1;
+        mbar_wait(k_full + 8 * s, parity);
+        mbar_arrive(k_free + 8 * s);
+        mbar_wait(v_full + 8 * s, parity);
+        mbar_arrive(v_free + 8 * s);
+      }
+      it += w.n_tiles;
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = st.l[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / fmaxf(l, 1e-30f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (qpos[r] >= Sq) continue;
+        __nv_bfloat16* orow = o + ((static_cast<size_t>(w.b) * Sq + qpos[r]) * H + w.h) * D;
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p)
+#pragma unroll
+          for (int j = 0; j < PD / 8; ++j) {
+            const float* e = &acc[p][4 * j + 2 * r];
+            *reinterpret_cast<__nv_bfloat162*>(orow + p * 64 + 8 * j + col0) =
+                __floats2bfloat162_rn(e[0] * inv[r], e[1] * inv[r]);
+          }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through cudaGetDriverEntryPoint
+// (so the library links no libcuda).
+int encode_fn(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (status != cudaDriverEntryPointSuccess || p == nullptr)
+      return kErrEntryPoint + static_cast<int>(status);
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A (B, S, heads, D) bf16 tensor as a 4-D map (dims D, heads, S, B), box
+// (PD, 1, rows, 1), swizzled as the wgmma descriptors expect; rows past S
+// read as zeros.
+template <int D>
+int encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
+                int heads, int rows) {
+  using T = Tile<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::PD), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            T::PD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
+
+template <int D>
+int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+                 int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+  EncodeTiled encode;
+  int err = encode_fn(&encode);
+  if (err) return err;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if ((err = encode_bshd<D>(encode, &tm_q, q, B, Sq, H, Tile<D>::BQ))) return err;
+  if ((err = encode_bshd<D>(encode, &tm_k, k, B, Skv, K, BK))) return err;
+  if ((err = encode_bshd<D>(encode, &tm_v, v, B, Skv, K, BK))) return err;
+  const size_t smem = Tile<D>::SMEM;
+  cudaError_t cerr = cudaFuncSetAttribute(flash_attention_wgmma<D>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(smem));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  int device, sms;
+  if ((cerr = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(cerr);
+  cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int n_units = (Sq + Tile<D>::BQ - 1) / Tile<D>::BQ * B * H;
+  const float log2e = 1.4426950408889634f;
+  flash_attention_wgmma<D><<<min(n_units, sms), Tile<D>::THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, K, causal,
+      scale * log2e, n_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+               int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
+    case 64: return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
+    case 128: return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tensor_core
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Device pointers on card
-// `device`; dtype 0 = float32, 1 = bfloat16.  Launches on `stream`, does
-// not synchronise, returns the CUDA error code (0 on success).
+// `device`; dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// wgmma kernel; q, k, v 16-byte aligned).  Launches on `stream`, does not
+// synchronise.  Returns 0 on success, else a cudaError_t (below 1000),
+// 1000 + the CUresult of a failed tensor-map encode, or 2000 + the status
+// of a failed cudaGetDriverEntryPoint lookup.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype, int B,
                                       int H, int K, int Sq, int Skv, int D,
@@ -261,9 +893,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_dim<float>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      return cuda_core::launch_dim<float>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     case kBF16:
-      return launch_dim<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      return tensor_core::launch_dim(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,15 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels (``csrc/flash_attention.cu``).
 
 Public layout is ``nn.attention``'s: q (B, S, H, D), k/v (B, S, K, D).
 ``flash_attention`` checks its operands and goes through ``_FlashAttention``
-(a ``torch.autograd.Function``): the forward launches the CUDA kernel on
+(a ``torch.autograd.Function``): the forward launches a CUDA kernel on
 CUDA tensors and runs the plain version ``ref.attention_ref`` on CPU
-tensors; there is no other route, so a CUDA call launches the kernel or
-raises.  The backward recomputes the plain version under autograd, as the
-JAX wrapper recomputes ``mha_ref`` in XLA (a backward kernel is later work).
+tensors; there is no other route, so a CUDA call launches a kernel or
+raises.  The dtype picks the kernel: bfloat16 runs the tensor-core kernel
+(wgmma on TMA-fed tiles), float32 the CUDA-core kernel (f32 FMAs; on the
+tensor cores f32 would be TF32).  The backward recomputes the plain
+version under autograd, as the JAX wrapper recomputes ``mha_ref`` in XLA
+(a backward kernel is later work).
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NAME = "flash_attention"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches, as counted in ``flash_attention.launches_by_kernel``
+KERNELS = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_core"}
 HEAD_DIMS = (32, 64, 128)
-BLOCK_Q = 64
+TMA_ALIGN = 16      # bytes: the bf16 kernel's tensor maps need aligned bases
 
 
 def build() -> Tuple[Path, str]:
@@ -61,6 +66,9 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on several devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention operands must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
+        raise ValueError(f"bfloat16 flash_attention operands must start "
+                         f"{TMA_ALIGN}-byte aligned (the kernel reads them by TMA)")
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -79,9 +87,18 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
                    dev.index if dev.index is not None else torch.cuda.current_device(),
                    stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {_describe(err)}")
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[KERNELS[q.dtype]] += 1
     return out
+
+
+def _describe(err: int) -> str:
+    if err >= 2000:
+        return f"cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled (status {err - 2000})"
+    if err >= 1000:
+        return f"cuTensorMapEncodeTiled failed (CUresult {err - 1000})"
+    return f"cudaError {err}"
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -112,11 +129,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, D), k/v (B, Skv, K, D), float32 or bfloat16, D in
     {32, 64, 128} -> (B, Sq, H, D) in q's dtype.  Differentiable.
 
-    CUDA operands launch the kernel on the current stream (no
-    synchronisation; ``flash_attention.launches`` counts the launches);
-    CPU operands run the plain version."""
+    CUDA operands launch a kernel on the current stream (no
+    synchronisation; ``flash_attention.launches`` counts the launches and
+    ``flash_attention.launches_by_kernel`` splits them by kernel); CPU
+    operands run the plain version."""
     _check(q, k, v)
     return _FlashAttention.apply(q, k, v, causal)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = dict.fromkeys(KERNELS.values(), 0)

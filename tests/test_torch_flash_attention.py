@@ -115,3 +115,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         t_ops.flash_attention(q[:, :, :3].contiguous(), k, v)      # H % K != 0
     with pytest.raises(ValueError, match="contiguous"):
         t_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
+def _shifted(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_wrapper_rejects_unaligned_bf16_operands():
+    """The bf16 kernel reads q, k and v through TMA tensor maps, whose base
+    addresses must be 16-byte aligned: the wrapper raises rather than copy."""
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2))).to(torch.bfloat16)
+               for a in _qkv(1, 4, 2, 16, 64))
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = _shifted(args[i])
+        assert args[i].data_ptr() % 16 and args[i].is_contiguous()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            t_ops.flash_attention(*args)
+    # f32 goes to the CUDA-core kernel, which has no such need
+    q32 = _shifted(q.float())
+    assert torch.equal(t_ops.flash_attention(q32, k.float(), v.float()),
+                       attention_ref(q32, k.float(), v.float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_calls_move_no_launch_count(dtype):
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2))).to(dtype)
+               for a in _qkv(1, 4, 2, 32, 32))
+    by_kernel = dict(t_ops.flash_attention.launches_by_kernel)
+    assert set(by_kernel) == {"bf16_wgmma", "f32_cuda_core"}
+    t_ops.flash_attention(q, k, v)
+    assert t_ops.flash_attention.launches_by_kernel == by_kernel

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written ``hash_decode`` kernel against
 its plain PyTorch version, its backward, the kernel backend inside the
 serving path, the device-side LSH encode, the hand-written
-``flash_attention`` kernel against its plain version, the LM train
+``flash_attention`` kernels (bf16 on the tensor cores, f32 on the CUDA
+cores) against their plain version, the LM train
 step on the card against the CPU, the hand-written ``lsh_encode`` kernel
 against its plain version, and the reconstruction path on the card against
 the CPU.
@@ -142,14 +143,26 @@ def test_serving_through_kernel_matches_gather(cuda):
 FLASH_CASES = [(2, 4, 4, 256, 64, True, "bfloat16"), (2, 4, 4, 256, 64, True, "float32"),
                (1, 8, 2, 300, 128, True, "bfloat16"), (1, 8, 2, 300, 128, True, "float32"),
                (1, 4, 4, 1000, 64, True, "bfloat16"), (2, 4, 1, 130, 32, False, "float32"),
-               (1, 2, 2, 64, 32, True, "float32"), (3, 2, 2, 1, 64, True, "bfloat16")]
+               (1, 2, 2, 64, 32, True, "float32"), (3, 2, 2, 1, 64, True, "bfloat16"),
+               # the bf16 kernel's tile edges (128-row query and key tiles):
+               # S in {1, 127, 129, 1000}, every D, GQA K = 1 and 2, causal and full
+               (1, 4, 1, 1, 32, True, "bfloat16"), (1, 8, 2, 1, 128, False, "bfloat16"),
+               (2, 4, 2, 127, 64, True, "bfloat16"), (1, 4, 2, 127, 32, False, "bfloat16"),
+               (2, 4, 1, 129, 64, True, "bfloat16"), (2, 4, 2, 129, 128, False, "bfloat16"),
+               (2, 2, 2, 129, 32, True, "bfloat16"), (1, 4, 1, 1000, 128, True, "bfloat16"),
+               (1, 4, 4, 1000, 64, False, "bfloat16"), (1, 4, 2, 1000, 32, True, "bfloat16")]
+# Sq != Skv through the bf16 kernel: (Sq, Skv, causal); causal is the
+# plain version's top-left mask (key position <= query position)
+FLASH_RAGGED = [(129, 300, True), (300, 129, True), (1, 1000, False), (1000, 1, True),
+                (127, 256, False)]
 
 
-def _qkv(B, H, K, S, D, dtype, device, seed=0):
+def _qkv(B, H, K, S, D, dtype, device, seed=0, Skv=None):
     rng = np.random.default_rng(seed)
     dt = backend_mod.torch_dtype(dtype)
+    Skv = S if Skv is None else Skv
     return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dt)
-            for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+            for shape in ((B, S, H, D), (B, Skv, K, D), (B, Skv, K, D))]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
@@ -164,6 +177,41 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     ref = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", FLASH_RAGGED, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_kernel_query_and_key_lengths_differ(cuda, case):
+    Sq, Skv, causal = case
+    q, k, v = _qkv(2, 4, 2, Sq, 64, "bfloat16", cuda, seed=5, Skv=Skv)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert got.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_launches_are_counted_by_kernel(cuda):
+    """A bf16 call launches the tensor-core kernel, an f32 call the
+    CUDA-core one; each moves only its own count."""
+    counts = fa_ops.flash_attention.launches_by_kernel
+    for dtype, name in (("bfloat16", "bf16_wgmma"), ("float32", "f32_cuda_core")):
+        before = dict(counts)
+        fa_ops.flash_attention(*_qkv(1, 4, 2, 200, 64, dtype, cuda))
+        torch.cuda.synchronize()
+        assert counts == {**before, name: before[name] + 1}
+
+
+def test_flash_bf16_kernel_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(2, 8, 2, 1000, 64, "bfloat16", cuda, seed=6)
+    assert torch.equal(fa_ops.flash_attention(q, k, v), fa_ops.flash_attention(q, k, v))
+
+
+def test_flash_bf16_kernel_rejects_unaligned_operands(cuda):
+    q, k, v = _qkv(1, 4, 2, 64, 64, "bfloat16", cuda)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(shifted, k, v)
 
 
 def test_flash_kernel_gradients_are_the_plain_recompute(cuda):
