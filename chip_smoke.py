@@ -6,9 +6,10 @@ in PERF.md):
 
 from the root of a checkout.  It builds the port's CUDA kernels from the
 sources in ``src/repro_torch`` (one nvcc per source, all at once), checks
-in the built library's SASS that the bf16 flash_attention kernel runs its
-products on the tensor cores (HGMMA), holds each kernel against its plain
-PyTorch version at the shapes its paths give it,
+in the built libraries' SASS that the bf16 flash_attention kernel runs its
+products on the tensor cores (HGMMA), that lsh_encode's products are fused
+(FFMA) and that hash_decode's sums are not (no FFMA), holds each kernel
+against its plain PyTorch version at the shapes its paths give it,
 and drives three paths through the port's entry points, with random
 weights and data from a seed:
 
@@ -24,8 +25,9 @@ weights and data from a seed:
          launcher's chain (``repro_torch.launch.train.train``: token stream
          -> co-occurrence pass -> Algorithm 1 -> init -> train step ->
          loop) for 5 steps of batch 4 x 2048 tokens; its vocabulary encode
-         (Algorithm 1 over a dense 152,064 x 512 co-occurrence matrix) runs
-         through ``lsh_encode``;
+         (Algorithm 1 over a dense 152,064 x 512 co-occurrence matrix, all
+         128 bits in one projection and one pack) runs through
+         ``lsh_encode``;
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -76,11 +78,14 @@ LM_BATCH, LM_SEQ, LM_STEPS = 4, 2048, 5
 # paper's full decoder (§B.2), the Fig. 1 benchmark's 300 steps
 REC = dict(n=200_000, dim=300, c=256, m=16, d_c=512, d_m=512)
 REC_STEPS, REC_SCHEMES = 300, ("random", "hashing", "learn")
+REC_BATCH = 512                    # the reconstruction's decoder batch
 TABLE6_RATIO = 18.11               # Table 6, GloVe, (c, m) = (256, 16), n = 200,000
 VOCAB = 152_064                    # qwen1.5-0.5b's padded vocabulary
-LSH_PATH_SHAPES = [(REC["n"], REC["dim"], 32), (VOCAB, 512, 32)]   # (n, d, w)
+# (n, d, W): all four words of a (256, 16) code in one projection
+LSH_PATH_SHAPES = [(REC["n"], REC["dim"], 128), (VOCAB, 512, 128)]
 LSH_INT_SHAPES = [(2048, 512, 32), (1024, 256, 16), (512, 128, 32),  # test_kernels.py
-                  (1000, 300, 32), (333, 7, 5)] + LSH_PATH_SHAPES
+                  (1000, 300, 32), (333, 7, 5), (1000, 300, 80), (777, 77, 9),
+                  (129, 33, 64), (3001, 300, 128)] + LSH_PATH_SHAPES
 
 
 def fail(msg: str) -> None:
@@ -114,17 +119,37 @@ def time_ms(fn, iters: int) -> tuple:
     return start.elapsed_time(end) / iters, host_ms
 
 
+def graph_time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` captured ``iters`` times into one CUDA
+    graph and replayed, after a warm-up: the card's time alone, with no
+    host enqueue between the launches (at small shapes the host takes
+    longer to enqueue a launch than the card to run it)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"[device] {name} x{count}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi_query("name,power.limit"), flush=True)
     return name, count
 
 
@@ -143,13 +168,14 @@ def phase_build():
         for line in log.splitlines():
             if re.search(r"registers|spill|Compiling entry|setmaxnreg|warning", line):
                 print(f"[build]   {line.strip()}", flush=True)
-    check_tensor_cores(dict(built)[fa_ops.NAME][0])
+    libraries = dict(built)
+    check_tensor_cores(libraries[fa_ops.NAME][0])
+    check_fma(libraries[lsh_ops.NAME][0], libraries[hd_ops.NAME][0])
 
 
-def check_tensor_cores(library: Path) -> None:
-    """The bf16 flash_attention kernel must do its products on the tensor
-    cores: count the HGMMA instructions in each of its instantiations'
-    SASS (cuobjdump beside nvcc) and fail on any with none."""
+def sass_counts(library: Path, opcode: str) -> dict:
+    """{kernel function: number of ``opcode`` instructions} in the built
+    library's SASS (cuobjdump beside nvcc)."""
     from repro_torch.kernels.build import find_nvcc
     cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(library)],
@@ -160,10 +186,35 @@ def check_tensor_cores(library: Path) -> None:
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            if "flash_attention_wgmma" in fn:
-                counts[fn] = 0
-        elif fn in counts and re.search(r"\bHGMMA\.", line):
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{re.escape(opcode)}\b", line):
             counts[fn] += 1
+    return counts
+
+
+def check_fma(lsh_library: Path, hd_library: Path) -> None:
+    """lsh_encode's products must be fused (``__fmaf_rn`` survives
+    ``--fmad=false``): every instantiation of its projection kernel holds
+    FFMA.  hash_decode's sums must not be (its bits rest on separate
+    ``__fmul_rn`` and ``__fadd_rn``): none of its kernels holds FFMA."""
+    lsh = {fn: n for fn, n in sass_counts(lsh_library, "FFMA").items()
+           if "lsh_project_kernel" in fn}
+    check(len(lsh) == 12, f"expected 12 instantiations of lsh_project_kernel, found {len(lsh)}")
+    print(f"[sass] lsh_encode lsh_project_kernel: FFMA in each of its {len(lsh)} "
+          f"instantiations: {sorted(lsh.values())}", flush=True)
+    check(all(n > 0 for n in lsh.values()), f"an lsh_encode projection without FFMA: {lsh}")
+    hd = sass_counts(hd_library, "FFMA")
+    print(f"[sass] hash_decode: FFMA in its {len(hd)} kernels: {sum(hd.values())}", flush=True)
+    check(len(hd) >= 12 and sum(hd.values()) == 0,
+          f"hash_decode kernels with FFMA (its sums must round each add): {hd}")
+
+
+def check_tensor_cores(library: Path) -> None:
+    """The bf16 flash_attention kernel must do its products on the tensor
+    cores: count the HGMMA instructions in each of its instantiations'
+    SASS and fail on any with none."""
+    counts = {fn: n for fn, n in sass_counts(library, "HGMMA").items()
+              if "flash_attention_wgmma" in fn}
     check(len(counts) == 3, f"expected the bf16 kernel at D = 32, 64, 128 in "
                             f"{library.name}, found {sorted(counts)}")
     for fn, n in sorted(counts.items()):
@@ -191,6 +242,23 @@ def _operands(B, m, c, d_c, variant, seed):
             for t in (codes, cb, w0 if with_w0 else None, scales)]
 
 
+def smi_query(field: str) -> str:
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def smem_ceiling_ms(B: int, m: int, d_c: int) -> tuple:
+    """(ms, MHz): the staged decode's shared-memory reads, B*m*d_c*4 bytes
+    (each output element sums m terms), at 128 B/clock/SM on every SM at
+    the card's maximum SM clock as nvidia-smi reports it."""
+    import torch
+    mhz = float(smi_query("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B * m * d_c * 4 / (128 * sms * mhz * 1e6) * 1e3, mhz
+
+
 def time_at_shape(B: int, m: int, c: int, d_c: int) -> dict:
     """Kernel, plain and ``embedding_bag`` times of the f32 decode without
     w0 at one shape, and the bound computed from that shape."""
@@ -213,17 +281,51 @@ def time_at_shape(B: int, m: int, c: int, d_c: int) -> dict:
     adds_ms = adds / F32_ADDS_PER_S * 1e3
     bound_ms = max(bytes_ms, adds_ms)
     bound_by = "bytes" if bytes_ms >= adds_ms else "operations"
-    print(f"[kernel] shape ({B}, {m}, {c}, {d_c}) f32: kernel "
+    smem_ms, mhz = smem_ceiling_ms(B, m, d_c)
+    variant = ops.launch_shape(B, m, c, d_c, 4, False,
+                               torch.cuda.get_device_properties(0).multi_processor_count).variant
+    print(f"[kernel] shape ({B}, {m}, {c}, {d_c}) f32, {variant} variant: kernel "
           f"{kernel_ms:.4f} ms (host enqueues a launch in {enqueue_ms:.4f} "
           f"ms), plain {plain_ms:.4f} ms, embedding_bag "
           f"{library_ms:.4f} ms (max diff to kernel {lib_err}), bound "
           f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved} B in "
-          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms), "
-          f"{bytes_moved / kernel_ms / 1e6:.1f} GB/s of required traffic; "
-          f"{B * m * d_c * 4 / kernel_ms / 1e6:.1f} GB/s of gathered "
+          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms), shared-memory "
+          f"ceiling {smem_ms:.4f} ms ({B * m * d_c * 4} B at 128 B/clock/SM, "
+          f"{mhz:.0f} MHz); {bytes_moved / kernel_ms / 1e6:.1f} GB/s of required "
+          f"traffic; {B * m * d_c * 4 / kernel_ms / 1e6:.1f} GB/s of summed "
           f"codebook rows", flush=True)
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, smem_ceiling_ms=smem_ms)
+
+
+def time_variants() -> dict:
+    """The staged and the direct variant in turns at the paths' batch sizes
+    (the reconstruction's 512, the training's 8,192, one request's 61,696)
+    and between, f32 and bf16, each as a CUDA graph of 20 launches (device
+    time without the host's enqueue): where the staged variant starts to
+    pay sets ``STAGED_MIN_ROWS``."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for B in (REC_BATCH, 2048, 4096, 6144, LM_BATCH * LM_SEQ, 61_696):
+            codes, cb, _, _ = _operands(B, 16, 256, 512, dtype, seed=5)
+            turns = {"staged": [], "direct": []}
+            for variant in ("staged", "direct", "direct", "staged"):
+                turns[variant].append(graph_time_ms(
+                    lambda: ops._forward(codes, cb, None, None, variant), 20))
+            chosen = ops.launch_shape(B, 16, 256, 512, cb.element_size(), False, sms).variant
+            out[f"{dtype}/{B}"] = dict(staged_ms=min(turns["staged"]),
+                                       direct_ms=min(turns["direct"]), chosen=chosen)
+            print(f"[time] hash_decode B={B} m=16 c=256 d_c=512 {dtype}: staged "
+                  f"{turns['staged'][0]:.4f} / {turns['staged'][1]:.4f} ms, direct "
+                  f"{turns['direct'][0]:.4f} / {turns['direct'][1]:.4f} ms (CUDA graphs, "
+                  f"in turns: staged, direct, direct, staged); the launcher takes {chosen}",
+                  flush=True)
+            del codes, cb
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_check(B_main: int):
@@ -240,21 +342,29 @@ def phase_kernel_check(B_main: int):
     cases += [((4 * B_main, m, c, d_c), "float32"),
               ((LM_BATCH * LM_SEQ, m, c, d_c), "bfloat16")]
     cases += [((100, 8, 16, 96), "float32+w0"), ((33, 4, 4, 130), "int8"),
-              ((7, 3, 8, 5), "bfloat16+w0")]
+              ((7, 3, 8, 5), "bfloat16+w0"), ((REC_BATCH, m, c, d_c), "float32"),
+              ((5000, m, c, 130), "int8+w0"), ((5000, 3, 8, 5), "bfloat16+w0")]
     max_err = 0.0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (shape, variant) in enumerate(cases):
         args = _operands(*shape, variant, seed=i)
+        ref = hash_decode_ref(*args)
+        chosen = ops.launch_shape(shape[0], *args[1].shape, args[1].element_size(),
+                                  args[3] is not None, sms).variant
         before = ops.hash_decode.launches
-        got = ops.hash_decode(*args)
+        got = {chosen: ops.hash_decode(*args)}
         torch.cuda.synchronize()
         check(ops.hash_decode.launches == before + 1, "kernel did not launch")
-        ref = hash_decode_ref(*args)
-        err = float((got - ref).abs().max())
-        max_err = max(max_err, err)
-        same = torch.equal(got, ref)
-        print(f"[kernel] hash_decode {shape} {variant}: bitwise={same} "
-              f"max_abs_err={err}", flush=True)
-        check(same, f"hash_decode {shape} {variant} differs from its plain version")
+        other = "direct" if chosen == "staged" else "staged"
+        got[other] = ops._forward(*args, variant=other)     # both variants, bitwise
+        for name, out in got.items():
+            err = float((out - ref).abs().max())
+            max_err = max(max_err, err)
+            same = torch.equal(out, ref)
+            print(f"[kernel] hash_decode {shape} {variant} {name} variant"
+                  f"{' (the launcher takes it)' if name == chosen else ''}: "
+                  f"bitwise={same} max_abs_err={err}", flush=True)
+            check(same, f"hash_decode {shape} {variant} {name} differs from its plain version")
         del args, got, ref
     timing = time_at_shape(B_main, m, c, d_c)
     time_at_shape(4 * B_main, m, c, d_c)
@@ -305,7 +415,7 @@ def phase_slice():
     torch.cuda.reset_peak_memory_stats()
 
     fa_ops.flash_attention.launches = 0
-    lsh_ops.lsh_encode_word.launches = 0
+    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     ops.hash_decode.launches = 0               # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
@@ -321,7 +431,7 @@ def phase_slice():
     many_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.hash_decode.launches         # ... and ends here
     check(fa_ops.flash_attention.launches == 0, "the serving path ran attention")
-    check(lsh_ops.lsh_encode_word.launches == 0, "the serving path ran an encode")
+    check(sum(lsh_ops.launches_by_kernel.values()) == 0, "the serving path ran an encode")
     check(all(n >= 1 for n in per_request), f"a request decoded without the kernel: {per_request}")
     check(launches >= 9, f"kernel launched {launches} times for 9 engine calls")
     stats = engine.stats()
@@ -552,15 +662,16 @@ def phase_train():
     fa_ops.flash_attention.launches = 0
     by_kernel = fa_ops.flash_attention.launches_by_kernel
     by_kernel.update(dict.fromkeys(by_kernel, 0))
-    lsh_ops.lsh_encode_word.launches = 0
+    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
                 log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
                 "flash_attention": fa_ops.flash_attention.launches,
-                "lsh_encode": lsh_ops.lsh_encode_word.launches}       # ... and ends here
+                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
     launches["flash_attention_by_kernel"] = dict(by_kernel)
+    launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     print(f"[train] losses {res.losses}; step ms "
@@ -575,10 +686,10 @@ def phase_train():
           f"the bf16 training path's attention went to {by_kernel}, not only "
           f"to the tensor-core kernel")
     check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
-    n_words = 4                               # c=256, m=16: 128 bits
-    check(launches["lsh_encode"] == n_words,
-          f"the vocabulary encode launched lsh_encode {launches['lsh_encode']} times, "
-          f"expected one per word ({n_words})")
+    # c=256, m=16: 128 bits, all four words in one pass over A
+    check(launches["lsh_encode_by_kernel"] == {"project": 1, "pack": 1, "fused": 0},
+          f"the vocabulary encode launched lsh_encode {launches['lsh_encode_by_kernel']}, "
+          f"expected one projection and one pack")
 
     # the codebooks' gradient after training, on a fresh batch of the stream
     from repro_torch.data import TokenStream, TokenStreamConfig
@@ -745,7 +856,8 @@ def time_lm_kernels() -> dict:
     offsets = (torch.arange(m, device="cuda") * c)[None, :]
     table = cb.float().reshape(m * c, d_c)
     idx = codes.long() + offsets
-    fwd_ms, _ = time_ms(lambda: hd_ops.hash_decode(codes, cb), 50)
+    fwd_events_ms, fwd_enqueue_ms = time_ms(lambda: hd_ops.hash_decode(codes, cb), 50)
+    fwd_ms = graph_time_ms(lambda: hd_ops._forward(codes, cb, None, None), 20)
     fwd_plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, cb), 10)
     fwd_lib_ms, _ = time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), 50)
     g = torch.randn(rows, d_c, generator=torch.Generator(device="cuda").manual_seed(1),
@@ -759,14 +871,17 @@ def time_lm_kernels() -> dict:
     bwd_bytes = rows * m * 4 + rows * d_c * 4 + m * c * d_c * 2
     bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[time] hash_decode B={rows} m={m} c={c} d_c={d_c} bf16 codebooks: forward "
-          f"kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, embedding_bag "
+          f"kernel {fwd_ms:.4f} ms as a CUDA graph ({fwd_events_ms:.4f} ms back to back, "
+          f"the host enqueuing a call in {fwd_enqueue_ms:.4f} ms), plain "
+          f"{fwd_plain_ms:.4f} ms, embedding_bag "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms by bytes ({fwd_bytes} B); "
           f"backward (one-hot contraction) {bwd_ms:.4f} ms, plain autograd "
           f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.4f} ms by bytes ({bwd_bytes} B)",
           flush=True)
     torch.cuda.empty_cache()
     return dict(flash=flash, hash_lm=dict(
-        rows=rows, ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=fwd_lib_ms,
+        rows=rows, ms=fwd_ms, events_ms=fwd_events_ms, plain_ms=fwd_plain_ms,
+        library_ms=fwd_lib_ms,
         bound_ms=fwd_bound, backward_ms=bwd_ms, backward_plain_ms=bwd_plain_ms,
         backward_bound_ms=bwd_bound))
 
@@ -792,52 +907,78 @@ def _lsh_inputs(n: int, d: int, w: int, kind: str, seed: int):
     return A, V, median0(A @ V)
 
 
-def lsh_flips(A, V, t, got, ref):
+def lsh_flips(A, V, t, got, ref, t_got=None):
     """(differing bits, differing bits outside the rounding bound) between
-    two words computed with the thresholds t.  A bit may differ only where
-    |U_ref - t| <= 2 d 2**-24 sum_k |A_rk V_kj|: each of the two f32 sums of
-    d products lies within d 2**-24 sum_k |A_rk V_kj| of the exact sum, and
-    t lies between them."""
+    words ``got`` (against thresholds ``t_got``, default ``t``) and the
+    plain words ``ref`` (against ``t``), (n,) or (n, k) for V (d, 32 k).  A
+    bit may differ only where |U_ref - t| <= 2 d 2**-24 sum_k |A_rk V_kj| +
+    |t_got - t|: each of the two f32 sums of d products lies within
+    d 2**-24 sum_k |A_rk V_kj| of the exact sum, and the two thresholds lie
+    |t_got - t| apart."""
     import torch
-    shifts = torch.arange(V.shape[1], device=A.device)
-    differ = (((got ^ ref)[:, None] >> shifts) & 1).bool()
-    slack = 2 * A.shape[1] * 2.0 ** -24 * (A.abs() @ V.abs())
+    t_got = t if t_got is None else t_got
+    got, ref = got.reshape(got.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    shifts = torch.arange(32, device=A.device)
+    differ = (((got ^ ref)[:, :, None] >> shifts) & 1).bool().reshape(got.shape[0], -1)
+    differ = differ[:, :V.shape[1]]
+    slack = 2 * A.shape[1] * 2.0 ** -24 * (A.abs() @ V.abs()) + (t_got - t).abs()[None, :]
     outside = differ & ((A @ V - t[None, :]).abs() > slack)
     return int(differ.sum()), int(outside.sum())
 
 
+def lsh_launched(ops, before: dict, **expect) -> None:
+    """The lsh_encode launches since ``before``, by kernel, are ``expect``
+    (the kernels not named: none)."""
+    since = {k: ops.launches_by_kernel[k] - before[k] for k in ops.KERNELS}
+    want = {k: expect.get(k, 0) for k in ops.KERNELS}
+    check(since == want, f"lsh_encode launched {since}, expected {want}")
+
+
 def phase_lsh_check() -> dict:
-    """lsh_encode vs its plain version on the card: bitwise at integer-valued
-    inputs (the three shapes of tests/test_kernels.py, ragged n and d, w < 32
-    and both path shapes), within the rounding bound at Gaussian inputs at
-    the two path shapes."""
+    """lsh_encode's three kernels against their plain versions on the card:
+    the projection's U bitwise and the fused and pack kernels' words
+    bitwise at integer-valued inputs (the three shapes of
+    tests/test_kernels.py, ragged n, d and W, w < 32, both path shapes);
+    at Gaussian inputs at the two path shapes the words flip only within
+    the rounding bound.  Where w <= 32 the TPU kernel's counterpart
+    ``lsh_encode_word`` too."""
     import torch
     from repro_torch.kernels.lsh_encode import ops
-    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_words_ref
     worst, flips = 0, {}
     cases = [(s, "integer") for s in LSH_INT_SHAPES] + [(s, "gaussian") for s in LSH_PATH_SHAPES]
     for i, ((n, d, w), kind) in enumerate(cases):
         A, V, t = _lsh_inputs(n, d, w, kind, seed=i)
-        before = ops.lsh_encode_word.launches
-        got = ops.lsh_encode_word(A, V, t)
+        before = dict(ops.launches_by_kernel)
+        U = ops.project(A, V)
+        fused = ops.lsh_encode_words(A, V, t)
+        packed = ops.pack(U, t)
+        word = ops.lsh_encode_word(A, V, t) if w <= 32 else None
         torch.cuda.synchronize()
-        check(ops.lsh_encode_word.launches == before + 1, "lsh_encode did not launch")
-        ref = lsh_encode_word_ref(A, V, t)
-        check(got.dtype == torch.int64 and got.shape == (n,), f"words {got.dtype} {tuple(got.shape)}")
+        lsh_launched(ops, before, project=1, pack=1, fused=1 if word is None else 2)
+        ref = lsh_encode_words_ref(A, V, t)
+        check(fused.dtype == torch.int64 and fused.shape == ref.shape,
+              f"words {fused.dtype} {tuple(fused.shape)}")
         if kind == "integer":
-            err = int((got - ref).abs().max())
-            worst = max(worst, err)
-            print(f"[lsh] lsh_encode n={n} d={d} w={w} integer: bitwise={err == 0}", flush=True)
-            check(err == 0, f"lsh_encode ({n}, {d}, {w}) differs from its plain version")
+            same = {"U": torch.equal(U, A @ V), "fused": torch.equal(fused, ref),
+                    "pack": torch.equal(packed, ref)}
+            if word is not None:
+                same["lsh_encode_word"] = torch.equal(word, ref[:, 0])
+            worst = max(worst, int((fused - ref).abs().max()), int((packed - ref).abs().max()))
+            print(f"[lsh] n={n} d={d} w={w} integer: bitwise {same}", flush=True)
+            check(all(same.values()), f"lsh_encode ({n}, {d}, {w}) differs from its plain version")
         else:
-            differ, outside = lsh_flips(A, V, t, got, ref)
-            flips[f"{n}x{d}x{w}"] = differ
-            print(f"[lsh] lsh_encode n={n} d={d} w={w} gaussian: {differ} of {n * w} bits "
-                  f"differ from the plain version (cuBLAS), {outside} outside the "
-                  f"rounding bound", flush=True)
-            check(outside == 0, f"lsh_encode ({n}, {d}, {w}): {outside} bits differ "
-                                f"beyond rounding")
-        del A, V, t, got, ref
+            result = {}
+            for name, got in (("fused", fused), ("pack", packed)):
+                differ, outside = lsh_flips(A, V, t, got, ref)
+                result[name] = (differ, outside)
+                check(outside == 0, f"lsh_encode {name} ({n}, {d}, {w}): {outside} bits "
+                                    f"differ beyond rounding")
+            flips[f"{n}x{d}x{w}"] = result["fused"][0]
+            print(f"[lsh] n={n} d={d} w={w} gaussian: (differing, outside the rounding "
+                  f"bound) bits of {n * w} against the plain version (cuBLAS): {result}",
+                  flush=True)
+        del A, V, t, U, fused, packed, ref
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, gaussian_differing_bits=flips)
 
@@ -845,39 +986,42 @@ def phase_lsh_check() -> dict:
 def phase_lsh_packed_check() -> int:
     """Algorithm 1 on the LM path's own vocabulary auxiliary (152,064 x 512)
     on the card: ``lsh_encode_packed`` and ``core.lsh.encode_lsh`` from one
-    generator state give the same words (both through the kernel), and
-    against the plain version on the card (the thresholds, then ``U > t``
-    from the row-blocked cuBLAS product, which is what the port ran before
-    the kernel) every differing bit is within the rounding bound."""
+    generator state give the same words through one projection and one
+    pack each, and against the plain version on the card (the row-blocked
+    cuBLAS product, its column median, ``U > t``) every differing bit is
+    within the rounding bound plus the two medians' distance."""
     import torch
     from repro_torch.core import lsh
     from repro_torch.device import make_generator
     from repro_torch.kernels.lsh_encode import ops
-    from repro_torch.kernels.lsh_encode.ref import pack_word, project_rows
+    from repro_torch.kernels.lsh_encode.ref import median0, pack_words, project_rows
     from repro_torch.launch.train import vocab_aux
     cfg = _lm_config()
     A = torch.from_numpy(vocab_aux(cfg, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8,
                                    seed=0)).cuda()
     c, m = cfg.embedding.c, cfg.embedding.m
+    before = dict(ops.launches_by_kernel)
     packed = ops.lsh_encode_packed(A, c, m, generator=make_generator(0, A.device))
     core = lsh.encode_lsh(A, c, m, generator=make_generator(0, A.device))
+    torch.cuda.synchronize()
+    lsh_launched(ops, before, project=2, pack=2)
     check(torch.equal(packed, core), "lsh_encode_packed and core.lsh.encode_lsh differ")
-    g = make_generator(0, A.device)
-    differ = outside = 0
-    for w in range(packed.shape[1]):
-        V = torch.randn(A.shape[1], 32, generator=g, device=A.device)
-        t = ops.thresholds(A, V)
-        plain = pack_word(project_rows(A, V, ops.ROW_BLOCK), t)
-        dw, ow = lsh_flips(A, V, t, packed[:, w], plain)
-        differ, outside = differ + dw, outside + ow
+    V, _ = ops.draw_projections(A.shape[1], c, m, generator=make_generator(0, A.device))
+    U_plain = project_rows(A, V, ops.ROW_BLOCK)
+    t_plain = median0(U_plain)
+    t_kernel = median0(ops.project(A, V))
+    differ, outside = lsh_flips(A, V, t_plain, packed, pack_words(U_plain, t_plain), t_kernel)
+    moved = int((t_kernel != t_plain).sum())
     zero_rows = int((A.abs().sum(dim=1) == 0).sum())
     print(f"[lsh] vocabulary encode ({A.shape[0]} x {A.shape[1]}, c={c}, m={m}): "
-          f"lsh_encode_packed == core.lsh.encode_lsh bitwise; against the plain "
-          f"version on the card {differ} of {A.shape[0] * 32 * packed.shape[1]} bits "
-          f"differ, {outside} outside the rounding bound; {zero_rows} all-zero rows",
+          f"lsh_encode_packed == core.lsh.encode_lsh bitwise, one projection and one "
+          f"pack each; against the plain version on the card {differ} of "
+          f"{A.shape[0] * V.shape[1]} bits differ, {outside} outside the rounding bound; "
+          f"{moved} of {V.shape[1]} column medians differ from the plain product's "
+          f"(max {float((t_kernel - t_plain).abs().max())}); {zero_rows} all-zero rows",
           flush=True)
     check(outside == 0, f"{outside} vocabulary bits differ beyond rounding")
-    del A, packed, core
+    del A, packed, core, U_plain
     torch.cuda.empty_cache()
     return differ
 
@@ -897,13 +1041,14 @@ def phase_reconstruct() -> dict:
     t0 = time.perf_counter()
     fa_ops.flash_attention.launches = 0
     hd_ops.hash_decode.launches = 0
-    lsh_ops.lsh_encode_word.launches = 0       # the reconstruction path's run starts here
+    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))  # the path starts here
     res = run(**REC, steps=REC_STEPS, schemes=REC_SCHEMES, device="cuda",
               log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
-                "lsh_encode": lsh_ops.lsh_encode_word.launches,
+                "lsh_encode": sum(lsh_ops.launches_by_kernel.values()),
                 "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
+    launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
     print(f"[reconstruct] schemes {list(res['schemes'])}: wall {wall:.2f} s, launches "
           f"{launches}, max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
@@ -915,7 +1060,9 @@ def phase_reconstruct() -> dict:
         check(0.0 <= r["nmi"] <= 1.0 + 1e-9, f"{name}: nmi {r['nmi']}")
     check(abs(res["compression_ratio"] - TABLE6_RATIO) <= 0.01,
           f"compression ratio {res['compression_ratio']} is not Table 6's {TABLE6_RATIO}")
-    check(launches["lsh_encode"] >= 4, f"lsh_encode launched {launches['lsh_encode']} times")
+    check(launches["lsh_encode_by_kernel"] == {"project": 1, "pack": 1, "fused": 0},
+          f"the hashing encode launched lsh_encode {launches['lsh_encode_by_kernel']}, "
+          f"expected one projection and one pack (one pass over A for 4 words)")
     check(launches["hash_decode"] >= len(REC_SCHEMES) * REC_STEPS,
           f"hash_decode launched {launches['hash_decode']} times")
     check(launches["flash_attention"] == 0, "the reconstruction path ran attention")
@@ -943,9 +1090,9 @@ def phase_reconstruct_reference():
     A = torch.from_numpy(np.round(8 * emb_np))
     g = torch.Generator().manual_seed(0)
     proj = [torch.round(2 * torch.randn(dim, 32, generator=g)) for _ in range(2)]
-    before = lsh_ops.lsh_encode_word.launches
+    before = dict(lsh_ops.launches_by_kernel)
     on_card = lsh.encode_lsh(A.cuda(), c, m, projections=[p.cuda() for p in proj])
-    check(lsh_ops.lsh_encode_word.launches == before + 2, "the card's encode missed the kernel")
+    lsh_launched(lsh_ops, before, project=1, pack=1)      # both words in one pass
     on_cpu = lsh.encode_lsh(A, c, m, projections=proj)
     check(torch.equal(on_card.cpu(), on_cpu), "codes differ between the card and the CPU")
     cfg = reconstruction_config(n, dim, c, m, d, d)
@@ -970,33 +1117,69 @@ def phase_reconstruct_reference():
 
 
 def time_lsh() -> dict:
-    """lsh_encode at both path shapes beside its plain version and
-    ``torch.mm(A, V)`` (the f32 product alone, without the compare and
-    pack: the one library call that does the function's arithmetic)."""
+    """lsh_encode's kernels at both path shapes (W = 128, all four words):
+    the projection beside its plain version (the row-blocked cuBLAS
+    product) and ``torch.mm(A, V_all)`` (the same product in one call), the
+    fused compare-and-pack kernel, and the pack kernel; each with its bound.
+    Also the exact median over U's columns, by ``median0`` and by a sort
+    (the same bits)."""
     import torch
     from repro_torch.kernels.lsh_encode import ops
-    from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
+    from repro_torch.kernels.lsh_encode.ref import (lsh_encode_words_ref, median0,
+                                                    pack_words, project_rows)
     out = {}
     for i, (n, d, w) in enumerate(LSH_PATH_SHAPES):
         A, V, t = _lsh_inputs(n, d, w, "gaussian", seed=100 + i)
-        kernel_ms, enqueue_ms = time_ms(lambda: ops.lsh_encode_word(A, V, t), 20)
-        plain_ms, _ = time_ms(lambda: lsh_encode_word_ref(A, V, t), 10)
-        mm_ms, _ = time_ms(lambda: torch.mm(A, V), 20)
-        nbytes = (n * d + d * w + w + n) * 4
+        nw = -(-w // 32)
+        U = ops.project(A, V)
         flops = 2 * n * d * w
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS * 1e3
-        out[f"{n}x{d}x{w}"] = dict(
-            ms=kernel_ms, plain_ms=plain_ms, library_ms=mm_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        print(f"[time] lsh_encode n={n} d={d} w={w}: kernel {kernel_ms:.4f} ms (host "
-              f"enqueues in {enqueue_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.mm "
-              f"(product only) {mm_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"({nbytes} B in {bytes_ms:.4f} ms; {flops} flops in {ops_ms:.4f} ms at "
-              f"the f32 peak); kernel at {nbytes / kernel_ms / 1e6:.1f} GB/s, "
-              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s", flush=True)
-        del A, V, t
+        row = {}
+        for name, fn, plain, library, nbytes, iters in (
+                ("project", lambda: ops.project(A, V), lambda: project_rows(A, V, ops.ROW_BLOCK),
+                 lambda: torch.mm(A, V), (n * d + d * w + n * w) * 4, 20),
+                ("fused", lambda: ops.lsh_encode_words(A, V, t),
+                 lambda: lsh_encode_words_ref(A, V, t), lambda: torch.mm(A, V),
+                 (n * d + d * w + w + n * nw) * 4, 20),
+                ("pack", lambda: ops.pack(U, t), lambda: pack_words(U, t), None,
+                 (n * w + w + n * nw) * 4, 50)):
+            kernel_ms, enqueue_ms = time_ms(fn, iters)
+            if name == "pack":      # the host enqueues it slower than the card runs it
+                kernel_ms = graph_time_ms(fn, iters)
+            plain_ms, _ = time_ms(plain, 5)
+            library_ms = time_ms(library, iters)[0] if library is not None else None
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            k_ops_ms = ops_ms if name != "pack" else 0.0
+            bound_ms = max(bytes_ms, k_ops_ms)
+            row[name] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms,
+                             bound_by="bytes" if bytes_ms >= k_ops_ms else "operations")
+            print(f"[time] lsh_encode {name} n={n} d={d} W={w}: kernel {kernel_ms:.4f} ms"
+                  + (" (a CUDA graph of launches)" if name == "pack" else "")
+                  + f" (host enqueues in {enqueue_ms:.4f} ms), plain {plain_ms:.4f} ms"
+                  + (f", torch.mm(A, V_all) {library_ms:.4f} ms" if library else "")
+                  + f"; bound {bound_ms:.4f} ms ({nbytes} B in {bytes_ms:.4f} ms"
+                  + (f"; {flops} flops in {ops_ms:.4f} ms at the f32 peak" if k_ops_ms else "")
+                  + f"); kernel at {nbytes / kernel_ms / 1e6:.1f} GB/s"
+                  + (f", {flops / kernel_ms / 1e9:.2f} TFLOP/s "
+                     f"({100 * ops_ms / kernel_ms:.1f}% of the f32 peak)" if k_ops_ms else ""),
+                  flush=True)
+
+        def sort_median():
+            s = torch.sort(U, dim=0).values
+            return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+        median_ms, _ = time_ms(lambda: median0(U), 5)
+        sort_ms, _ = time_ms(sort_median, 5)
+        same = torch.equal(sort_median(), median0(U))
+        row["median"] = dict(median0_ms=median_ms, sort_ms=sort_ms)
+        print(f"[time] lsh_encode median over U ({n}, {w}): median0 (two torch.kthvalue "
+              f"on the transposed copy) {median_ms:.4f} ms, torch.sort over dim 0 "
+              f"{sort_ms:.4f} ms (same bits: {same}); the projection "
+              f"{row['project']['ms']:.4f} ms", flush=True)
+        check(same, "median0 differs from the sorted midpoint")
+        out[f"{n}x{d}x{w}"] = row
+        del A, V, t, U
     torch.cuda.empty_cache()
     return out
 
@@ -1027,18 +1210,23 @@ def main() -> None:
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
+    variants = time_variants()
     lsh_times = time_lsh()
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
     hd_by_path = {"serve": serve_launches, "train": train_launches["hash_decode"],
                   "reconstruct": rec_launches["hash_decode"]}
     lsh_by_path = {"serve": 0, "train": train_launches["lsh_encode"],
                    "reconstruct": rec_launches["lsh_encode"]}
+    lsh_by_kernel = {k: train_launches["lsh_encode_by_kernel"][k]
+                     + rec_launches["lsh_encode_by_kernel"][k]
+                     for k in train_launches["lsh_encode_by_kernel"]}
     print(json.dumps({"kernels": [
         dict(name="hash_decode", route="cuda",
              source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
              replaces="src/repro/kernels/hash_decode/kernel.py:67",
              launches=sum(hd_by_path.values()), launches_by_path=hd_by_path,
-             bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"]),
+             bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"],
+             variants=variants),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",
@@ -1051,10 +1239,12 @@ def main() -> None:
              source="src/repro_torch/kernels/lsh_encode/csrc/lsh_encode.cu",
              replaces="src/repro/kernels/lsh_encode/kernel.py:54",
              launches=sum(lsh_by_path.values()), launches_by_path=lsh_by_path,
+             launches_by_kernel=lsh_by_kernel,
              bitwise=lsh["max_abs_err"] == 0, max_abs_err=lsh["max_abs_err"],
              gaussian_differing_bits=lsh["gaussian_differing_bits"],
-             vocabulary_differing_bits=vocab_flips, library="torch.mm (product only)",
-             **lsh_times[rec_shape], train_shape=lsh_times[vocab_shape]),
+             vocabulary_differing_bits=vocab_flips,
+             library="torch.mm(A, V_all), the projection kernel's product",
+             **lsh_times[rec_shape]["project"], kernels=lsh_times),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

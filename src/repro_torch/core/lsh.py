@@ -12,12 +12,14 @@ The projections come from a ``torch.Generator`` or are passed in
 (``projections``), which is how the parity tests hand both packages the same
 draws: JAX's threefry and torch's generators give different numbers.
 
-A dense A takes its last hop through ``kernels.lsh_encode`` (the
-hand-written kernel on a CUDA device, its plain version on the CPU), with
-the thresholds from the plain product, as the JAX package's
-``lsh_encode_packed`` does.  A CSR A (the adjacency) projects with its
-deterministic segment sum (``CSRMatrix.matmat``) and binarises here: the
-JAX package never sends CSR through the kernel.
+A dense A takes its last hop through ``kernels.lsh_encode`` with every
+word's projections at once (``encode_dense``: the hand-written kernels on a
+CUDA device, their plain versions on the CPU), so A is read once per 128
+bits; ``hops > 1`` pushes all words' projections through the earlier hops
+together too.  The exact median comes from the kernel's own product.  A CSR
+A (the adjacency) projects each word with its deterministic segment sum
+(``CSRMatrix.matmat``, whose (nnz, w) gather a word at a time bounds) and
+binarises here: the JAX package never sends CSR through the kernel.
 """
 
 from __future__ import annotations
@@ -59,39 +61,27 @@ def encode_lsh(
 
     ``projections`` (one ``(d, w)`` f32 tensor per word, ``w`` = the word's
     bit count) replaces the draws from ``generator``; the computation runs
-    on their device (or the generator's).  Bits are generated 32 at a time
-    instead of 1 at a time — identical semantics, 32x fewer passes over A."""
-    nb = codes_lib.n_bits(c, m)
-    nw = codes_lib.n_words(c, m)
+    on their device (or the generator's).  Bits are generated a word (CSR)
+    or up to four words (dense) at a time instead of 1 at a time — identical
+    semantics, far fewer passes over A.  ``row_block`` bounds the rows of
+    each plain dense product; a dense encode also holds its (n, 128) f32
+    projections on A's device (``kernels.lsh_encode.ops.encode_dense``)."""
     n, d = A.shape
     if hops > 1 and n != d:
         raise ValueError("hops>1 needs a square (adjacency) auxiliary matrix")
-    if projections is None and generator is None:
-        raise ValueError("encode_lsh needs a generator or explicit projections")
-    if projections is not None and len(projections) != nw:
-        raise ValueError(f"expected {nw} projection blocks, got {len(projections)}")
-    device = (projections[0].device if projections is not None
-              else generator.device)
-    if not isinstance(A, CSRMatrix):
-        A = torch.as_tensor(A, dtype=torch.float32).to(device).contiguous()
-
-    words = []
-    for w in range(nw):
-        wbits = min(codes_lib.WORD_BITS, nb - w * codes_lib.WORD_BITS)
-        if projections is not None:
-            V = projections[w].to(device, torch.float32)
-            if tuple(V.shape) != (d, wbits):
-                raise ValueError(f"projection {w} has shape {tuple(V.shape)}, "
-                                 f"expected {(d, wbits)}")
-        else:
-            V = torch.randn(d, wbits, generator=generator, device=device)
-        U = V
-        for _ in range(hops - 1):
-            U = (A.matmat(U) if isinstance(A, CSRMatrix)
-                 else project_rows(A, U, row_block))
-        words.append(binarize_word(A.matmat(U), threshold) if isinstance(A, CSRMatrix)
-                     else lsh_ops.encode_word(A, U, threshold, row_block=row_block))
-    return torch.stack(words, dim=1)
+    V, _ = lsh_ops.draw_projections(d, c, m, generator=generator, projections=projections)
+    if isinstance(A, CSRMatrix):
+        words = []
+        for s in range(0, V.shape[1], codes_lib.WORD_BITS):
+            U = V[:, s:s + codes_lib.WORD_BITS]
+            for _ in range(hops):
+                U = A.matmat(U)
+            words.append(binarize_word(U, threshold))
+        return torch.stack(words, dim=1)
+    A = torch.as_tensor(A, dtype=torch.float32).to(V.device).contiguous()
+    for _ in range(hops - 1):
+        V = project_rows(A, V, row_block)
+    return lsh_ops.encode_dense(A, V, threshold, row_block=row_block)
 
 
 def encode_lsh_codes(A, c: int, m: int, **kw) -> torch.Tensor:

@@ -18,7 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -89,3 +90,36 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
                 _loaded[key] = ctypes.CDLL(str(path))
             lib = _loaded[key]
     return lib
+
+
+Edits = Dict[str, List[Tuple[str, str]]]
+
+
+def apply_edits(text: str, variants: Edits) -> Dict[str, str]:
+    """Each variant's source: ``text`` with the variant's (old, new) text
+    edits, each of which must apply exactly once (raises otherwise)."""
+    out = {}
+    for name, edits in variants.items():
+        src = text
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise ValueError(f"variant {name}: the edit {old[:60]!r}... does not apply")
+            src = src.replace(old, new)
+        out[name] = src
+    return out
+
+
+def build_variants(name: str, source: Path, variants: Edits) -> Dict[str, Path]:
+    """Build every variant of a kernel source (``apply_edits``) with the
+    port's flags, all at once; ``{variant: library path}``.  For the
+    ablation scripts, which time what each part of a design is worth."""
+    out_dir = BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sources = {}
+    for variant, text in apply_edits(source.read_text(), variants).items():
+        sources[variant] = out_dir / f"{name}_{variant}.cu"
+        sources[variant].write_text(text)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = pool.map(lambda kv: build_shared_library(f"{name}_{kv[0]}", kv[1])[0],
+                         sources.items())
+        return dict(zip(sources, paths))

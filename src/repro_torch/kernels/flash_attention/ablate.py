@@ -18,7 +18,6 @@ import ctypes
 import json
 import math
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -55,15 +54,7 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
 
 def variant_sources(text: str) -> Dict[str, str]:
     """Each variant's source; raises if an edit no longer applies."""
-    out = {}
-    for name, edits in VARIANTS.items():
-        src = text
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise ValueError(f"variant {name}: the edit {old[:60]!r}... does not apply")
-            src = src.replace(old, new)
-        out[name] = src
-    return out
+    return build.apply_edits(text, VARIANTS)
 
 
 def _entry(path: Path):
@@ -79,16 +70,7 @@ def main() -> None:
     import torch.nn.functional as F
     if not torch.cuda.is_available():
         sys.exit("ablate: needs a CUDA card")
-    out_dir = build.BUILD_DIR / "ablate"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    sources = {}
-    for name, text in variant_sources(ops.SOURCE.read_text()).items():
-        sources[name] = out_dir / f"flash_attention_{name}.cu"
-        sources[name].write_text(text)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = dict(zip(sources, pool.map(
-            lambda kv: build.build_shared_library(f"flash_attention_{kv[0]}", kv[1])[0],
-            sources.items())))
+    built = build.build_variants(ops.NAME, ops.SOURCE, VARIANTS)
     fns = {name: _entry(path) for name, path in built.items()}
 
     B, S, H, D = 4, 2048, 16, 64

@@ -1,0 +1,126 @@
+"""Ablations of the hash_decode kernel on the card: what each part of the
+staged design is worth, and where it overtakes the direct gather, at the
+paths' shapes.
+
+    PYTHONPATH=src python -m repro_torch.kernels.hash_decode.ablate
+
+Each variant is ``csrc/hash_decode.cu`` with one text edit (or the shipped
+source launched on another geometry), built with the port's nvcc flags
+(``kernels/build.py``) and called through its C entry points on the same
+codes and codebooks (m = 16, c = 256, d_c = 512): one request's frontier
+(B = 61,696, f32), a training batch (8,192, bf16) and a reconstruction
+batch (512, f32).  Each is timed as a CUDA graph of 20 launches (so the
+host's enqueue time does not hide the card's), in turns, three rounds;
+lower is better.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+from repro_torch.kernels import build
+from repro_torch.kernels.hash_decode import ops
+
+SHAPES = [(61_696, "float32"), (8_192, "bfloat16"), (512, "float32")]   # (B, storage)
+M, C, D_C = 16, 256, 512
+
+# name -> the edits (old text, new text) that make it from the shipped source
+VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    "shipped": [],
+    # each code read on its own as its term is added (the element-wise path's loads)
+    "codes_per_term": [("      if (VEC) {\n        // the row's m <= 16 codes at once",
+                        "      if (false) {\n        // the row's m <= 16 codes at once")],
+    # 512 threads a block for every storage type (16 warps an SM)
+    "threads_512": [("return sizeof(T) == 1 ? 512 : 1024;", "return 512;")],
+}
+
+
+def variant_sources(text: str) -> Dict[str, str]:
+    """Each variant's source; raises if an edit no longer applies."""
+    return build.apply_edits(text, VARIANTS)
+
+
+def _entries(path: Path):
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    staged, direct = lib.hash_decode_staged_launch, lib.hash_decode_launch
+    staged.argtypes = [p, p, i, p, p, p] + [i] * 10 + [p]
+    direct.argtypes = [p, p, i, p, p, p] + [i] * 8 + [p]
+    staged.restype = direct.restype = ctypes.c_int
+    return staged, direct
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("ablate: needs a CUDA card")
+    libs = {name: _entries(path)
+            for name, path in build.build_variants(ops.NAME, ops.SOURCE, VARIANTS).items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.cuda.current_device()
+
+    def graph_ms(call, n=20):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                call()
+        g.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    rounds = []
+    for B, storage in SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        codes = torch.randint(0, C, (B, M), generator=gen, device="cuda", dtype=torch.int32)
+        cb = torch.randn(M, C, D_C, generator=gen, device="cuda").to(getattr(torch, storage))
+        out = torch.empty(B, D_C, device="cuda")
+        elem = cb.element_size()
+        ptrs = (codes.data_ptr(), cb.data_ptr(), ops._STORAGE[cb.dtype], None, None,
+                out.data_ptr())
+
+        def staged(fn, shape):
+            def call():
+                err = fn(*ptrs, B, M, C, D_C, 1, shape.grid, shape.smem, shape.slices,
+                         shape.rows, dev, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+            return call
+
+        shape = ops.launch_shape(B, M, C, D_C, elem, False, sms, "staged")
+        # twice the row ranges: 2 units a block, each staging its own slice
+        finer = ops.launch_shape(B, M, C, D_C, elem, False, 2 * sms, "staged")
+        finer = finer._replace(grid=min(finer.grid, sms))
+        direct = ops.launch_shape(B, M, C, D_C, elem, False, sms, "direct")
+
+        def direct_call():
+            err = libs["shipped"][1](*ptrs, B, M, C, D_C, 1, direct.tx, direct.rows, dev,
+                                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+
+        calls = {name: staged(fns[0], shape) for name, fns in libs.items()}
+        calls["units_x2"] = staged(libs["shipped"][0], finer)
+        calls["direct"] = direct_call
+        for r in range(3):
+            row = {name: graph_ms(call) for name, call in calls.items()}
+            rounds.append(dict(round=r, B=B, storage=storage, ms=row))
+            print(f"[ablate] round {r} B={B} {storage}: "
+                  + ", ".join(f"{name} {ms:.4f}" for name, ms in row.items()), flush=True)
+        del codes, cb, out
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "rounds": rounds}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

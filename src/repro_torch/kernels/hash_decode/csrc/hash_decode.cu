@@ -1,5 +1,5 @@
-// hash_decode for Hopper (sm_90a): compositional-code decode as a direct
-// row gather-sum.
+// hash_decode for Hopper (sm_90a): compositional-code decode as a row
+// gather-sum, with the codebooks staged in shared memory.
 //
 //   out[b, :] = (sum_{j=0..m-1} cb[j, codes[b, j], :]) * w0
 //
@@ -21,18 +21,33 @@
 // is ever contracted into an FMA (the intrinsics are never fused, and the
 // build also passes --fmad=false).
 //
-// What bounds it: device-memory bytes.  Per row it does m*d_c adds and
-// writes d_c*4 bytes, reading m*4 bytes of codes; at the serving shape
-// (B = 61,696, m = 16, c = 256, d_c = 512, f32) that is 126 MB written
-// against 505 M adds, far below the card's f32 rate.  The 8 MiB of f32
-// codebooks are read by every row but stay resident in the 50 MB L2, so the
-// device-memory traffic is the codes, one pass over the codebooks and the
-// output.  The design therefore keeps the write stream wide and coalesced:
+// What bounds it: the output's device-memory bytes (B*d_c*4, 126 MB at the
+// serving shape B = 61,696, m = 16, c = 256, d_c = 512, f32) are 16 times
+// fewer than the codebook bytes the sums read (B*m*d_c*4, 2.02 GB).  Read
+// from L2, row by row, those set the pace (the direct variant below, at
+// about 8 TB/s).  So the staged variant keeps them in shared memory: a
+// block loads one 32-byte feature slice of every codebook row, m*c*32 bytes
+// (128 KiB at m = 16, c = 256: 8 f32, 16 bf16 or 32 int8 features, plus the
+// int8 scales), once, and then walks a range of rows with it, so each
+// codebook byte crosses L2 once per range instead of once per row.  Two
+// lanes share a row, 16 bytes each: a quarter-warp's 16-byte shared-memory
+// reads then touch 4 rows' random slices, whose bank conflicts cost about 2x
+// (the expected largest of 4 random draws among 4 bank groups).  The grid is
+// persistent: units of (slice, row range) are spread over the SMs, the
+// slices of one range side by side, so a row's codes are read from L2 by
+// the blocks that decode it at about the same time.  Each lane writes 16,
+// 32 or 64 bytes of a row; a row's slice is whole 32-byte sectors.
+//
+// Small batches (B below the launcher's threshold) take the direct variant:
 // each thread owns 4 consecutive features (one 16-byte store; 16-, 8- or
-// 4-byte loads for f32, bf16 or int8), a warp covers 128 consecutive
-// features, and a block decodes a few rows whose m codes it stages once in
-// shared memory.  Ragged B and d_c are masked inside the kernel (d_c not a
-// multiple of 4 takes the scalar-load variant), so callers never pad.
+// 4-byte loads for f32, bf16 or int8) and reads its m codebook rows from L2,
+// a warp covers 128 consecutive features, and a block decodes a few rows
+// whose m codes it stages once in shared memory; staging 128 KiB a block
+// costs more than it saves there.
+//
+// Ragged B and d_c are masked inside both kernels (d_c that is not a
+// multiple of the slice, or of 4, takes the element-wise variant), so
+// callers never pad.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -142,6 +157,173 @@ __global__ void hash_decode_kernel(const int32_t* __restrict__ codes,
   }
 }
 
+// ----- staged variant -------------------------------------------------------
+
+constexpr int kSliceBytes = 32;         // one codebook row's feature slice
+constexpr int kMaxVecM = 16;            // codes a row holds in registers (VEC)
+
+// threads a block: int8's 16 features a lane need more registers
+template <typename T> constexpr int staged_threads() { return sizeof(T) == 1 ? 512 : 1024; }
+
+// 16 bytes of storage widened to f32: 4 f32, 8 bf16 or 16 int8 values.
+template <typename T> struct Chunk;
+
+template <> struct Chunk<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void widen(const uint4& r, float v[kN]) {
+    v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+  }
+};
+
+template <> struct Chunk<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void widen(const uint4& r, float v[kN]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);           // bf16 -> f32 is exact
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+};
+
+template <> struct Chunk<int8_t> {
+  static constexpr int kN = 16;
+  __device__ __forceinline__ static void widen(const uint4& r, float v[kN]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      v[k] = static_cast<float>(static_cast<int8_t>((w[k >> 2] >> (8 * (k & 3))) & 0xffu));
+    }
+  }
+};
+
+// One unit = (feature slice, row range).  VEC: d_c is a multiple of the
+// lane's 16-byte chunk, m a multiple of 4 up to 16, and codebooks, codes,
+// out and w0 are 16-byte aligned; otherwise each code is read on its own.  Shared memory: (m*c, 2) chunks, then (m*c) scales.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(staged_threads<T>(), 1)
+hash_decode_staged(const int32_t* __restrict__ codes, const T* __restrict__ cb,
+                   const float* __restrict__ w0, const float* __restrict__ scales,
+                   float* __restrict__ out, int B, int m, int c, int d_c,
+                   int n_slices, int rows_per_unit, int n_units) {
+  constexpr int kH = Chunk<T>::kN;        // features per lane
+  constexpr int kF = 2 * kH;              // features per slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* s_cb = reinterpret_cast<uint4*>(smem);
+  const int mc = m * c;
+  float* s_scale = reinterpret_cast<float*>(smem + static_cast<size_t>(mc) * kSliceBytes);
+  const int tid = threadIdx.x;
+  const int half = tid & 1;
+  if (scales != nullptr) {
+    for (int i = tid; i < mc; i += blockDim.x) s_scale[i] = scales[i];
+  }
+  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+    const int f = (unit % n_slices) * kF + half * kH;   // this lane's first feature
+    const int r0 = (unit / n_slices) * rows_per_unit;
+    const int r1 = min(B, r0 + rows_per_unit);
+    __syncthreads();                      // the last unit's reads are done
+    for (int i = tid; i < 2 * mc; i += blockDim.x) {
+      const int fi = (unit % n_slices) * kF + (i & 1) * kH;
+      const T* src = cb + static_cast<size_t>(i >> 1) * d_c + fi;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (VEC) {
+        if (fi < d_c) v = *reinterpret_cast<const uint4*>(src);
+      } else {
+        T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int k = 0; k < kH; ++k) {
+          if (fi + k < d_c) e[k] = src[k];
+        }
+      }
+      s_cb[i] = v;
+    }
+    float wv[kH];
+#pragma unroll
+    for (int k = 0; k < kH; ++k) wv[k] = (w0 != nullptr && f + k < d_c) ? w0[f + k] : 1.0f;
+    __syncthreads();
+    if (f >= d_c) continue;               // this lane's half of the last slice is empty
+    for (int b = r0 + (tid >> 1); b < r1; b += blockDim.x >> 1) {
+      const int32_t* rc = codes + static_cast<size_t>(b) * m;
+      float acc[kH];
+      // term j in order: the first as it is, then __fadd_rn
+      auto add_term = [&](int j, int code) {
+        // out-of-range codes clamp, as the JAX gather's indexing does
+        const int idx = j * c + min(max(code, 0), c - 1);
+        float v[kH];
+        Chunk<T>::widen(s_cb[2 * idx + half], v);
+        if (scales != nullptr) {
+          const float s = s_scale[idx];
+#pragma unroll
+          for (int k = 0; k < kH; ++k) v[k] = __fmul_rn(v[k], s);
+        }
+#pragma unroll
+        for (int k = 0; k < kH; ++k) acc[k] = j == 0 ? v[k] : __fadd_rn(acc[k], v[k]);
+      };
+      if (VEC) {
+        // the row's m <= 16 codes at once (four 16-byte loads), then the
+        // m shared-memory reads back to back
+        int cj[kMaxVecM];
+#pragma unroll
+        for (int q = 0; q < kMaxVecM / 4; ++q) {
+          if (4 * q < m) {
+            const int4 x = reinterpret_cast<const int4*>(rc)[q];
+            cj[4 * q] = x.x; cj[4 * q + 1] = x.y; cj[4 * q + 2] = x.z; cj[4 * q + 3] = x.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kMaxVecM; ++j) {
+          if (j < m) add_term(j, cj[j]);
+        }
+      } else {
+        for (int j = 0; j < m; ++j) add_term(j, rc[j]);
+      }
+      if (w0 != nullptr) {
+#pragma unroll
+        for (int k = 0; k < kH; ++k) acc[k] = __fmul_rn(acc[k], wv[k]);
+      }
+      float* o = out + static_cast<size_t>(b) * d_c + f;
+      if (VEC) {
+#pragma unroll
+        for (int q = 0; q < kH / 4; ++q) {
+          reinterpret_cast<float4*>(o)[q] =
+              make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kH; ++k) {
+          if (f + k < d_c) o[k] = acc[k];
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_staged(const int32_t* codes, const void* cb, const float* w0,
+                  const float* scales, float* out, int B, int m, int c, int d_c,
+                  int vec, int grid, int smem, int n_slices, int rows_per_unit,
+                  cudaStream_t stream) {
+  const int n_units = n_slices * ((B + rows_per_unit - 1) / rows_per_unit);
+  const T* cbt = static_cast<const T*>(cb);
+  auto kernel = vec ? hash_decode_staged<T, true> : hash_decode_staged<T, false>;
+  // shared memory above 48 KiB is allowed per kernel, once for the largest
+  // size asked so far (not on every launch)
+  static int allowed[2] = {0, 0};
+  if (smem > allowed[vec]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    allowed[vec] = smem;
+  }
+  kernel<<<grid, staged_threads<T>(), smem, stream>>>(codes, cbt, w0, scales, out, B, m,
+                                                 c, d_c, n_slices, rows_per_unit, n_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----- direct variant -------------------------------------------------------
+
 template <typename T>
 void launch_typed(const int32_t* codes, const void* cb, const float* w0,
                   const float* scales, float* out, int B, int m, int c,
@@ -161,10 +343,12 @@ void launch_typed(const int32_t* codes, const void* cb, const float* w0,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Pointers are device pointers on
-// card `device`; w0 and scales may be null.  storage: 0 = f32, 1 = bf16,
-// 2 = int8.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// Plain C entry points (loaded with ctypes).  Pointers are device pointers
+// on card `device`; w0 and scales may be null.  storage: 0 = f32, 1 = bf16,
+// 2 = int8.  They launch on `stream`, do not synchronise and return
+// cudaGetLastError() (or the error of setting the shared-memory size).
+
+// The direct variant: blockDim (tx, ty).
 extern "C" int hash_decode_launch(const void* codes, const void* cb,
                                   int storage, const void* w0,
                                   const void* scales, void* out, int B, int m,
@@ -191,4 +375,36 @@ extern "C" int hash_decode_launch(const void* codes, const void* cb,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The staged variant: `grid` persistent blocks of 1024 threads (512 for
+// int8), `smem`
+// bytes of dynamic shared memory (m*c*32, plus m*c*4 with scales), units of
+// one 32-byte feature slice x `rows_per_unit` rows.
+extern "C" int hash_decode_staged_launch(const void* codes, const void* cb,
+                                         int storage, const void* w0,
+                                         const void* scales, void* out, int B,
+                                         int m, int c, int d_c, int vec, int grid,
+                                         int smem, int n_slices, int rows_per_unit,
+                                         int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int32_t* ci = static_cast<const int32_t*>(codes);
+  const float* w = static_cast<const float*>(w0);
+  const float* s = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case kF32:
+      return launch_staged<float>(ci, cb, w, s, o, B, m, c, d_c, vec, grid, smem,
+                                  n_slices, rows_per_unit, st);
+    case kBF16:
+      return launch_staged<__nv_bfloat16>(ci, cb, w, s, o, B, m, c, d_c, vec, grid,
+                                          smem, n_slices, rows_per_unit, st);
+    case kInt8:
+      return launch_staged<int8_t>(ci, cb, w, s, o, B, m, c, d_c, vec, grid, smem,
+                                   n_slices, rows_per_unit, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

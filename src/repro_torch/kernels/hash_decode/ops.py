@@ -3,7 +3,11 @@
 ``hash_decode`` checks its operands, then either launches the CUDA kernel
 (CUDA tensors) or runs the plain PyTorch version ``ref.hash_decode_ref``
 (CPU tensors, which is how the tests reach it on a machine without a card).
-There is no other route: a CUDA call launches the kernel or raises.
+There is no other route: a CUDA call launches the kernel or raises.  The
+kernel has two variants (``launch_shape``): from ``STAGED_MIN_ROWS`` rows
+on, a slice of every codebook is staged in shared memory and a persistent
+grid walks the rows; below it, each row's codebook rows are read directly.
+Both give the plain version's bits.
 
 Every call goes through ``_HashDecode`` (a ``torch.autograd.Function``) on
 either device.  Its backward ports the JAX package's ``_bwd`` (``kernels/hash_decode/ops.py``):
@@ -23,8 +27,9 @@ code) absmax int8 scheme of the JAX package, bit for bit.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,8 +40,15 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "hash_decode.cu"
 NAME = "hash_decode"
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_SMEM = 48 * 1024
-_THREADS = 256
+SLICE_BYTES = 32               # bytes of a codebook row's feature slice (staged)
+SMEM_LIMIT = 227 * 1024        # dynamic shared memory a block may have (H100)
+_DIRECT_SMEM = 48 * 1024
+_DIRECT_THREADS = 256
+# Below this many rows the staged variant's 128 KiB load a block costs more
+# than it saves, and the direct variant decodes: on an H100 (m = 16, c =
+# 256, d_c = 512) the direct one is faster at 4,096 rows and the staged one
+# at 6,144, in f32 and bf16 (chip_smoke.py's variant times).
+STAGED_MIN_ROWS = 6144
 
 INT8_GRAD = ("the int8 straight-through backward of hash_decode is not ported "
              "yet; it comes with the families-and-precision slice (ROADMAP A.13)")
@@ -47,11 +59,11 @@ def build() -> Tuple[Path, str]:
     return build_shared_library(NAME, SOURCE)
 
 
-def _entry():
-    fn = load_library(NAME, SOURCE).hash_decode_launch
+def _entry(name: str, n_int: int):
+    fn = getattr(load_library(NAME, SOURCE), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, i, p, p, p] + [i] * n_int + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -71,13 +83,56 @@ def dequantize_codebooks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return q.float() * scales.float()[:, :, None]
 
 
-def launch_shape(d_c: int) -> Tuple[int, int]:
-    """(threads over features, rows per block): each thread owns 4
-    consecutive features, up to 128 threads (512 features) per row pass;
-    the rest of the 256-thread block takes further rows."""
+class Launch(NamedTuple):
+    """How one decode launches.  ``staged``: ``grid`` persistent blocks of
+    ``threads``, ``smem`` bytes of codebook slices (and int8 scales), units
+    of one feature slice (``slices`` a row) x ``rows`` rows.  ``direct``:
+    ``grid`` blocks of (``tx``, ``rows``) threads, ``smem`` bytes of codes."""
+    variant: str
+    grid: int
+    threads: int
+    smem: int
+    slices: int = 0
+    rows: int = 0
+    tx: int = 0
+
+
+def launch_shape(B: int, m: int, c: int, d_c: int, elem: int, quantized: bool,
+                 sms: int, variant: Optional[str] = None) -> Launch:
+    """The staged variant when B >= ``STAGED_MIN_ROWS`` and a slice of
+    every codebook fits in shared memory: one 32-byte slice of each of the
+    m*c rows (8 f32, 16 bf16 or 32 int8 features), ``sms // slices`` row
+    ranges so the units fill the card once.  Otherwise the direct variant:
+    each thread owns 4 consecutive features, up to 128 threads (512
+    features) a row pass, the rest of the 256-thread block further rows.
+    ``variant`` forces one of the two (to time them against each other)."""
+    staged_smem = m * c * SLICE_BYTES + (m * c * 4 if quantized else 0)
+    if variant is None:
+        variant = ("staged" if B >= STAGED_MIN_ROWS and staged_smem <= SMEM_LIMIT
+                   else "direct")
+    if variant == "staged":
+        if staged_smem > SMEM_LIMIT:
+            raise ValueError(f"a slice of m={m} x c={c} codebook rows needs "
+                             f"{staged_smem} B of shared memory, above {SMEM_LIMIT}")
+        slices = -(-d_c // (SLICE_BYTES // elem))
+        rows = -(-B // max(1, sms // slices))
+        units = slices * -(-B // rows)
+        return Launch("staged", min(units, sms), 512 if elem == 1 else 1024,
+                      staged_smem, slices, rows)
+    if variant != "direct":
+        raise ValueError(f"unknown hash_decode variant {variant!r}")
     quads = -(-d_c // 4)
     tx = min(128, -(-quads // 32) * 32)
-    return tx, max(1, _THREADS // tx)
+    ty = max(1, _DIRECT_THREADS // tx)
+    if ty * m * 4 > _DIRECT_SMEM:
+        raise ValueError(f"m={m} codes per row need {ty * m * 4} B of shared "
+                         f"memory, above {_DIRECT_SMEM}")
+    return Launch("direct", -(-B // ty), tx * ty, ty * m * 4, rows=ty, tx=tx)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(codes, codebooks, w0, scales) -> None:
@@ -105,7 +160,9 @@ def _check(codes, codebooks, w0, scales) -> None:
         raise ValueError("hash_decode operands must be contiguous")
 
 
-def _forward(codes, codebooks, w0, scales) -> torch.Tensor:
+def _forward(codes, codebooks, w0, scales, variant: Optional[str] = None) -> torch.Tensor:
+    """The decode; ``variant`` ("staged" or "direct") overrides
+    ``launch_shape``'s choice, for timing the two against each other."""
     dev = codes.device
     if dev.type == "cpu":
         return hash_decode_ref(codes, codebooks, w0, scales)
@@ -116,22 +173,25 @@ def _forward(codes, codebooks, w0, scales) -> torch.Tensor:
     out = torch.empty((B, d_c), dtype=torch.float32, device=dev)
     if B == 0 or d_c == 0:
         return out
-    tx, ty = launch_shape(d_c)
-    if ty * m * 4 > _MAX_SMEM:
-        raise ValueError(f"m={m} codes per row need {ty * m * 4} B of shared "
-                         f"memory, above {_MAX_SMEM}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     elem = codebooks.element_size()
-    vec = int(d_c % 4 == 0 and codebooks.data_ptr() % (4 * elem) == 0
-              and out.data_ptr() % 16 == 0
-              and (w0 is None or w0.data_ptr() % 16 == 0))
+    shape = launch_shape(B, m, c, d_c, elem, scales is not None, _sm_count(index), variant)
+    ptrs = (codes.data_ptr(), codebooks.data_ptr(), _STORAGE[codebooks.dtype],
+            None if w0 is None else w0.data_ptr(),
+            None if scales is None else scales.data_ptr(), out.data_ptr())
+    w0_aligned = w0 is None or w0.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _entry()(codes.data_ptr(), codebooks.data_ptr(),
-                   _STORAGE[codebooks.dtype],
-                   None if w0 is None else w0.data_ptr(),
-                   None if scales is None else scales.data_ptr(),
-                   out.data_ptr(), B, m, c, d_c, vec, tx, ty,
-                   dev.index if dev.index is not None else torch.cuda.current_device(),
-                   stream)
+    if shape.variant == "staged":
+        vec = int(d_c % (16 // elem) == 0 and m % 4 == 0 and m <= 16 and w0_aligned
+                  and all(p % 16 == 0 for p in ptrs[:2] + ptrs[5:]))
+        err = _entry("hash_decode_staged_launch", 10)(
+            *ptrs, B, m, c, d_c, vec, shape.grid, shape.smem, shape.slices, shape.rows,
+            index, stream)
+    else:
+        vec = int(d_c % 4 == 0 and codebooks.data_ptr() % (4 * elem) == 0
+                  and out.data_ptr() % 16 == 0 and w0_aligned)
+        err = _entry("hash_decode_launch", 8)(
+            *ptrs, B, m, c, d_c, vec, shape.tx, shape.rows, index, stream)
     if err != 0:
         raise RuntimeError(f"hash_decode kernel launch failed: cudaError {err}")
     hash_decode.launches += 1

@@ -132,3 +132,20 @@ def test_flash_ablation_variants_apply_to_the_kernel_source():
     assert all(sources[name] != sources["shipped"] for name in others)
     with pytest.raises(ValueError, match="does not apply"):
         ablate.variant_sources("// not the kernel")
+
+
+@pytest.mark.parametrize("name", ["lsh_encode", "hash_decode"])
+def test_encode_and_decode_ablation_variants_apply_to_their_kernel_sources(name):
+    """``python -m repro_torch.kernels.<name>.ablate`` derives each variant by
+    text edits of the shipped source (``build.apply_edits``): every edit
+    must still apply once, and each variant must differ from the shipped
+    kernel."""
+    import importlib
+    ablate = importlib.import_module(f"repro_torch.kernels.{name}.ablate")
+    mod = {m.NAME: m for m in KERNELS}[name]
+    sources = ablate.variant_sources(mod.SOURCE.read_text())
+    assert set(sources) == set(ablate.VARIANTS) and len(sources) >= 3
+    assert sources["shipped"] == mod.SOURCE.read_text()
+    assert all(sources[v] != sources["shipped"] for v in sources if v != "shipped")
+    with pytest.raises(ValueError, match="does not apply"):
+        ablate.variant_sources("// not the kernel")

@@ -87,6 +87,26 @@ def test_kernel_bitwise_plain_version(cuda, shape, variant):
     assert torch.equal(got, hash_decode_ref(*args))
 
 
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("B", [1, 512, 61_696])
+def test_staged_and_direct_variants_bitwise_across_48k_of_shared_memory(cuda, B, variant):
+    """m = 16, c = 256: a slice of every codebook needs 128 KiB of shared
+    memory (144 KiB with int8 scales), above the 48 KiB of static shared
+    memory; d_c = 130 is a multiple of no slice width (8, 16, 32).  Both
+    variants, and the launcher's choice, give the plain version's bits,
+    and the same bits on a second call."""
+    shape = (B, 16, 256, 130)
+    args = _operands(shape, variant, cuda, seed=B)
+    ref = hash_decode_ref(*args)
+    for forced in ("staged", "direct"):
+        first = ops._forward(*args, variant=forced)
+        assert torch.equal(first, ref), forced
+        assert torch.equal(ops._forward(*args, variant=forced), first), forced
+    before = ops.hash_decode.launches
+    assert torch.equal(ops.hash_decode(*args), ref)
+    assert ops.hash_decode.launches == before + 1
+
+
 def test_auto_backend_is_the_kernel_on_cuda(cuda):
     be = backend_mod.get_backend("auto", device=cuda)
     assert isinstance(be, backend_mod.KernelBackend)
@@ -310,10 +330,10 @@ def test_lsh_kernel_bitwise_at_integer_inputs(cuda, shape):
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
     from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref
     A, V, t = _lsh(*shape, "integer", cuda)
-    before = lsh_ops.lsh_encode_word.launches
+    before = lsh_ops.launches_by_kernel["fused"]
     got = lsh_ops.lsh_encode_word(A, V, t)
     torch.cuda.synchronize()
-    assert lsh_ops.lsh_encode_word.launches == before + 1
+    assert lsh_ops.launches_by_kernel["fused"] == before + 1
     assert got.dtype == torch.int64 and int(got.max()) < 2 ** shape[2]
     assert torch.equal(got, lsh_encode_word_ref(A, V, t))
 
@@ -332,30 +352,73 @@ def test_lsh_kernel_flips_only_within_rounding_at_gaussian_inputs(cuda, shape):
     assert float(differ.float().mean()) <= 1e-3
 
 
-def test_lsh_encode_on_card_goes_through_the_kernel_once_per_word(cuda):
-    """Dense A: one launch per word through ``core.lsh`` and
-    ``lsh_encode_packed``, the same words from one generator state, and the
-    CPU's plain version's words at integer inputs; CSR A: no launch."""
+def _launched_since(before):
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    return {k: v - before[k] for k, v in lsh_ops.launches_by_kernel.items() if v != before[k]}
+
+
+def test_lsh_encode_on_card_reads_A_once_per_encode(cuda):
+    """Dense A: one pass over A for up to 128 bits through ``core.lsh`` and
+    ``lsh_encode_packed`` -- the exact median one projection and one pack,
+    zero thresholds and a sampled median one fused launch -- the same words
+    from one generator state, and the CPU's plain version's words at
+    integer inputs; CSR A: no launch."""
     from repro_torch.device import make_generator
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
     A = torch.randint(-3, 4, (5000, 300), generator=torch.Generator(cuda).manual_seed(0),
                       device=cuda).float()
     proj = [torch.randint(-3, 4, (300, w), generator=torch.Generator().manual_seed(w)).float()
             for w in (32, 32, 16)]                          # c=16, m=20: 80 bits
-    before = lsh_ops.lsh_encode_word.launches
+    before = dict(lsh_ops.launches_by_kernel)
     on_card = lsh.encode_lsh(A, 16, 20, projections=[p.to(cuda) for p in proj])
-    assert lsh_ops.lsh_encode_word.launches == before + 3
+    assert _launched_since(before) == {"project": 1, "pack": 1}
     assert torch.equal(on_card.cpu(), lsh.encode_lsh(A.cpu(), 16, 20, projections=proj))
+    zero = lsh.encode_lsh(A, 16, 20, threshold="zero", projections=[p.to(cuda) for p in proj])
+    assert _launched_since(before) == {"project": 1, "pack": 1, "fused": 1}
+    assert torch.equal(zero.cpu(), lsh.encode_lsh(A.cpu(), 16, 20, threshold="zero",
+                                                  projections=proj))
+    before = dict(lsh_ops.launches_by_kernel)
     a = lsh_ops.lsh_encode_packed(A, 256, 16, generator=make_generator(3, cuda))
     b = lsh.encode_lsh(A, 256, 16, generator=make_generator(3, cuda))
-    assert torch.equal(a, b) and lsh_ops.lsh_encode_word.launches == before + 11
+    assert torch.equal(a, b) and _launched_since(before) == {"project": 2, "pack": 2}
+    before = dict(lsh_ops.launches_by_kernel)
     sampled = lsh_ops.lsh_encode_packed(A, 256, 16, generator=make_generator(3, cuda),
                                         median_sample=1000)
-    assert sampled.shape == a.shape
+    assert sampled.shape == a.shape and _launched_since(before) == {"fused": 1}
     adj, _ = powerlaw_graph(0, 500, avg_degree=6, n_classes=4)
-    before = lsh_ops.lsh_encode_word.launches
+    before = dict(lsh_ops.launches_by_kernel)
     lsh.encode_lsh(adj, 16, 8, generator=make_generator(0, cuda))
-    assert lsh_ops.lsh_encode_word.launches == before
+    assert _launched_since(before) == {}
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+@pytest.mark.parametrize("n,d,w", [(1000, 300, 9), (4097, 77, 32), (333, 512, 80),
+                                   (2049, 301, 128)], ids=lambda v: str(v))
+def test_lsh_wide_entries_match_the_plain_version(cuda, n, d, w, kind):
+    """``project``, ``pack`` and ``lsh_encode_words`` at W up to 128 with
+    ragged n and d: bitwise at integer inputs; at Gaussian inputs U within
+    each sum's rounding bound of cuBLAS's and the words flipping only
+    within it -- with odd n each column's middle entry is its own median,
+    so up to one bit a column flips on top of 0.1% of the rest; two calls
+    give the same bits."""
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.kernels.lsh_encode.ref import lsh_encode_words_ref
+    A, V, t = _lsh(n, d, w, kind, cuda, seed=w)
+    U, ref = lsh_ops.project(A, V), lsh_encode_words_ref(A, V, t)
+    fused, packed = lsh_ops.lsh_encode_words(A, V, t), lsh_ops.pack(U, t)
+    assert torch.equal(U, lsh_ops.project(A, V))
+    assert torch.equal(fused, lsh_ops.lsh_encode_words(A, V, t))
+    assert fused.shape == (n, -(-w // 32)) and fused.dtype == torch.int64
+    if kind == "integer":
+        assert torch.equal(U, A @ V) and torch.equal(fused, ref) and torch.equal(packed, ref)
+        return
+    slack = d * 2.0 ** -24 * (A.abs() @ V.abs())
+    assert bool(((U - A @ V).abs() <= 2 * slack).all())
+    shifts = torch.arange(32, device=cuda)
+    for got in (fused, packed):
+        differ = (((got ^ ref)[:, :, None] >> shifts) & 1).bool().reshape(n, -1)[:, :w]
+        assert not (differ & ((A @ V - t).abs() > 2 * slack)).any()
+        assert int(differ.sum()) <= (w if n % 2 else 0) + 1e-3 * n * w
 
 
 def test_lsh_kernel_rejects_bad_operands_on_card(cuda):

@@ -112,10 +112,32 @@ def test_wrapper_rejects_bad_operands():
         t_ops.hash_decode(codes.t().contiguous().t(), cb)       # not contiguous
 
 
-@pytest.mark.parametrize("d_c,expect", [(512, (128, 2)), (96, (32, 8)), (2048, (128, 2)),
-                                        (7, (32, 8))])
-def test_launch_shape(d_c, expect):
-    assert t_ops.launch_shape(d_c) == expect
+@pytest.mark.parametrize("shape,expect", [
+    # serving, f32: 64 slices of 8 features x 2 row ranges on 132 SMs
+    ((61_696, 16, 256, 512, 4, False), ("staged", 128, 1024, 131_072, 64, 30_848, 0)),
+    # training, bf16: 32 slices of 16 features x 4 row ranges
+    ((8_192, 16, 256, 512, 2, False), ("staged", 128, 1024, 131_072, 32, 2_048, 0)),
+    # reconstruction's batch of 512, below STAGED_MIN_ROWS: the direct variant
+    ((512, 16, 256, 512, 4, False), ("direct", 256, 256, 128, 0, 2, 128)),
+    # int8, d_c = 130 (5 slices of 32, the last ragged) and the scales table
+    ((61_696, 16, 256, 130, 1, True), ("staged", 130, 512, 147_456, 5, 2_373, 0)),
+], ids=["serve-f32", "train-bf16", "reconstruct-f32", "int8-ragged"])
+def test_launch_shape(shape, expect):
+    assert tuple(t_ops.launch_shape(*shape, sms=132)) == expect
+    assert expect[3] <= t_ops.SMEM_LIMIT
+
+
+def test_launch_shape_falls_back_to_direct_and_forces_variants():
+    """A slice of m * c codebook rows above the shared-memory limit takes the
+    direct variant; either variant can be forced where it fits."""
+    big = t_ops.launch_shape(61_696, 32, 256, 512, 4, False, sms=132)
+    assert big.variant == "direct" and big.smem == 2 * 32 * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        t_ops.launch_shape(61_696, 32, 256, 512, 4, False, sms=132, variant="staged")
+    assert t_ops.launch_shape(512, 16, 256, 512, 4, False, 132, "staged").variant == "staged"
+    assert t_ops.launch_shape(61_696, 16, 256, 512, 4, False, 132, "direct").variant == "direct"
+    small = t_ops.launch_shape(t_ops.STAGED_MIN_ROWS, 16, 256, 512, 4, False, sms=132)
+    assert small.variant == "staged" and small.grid <= 132
 
 
 def test_cached_build_returns_its_compiler_log(tmp_path, monkeypatch):

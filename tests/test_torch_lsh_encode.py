@@ -34,7 +34,7 @@ from repro.kernels.lsh_encode.kernel import lsh_encode_word as j_word_kernel
 from repro_torch.core import codes as tcodes
 from repro_torch.core import lsh as tlsh
 from repro_torch.kernels.lsh_encode import ops
-from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref, median0
+from repro_torch.kernels.lsh_encode.ref import lsh_encode_word_ref, median0, pack_word
 
 SWEEP = [(2048, 512, 32), (1024, 256, 16), (512, 128, 32)]     # tests/test_kernels.py
 
@@ -192,3 +192,81 @@ def test_wrapper_rejects_bad_operands_and_cuda_without_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tlsh.encode_lsh(A, 16, 8, generator=torch.Generator(device="cuda"))
+
+
+def _per_word_route(A, c, m, generator, median_sample=None, threshold="median"):
+    """Algorithm 1 a word at a time, as the port ran it before every word
+    was drawn up front: per word ``randn(d, w)``, that word's ``randperm``
+    when sampling, its thresholds from the plain product, its bits."""
+    n, d = A.shape
+    words = []
+    for w in range(tcodes.n_words(c, m)):
+        wbits = min(32, tcodes.n_bits(c, m) - 32 * w)
+        V = torch.randn(d, wbits, generator=generator)
+        rows = (torch.randperm(n, generator=generator)[:median_sample]
+                if median_sample is not None else None)
+        if threshold == "zero":
+            t = torch.zeros(wbits)
+        else:
+            t = median0((A if rows is None else A[rows]) @ V)
+        words.append(lsh_encode_word_ref(A, V, t))
+    return torch.stack(words, dim=1)
+
+
+@pytest.mark.parametrize("median_sample,threshold,c,m", [
+    (None, "median", 256, 16), (301, "median", 256, 16), (None, "zero", 16, 20),
+    (None, "median", 256, 20)], ids=["median", "sampled-median", "zero-80-bits",
+                                     "median-160-bits"])
+def test_all_words_at_once_match_the_per_word_route(median_sample, threshold, c, m):
+    """Every word's projections drawn up front and encoded in one pass give
+    the same words as the per-word route from one generator state, Gaussian
+    A included (the plain product's columns do not depend on how many
+    columns it has); 160 bits take two passes of up to 128 columns."""
+    A = torch.from_numpy(np.random.default_rng(8).standard_normal((1500, 70))
+                         .astype(np.float32))
+    got = ops.lsh_encode_packed(A, c, m, generator=torch.Generator().manual_seed(11),
+                                threshold=threshold, median_sample=median_sample)
+    ref = _per_word_route(A, c, m, torch.Generator().manual_seed(11), median_sample,
+                          threshold)
+    assert got.dtype == torch.int64 and torch.equal(got, ref)
+    if median_sample is None:
+        assert torch.equal(got, tlsh.encode_lsh(A, c, m, threshold=threshold,
+                                                generator=torch.Generator().manual_seed(11)))
+
+
+@pytest.mark.parametrize("w", [9, 32, 80, 128])
+def test_plain_pack_equals_pack_word_by_word(w):
+    """``pack`` (on the CPU: the plain version) and ``lsh_encode_words`` of an
+    (n, W) projection are ``pack_word`` of each 32-column slice."""
+    rng = np.random.default_rng(w)
+    A = torch.from_numpy(rng.standard_normal((257, 19)).astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((19, w)).astype(np.float32))
+    U = ops.project(A, V)
+    t = median0(U)
+    words = ops.pack(U, t)
+    assert tuple(words.shape) == (257, -(-w // 32)) and words.dtype == torch.int64
+    for k in range(words.shape[1]):
+        assert torch.equal(words[:, k], pack_word(U[:, 32 * k:32 * k + 32], t[32 * k:32 * k + 32]))
+    assert torch.equal(ops.lsh_encode_words(A, V, t), words)
+    assert int(words.min()) >= 0 and int(words.max()) < 2 ** 32
+    if w <= 32:
+        assert torch.equal(ops.lsh_encode_word(A, V, t), words[:, 0])
+
+
+def test_wide_entries_reject_bad_operands():
+    A, V, t = torch.zeros(10, 6), torch.zeros(6, 129), torch.zeros(129)
+    with pytest.raises(ValueError, match="1..128"):
+        ops.project(A, V)
+    with pytest.raises(ValueError, match="1..128"):
+        ops.lsh_encode_words(A, V, t)
+    with pytest.raises(ValueError):
+        ops.pack(torch.zeros(10, 129), t)
+    with pytest.raises(ValueError):
+        ops.pack(torch.zeros(10, 8), torch.zeros(7))
+    with pytest.raises(TypeError):
+        ops.pack(torch.zeros(10, 8, dtype=torch.float64), torch.zeros(8))
+    with pytest.raises(ValueError):
+        ops.encode_dense(A, torch.zeros(6, 32), "mean")
+    before = dict(ops.launches_by_kernel)
+    ops.encode_dense(A, torch.zeros(6, 32))                       # CPU: plain, no launch
+    assert ops.launches_by_kernel == before
