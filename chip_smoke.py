@@ -10,7 +10,7 @@ in the built libraries' SASS that the bf16 flash_attention kernel runs its
 products on the tensor cores (HGMMA), that lsh_encode's products are fused
 (FFMA) and that hash_decode's sums are not (no FFMA), holds each kernel
 against its plain PyTorch version at the shapes its paths give it,
-and drives three paths through the port's entry points, with random
+and drives four paths through the port's entry points, with random
 weights and data from a seed:
 
   serve  the paper's full-width hash-compressed GraphSAGE
@@ -19,6 +19,13 @@ weights and data from a seed:
          169,343-node power-law graph (the size of ogbn-arxiv):
          ``GraphRuntime.from_spec`` -> ``rt.serve()`` -> 8 requests of 256
          nodes and one ``serve_many`` of 4;
+  gnn_train  the same model trained on the same graph through
+         ``GraphRuntime.train`` (batch 256, AdamW, prefetched batches): 40
+         steps, one forward and one backward ``hash_decode`` launch a step;
+         steps timed with and without prefetch, one step's stage breakdown
+         and profile, ``evaluate("val")``, and a run killed at step 10 and
+         resumed with ``GraphRuntime.resume`` against a straight one, bit
+         for bit;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -35,6 +42,11 @@ weights and data from a seed:
          (c=256, m=16, d_c=d_m=512, 3 layers, f32) trained 300 steps of
          512 through ``hash_decode`` and its backward
          (``repro_torch.launch.reconstruct.run``).
+
+The ``hash_decode`` backward kernel (the codebook gradient) is held
+bitwise against its plain version at 64 shapes and timed at a training
+frontier and at 61,696 rows beside the one-hot contraction it replaced
+and ``embedding_bag``'s backward.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
@@ -328,14 +340,41 @@ def time_variants() -> dict:
     return out
 
 
+def check_decode_case(shape, variant: str, seed: int) -> float:
+    """hash_decode at one shape against its plain version, bitwise, through
+    the launcher and in both variants; returns the largest error."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+    args = _operands(*shape, variant, seed=seed)
+    ref = hash_decode_ref(*args)
+    chosen = ops.launch_shape(shape[0], *args[1].shape, args[1].element_size(),
+                              args[3] is not None,
+                              torch.cuda.get_device_properties(0).multi_processor_count).variant
+    before = ops.hash_decode.launches
+    got = {chosen: ops.hash_decode(*args)}
+    torch.cuda.synchronize()
+    check(ops.hash_decode.launches == before + 1, "kernel did not launch")
+    other = "direct" if chosen == "staged" else "staged"
+    got[other] = ops._forward(*args, variant=other)     # both variants, bitwise
+    max_err = 0.0
+    for name, out in got.items():
+        err = float((out - ref).abs().max())
+        max_err = max(max_err, err)
+        same = torch.equal(out, ref)
+        print(f"[kernel] hash_decode {shape} {variant} {name} variant"
+              f"{' (the launcher takes it)' if name == chosen else ''}: "
+              f"bitwise={same} max_abs_err={err}", flush=True)
+        check(same, f"hash_decode {shape} {variant} {name} differs from its plain version")
+    return max_err
+
+
 def phase_kernel_check(B_main: int):
     """hash_decode vs its plain version, bitwise, at the shapes the serving
     path gives it (one request's frontier, and the coalesced frontier of a
     ``serve_many`` of 4), at the training path's (batch x seq token rows,
     bf16 codebooks) and at ragged ones; times at both serving shapes."""
     import torch
-    from repro_torch.kernels.hash_decode import ops
-    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
     m, c, d_c = 16, 256, 512
     cases = [((B_main, m, c, d_c), v) for v in
              ("float32", "float32+w0", "bfloat16", "int8+w0")]
@@ -344,28 +383,8 @@ def phase_kernel_check(B_main: int):
     cases += [((100, 8, 16, 96), "float32+w0"), ((33, 4, 4, 130), "int8"),
               ((7, 3, 8, 5), "bfloat16+w0"), ((REC_BATCH, m, c, d_c), "float32"),
               ((5000, m, c, 130), "int8+w0"), ((5000, 3, 8, 5), "bfloat16+w0")]
-    max_err = 0.0
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for i, (shape, variant) in enumerate(cases):
-        args = _operands(*shape, variant, seed=i)
-        ref = hash_decode_ref(*args)
-        chosen = ops.launch_shape(shape[0], *args[1].shape, args[1].element_size(),
-                                  args[3] is not None, sms).variant
-        before = ops.hash_decode.launches
-        got = {chosen: ops.hash_decode(*args)}
-        torch.cuda.synchronize()
-        check(ops.hash_decode.launches == before + 1, "kernel did not launch")
-        other = "direct" if chosen == "staged" else "staged"
-        got[other] = ops._forward(*args, variant=other)     # both variants, bitwise
-        for name, out in got.items():
-            err = float((out - ref).abs().max())
-            max_err = max(max_err, err)
-            same = torch.equal(out, ref)
-            print(f"[kernel] hash_decode {shape} {variant} {name} variant"
-                  f"{' (the launcher takes it)' if name == chosen else ''}: "
-                  f"bitwise={same} max_abs_err={err}", flush=True)
-            check(same, f"hash_decode {shape} {variant} {name} differs from its plain version")
-        del args, got, ref
+    max_err = max(check_decode_case(shape, variant, seed=i)
+                  for i, (shape, variant) in enumerate(cases))
     timing = time_at_shape(B_main, m, c, d_c)
     time_at_shape(4 * B_main, m, c, d_c)
     torch.cuda.empty_cache()
@@ -386,7 +405,8 @@ def _spec(lookup_impl: str, n_nodes: int, n_classes: int):
 
 
 def phase_slice():
-    """The port's serving path at full width; returns the launch count."""
+    """The port's serving path at full width; returns its launch counts
+    per kernel, the frontier cap and the graph."""
     import numpy as np
     import torch
     from repro_torch.core import embedding as emb_lib
@@ -416,6 +436,7 @@ def phase_slice():
 
     fa_ops.flash_attention.launches = 0
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
+    ops.hash_decode_backward.launches = 0
     ops.hash_decode.launches = 0               # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
@@ -429,16 +450,21 @@ def phase_slice():
     many = engine.serve_many(requests[8:12])
     torch.cuda.synchronize()
     many_ms = (time.perf_counter() - t0) * 1e3
-    launches = ops.hash_decode.launches         # ... and ends here
-    check(fa_ops.flash_attention.launches == 0, "the serving path ran attention")
-    check(sum(lsh_ops.launches_by_kernel.values()) == 0, "the serving path ran an encode")
+    launches = {"hash_decode": ops.hash_decode.launches,
+                "hash_decode_backward": ops.hash_decode_backward.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
+    check(launches["flash_attention"] == 0, "the serving path ran attention")
+    check(launches["lsh_encode"] == 0, "the serving path ran an encode")
+    check(launches["hash_decode_backward"] == 0, "the serving path ran a backward")
     check(all(n >= 1 for n in per_request), f"a request decoded without the kernel: {per_request}")
-    check(launches >= 9, f"kernel launched {launches} times for 9 engine calls")
+    check(launches["hash_decode"] >= 9,
+          f"kernel launched {launches['hash_decode']} times for 9 engine calls")
     stats = engine.stats()
     print(f"[slice] per-request ms (host clock, synchronised): "
           f"{[round(t, 3) for t in times]}; median of requests 3-8 "
           f"{float(np.median(times[2:])):.3f} ms", flush=True)
-    print(f"[slice] serve_many(4): {many_ms:.3f} ms; kernel launches "
+    print(f"[slice] serve_many(4): {many_ms:.3f} ms; launches "
           f"{launches}; rows decoded per request {stats['rows_decoded_per_request']}; "
           f"frontier cap {engine.frontier_cap}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B", flush=True)
@@ -479,7 +505,8 @@ def phase_slice():
           flush=True)
     check(worst <= 1e-6, f"embeddings differ from the gather path by {worst}")
     phase_breakdown(engine, requests[:8])
-    return launches, engine.frontier_cap
+    rt.close()
+    return launches, engine.frontier_cap, (rt.adj, rt.labels)
 
 
 def phase_breakdown(engine, requests):
@@ -663,11 +690,13 @@ def phase_train():
     by_kernel = fa_ops.flash_attention.launches_by_kernel
     by_kernel.update(dict.fromkeys(by_kernel, 0))
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
+    hd_ops.hash_decode_backward.launches = 0
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
                 log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "hash_decode_backward": hd_ops.hash_decode_backward.launches,
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
     launches["flash_attention_by_kernel"] = dict(by_kernel)
@@ -686,6 +715,8 @@ def phase_train():
           f"the bf16 training path's attention went to {by_kernel}, not only "
           f"to the tensor-core kernel")
     check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
+    check(launches["hash_decode_backward"] == LM_STEPS,
+          f"the hash_decode backward kernel launched {launches['hash_decode_backward']} times")
     # c=256, m=16: 128 bits, all four words in one pass over A
     check(launches["lsh_encode_by_kernel"] == {"project": 1, "pack": 1, "fused": 0},
           f"the vocabulary encode launched lsh_encode {launches['lsh_encode_by_kernel']}, "
@@ -875,7 +906,7 @@ def time_lm_kernels() -> dict:
           f"the host enqueuing a call in {fwd_enqueue_ms:.4f} ms), plain "
           f"{fwd_plain_ms:.4f} ms, embedding_bag "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound:.4f} ms by bytes ({fwd_bytes} B); "
-          f"backward (one-hot contraction) {bwd_ms:.4f} ms, plain autograd "
+          f"backward (the backward kernel) {bwd_ms:.4f} ms, plain autograd "
           f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.4f} ms by bytes ({bwd_bytes} B)",
           flush=True)
     torch.cuda.empty_cache()
@@ -1041,11 +1072,13 @@ def phase_reconstruct() -> dict:
     t0 = time.perf_counter()
     fa_ops.flash_attention.launches = 0
     hd_ops.hash_decode.launches = 0
+    hd_ops.hash_decode_backward.launches = 0
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))  # the path starts here
     res = run(**REC, steps=REC_STEPS, schemes=REC_SCHEMES, device="cuda",
               log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "hash_decode_backward": hd_ops.hash_decode_backward.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values()),
                 "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
     launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
@@ -1184,6 +1217,336 @@ def time_lsh() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 6: GraphSAGE training through GraphRuntime and the hash_decode
+# backward kernel
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = 300                     # the main path's run, with prefetch
+GNN_TIMED = 20                      # steps of each prefetch_depth timing run
+# AdamW's rate for the GNN runs: at RuntimeSpec's default 1e-2 the loss
+# spikes at step 2 and this width stays at the uniform predictor's loss
+# (ln 40) for about 100 steps; at 1e-3 it learns within 300
+GNN_LR = 1e-3
+GNN_CKPT = ROOT / "build" / "gnn_ckpt"
+
+
+def _bwd_operands(B, m, c, d_c, variant, seed):
+    """codes, g, w0 (or None) on the card, and the codebooks' dtype."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, c, (B, m)).astype(np.int32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((B, d_c)).astype(np.float32)).cuda()
+    dtype, _, with_w0 = variant.partition("+")
+    w0 = (torch.from_numpy(rng.standard_normal(d_c).astype(np.float32)).cuda()
+          if with_w0 else None)
+    return codes, g, w0, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+
+
+def phase_hd_backward_check(frontier_rows: int) -> tuple:
+    """The hash_decode backward kernel (the codebook gradient) against its
+    plain version run on CPU copies of the same operands, bitwise, and two
+    calls against each other, at B in {1, 512, a real training frontier,
+    61,696}, m in {3, 16}, d_c in {130, 512}, with and without w0, f32 and
+    bf16 codebooks.  Returns the number of cases and the largest error."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    n, worst = 0, 0.0
+    for B in (1, REC_BATCH, frontier_rows, 61_696):
+        for m, c in ((16, 256), (3, 16)):
+            for d_c in (512, 130):
+                for variant in ("float32", "float32+w0", "bfloat16", "bfloat16+w0"):
+                    codes, g, w0, dtype = _bwd_operands(B, m, c, d_c, variant, seed=n)
+                    before = ops.hash_decode_backward.launches
+                    a = ops.codebook_grad(codes, g, w0, c, dtype)
+                    b = ops.codebook_grad(codes, g, w0, c, dtype)
+                    torch.cuda.synchronize()
+                    check(ops.hash_decode_backward.launches == before + 2,
+                          "the backward kernel did not launch")
+                    ref = hash_decode_backward_ref(codes.cpu(), g.cpu(),
+                                                   None if w0 is None else w0.cpu(), c, dtype)
+                    same, again = torch.equal(a.cpu(), ref), torch.equal(a, b)
+                    err = float((a.cpu().float() - ref.float()).abs().max())
+                    worst = max(worst, err)
+                    if B in (frontier_rows, 61_696) or not (same and again):
+                        print(f"[backward] hash_decode_backward B={B} m={m} c={c} d_c={d_c} "
+                              f"{variant}: bitwise={same} (max_abs_err {err}), two calls "
+                              f"bitwise={again}", flush=True)
+                    check(same and again, f"hash_decode_backward {(B, m, c, d_c, variant)} "
+                                          f"differs from its plain version or itself")
+                    n += 1
+                    del codes, g, w0, a, b, ref
+    print(f"[backward] hash_decode_backward: {n} cases bitwise equal to the plain "
+          f"version, two calls bitwise equal in each", flush=True)
+    torch.cuda.empty_cache()
+    return n, worst
+
+
+def check_gnn_frontiers(sizes) -> float:
+    """The forward and the backward kernel at every frontier size the GNN
+    training run gave them (m=16, c=256, d_c=512, f32 codebooks, no w0:
+    the paper GraphSAGE's decode), each bitwise against its plain version;
+    returns the forward's largest error."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    m, c, d_c = 16, 256, 512
+    worst = 0.0
+    for i, B in enumerate(sizes):
+        worst = max(worst, check_decode_case((B, m, c, d_c), "float32", seed=100 + i))
+        codes, g, _, dtype = _bwd_operands(B, m, c, d_c, "float32", seed=100 + i)
+        got = ops.codebook_grad(codes, g, None, c, dtype)
+        ref = hash_decode_backward_ref(codes.cpu(), g.cpu(), None, c, dtype)
+        check(torch.equal(got.cpu(), ref),
+              f"hash_decode_backward at the training frontier B={B} differs from its plain version")
+        del codes, g, got, ref
+    print(f"[gnn_train] forward (both variants) and backward kernels bitwise to their plain "
+          f"versions at all {len(sizes)} frontier sizes of the run: {list(sizes)}", flush=True)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_hd_backward(rows: int) -> dict:
+    """The backward kernel at ``rows`` rows (m=16, c=256, d_c=512, f32, no
+    w0) beside its bounds, the one-hot contraction it replaced, its plain
+    version (index_add_ on the card) and the backward of
+    ``F.embedding_bag(mode="sum")`` over the flattened (m*c, d_c) table."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    m, c, d_c = 16, 256, 512
+    codes, g, _, _ = _bwd_operands(rows, m, c, d_c, "float32", seed=11)
+    kernel_ms, enqueue_ms = time_ms(lambda: ops.codebook_grad(codes, g, None, c, torch.float32), 20)
+
+    def onehot():
+        iota = torch.arange(c, dtype=codes.dtype, device=codes.device)
+        return torch.einsum("bmc,bd->mcd", (codes[:, :, None] == iota).float(), g)
+
+    onehot_ms, _ = time_ms(onehot, 5)
+    onehot_err = float((onehot() - ops.codebook_grad(codes, g, None, c, torch.float32)).abs().max())
+    plain_ms, _ = time_ms(lambda: hash_decode_backward_ref(codes, g, None, c, torch.float32), 5)
+    table = torch.zeros(m * c, d_c, device="cuda", requires_grad=True)
+    idx = codes.long() + (torch.arange(m, device="cuda") * c)[None, :]
+    out = F.embedding_bag(idx, table, mode="sum")
+    library_ms, _ = time_ms(lambda: torch.autograd.grad(out, table, g, retain_graph=True), 20)
+    lib_err = float((torch.autograd.grad(out, table, g, retain_graph=True)[0].reshape(m, c, d_c)
+                     - ops.codebook_grad(codes, g, None, c, torch.float32)).abs().max())
+    nbytes = rows * d_c * 4 + rows * m * 4 + m * c * d_c * 4
+    adds = rows * m * d_c
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    adds_ms = adds / F32_ADDS_PER_S * 1e3
+    bound_ms = max(bytes_ms, adds_ms)
+    bound_by = "bytes" if bytes_ms >= adds_ms else "operations"
+    print(f"[time] hash_decode_backward B={rows} m={m} c={c} d_c={d_c} f32: kernel "
+          f"{kernel_ms:.4f} ms (host enqueues a call in {enqueue_ms:.4f} ms), one-hot "
+          f"contraction {onehot_ms:.4f} ms (max diff {onehot_err}), plain (index_add_ on "
+          f"the card) {plain_ms:.4f} ms, embedding_bag backward {library_ms:.4f} ms (max "
+          f"diff {lib_err}); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B in "
+          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms); kernel "
+          f"{kernel_ms / bound_ms:.1f}x its bound", flush=True)
+    del codes, g, table, out
+    torch.cuda.empty_cache()
+    return dict(rows=rows, ms=kernel_ms, plain_ms=plain_ms, onehot_ms=onehot_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _gnn_spec(**overrides):
+    import dataclasses
+    from repro_torch.optim.adamw import AdamWConfig
+    return dataclasses.replace(_spec("auto", N_NODES, N_CLASSES), log_every=1,
+                               optimizer=AdamWConfig(lr=GNN_LR, weight_decay=0.0),
+                               **overrides)
+
+
+def _snapshot(tree):
+    return {k: _snapshot(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+    from repro_torch.nn.module import leaves_with_path
+    la, lb = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def _train_timed(rt, steps: int):
+    """``rt.train(steps)`` with the host clock stamped at every step's
+    metrics (log_every=1): the periods between stamps hold the batch fetch
+    as well as the step."""
+    stamps = []
+    res = rt.train(steps, on_metrics=lambda s, m: stamps.append(time.perf_counter()))
+    return res, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def check_gnn_grads_deterministic(rt, batch) -> None:
+    """Two gradients of the same loss on the same state and batch, leaf by
+    leaf: every backward on the step's path must give the same bits."""
+    import torch
+    from repro_torch.graph.engine import batch_to, batch_view
+    from repro_torch.models import gnn
+    from repro_torch.nn.module import leaves_with_path, value_and_grad
+    batch = batch_to(batch, rt.device)
+
+    def loss_fn(p):
+        logits = rt.model.logits(p, rt.model.apply(p, batch_view(batch)))
+        return gnn.node_loss(logits, batch["labels"])
+
+    (la, ga), (lb, gb) = (value_and_grad(loss_fn, rt.params) for _ in range(2))
+    grads_a, grads_b = dict(leaves_with_path(ga)), dict(leaves_with_path(gb))
+    differ = [("/".join(k), float((grads_a[k] - grads_b[k]).abs().max()))
+              for k in grads_a if not torch.equal(grads_a[k], grads_b[k])]
+    print(f"[gnn_train] two gradients of one step, leaf by leaf: "
+          f"{len(grads_a) - len(differ)} of {len(grads_a)} leaves bitwise equal; "
+          f"differing {differ}; losses equal {torch.equal(la, lb)}", flush=True)
+    check(not differ and torch.equal(la, lb), f"a backward on the GNN step is not "
+                                              f"deterministic: {differ}")
+
+
+def phase_gnn_train(graph):
+    """The paper's GraphSAGE trained at full width through
+    ``GraphRuntime.train`` with prefetch, on the serving phase's graph;
+    then prefetch against none, one step's breakdown and profile,
+    ``evaluate("val")`` and a killed-and-resumed run against a straight
+    one.  Returns the path's launch counts, the breakdown step's frontier
+    rows, the frontier rows of every step of the main run, and timings."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    from repro_torch.stages import StageTimer
+    shutil.rmtree(GNN_CKPT, ignore_errors=True)
+    t0 = time.perf_counter()
+    rt = GraphRuntime.from_spec(_gnn_spec(), graph=graph)
+    torch.cuda.synchronize()
+    print(f"[gnn_train] GraphRuntime.from_spec on {rt.device}: {time.perf_counter() - t0:.2f} s; "
+          f"splits {[len(v) for v in rt.splits.values()]}; prefetch_depth "
+          f"{rt.spec.prefetch_depth}; batch {rt.spec.batch_size}", flush=True)
+    check(rt.device.type == "cuda", "the training runtime is not on the card")
+    init = _snapshot(rt.params)
+    # one batch through the prefetching iterator, which is then rewound:
+    # load_state_dict stops the producer and drops what it had queued
+    start = rt.data_iter.state_dict()
+    check_gnn_grads_deterministic(rt, rt.data_iter.next_batch())
+    rt.data_iter.load_state_dict(start)
+    step, frontiers = rt.train_step, []
+
+    def recording_step(state, batch):       # the frontier rows of each step
+        frontiers.append(int(batch["frontier"].unique.shape[0]))
+        return step(state, batch)
+    rt.train_step = recording_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = 0
+    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
+    hd_ops.hash_decode.launches = 0
+    hd_ops.hash_decode_backward.launches = 0     # the training path's run starts here
+    res, periods = _train_timed(rt, GNN_STEPS)
+    torch.cuda.synchronize()
+    rt.train_step = step
+    launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "hash_decode_backward": hd_ops.hash_decode_backward.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    uniform = float(np.log(N_CLASSES))        # the loss of the uniform predictor
+    shown = {i + 1: losses[i] for i in sorted({*range(5), *range(24, GNN_STEPS, 25),
+                                               *range(GNN_STEPS - 5, GNN_STEPS)})}
+    print(f"[gnn_train] {GNN_STEPS} steps, prefetch_depth 2, lr {GNN_LR}: losses by step "
+          f"{shown}; mean of the first 5 {first}, of the last 5 {last} (uniform predictor "
+          f"{uniform}); launches {launches}; frontier rows a step {min(frontiers)}-{max(frontiers)} "
+          f"({len(set(frontiers))} sizes); "
+          f"max_memory_allocated {peak} B", flush=True)
+    check(all(np.isfinite(losses)), f"non-finite GNN loss {losses}")
+    check(last < uniform - 1.0, f"the GNN did not learn: the mean of the last 5 losses "
+                                f"{last} is not 1 below the uniform predictor's {uniform}")
+    check(len(frontiers) == GNN_STEPS, f"{len(frontiers)} frontiers for {GNN_STEPS} steps")
+    check(launches == {"hash_decode": GNN_STEPS, "hash_decode_backward": GNN_STEPS,
+                       "flash_attention": 0, "lsh_encode": 0},
+          f"expected one forward and one backward hash_decode launch a step: {launches}")
+    stats = rt.data_iter.stats()
+    print(f"[gnn_train] producer: {stats['n_produced']} batches, sampling+dedup "
+          f"{stats['sample_us'] / 1e3 / max(stats['n_produced'], 1):.3f} ms and the pinned "
+          f"copy {stats['put_us'] / 1e3 / max(stats['n_produced'], 1):.3f} ms a batch",
+          flush=True)
+
+    ev = rt.evaluate("val")
+    print(f"[gnn_train] evaluate('val'): accuracy {ev['accuracy']}, loss {ev['loss']}, "
+          f"n {ev['n']} of {len(rt.splits['val'])} val nodes", flush=True)
+    check(ev["n"] == len(rt.splits["val"]), "evaluate did not count every val node once")
+    check(np.isfinite(ev["loss"]), "non-finite eval loss")
+    check(ev["accuracy"] > 10 / N_CLASSES, f"val accuracy {ev['accuracy']} is not 10 times "
+                                           f"chance ({1 / N_CLASSES})")
+
+    # the step's period with prefetch (2) and without (0), from the same init
+    timing = {2: periods[1:]}
+    rt0 = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=0), graph=graph,
+                                 params=_snapshot(init))
+    _, periods0 = _train_timed(rt0, GNN_TIMED)
+    timing[0] = periods0[1:]
+    rt2 = GraphRuntime.from_spec(_gnn_spec(), graph=graph, params=_snapshot(init))
+    _, periods2 = _train_timed(rt2, GNN_TIMED)
+    rt2.close()
+    timing[2] = periods2[1:]
+    med = {d: float(np.median(v)) for d, v in timing.items()}
+    print(f"[gnn_train] step period (host clock, steps 2-{GNN_TIMED}; median): "
+          f"prefetch_depth 2 {med[2]:.3f} ms {[round(t, 3) for t in timing[2]]}; "
+          f"prefetch_depth 0 {med[0]:.3f} ms {[round(t, 3) for t in timing[0]]}", flush=True)
+
+    # where one step's time goes (no prefetch: sampling in this thread)
+    batch = None
+    with StageTimer() as timer:
+        t0 = time.perf_counter()
+        batch = rt0.data_iter.next_batch()
+        rt0.state, m = rt0.train_step(rt0.state, batch)
+        float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+    stages = {k: round(sum(v), 3) for k, v in timer.ms.items()}
+    dev_ms = sum(stages.get(k, 0.0) for k in ("unpack", "decode", "mlp", "sage", "logits",
+                                              "loss", "backward", "optimizer"))
+    print(f"[breakdown] one GNN training step under the stage timer: {step_ms:.3f} ms; "
+          f"stages (ms) {stages}; device stages {dev_ms:.3f} ms; frontier "
+          f"{batch['frontier'].unique.shape[0]} rows ({batch['frontier'].n_unique} unique)",
+          flush=True)
+    frontier_rows = int(batch["frontier"].unique.shape[0])
+    profile_step(rt0.train_step, rt0.state, rt0.data_iter.next_batch())
+
+    # killed and resumed: B trains 10 steps, is dropped, resumes to 20
+    straight = GraphRuntime.from_spec(
+        _gnn_spec(ckpt_dir=str(GNN_CKPT / "a"), ckpt_every=10), graph=graph,
+        params=_snapshot(init))
+    run_a = straight.train(20)
+    straight.close()
+    killed = GraphRuntime.from_spec(
+        _gnn_spec(ckpt_dir=str(GNN_CKPT / "b"), ckpt_every=10), graph=graph,
+        params=_snapshot(init))
+    run_b = killed.train(10)
+    killed.close()
+    del killed
+    resumed = GraphRuntime.resume(str(GNN_CKPT / "b"), graph=graph)
+    run_c = resumed.train(20)
+    resumed.close()
+    same_losses = run_b.losses + run_c.losses == run_a.losses
+    same_params = _same_tree(resumed.params, straight.params)
+    print(f"[gnn_train] kill and resume: straight losses 11-20 {run_a.losses[10:]}; resumed "
+          f"from step {run_c.resumed_from}: {run_c.losses}; losses bitwise {same_losses}, "
+          f"final params bitwise {same_params}", flush=True)
+    check(run_c.resumed_from == 10 and same_losses and same_params,
+          "the resumed run differs from the straight one")
+    rt.close()
+    shutil.rmtree(GNN_CKPT, ignore_errors=True)
+    del rt, rt0, straight, resumed
+    torch.cuda.empty_cache()
+    return launches, frontier_rows, sorted(set(frontiers)), dict(periods=med, peak=peak)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1200,9 +1563,13 @@ def main() -> None:
     timing = phase_kernel_check(b_main)
     flash_err = phase_flash_check()
     phase_backward_check()
-    serve_launches, cap = phase_slice()
+    serve_launches, cap, graph = phase_slice()
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
     phase_small_reference()
+    gnn_launches, frontier_rows, frontier_sizes, _ = phase_gnn_train(graph)
+    del graph
+    timing["max_abs_err"] = max(timing["max_abs_err"], check_gnn_frontiers(frontier_sizes))
+    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
     train_launches, _ = phase_train()
@@ -1210,13 +1577,15 @@ def main() -> None:
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
+    bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696)}
     variants = time_variants()
     lsh_times = time_lsh()
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
-    hd_by_path = {"serve": serve_launches, "train": train_launches["hash_decode"],
-                  "reconstruct": rec_launches["hash_decode"]}
-    lsh_by_path = {"serve": 0, "train": train_launches["lsh_encode"],
-                   "reconstruct": rec_launches["lsh_encode"]}
+    paths = {"serve": serve_launches, "train": train_launches,
+             "reconstruct": rec_launches, "gnn_train": gnn_launches}
+    hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
+        {path: counts[kernel] for path, counts in paths.items()}
+        for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
     lsh_by_kernel = {k: train_launches["lsh_encode_by_kernel"][k]
                      + rec_launches["lsh_encode_by_kernel"][k]
                      for k in train_launches["lsh_encode_by_kernel"]}
@@ -1230,9 +1599,7 @@ def main() -> None:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",
-             launches=train_launches["flash_attention"],
-             launches_by_path={"serve": 0, "train": train_launches["flash_attention"],
-                               "reconstruct": 0},
+             launches=sum(flash_by_path.values()), launches_by_path=flash_by_path,
              launches_by_kernel=train_launches["flash_attention_by_kernel"],
              max_abs_err=flash_err, **lm["flash"]),
         dict(name="lsh_encode", route="cuda",
@@ -1245,6 +1612,13 @@ def main() -> None:
              vocabulary_differing_bits=vocab_flips,
              library="torch.mm(A, V_all), the projection kernel's product",
              **lsh_times[rec_shape]["project"], kernels=lsh_times),
+        dict(name="hash_decode_backward", route="cuda",
+             source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
+             replaces="src/repro/kernels/hash_decode/ops.py:125 (_bwd, XLA; not a TPU kernel)",
+             launches=sum(bwd_by_path.values()), launches_by_path=bwd_by_path,
+             bitwise=bwd_err == 0.0, bitwise_cases=bwd_cases, max_abs_err=bwd_err,
+             **{k: v for k, v in bwd_times["frontier"].items() if k != "rows"},
+             frontier_rows=frontier_rows, at_61696=bwd_times["cap"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

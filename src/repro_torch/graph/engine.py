@@ -1,15 +1,28 @@
-"""Unified GNN model entry point (counterpart of the model part of
-``repro/graph/engine.py``).
+"""Streaming graph-training engine (sample -> lookup -> decode -> train);
+counterpart of the single-device part of ``repro/graph/engine.py``.
 
-``GNNModel.apply(params, batch)`` accepts a ``FrontierBatch`` (dedup-decode
-GraphSAGE) or a naive level list, with the decode backend resolved once
-from the config's ``lookup_impl`` for the model's device.  Batch sources,
-prefetch and the training step come with the training slice.
+* ``GNNModel.apply(params, batch)`` accepts a ``FrontierBatch`` (dedup-decode
+  GraphSAGE), a naive level list or a batch dict, with the decode backend
+  resolved once from the config's ``lookup_impl`` for the model's device.
+  It carries gradients; the serving and evaluation call sites run it under
+  ``torch.no_grad``.
+* ``SageBatchSource`` draws one batch per step, a pure function of
+  ``(seed, shard, step)``: the targets from a generator seeded by the step,
+  the neighbours counter-based (``NeighborSampler.sample_hashed``), so
+  prefetching and resuming replay the same sequence bit for bit.
+* ``PrefetchIterator`` runs a source in a producer thread, ``depth`` batches
+  ahead.  On a CUDA device each batch is copied from pinned host memory on a
+  side stream; the consumer's stream waits on the copy's event before it
+  uses the batch, and the moved tensors are recorded on the consumer's
+  stream so the caching allocator does not hand their memory out early.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -17,19 +30,20 @@ import torch
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import get_backend
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graph.sampler import FrontierBatch
+from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, stream_key
 from repro_torch.models import gnn
 from repro_torch.stages import stage
 
-Batch = Union[FrontierBatch, Sequence[Any]]
+Batch = Union[FrontierBatch, Sequence[Any], Dict[str, Any]]
+
+CODES_ON_HOST_SLICE = "the codes-on-host slice (ROADMAP A.15)"
 
 
 class GNNModel:
     """Single entry point over the ported GNN family (GraphSAGE).
 
     ``apply`` moves host batches to the model's device: a ``FrontierBatch``
-    runs the dedup-decode forward, a list of levels the naive one.
-    Inference only: it runs under ``torch.no_grad``."""
+    runs the dedup-decode forward, a list of levels the naive one."""
 
     def __init__(self, cfg: GNNConfig, device: DeviceLike = None,
                  backend: Optional[str] = None):
@@ -42,22 +56,59 @@ class GNNModel:
     def init(self, generator: torch.Generator, codes=None, aux=None):
         return gnn.init_gnn(generator, self.cfg, codes=codes, aux=aux)
 
-    @torch.no_grad()
     def apply(self, params, batch: Batch) -> torch.Tensor:
+        if isinstance(batch, dict):
+            batch = batch_view(batch)
         if isinstance(batch, FrontierBatch):
             with stage("h2d"):
                 batch = batch.to(self.device)
             return gnn.sage_forward_frontier(params, batch, self.cfg,
                                              backend=self.backend)
         if isinstance(batch, (list, tuple)):
-            levels = [torch.as_tensor(np.asarray(l)).to(self.device, torch.int64)
-                      for l in batch]
+            with stage("h2d"):
+                levels = [torch.as_tensor(l).to(self.device, torch.int64) for l in batch]
             return gnn.sage_forward(params, levels, self.cfg, backend=self.backend)
         raise TypeError(f"GNNModel.apply: unsupported batch type {type(batch)!r}")
 
-    @torch.no_grad()
     def logits(self, params, hidden):
         return gnn.node_logits(params, hidden, self.cfg)
+
+
+def batch_view(batch: Dict[str, Any]) -> Batch:
+    """The model-facing view of a source's batch dict ({"frontier": ...}
+    or {"levels": ...})."""
+    if "frontier" in batch:
+        return batch["frontier"]
+    if "levels" in batch:
+        return batch["levels"]
+    raise KeyError("batch dict has neither 'frontier' nor 'levels'")
+
+
+def map_arrays(batch, fn: Callable):
+    """``fn`` over every array of a batch (dicts, tuples, lists and
+    ``FrontierBatch``es keep their structure)."""
+    if isinstance(batch, FrontierBatch):
+        return FrontierBatch(fn(batch.unique), tuple(fn(m) for m in batch.index_maps),
+                             batch.n_unique,
+                             None if batch.codes is None else fn(batch.codes))
+    if isinstance(batch, dict):
+        return {k: map_arrays(v, fn) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(map_arrays(v, fn) for v in batch)
+    return fn(batch)
+
+
+def batch_to(batch, device: torch.device):
+    """Every array of ``batch`` as an int64 tensor on ``device``."""
+    return map_arrays(batch, lambda a: torch.as_tensor(a).to(device, torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# batch sources (host side, deterministic per step)
+# ---------------------------------------------------------------------------
+
+def _step_rng(seed: int, step: int) -> np.random.Generator:
+    return np.random.default_rng((seed * 1_000_003 + 12_582_917) + step)
 
 
 def default_frontier_cap(batch_size: int, fanouts, pad_to: int,
@@ -71,3 +122,268 @@ def default_frontier_cap(batch_size: int, fanouts, pad_to: int,
         worst += batch_size * per_target
     cap = min(worst, int(n_nodes))
     return -(-cap // max(pad_to, 1)) * max(pad_to, 1)
+
+
+class SageBatchSource:
+    """Per-step GraphSAGE batch source over a node pool with labels.
+
+    Each step draws one global batch of ``batch_size * n_shards`` nodes
+    from a generator seeded by ``(seed, step)``, keeps the shard's
+    contiguous slice and samples its neighbourhoods counter-based, keyed by
+    each target's global batch position, so the union of the shards'
+    batches is the batch one ``n_shards=1`` source of the global size
+    draws, and the state is the step alone.
+
+    ``dedup=True`` emits {"frontier": FrontierBatch, "labels": y};
+    ``dedup=False`` emits {"levels": tuple, "labels": y}.
+    ``frontier_cap`` pads every frontier to exactly that many rows.
+    """
+
+    def __init__(self, sampler: NeighborSampler, nodes, labels, batch_size: int,
+                 seed: int = 0, dedup: bool = True, pad_to: int = 256,
+                 shard: int = 0, n_shards: int = 1,
+                 frontier_cap: Optional[int] = None):
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} out of range for {n_shards} shards")
+        self.sampler = sampler
+        self.nodes = np.asarray(nodes)
+        self.labels = np.asarray(labels)
+        self.batch_size = int(batch_size)
+        self.seed = int(seed)
+        self.dedup = dedup
+        self.pad_to = pad_to
+        self.shard = int(shard)
+        self.n_shards = int(n_shards)
+        self.frontier_cap = frontier_cap
+        self.step = 0
+
+    def next_batch(self) -> Dict[str, Any]:
+        with stage("sample"):
+            rng = _step_rng(self.seed, self.step)
+            key = stream_key(self.seed, self.step)
+            self.step += 1
+            global_b = self.batch_size * self.n_shards
+            replace = global_b > self.nodes.shape[0]
+            # every shard draws the same global batch and keeps its slice
+            ids_g = rng.choice(self.nodes, global_b, replace=replace).astype(np.int32)
+            lo = self.shard * self.batch_size
+            ids = ids_g[lo:lo + self.batch_size]
+            gpos = np.arange(lo, lo + self.batch_size, dtype=np.uint64)
+            y = self.labels[ids].astype(np.int32)
+            levels = self.sampler.sample_hashed(ids, gpos, key)
+        if not self.dedup:
+            return {"levels": tuple(levels), "labels": y}
+        with stage("dedup"):
+            fb = FrontierBatch.from_levels(levels, pad_to=self.pad_to,
+                                           cap=self.frontier_cap)
+        return {"frontier": fb, "labels": y}
+
+    # -- checkpointable state -------------------------------------------
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self.step, "seed": self.seed,
+                "shard": self.shard, "n_shards": self.n_shards}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError("restoring a sage batch source from a different run")
+        if (int(state.get("shard", 0)) != self.shard
+                or int(state.get("n_shards", 1)) != self.n_shards):
+            raise ValueError("restoring a sage batch source onto a different "
+                             "shard layout")
+        self.step = int(state["step"])
+
+
+# ---------------------------------------------------------------------------
+# async prefetch
+# ---------------------------------------------------------------------------
+
+class _OnCard:
+    """A batch copied to the card on the producer's side stream, and the
+    event that copy recorded."""
+
+    def __init__(self, batch, event: torch.cuda.Event):
+        self.batch = batch
+        self.event = event
+
+
+def _used_on(t: torch.Tensor, stream: torch.cuda.Stream) -> torch.Tensor:
+    t.record_stream(stream)
+    return t
+
+
+class PrefetchIterator:
+    """Host-to-device pipeline around a batch source: a producer thread
+    calls ``source.next_batch()`` and moves the batch to ``device``,
+    keeping up to ``depth`` batches in flight, so sampling and the copy
+    overlap with the step consuming the previous batch.  ``device=None``
+    hands the host batches over as they are.
+
+    On a CUDA device the producer gathers each batch's arrays into one
+    pinned buffer, copies it with ``non_blocking=True`` on a side stream,
+    records an event and waits for it (so ``put_us`` is the real
+    transfer); ``next_batch`` makes the consumer's current stream wait on
+    that event and records the moved tensors on it.
+
+    Resume semantics: each queued batch carries the source state captured
+    after producing it, and ``state_dict()`` is that of the last batch the
+    consumer took, so a checkpoint restores to exactly the next batch
+    however far ahead the producer ran.  ``close()`` is a pause: it drops
+    the batches in flight and rewinds the source, and a later
+    ``next_batch`` restarts the producer.  A producer's error is raised on
+    the consumer's side.
+
+    ``code_gather`` (codes kept on the host) is not ported yet and raises.
+    """
+
+    def __init__(self, source, depth: int = 2, device: DeviceLike = None,
+                 code_gather=None):
+        if code_gather is not None:
+            raise NotImplementedError(
+                f"PrefetchIterator(code_gather=...) is not ported yet; it comes "
+                f"with {CODES_ON_HOST_SLICE}")
+        self.source = source
+        self.depth = max(1, int(depth))
+        self.device = None if device is None else torch.device(device)
+        self._stream = None
+        if self.device is not None and self.device.type == "cuda":
+            if self.device.index is None:   # the producer thread needs the index
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            self._stream = torch.cuda.Stream(device=self.device)
+        self._lock = threading.Lock()     # serialises (re)starts vs producer
+        self._stop = threading.Event()
+        self._err: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        self._last_state = self._snapshot()
+        self._n_produced = 0
+        self._sample_us = 0.0
+        self._put_us = 0.0
+        self._start()
+
+    # -- internals -------------------------------------------------------
+    def _snapshot(self):
+        if hasattr(self.source, "state_dict"):
+            return self.source.state_dict()
+        return None
+
+    def _start(self):
+        self._stop = threading.Event()
+        self._err = None
+        self._q = queue.Queue(maxsize=self.depth)
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="engine-prefetch")
+        self._thread.start()
+
+    def _put(self, batch):
+        if self.device is None:
+            return batch
+        if self._stream is None:
+            return batch_to(batch, self.device)
+        # one pinned buffer and one copy for all of the batch's arrays
+        arrays = []
+        map_arrays(batch, lambda a: arrays.append(np.asarray(a, np.int64).ravel()))
+        pinned = torch.from_numpy(np.concatenate(arrays)).pin_memory()
+        with torch.cuda.stream(self._stream):
+            on_card = pinned.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        event.synchronize()
+        offset = 0
+
+        def view(a):
+            nonlocal offset
+            shape = np.shape(a)
+            n = int(np.prod(shape))
+            offset += n
+            return on_card[offset - n:offset].view(shape)
+
+        return _OnCard(map_arrays(batch, view), event)
+
+    def _produce(self):
+        stop, q = self._stop, self._q
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self.device)
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                with self._lock:
+                    if stop.is_set():
+                        return
+                    batch = self.source.next_batch()
+                    state = self._snapshot()
+                t1 = time.perf_counter()
+                batch = self._put(batch)
+                t2 = time.perf_counter()
+                self._sample_us += (t1 - t0) * 1e6
+                self._put_us += (t2 - t1) * 1e6
+                self._n_produced += 1
+                item = (batch, state)
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # noqa: BLE001  (raised on the consumer side)
+            self._err = e
+
+    # -- consumer API ----------------------------------------------------
+    def next_batch(self):
+        if self._thread is None:    # closed (e.g. by run_training): restart
+            self._start()
+        thread, q = self._thread, self._q
+        while True:
+            try:
+                batch, state = q.get(timeout=0.1)
+            except queue.Empty:
+                if self._err is not None:
+                    raise self._err
+                if thread is None or not thread.is_alive():
+                    raise RuntimeError("prefetch producer exited without a batch")
+                continue
+            self._last_state = state
+            if isinstance(batch, _OnCard):
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(batch.event)
+                batch = map_arrays(batch.batch, lambda t: _used_on(t, consumer))
+            return batch
+
+    def close(self):
+        """Stop the producer and drop the batches in flight; the source is
+        rewound to the last consumed batch, so a later ``next_batch``
+        continues the exact sequence."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        if self._last_state is not None and hasattr(self.source, "load_state_dict"):
+            self.source.load_state_dict(self._last_state)
+
+    def stats(self) -> Dict[str, float]:
+        """Producer-side wall clock since construction: ``sample_us`` (the
+        source's ``next_batch``) and ``put_us`` (the device copy, waited
+        for), and the number of batches produced."""
+        return {"n_produced": self._n_produced, "sample_us": self._sample_us,
+                "put_us": self._put_us}
+
+    # -- checkpointable state -------------------------------------------
+    def state_dict(self):
+        return self._last_state
+
+    def load_state_dict(self, state) -> None:
+        self.close()
+        if hasattr(self.source, "load_state_dict"):
+            self.source.load_state_dict(state)
+        self._last_state = self._snapshot()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -1,57 +1,49 @@
-"""GraphRuntime: one declarative spec → embed / serve; counterpart of
-``repro/graph/runtime.py``.
+"""GraphRuntime: one declarative spec -> train / evaluate / embed / serve;
+counterpart of ``repro/graph/runtime.py``.
 
     spec = RuntimeSpec(graph=GraphSource(n_nodes=20_000),
                        model=paper_gnn_config("sage", n_nodes=20_000))
     rt = GraphRuntime.from_spec(spec)            # on the CUDA device
+    rt.train()                                   # spec.total_steps steps
+    rt.evaluate("val")                           # {"accuracy", "loss", "n"}
     engine = rt.serve(cache_capacity=0)          # GraphInferenceEngine
+    rt = GraphRuntime.resume(spec.ckpt_dir)      # from the newest checkpoint
 
 ``RuntimeSpec`` has every field of the JAX package's spec, so a JAX
 ``RuntimeSpec.to_json()`` loads here unchanged (``from_json``) and
-round-trips.  What this slice of the port runs is the single-device,
-frozen-params serving path; training (``train``, ``evaluate``,
-``resume``), sharding, the continuous-batching tier and elastic training
-are later slices, and a spec that asks for them raises
-``NotImplementedError`` naming the slice.
+round-trips.  What the port runs is single-device minibatched GraphSAGE:
+sharding, the hot-node cache and continuous batching, full-graph models,
+codes on the host and elastic training are later slices, and a spec that
+asks for them raises ``NotImplementedError`` naming the slice.
 
-Graph, codes and init are pure functions of the spec's seeds: the graph
-and the sampler are numpy (identical to the JAX package's), the LSH
-projections and weights come from a ``torch.Generator`` seeded with
-``init_seed`` on the runtime's device.  Parity with a JAX-built runtime
-goes through ``params=`` (``repro_torch.interop.params_from_jax``).
+Graph, splits and batches are pure functions of the spec's seeds (numpy,
+identical to the JAX package's); the LSH projections and weights come from
+a ``torch.Generator`` seeded with ``init_seed`` on the runtime's device.
+Parity with a JAX-built runtime goes through ``params=``
+(``repro_torch.interop.params_from_jax``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import EmbeddingSpec, GNNConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
-from repro_torch.graph.engine import GNNModel
+from repro_torch.graph.engine import GNNModel, PrefetchIterator, SageBatchSource, _step_rng
+from repro_torch.graph.generate import train_val_test_split
 from repro_torch.graph.sampler import NeighborSampler
+from repro_torch.nn.module import map_tree
+from repro_torch.optim.adamw import AdamWConfig
 
 FULLGRAPH_MODELS = ("gcn", "sgc", "gin")
 
 
 # -- field-only copies of the JAX package's nested spec configs -------------
-
-@dataclasses.dataclass(frozen=True)
-class AdamWConfig:
-    """Optimizer knobs (``repro/optim/adamw.py``); read by the training
-    slice, carried here so specs round-trip."""
-    lr: float = 1e-3
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
-    weight_decay: float = 0.01
-    clip_norm: Optional[float] = None
-    moments_dtype: str = "float32"
-
 
 @dataclasses.dataclass(frozen=True)
 class BatchingSpec:
@@ -105,8 +97,8 @@ class GraphSource:
 @dataclasses.dataclass(frozen=True)
 class RuntimeSpec:
     """Everything needed to build the pipeline; the JAX package's fields,
-    names and defaults.  Fields of later slices (optimizer, loop,
-    checkpointing, prefetch) are carried for the round trip."""
+    names and defaults.  Fields of later slices (shards, batching,
+    elastic) are carried for the round trip."""
 
     graph: GraphSource
     model: GNNConfig
@@ -185,12 +177,22 @@ def _check_ported(spec: RuntimeSpec) -> None:
     if emb.cache_capacity > 0 or emb.cache_plan_misses:
         later.append("cache_capacity/cache_plan_misses: the hot-node cache "
                      "slice (ROADMAP A.11)")
+    if emb.codes_placement != "device":
+        later.append(f"codes_placement={emb.codes_placement!r}: the "
+                     f"codes-on-host slice (ROADMAP A.15)")
     if later:
         raise NotImplementedError("not ported yet — " + "; ".join(later))
 
 
 class GraphRuntime:
-    """Build once from a spec, then ``embed`` / ``serve`` on one device."""
+    """Build once from a spec, then ``train`` / ``evaluate`` / ``embed`` /
+    ``serve`` on one device.
+
+    Construction wires graph -> codes -> train state -> splits -> sampler
+    -> batch source -> (prefetching) iterator -> train step -> checkpoint
+    manager the way the JAX runtime does.  ``state`` (params, optimizer,
+    step), ``data_iter`` and ``train_step`` are exposed for callers that
+    drive steps themselves."""
 
     def __init__(self, spec: RuntimeSpec, *, adj, labels, device: torch.device,
                  params=None):
@@ -214,10 +216,28 @@ class GraphRuntime:
             codes = (emb_lib.make_codes(gen, ecfg, aux=adj)
                      if ecfg.is_compressed else None)
             params = self.model.init(gen, codes=codes)
-        self._params = params
+        from repro_torch.train.step import init_gnn_train_state, make_gnn_train_step
+        self.state = init_gnn_train_state(None, cfg, params=params)
+
+        tr, va, te = train_val_test_split(spec.split_seed, cfg.n_nodes, spec.split_frac)
+        self.splits = {"train": tr, "val": va, "test": te}
         self.sampler = NeighborSampler(adj, cfg.fanouts, max_deg=spec.max_deg,
                                        seed=spec.data_seed)
+        self.source = SageBatchSource(self.sampler, tr, self.labels, spec.batch_size,
+                                      seed=spec.data_seed, dedup=spec.dedup,
+                                      pad_to=spec.pad_to, frontier_cap=spec.frontier_cap)
+        # prefetch is a knob, not a code path: the step takes host or
+        # device batches alike
+        self.data_iter = (PrefetchIterator(self.source, depth=spec.prefetch_depth,
+                                           device=device)
+                          if spec.prefetch_depth > 0 else self.source)
+        self.train_step = make_gnn_train_step(cfg, spec.optimizer, device)
+        self.ckpt = None
+        if spec.ckpt_dir:
+            from repro_torch.train.checkpoint import CheckpointManager
+            self.ckpt = CheckpointManager(spec.ckpt_dir, keep=2)
 
+    # -- construction ----------------------------------------------------
     @classmethod
     def from_spec(cls, spec: RuntimeSpec,
                   graph: Optional[Tuple[Any, np.ndarray]] = None,
@@ -231,26 +251,102 @@ class GraphRuntime:
         adj, labels = spec.graph.build() if graph is None else graph
         return cls(spec, adj=adj, labels=labels, device=device, params=params)
 
+    @classmethod
+    def resume(cls, ckpt_dir: str, graph: Optional[Tuple[Any, np.ndarray]] = None,
+               device: DeviceLike = None) -> "GraphRuntime":
+        """Rebuild a runtime from the spec in ``ckpt_dir``'s newest
+        checkpoint and restore its params, optimizer and data state, so
+        ``evaluate`` / ``embed`` / ``serve`` see the trained model and a
+        later ``train`` continues the exact step sequence."""
+        from repro_torch.train.checkpoint import CheckpointManager
+        extra = CheckpointManager(ckpt_dir).read_extra()
+        if extra is None or "spec" not in extra:
+            raise FileNotFoundError(f"no checkpoint with a runtime spec under {ckpt_dir!r}")
+        spec = dataclasses.replace(RuntimeSpec.from_dict(extra["spec"]), ckpt_dir=ckpt_dir)
+        rt = cls.from_spec(spec, graph=graph, device=device)
+        restored = rt.ckpt.restore_latest(rt.state)
+        if restored is not None:
+            _step, rt.state, rextra = restored
+            if "data" in rextra:
+                rt.data_iter.load_state_dict(rextra["data"])
+        return rt
+
+    # -- training --------------------------------------------------------
     @property
     def params(self):
-        return self._params
+        return self.state["params"]
 
     @property
     def codes(self) -> Optional[torch.Tensor]:
         """The packed code buffer (int64 words), or None for dense kinds."""
-        return self._params["embed"].get("codes_buf")
+        return self.params["embed"].get("codes_buf")
 
+    def train(self, steps: Optional[int] = None,
+              on_metrics: Optional[Callable[[int, Dict], None]] = None,
+              fence: Optional[Callable[[int], None]] = None):
+        """Run the loop for ``steps`` (default ``spec.total_steps``) and keep
+        the resulting state; returns the ``LoopResult``.  With
+        ``spec.ckpt_dir`` set, ``steps`` is the absolute target: the loop
+        resumes from the newest checkpoint (params, optimizer, data state;
+        every manifest carries the spec and the shard topology) and trains
+        the gap.  ``fence``: the loop's step-fence callback."""
+        from repro_torch.train.loop import LoopConfig, run_training
+        spec = self.spec
+        total = int(steps if steps is not None else spec.total_steps)
+        res = run_training(
+            self.train_step, self.state, self.data_iter,
+            LoopConfig(total_steps=total, ckpt_every=spec.ckpt_every,
+                       log_every=spec.log_every),
+            ckpt=self.ckpt, on_metrics=on_metrics,
+            extra_base={"spec": spec.to_dict()}, fence=fence,
+            topology={"n_shards": spec.n_shards, "batch_size": spec.batch_size})
+        self.state = res.state
+        return res
+
+    # -- evaluation ------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, split: str = "val",
+                 batch_size: Optional[int] = None) -> Dict[str, float]:
+        """Accuracy and loss over a named split ("train" / "val" / "test")
+        in minibatches of ``eval_batch`` frontiers, neighbours drawn from
+        ``(eval_seed, batch index)`` so repeat calls agree; the short last
+        batch is padded and the padding masked, so every split node counts
+        once."""
+        from repro_torch.models import gnn
+        nodes = self.splits[split]
+        params = self.params
+        bs = int(batch_size or self.spec.eval_batch)
+        correct, loss_sum, seen = 0, 0.0, 0
+        for bi, s in enumerate(range(0, len(nodes), bs)):
+            batch = np.asarray(nodes[s:s + bs])
+            n_real = batch.shape[0]
+            if n_real < bs:                      # pad (masked out below)
+                batch = np.concatenate([batch, np.full(bs - n_real, batch[0], batch.dtype)])
+            fb = self.sampler.sample_frontier(batch.astype(np.int32), pad_to=self.spec.pad_to,
+                                              rng=_step_rng(self.spec.eval_seed, bi))
+            logits = self.model.logits(params, self.model.apply(params, fb))
+            logits = logits[:n_real].float().cpu()
+            labels = torch.from_numpy(self.labels[batch[:n_real]].astype(np.int64))
+            correct += int((logits.argmax(-1) == labels).sum())
+            loss_sum += float(gnn.node_loss(logits, labels)) * n_real
+            seen += n_real
+        return {"accuracy": correct / max(seen, 1), "loss": loss_sum / max(seen, 1),
+                "n": seen}
+
+    # -- inference -------------------------------------------------------
+    @torch.no_grad()
     def embed(self, node_ids) -> np.ndarray:
         """Final hidden representations (B, H) for ``node_ids`` through the
         current params (neighbour draws seeded by ``eval_seed``)."""
         ids = np.asarray(node_ids, np.int32)
         rng = np.random.default_rng(self.spec.eval_seed)
         fb = self.sampler.sample_frontier(ids, pad_to=self.spec.pad_to, rng=rng)
-        return self.model.apply(self._params, fb).cpu().numpy()
+        return self.model.apply(self.params, fb).cpu().numpy()
 
     def serve(self, *, batching=None, **overrides):
-        """Freeze the current params into a ``GraphInferenceEngine`` on the
-        runtime's device.  Keyword overrides go to the engine constructor
+        """Freeze a copy of the current params into a
+        ``GraphInferenceEngine`` on the runtime's device (later training
+        does not move it).  Keyword overrides go to the engine constructor
         (``cache_capacity`` must stay 0 in this slice)."""
         if batching or self.spec.batching is not None:
             raise NotImplementedError(
@@ -260,4 +356,16 @@ class GraphRuntime:
         kw = dict(serve_batch=self.spec.serve_batch, pad_to=self.spec.pad_to,
                   device=self.device)
         kw.update(overrides)
-        return GraphInferenceEngine(self.cfg, self._params, self.sampler, **kw)
+        frozen = map_tree(lambda _, t: t.clone(), self.params)
+        return GraphInferenceEngine(self.cfg, frozen, self.sampler, **kw)
+
+    def close(self) -> None:
+        if hasattr(self.data_iter, "close"):
+            self.data_iter.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -27,6 +27,10 @@ from repro_torch.graph.csr import CSRMatrix
 
 Array = Union[np.ndarray, torch.Tensor]
 
+# k-th neighbour from counter p*_PATH_STRIDE + k + 1 (the +1 keeps child path
+# ids nonzero); a fanout must stay below the stride
+_PATH_STRIDE = np.uint64(1024)
+
 
 def _mix64(x: np.ndarray) -> np.ndarray:
     """splitmix64 finaliser — a bijective avalanche mix on uint64."""
@@ -90,9 +94,10 @@ class FrontierBatch:
         return cls(uniq.astype(np.int32), tuple(maps), int(n_unique))
 
     def to(self, device) -> "FrontierBatch":
-        """Tensors on ``device`` (ids and maps as int64)."""
+        """Tensors on ``device`` (ids and maps as int64); a batch already
+        there is returned as it is."""
         def t(a):
-            return torch.as_tensor(np.asarray(a)).to(device, torch.int64)
+            return torch.as_tensor(a).to(device, torch.int64)
         return FrontierBatch(t(self.unique), tuple(t(m) for m in self.index_maps),
                              int(self.n_unique),
                              None if self.codes is None else t(self.codes))
@@ -147,3 +152,41 @@ class NeighborSampler:
         """Sample and dedup in one call."""
         return FrontierBatch.from_levels(self.sample(batch_nodes, rng=rng),
                                          pad_to=pad_to)
+
+    # -- counter-based (shard-sliceable) sampling ------------------------
+    def _sample_level_hashed(self, nodes: np.ndarray, path_ids: np.ndarray,
+                             fanout: int, key: np.uint64):
+        """Neighbour slot k of the subtree node at path id p draws
+        ``mix64(key ^ (p*STRIDE + k + 1)) % deg``: no generator state, so
+        any slice of the batch reproduces exactly.  Returns (neighbours,
+        child path ids)."""
+        if fanout >= int(_PATH_STRIDE):
+            raise ValueError(f"fanout {fanout} >= path stride {_PATH_STRIDE}")
+        flat = nodes.reshape(-1)
+        pids = path_ids.reshape(-1).astype(np.uint64)
+        deg = np.minimum(self.deg[flat], self.max_deg)
+        with np.errstate(over="ignore"):
+            counters = (pids[:, None] * _PATH_STRIDE
+                        + np.arange(1, fanout + 1, dtype=np.uint64))
+            u = _mix64(counters ^ key)
+        idx = (u % np.maximum(deg, 1)[:, None].astype(np.uint64)).astype(np.int64)
+        nbr = self.table[flat[:, None], idx]
+        nbr = np.where(nbr < 0, flat[:, None], nbr)   # isolated: self-sample
+        return (nbr.reshape(*nodes.shape, fanout).astype(np.int32),
+                counters.reshape(*nodes.shape, fanout))
+
+    def sample_hashed(self, batch_nodes: np.ndarray, gpos: np.ndarray,
+                      key: np.uint64) -> List[np.ndarray]:
+        """The subtree below the target at global batch position
+        ``gpos[i]`` is a pure function of ``(key, gpos[i])`` (``key =
+        stream_key(seed, step)``), so shards sampling disjoint slices of one
+        global batch draw exactly the levels one host draws for all of it."""
+        levels = [np.asarray(batch_nodes).astype(np.int32)]
+        cur = levels[0]
+        pids = np.asarray(gpos, np.uint64) + np.uint64(1)   # 0 is never a path
+        for lvl, f in enumerate(self.fanouts):
+            # a subkey per level: counters are unique only within a level
+            lkey = np.uint64(_mix64(key + np.uint64(lvl) + np.uint64(1)))
+            cur, pids = self._sample_level_hashed(cur, pids, f, lkey)
+            levels.append(cur)
+        return levels

@@ -1,6 +1,7 @@
-"""Ablations of the hash_decode kernel on the card: what each part of the
-staged design is worth, and where it overtakes the direct gather, at the
-paths' shapes.
+"""Ablations of the hash_decode kernels on the card: what each part of the
+staged forward design is worth, where it overtakes the direct gather, and
+what the backward kernel's pass size, batch and warp count are worth, at
+the paths' shapes.
 
     PYTHONPATH=src python -m repro_torch.kernels.hash_decode.ablate
 
@@ -11,7 +12,9 @@ codes and codebooks (m = 16, c = 256, d_c = 512): one request's frontier
 (B = 61,696, f32), a training batch (8,192, bf16) and a reconstruction
 batch (512, f32).  Each is timed as a CUDA graph of 20 launches (so the
 host's enqueue time does not hide the card's), in turns, three rounds;
-lower is better.
+lower is better.  The backward variants (the codebook gradient, f32, no
+w0) run at a GraphSAGE training frontier (24,064 rows) and at one
+request's 61,696, timed by CUDA events over 20 launches, in turns.
 """
 
 from __future__ import annotations
@@ -37,6 +40,18 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     # 512 threads a block for every storage type (16 warps an SM)
     "threads_512": [("return sizeof(T) == 1 ? 512 : 1024;", "return 512;")],
 }
+FORWARD_VARIANTS = tuple(VARIANTS)
+BACKWARD_ROWS = (24_064, 61_696)
+BACKWARD_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    # the first design's pass: 64 rows, 16 loads in flight
+    "bwd_rows_64": [("constexpr int kBwdRows = 256;", "constexpr int kBwdRows = 64;"),
+                    ("constexpr int kBwdBatch = 32;", "constexpr int kBwdBatch = 16;")],
+    # 16 loads in flight instead of 32
+    "bwd_batch_16": [("constexpr int kBwdBatch = 32;", "constexpr int kBwdBatch = 16;")],
+    # 16 warps a block, each owning c/16 codes
+    "bwd_warps_16": [("constexpr int kBwdWarps = 8;", "constexpr int kBwdWarps = 16;")],
+}
+VARIANTS.update(BACKWARD_VARIANTS)
 
 
 def variant_sources(text: str) -> Dict[str, str]:
@@ -51,7 +66,45 @@ def _entries(path: Path):
     staged.argtypes = [p, p, i, p, p, p] + [i] * 10 + [p]
     direct.argtypes = [p, p, i, p, p, p] + [i] * 8 + [p]
     staged.restype = direct.restype = ctypes.c_int
-    return staged, direct
+    backward = lib.hash_decode_backward_launch
+    backward.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    backward.restype = ctypes.c_int
+    return staged, direct, backward
+
+
+def time_backward(libs, dev) -> List[dict]:
+    """The backward variants in turns, three rounds, at ``BACKWARD_ROWS``."""
+    import torch
+    rounds = []
+    for B in BACKWARD_ROWS:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        codes = torch.randint(0, C, (B, M), generator=gen, device="cuda", dtype=torch.int32)
+        g = torch.randn(B, D_C, generator=gen, device="cuda")
+        out = torch.empty(M, C, D_C, device="cuda")
+
+        def call(fn):
+            err = fn(codes.data_ptr(), g.data_ptr(), None, out.data_ptr(), 0, B, M, C, D_C,
+                     dev, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+
+        for r in range(3):
+            row = {}
+            for name in ("shipped", *BACKWARD_VARIANTS):
+                for _ in range(3):
+                    call(libs[name][2])
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(20):
+                    call(libs[name][2])
+                b.record()
+                torch.cuda.synchronize()
+                row[name] = a.elapsed_time(b) / 20
+            rounds.append(dict(round=r, B=B, backward=True, ms=row))
+            print(f"[ablate] backward round {r} B={B} float32: "
+                  + ", ".join(f"{name} {ms:.4f}" for name, ms in row.items()), flush=True)
+        del codes, g, out
+    return rounds
 
 
 def main() -> None:
@@ -110,7 +163,7 @@ def main() -> None:
             if err:
                 raise RuntimeError(f"launch failed: {err}")
 
-        calls = {name: staged(fns[0], shape) for name, fns in libs.items()}
+        calls = {name: staged(libs[name][0], shape) for name in FORWARD_VARIANTS}
         calls["units_x2"] = staged(libs["shipped"][0], finer)
         calls["direct"] = direct_call
         for r in range(3):
@@ -119,6 +172,7 @@ def main() -> None:
             print(f"[ablate] round {r} B={B} {storage}: "
                   + ", ".join(f"{name} {ms:.4f}" for name, ms in row.items()), flush=True)
         del codes, cb, out
+    rounds += time_backward(libs, dev)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rounds": rounds}), flush=True)
 
 

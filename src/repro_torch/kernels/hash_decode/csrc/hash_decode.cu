@@ -48,6 +48,31 @@
 // Ragged B and d_c are masked inside both kernels (d_c that is not a
 // multiple of the slice, or of 4, takes the element-wise variant), so
 // callers never pad.
+//
+// The backward (hash_decode_bwd_kernel, at the end) is the codebook
+// gradient, which the JAX package computes in XLA, not in Pallas (its
+// kernels/hash_decode/ops.py, _bwd: a one-hot contraction):
+//
+//   d_cb[j, k, :] = sum over b ascending with codes[b, j] = k of g[b, :] * w0
+//
+// summed in f32 from 0 with __fadd_rn (g * w0 rounded by __fmul_rn first),
+// then rounded once to the codebooks' type (f32 or bf16, round to nearest
+// even).  Every (j, k, f) sum belongs to one thread and runs in ascending
+// b, so the result is the plain version's (ref.py, index_add_ on the CPU)
+// bit for bit and the same on every run: no atomics.  What bounds it: the
+// gradient g must be read once (B*d_c*4 bytes, 49 MB at a 24,000-row
+// training frontier) and d_cb written once (8 MB at m = 16, c = 256,
+// d_c = 512); the one-hot contraction it replaces does 2*B*m*c*d_c flops
+// instead.  Its design: one block per (codebook j, 32-feature tile), its
+// (c, 32) f32 accumulator in shared memory (32 KiB at c = 256); lane l owns
+// feature f0 + l, and each of the 8 warps owns c/8 codes.  A warp sifts 256
+// rows' codes a pass (the next 256 already in flight): ballots write the
+// rows whose code is its own, in ascending order, to a list in shared
+// memory, and the warp then loads their g rows (128 coalesced bytes each)
+// 32 at a time before adding them in list order.  Each warp's passes run
+// one after another, so the time goes with B / 256 times a load's latency
+// and 32 shared-memory adds; g is read m times in all, mostly from L2
+// (m*B*d_c*4 bytes, 0.79 GB at 24,000 rows).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -341,6 +366,114 @@ void launch_typed(const int32_t* codes, const void* cb, const float* w0,
   }
 }
 
+// ----- backward: the codebook gradient --------------------------------------
+
+constexpr int kBwdTile = 32;     // features a block: one a lane
+constexpr int kBwdWarps = 8;     // warps a block, each owning ceil(c / 8) codes
+constexpr int kBwdRows = 256;    // rows a warp sifts a pass
+constexpr int kBwdBatch = 32;    // matched rows whose g a warp loads at once
+
+template <typename T> __device__ __forceinline__ T round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// grid (ceil(d_c / 32), m), kBwdWarps * 32 threads; dynamic shared memory:
+// the (c, kBwdTile) f32 accumulator, then a list of kBwdRows entries a warp.
+template <typename T, bool W0>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+hash_decode_bwd_kernel(const int32_t* __restrict__ codes, const float* __restrict__ g,
+                       const float* __restrict__ w0, T* __restrict__ d_cb,
+                       int B, int m, int c, int d_c, int codes_per_warp) {
+  constexpr int kSub = kBwdRows / 32;
+  extern __shared__ float s_acc[];                  // (c, kBwdTile)
+  const int j = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this warp's matched rows of a pass, ascending: code * kBwdRows + row
+  int* s_list = reinterpret_cast<int*>(s_acc + c * kBwdTile) + warp * kBwdRows;
+  const int f0 = blockIdx.x * kBwdTile;
+  const int f = f0 + lane;
+  const bool live = f < d_c;
+  for (int i = threadIdx.x; i < c * kBwdTile; i += blockDim.x) s_acc[i] = 0.f;
+  const float wf = (W0 && live) ? w0[f] : 1.f;
+  const int k_lo = warp * codes_per_warp;
+  const int k_hi = min(c, k_lo + codes_per_warp);
+  const unsigned below = (1u << lane) - 1u;         // the lanes below this one
+  // row b's code for codebook j, clamped as the forward clamps it; -1 past B
+  auto code_of = [&](int b) {
+    return b < B ? min(max(codes[static_cast<size_t>(b) * m + j], 0), c - 1) : -1;
+  };
+  int code[kSub];                                   // rows b0 + 32 i + lane
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) code[i] = code_of(32 * i + lane);
+  __syncthreads();
+  for (int b0 = 0; b0 < B; b0 += kBwdRows) {
+    int next[kSub];                                 // the next pass's, in flight
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) next[i] = code_of(b0 + kBwdRows + 32 * i + lane);
+    int count = 0;
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      const bool mine = code[i] >= k_lo && code[i] < k_hi;
+      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
+      if (mine) s_list[count + __popc(ballot & below)] = code[i] * kBwdRows + 32 * i + lane;
+      count += __popc(ballot);
+    }
+    __syncwarp();
+    for (int base = 0; base < count; base += kBwdBatch) {   // in list order
+      int e[kBwdBatch];
+      float v[kBwdBatch];
+#pragma unroll
+      for (int u = 0; u < kBwdBatch; ++u) e[u] = base + u < count ? s_list[base + u] : -1;
+#pragma unroll
+      for (int u = 0; u < kBwdBatch; ++u) {
+        v[u] = (e[u] >= 0 && live)
+                   ? g[static_cast<size_t>(b0 + e[u] % kBwdRows) * d_c + f] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBwdBatch; ++u) {
+        if (e[u] >= 0) {
+          float* a = s_acc + (e[u] / kBwdRows) * kBwdTile + lane;
+          *a = __fadd_rn(*a, W0 ? __fmul_rn(v[u], wf) : v[u]);
+        }
+      }
+    }
+    __syncwarp();                                   // the list is rewritten next pass
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) code[i] = next[i];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < c * kBwdTile; i += blockDim.x) {
+    const int k = i / kBwdTile, l = i % kBwdTile;
+    if (f0 + l < d_c) {
+      d_cb[(static_cast<size_t>(j) * c + k) * d_c + f0 + l] = round_to<T>(s_acc[i]);
+    }
+  }
+}
+
+template <typename T>
+int launch_backward(const int32_t* codes, const float* g, const float* w0, void* d_cb,
+                    int B, int m, int c, int d_c, cudaStream_t stream) {
+  T* out = static_cast<T*>(d_cb);
+  auto kernel = w0 != nullptr ? hash_decode_bwd_kernel<T, true>
+                              : hash_decode_bwd_kernel<T, false>;
+  const int smem = (c * kBwdTile + kBwdWarps * kBwdRows) * static_cast<int>(sizeof(float));
+  static int allowed[2] = {0, 0};                   // as in launch_staged
+  const int slot = w0 != nullptr;
+  if (smem > 48 * 1024 && smem > allowed[slot]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    allowed[slot] = smem;
+  }
+  const dim3 grid((d_c + kBwdTile - 1) / kBwdTile, m);
+  kernel<<<grid, kBwdWarps * 32, smem, stream>>>(codes, g, w0, out, B, m, c, d_c,
+                                                 (c + kBwdWarps - 1) / kBwdWarps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Pointers are device pointers
@@ -404,6 +537,28 @@ extern "C" int hash_decode_staged_launch(const void* codes, const void* cb,
     case kInt8:
       return launch_staged<int8_t>(ci, cb, w, s, o, B, m, c, d_c, vec, grid, smem,
                                    n_slices, rows_per_unit, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The codebook gradient: codes (B, m) int32, g (B, d_c) f32, w0 (d_c,) f32
+// or null -> d_cb (m, c, d_c) written whole, f32 (storage 0) or bf16 (1).
+extern "C" int hash_decode_backward_launch(const void* codes, const void* g,
+                                           const void* w0, void* d_cb, int storage,
+                                           int B, int m, int c, int d_c, int device,
+                                           void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int32_t* ci = static_cast<const int32_t*>(codes);
+  const float* gf = static_cast<const float*>(g);
+  const float* w = static_cast<const float*>(w0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case kF32:
+      return launch_backward<float>(ci, gf, w, d_cb, B, m, c, d_c, st);
+    case kBF16:
+      return launch_backward<__nv_bfloat16>(ci, gf, w, d_cb, B, m, c, d_c, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,14 +10,18 @@ grid walks the rows; below it, each row's codebook rows are read directly.
 Both give the plain version's bits.
 
 Every call goes through ``_HashDecode`` (a ``torch.autograd.Function``) on
-either device.  Its backward ports the JAX package's ``_bwd`` (``kernels/hash_decode/ops.py``):
+either device.  Its backward computes what the JAX package's ``_bwd``
+(``kernels/hash_decode/ops.py``, XLA) does:
 
-    d_cb[j, c] = sum_b [codes[b, j] = c] * (g[b] * w0)   one-hot contraction
+    d_cb[j, k] = sum_b [codes[b, j] = k] * (g[b] * w0)   summed in ascending b
     d_w0       = sum_b g[b] * sum_j cb[j, codes[b, j]]   the sum re-decoded
 
-in f32, cast to the operands' dtypes.  Both are matrix products and
-reductions with a fixed order, so two backward passes give the same bits;
-``index_add_``, whose CUDA atomics do not, is never used.  The int8
+in f32, cast to the operands' dtypes.  ``d_cb`` comes from the CUDA
+backward kernel (CUDA operands; ``hash_decode_backward.launches``) or its
+plain version ``ref.hash_decode_backward_ref`` (CPU operands, ``index_add_``
+on the CPU); both sum each (j, k, feature) in ascending b with no atomics,
+so they agree bit for bit and two passes give the same bits.  ``d_w0`` is
+a decode through the forward kernel and a reduction.  The int8
 straight-through backward is not ported yet and raises.
 
 ``quantize_codebooks`` / ``dequantize_codebooks`` are the per-(codebook,
@@ -34,7 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import build_shared_library, load_library
-from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref, hash_decode_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hash_decode.cu"
 NAME = "hash_decode"
@@ -64,6 +68,15 @@ def _entry(name: str, n_int: int):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, p, p, p] + [i] * n_int + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _backward_entry():
+    fn = load_library(NAME, SOURCE).hash_decode_backward_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -198,19 +211,64 @@ def _forward(codes, codebooks, w0, scales, variant: Optional[str] = None) -> tor
     return out
 
 
+def backward_smem(c: int) -> int:
+    """A backward block's shared memory: the (c, 32) f32 accumulator of its
+    32-feature tile and a 256-entry row list for each of its 8 warps (csrc
+    ``kBwdTile``, ``kBwdRows``, ``kBwdWarps``)."""
+    return (c * 32 + 8 * 256) * 4
+
+
+def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tensor],
+                  c: int, dtype: torch.dtype) -> torch.Tensor:
+    """d_cb (m, c, d_c) in ``dtype`` (float32 or bfloat16) for codes (B, m)
+    int32, g (B, d_c) float32 and w0 (d_c,) float32 or None: the backward
+    kernel on CUDA operands (counted in ``hash_decode_backward.launches``),
+    its plain version on CPU ones."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return hash_decode_backward_ref(codes, g, w0, c, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"hash_decode_backward runs on cuda (kernel) or cpu (plain), got {dev}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the codebook gradient is float32 or bfloat16, not {dtype}")
+    if (codes.dim() != 2 or codes.dtype != torch.int32 or g.dim() != 2
+            or g.dtype != torch.float32 or g.shape[0] != codes.shape[0]):
+        raise TypeError(f"codes must be (B, m) int32 and g (B, d_c) float32, got "
+                        f"{tuple(codes.shape)} {codes.dtype} and {tuple(g.shape)} {g.dtype}")
+    B, m = codes.shape
+    d_c = g.shape[1]
+    if w0 is not None and (w0.dtype != torch.float32 or tuple(w0.shape) != (d_c,)):
+        raise TypeError(f"w0 must be ({d_c},) float32, got {tuple(w0.shape)} {w0.dtype}")
+    if backward_smem(c) > SMEM_LIMIT:
+        raise ValueError(f"c={c} codes need {backward_smem(c)} B of shared memory in "
+                         f"the backward kernel, above {SMEM_LIMIT}")
+    if not all(t.is_contiguous() and t.device == dev for t in (codes, g)) or (
+            w0 is not None and (not w0.is_contiguous() or w0.device != dev)):
+        raise ValueError("hash_decode_backward operands must be contiguous, on one device")
+    d_cb = torch.empty((m, c, d_c), dtype=dtype, device=dev)
+    if B == 0 or d_c == 0 or m == 0:
+        return d_cb.zero_()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = _backward_entry()(
+        codes.data_ptr(), g.data_ptr(), None if w0 is None else w0.data_ptr(),
+        d_cb.data_ptr(), _STORAGE[dtype], B, m, c, d_c, index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_decode backward kernel launch failed: cudaError {err}")
+    hash_decode_backward.launches += 1
+    return d_cb
+
+
 def hash_decode_backward(codes: torch.Tensor, codebooks: torch.Tensor,
                          w0: Optional[torch.Tensor], g: torch.Tensor,
                          need_cb: bool = True, need_w0: bool = True):
     """(d_codebooks in codebooks' dtype or None, d_w0 in w0's dtype or
     None) for the output cotangent ``g`` (B, d_c)."""
-    c = codebooks.shape[1]
-    g = g.float()
+    g = g.float().contiguous()
     d_cb = d_w0 = None
     if need_cb:
-        gw = g * w0.float()[None, :] if w0 is not None else g
-        iota = torch.arange(c, dtype=codes.dtype, device=codes.device)
-        onehot = (codes[:, :, None] == iota).to(torch.float32)      # (B, m, c)
-        d_cb = torch.einsum("bmc,bd->mcd", onehot, gw).to(codebooks.dtype)
+        d_cb = codebook_grad(codes, g, None if w0 is None else w0.float().contiguous(),
+                             codebooks.shape[1], codebooks.dtype)
     if need_w0 and w0 is not None:
         summed = _forward(codes, codebooks, None, None)
         d_w0 = (g * summed).sum(dim=0).to(w0.dtype)
@@ -256,3 +314,4 @@ def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
 
 
 hash_decode.launches = 0
+hash_decode_backward.launches = 0

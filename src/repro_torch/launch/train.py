@@ -1,14 +1,14 @@
 """End-to-end LM training driver (counterpart of ``repro/launch/train.py``).
 
 Wires: config -> codes from the data pipeline's co-occurrence pass
-(Algorithm 1 on the vocabulary) -> model init -> train loop.  Runs on the
-CUDA card unless ``--device cpu``; ``--preset tiny`` is the reduced config.
+(Algorithm 1 on the vocabulary) -> model init -> train loop with
+checkpointing and auto-resume.  Runs on the CUDA card unless ``--device
+cpu``; ``--preset tiny`` is the reduced config.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-      --preset tiny --steps 200 [--device cpu]
+      --preset tiny --steps 200 --ckpt-dir /tmp/run1 [--device cpu]
 
-The ``--ckpt-dir`` flag is kept and raises until checkpointing is ported.
 Unlike the JAX driver, ``--lr`` reaches the optimizer (its default is the
 JAX driver's learning rate, so default runs match).
 """
@@ -30,9 +30,8 @@ from repro_torch.data import TokenStream, TokenStreamConfig, cooccurrence_matrix
 from repro_torch.device import disable_tf32, make_generator, resolve_device
 from repro_torch.nn.module import param_count
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train import (LoopConfig, TrainHyper, init_train_state,
-                               make_train_step, run_training)
-from repro_torch.train.loop import CKPT_SLICE
+from repro_torch.train import (CheckpointManager, LoopConfig, TrainHyper,
+                               init_train_state, make_train_step, run_training)
 
 
 def vocab_aux(cfg: LMConfig, *, batch: int, seq: int, cooc_batches: int,
@@ -69,9 +68,13 @@ def encode_vocab(cfg: LMConfig, generator: torch.Generator, *, batch: int,
 
 def train(cfg: LMConfig, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
           cooc_batches: int = 8, seed: int = 0, device=None, log_every: int = 20,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
           log: Callable[[str], None] = print):
     """The whole chain on ``device`` (default: the CUDA card); returns the
-    loop's ``LoopResult`` (``.state`` holds the trained params)."""
+    loop's ``LoopResult`` (``.state`` holds the trained params).  With
+    ``ckpt_dir`` the loop saves every ``ckpt_every`` steps and at the end,
+    and resumes from the newest checkpoint there (``steps`` is then the
+    absolute target)."""
     dev = resolve_device(device)
     disable_tf32()
     generator = make_generator(seed, dev)
@@ -85,9 +88,11 @@ def train(cfg: LMConfig, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
     hyper = TrainHyper(optimizer=AdamWConfig(lr=lr, weight_decay=0.01, clip_norm=1.0),
                        total_steps=steps)
     to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     return run_training(
         make_train_step(cfg, hyper), state, stream,
-        LoopConfig(total_steps=steps, log_every=log_every), to_device=to_dev,
+        LoopConfig(total_steps=steps, ckpt_every=ckpt_every, log_every=log_every),
+        ckpt=ckpt, to_device=to_dev,
         on_metrics=lambda s, m: log(
             f"[step {s:5d}] loss={m['loss']:.4f} dt={m['step_time']*1e3:.0f}ms"))
 
@@ -109,9 +114,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(f"--ckpt-dir: checkpointing is not ported "
-                                  f"yet; it comes with {CKPT_SLICE}")
 
     cfg = get_config(args.arch)
     if args.preset == "tiny":
@@ -121,10 +123,12 @@ def main(argv=None):
             cfg, embedding=dataclasses.replace(cfg.embedding, kind=args.embedding_kind))
     t0 = time.time()
     res = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-                cooc_batches=args.cooc_batches, seed=args.seed, device=args.device)
-    print(f"[done] steps={len(res.losses)} loss {res.losses[0]:.4f} -> "
-          f"{res.losses[-1]:.4f} wall={time.time() - t0:.1f}s "
-          f"stragglers={res.stragglers}")
+                cooc_batches=args.cooc_batches, seed=args.seed, device=args.device,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    span = f"loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f} " if res.losses else ""
+    print(f"[done] steps={len(res.losses)} {span}wall={time.time() - t0:.1f}s "
+          f"stragglers={res.stragglers}"
+          + (f" resumed_from={res.resumed_from}" if res.resumed_from else ""))
     return res
 
 

@@ -13,6 +13,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core import embedding as emb_lib
@@ -68,11 +69,15 @@ def sage_forward(params, levels: List[torch.Tensor], cfg: GNNConfig,
 def sage_forward_frontier(params, fb: FrontierBatch, cfg: GNNConfig,
                           backend=None) -> torch.Tensor:
     """Dedup-decode path: ONE decode over the unique frontier (a tensor
-    ``FrontierBatch``), then gathers rebuild the per-level tensors."""
+    ``FrontierBatch``), then gathers rebuild the per-level tensors.  The
+    gathers are ``F.embedding``, whose backward sums each frontier row's
+    gradients in a fixed order on both devices (``hu[m]``'s backward, an
+    accumulating ``index_put_``, adds them with atomics on the CPU), so a
+    step's gradients are the same bits on every run."""
     hu = emb_lib.embed_lookup(params["embed"], fb.unique, cfg.embedding_config(),
                               backend=backend)                      # (U, de)
     with stage("sage"):
-        return _sage_combine(params, *(hu[m] for m in fb.index_maps[:3]))
+        return _sage_combine(params, *(F.embedding(m, hu) for m in fb.index_maps[:3]))
 
 
 def node_logits(params, hidden: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:

@@ -27,6 +27,10 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.01
     clip_norm: Optional[float] = None
+    # Storage type of the moments in the JAX package's configs ("bfloat16"
+    # halves optimizer memory there).  The port keeps f32 moments, as the
+    # JAX package's GNN state does; the field makes specs round-trip.
+    moments_dtype: str = "float32"
 
 
 def adamw_init(params) -> dict:

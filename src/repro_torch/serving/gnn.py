@@ -23,6 +23,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core import backend as backend_mod
@@ -157,6 +158,7 @@ class GraphInferenceEngine:
         """Serve one request batch of node ids (≤ ``serve_batch``)."""
         return self.serve_many([node_ids])[0]
 
+    @torch.no_grad()
     def serve_many(self, requests: Sequence) -> List[GraphServeResult]:
         """Serve a microbatch with cross-request frontier dedup; responses
         equal what sequential ``serve`` calls return."""

@@ -7,13 +7,15 @@ nest: the LM's ``embed`` holds the decoder's ``unpack``, ``decode`` and
 and nothing synchronises.  Inside ``with StageTimer() as t:`` every marked
 stage synchronises the card before and after it and appends its host-clock
 milliseconds to ``t.ms[name]``, so the stages do not overlap and their sum
-is the request's (or step's) time less what lies between the marks.  One thread at a
-time: the active timer is a module global.
+is the request's (or step's) time less what lies between the marks.  The
+active timer is a module global and times only the thread that entered
+it: marks reached in other threads (a prefetch producer) are no-ops.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 from typing import ContextManager, Dict, List, Optional
@@ -35,9 +37,11 @@ class StageTimer:
     def __init__(self):
         self.ms: Dict[str, List[float]] = defaultdict(list)
         self._prev: Optional[StageTimer] = None
+        self._thread: Optional[int] = None
 
     def __enter__(self) -> "StageTimer":
         global _active
+        self._thread = threading.get_ident()
         self._prev, _active = _active, self
         return self
 
@@ -56,4 +60,7 @@ class StageTimer:
 
 def stage(name: str) -> ContextManager:
     """Time the enclosed work as ``name`` under the active ``StageTimer``."""
-    return _NULL if _active is None else _active.span(name)
+    timer = _active
+    if timer is None or timer._thread != threading.get_ident():
+        return _NULL
+    return timer.span(name)

@@ -1,0 +1,204 @@
+"""Checkpoints for fault tolerance (counterpart of ``repro/train/checkpoint.py``).
+
+The JAX package's on-disk layout: ``step_XXXXXXXXXX/arrays.npz`` holds every
+leaf of the state as a numpy array keyed by its slash-joined dict path, and
+``manifest.json`` holds ``step``, ``extra`` (data-pipeline state, the
+runtime spec), ``topology`` and the leaves' shapes and dtypes.
+
+  * atomic: written to ``step_XXXXXXXXXX.tmp``, then ``os.replace``d; a
+    stale ``.tmp`` left by a write cut short is swept when the directory
+    is opened, and a step without a manifest is never listed;
+  * tensors go to numpy on save (bf16 as its int16 bit pattern) and back to
+    the template's device and dtype on restore; the integer steps of the
+    train state and of the optimizer are leaves too;
+  * async: the device-to-host copy runs on the caller's thread, the write
+    on a background thread, with at most one write outstanding;
+  * retention: the newest ``keep`` checkpoints;
+  * ``restore(expect_topology=...)`` raises ``TopologyMismatch`` before it
+    touches an array when the checkpoint was written under another shard
+    topology.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}/")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        # a copy even on the CPU: the step updates the state in place while
+        # the write thread saves it
+        return t.to("cpu", copy=True).numpy()
+    return np.asarray(leaf)
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    return {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+
+
+def _unflatten_into(tree, flat: Dict[str, np.ndarray], prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _unflatten_into(v, flat, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten_into(v, flat, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    key = prefix[:-1]
+    if key not in flat:
+        raise KeyError(f"checkpoint missing leaf {key}")
+    arr = flat[key]
+    if isinstance(tree, torch.Tensor):
+        if tuple(arr.shape) != tuple(tree.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                             f"model {tuple(tree.shape)}")
+        t = torch.from_numpy(np.array(arr))
+        if tree.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        return t.to(device=tree.device, dtype=tree.dtype)
+    return type(tree)(arr.item())
+
+
+class TopologyMismatch(ValueError):
+    """A checkpoint written under one shard topology was asked to restore
+    under another.  Raised at restore time, before any array is read."""
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+        # a write cut short leaves a step_*.tmp behind: never listed, never
+        # restored, and in the way of a later write of the same step
+        for name in os.listdir(directory):
+            if name.startswith("step_") and name.endswith(".tmp"):
+                shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
+
+    # -- save -----------------------------------------------------------
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None,
+             topology: Optional[Dict] = None) -> str:
+        """``state``: nested dicts of tensors and ints; ``extra``: JSON-able
+        (data-pipeline state, the runtime spec); ``topology``: JSON-able
+        shard layout that ``restore(expect_topology=...)`` checks.  The
+        write runs on a background thread: ``wait()`` before reading it."""
+        flat = _flatten(state)   # the device-to-host copy, on this thread
+        self.wait()              # at most one outstanding write
+        self._thread = threading.Thread(
+            target=self._write, args=(step, flat, extra or {}, topology),
+            daemon=True)
+        self._thread.start()
+        return self._path(step)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:010d}")
+
+    def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict,
+               topology: Optional[Dict] = None):
+        final = self._path(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
+            np.savez(f, **flat)
+            f.flush()
+            os.fsync(f.fileno())
+        manifest = {
+            "step": step,
+            "extra": extra,
+            "topology": topology,
+            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                       for k, v in flat.items()},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)   # atomic publish
+        self._gc()
+
+    def _gc(self):
+        steps = self.list_steps()
+        for s in steps[: max(len(steps) - self.keep, 0)]:
+            shutil.rmtree(self._path(s), ignore_errors=True)
+
+    # -- load -----------------------------------------------------------
+    def list_steps(self):
+        steps = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.dir, name, "manifest.json")):
+                    steps.append(int(name.split("_")[1]))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.list_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, state_template: Any,
+                expect_topology: Optional[Dict] = None) -> Tuple[Any, Dict]:
+        """(state, extra): ``state_template`` gives the structure, shapes,
+        devices and dtypes.  A manifest without a topology passes any
+        ``expect_topology``."""
+        path = self._path(step)
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        saved = manifest.get("topology")
+        if expect_topology is not None and saved is not None and saved != expect_topology:
+            raise TopologyMismatch(
+                f"checkpoint at step {step} was written under topology {saved} "
+                f"but the current run expects {expect_topology}; resuming across "
+                f"shard topologies needs the exact-rescale path, which comes "
+                f"with the elastic-training slice (ROADMAP A.16)")
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        return _unflatten_into(state_template, flat), manifest["extra"]
+
+    def read_extra(self, step: Optional[int] = None) -> Optional[Dict]:
+        """The ``extra`` manifest of a checkpoint (the latest by default),
+        without reading its arrays; None if there is no checkpoint."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        with open(os.path.join(self._path(step), "manifest.json")) as f:
+            return json.load(f)["extra"]
+
+    def restore_latest(self, state_template: Any,
+                       expect_topology: Optional[Dict] = None,
+                       ) -> Optional[Tuple[int, Any, Dict]]:
+        step = self.latest_step()
+        if step is None:
+            return None
+        state, extra = self.restore(step, state_template,
+                                    expect_topology=expect_topology)
+        return step, state, extra

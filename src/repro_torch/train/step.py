@@ -1,9 +1,12 @@
-"""The LM train step (counterpart of the LM part of ``repro/train/step.py``).
+"""Train steps (counterpart of ``repro/train/step.py``).
 
-``make_train_step(cfg, hyper)`` returns ``train_step(state, batch) ->
+``make_train_step(cfg, hyper)`` (LM) returns ``train_step(state, batch) ->
 (state, metrics)``: f32 master params and Adam moments, activations in the
 config's compute dtype, optional global-norm clip, the LR schedule by step
 counter, and gradient accumulation over ``hyper.microbatches``.
+``make_gnn_train_step(cfg, opt)`` is the node-classification step over
+``GNNModel`` on a batch dict from an engine source (the hot-node cache and
+a mesh come with later slices, ROADMAP A.11 and A.14).
 
 The stored params never require grad.  Each step differentiates detached
 views of the trainable leaves (``torch.autograd.grad``, which raises if a
@@ -19,7 +22,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import GNNConfig, LMConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import init_lm, lm_loss
 from repro_torch.nn.module import map_tree, value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -74,5 +78,53 @@ def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None) -> Callab
             adamw_update(params, grads, state["opt"], hyper.optimizer, lr_scale=lr_scale)
         state["step"] += 1
         return state, {"loss": loss, "lr_scale": lr_scale}
+
+    return train_step
+
+
+def init_gnn_train_state(generator: torch.Generator, cfg: GNNConfig, codes=None,
+                         aux=None, params=None) -> Dict[str, Any]:
+    """Train state for the graph engine (the LM state's layout, f32
+    moments); ``params`` replaces the seeded init."""
+    from repro_torch.models.gnn import init_gnn
+    if params is None:
+        params = init_gnn(generator, cfg, codes=codes, aux=aux)
+    return {"params": params, "opt": adamw_init(params), "step": 0}
+
+
+def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
+                        device: DeviceLike = None) -> Callable:
+    """Node-classification step on ``device``: the batch is
+    {"frontier": FrontierBatch, "labels": y} (dedup decode) or
+    {"levels": tuple, "labels": y} (naive), on the host or already on the
+    device.  The decode runs on the backend of the config's
+    ``lookup_impl`` and its gradient through that backend's backward (on
+    the card, the ``hash_decode`` forward and backward kernels).  The
+    stages ``h2d``, ``logits``, ``loss``, ``backward`` and ``optimizer``
+    are marked here, ``unpack``, ``decode``, ``mlp`` and ``sage`` inside
+    the model."""
+    from repro_torch.graph.engine import GNNModel, batch_to, batch_view
+    from repro_torch.models import gnn
+    dev = resolve_device(device)
+    model = GNNModel(cfg, dev)
+    ocfg = opt or AdamWConfig(lr=1e-2, weight_decay=0.0)
+
+    def train_step(state, batch):
+        with stage("h2d"):
+            batch = batch_to(batch, dev)
+        view = batch_view(batch)
+
+        def loss_fn(p):
+            h = model.apply(p, view)
+            with stage("logits"):
+                logits = model.logits(p, h)
+            with stage("loss"):
+                return gnn.node_loss(logits, batch["labels"])
+
+        loss, grads = value_and_grad(loss_fn, state["params"])
+        with stage("optimizer"):
+            adamw_update(state["params"], grads, state["opt"], ocfg)
+        state["step"] += 1
+        return state, {"loss": loss}
 
     return train_step

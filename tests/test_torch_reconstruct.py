@@ -153,9 +153,12 @@ def test_autoencoder_reconstruct_with_jax_params_and_noise(ae):
         np.asarray(jae.encode_logits(params, x, jcfg)), rtol=0, atol=1e-5)
     # the port's own Gumbel draw: finite, seeded, standard Gumbel moments
     g = tae.gumbel(torch.Generator().manual_seed(0), (20000,))
-    assert torch.isfinite(g).all() and torch.equal(g, tae.gumbel(
-        torch.Generator().manual_seed(0), (20000,)))
-    assert abs(float(g.mean()) - 0.5772) < 0.03 and abs(float(g.var()) - 1.6449) < 0.1
+    again = tae.gumbel(torch.Generator().manual_seed(0), (20000,))
+    assert torch.isfinite(g).all(), "non-finite Gumbel noise"
+    assert torch.equal(g, again), (
+        f"two draws from one seed differ at {(g != again).nonzero().flatten()[:8].tolist()}")
+    assert abs(float(g.mean()) - 0.5772) < 0.03, float(g.mean())
+    assert abs(float(g.var()) - 1.6449) < 0.1, float(g.var())
 
 
 def test_extract_codes_bitwise(ae):

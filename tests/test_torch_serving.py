@@ -186,7 +186,10 @@ def test_later_slices_raise(slice_pair):
                 dataclasses.replace(spec, model=dataclasses.replace(spec.model, model="gcn")),
                 dataclasses.replace(spec, model=dataclasses.replace(
                     spec.model, embedding=dataclasses.replace(
-                        spec.model.embedding, cache_capacity=64)))):
+                        spec.model.embedding, cache_capacity=64))),
+                dataclasses.replace(spec, model=dataclasses.replace(
+                    spec.model, embedding=dataclasses.replace(
+                        spec.model.embedding, codes_placement="host")))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GraphRuntime.from_spec(bad, graph=(trt.adj, trt.labels), device="cpu",
                                    params=trt.params)
