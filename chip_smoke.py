@@ -43,10 +43,13 @@ weights and data from a seed:
          512 through ``hash_decode`` and its backward
          (``repro_torch.launch.reconstruct.run``).
 
-The ``hash_decode`` backward kernel (the codebook gradient) is held
-bitwise against its plain version at 64 shapes and timed at a training
-frontier and at 61,696 rows beside the one-hot contraction it replaced
-and ``embedding_bag``'s backward.
+The ``hash_decode`` backward kernels (the codebook gradient: a stable
+sort of each codebook's rows by code, then the sums) are held bitwise
+against their plain versions at 64 uniform shapes, at skewed codes and at
+the GNN run's real codes (the sort against ``code_order`` too), and timed
+at a training frontier, at 61,696 rows, at the LM step's 8,192 bf16 rows
+and at the reconstruction's 512 (as a CUDA graph) beside the one-hot
+contraction they replaced and ``embedding_bag``'s backward.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
@@ -437,6 +440,7 @@ def phase_slice():
     fa_ops.flash_attention.launches = 0
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     ops.hash_decode_backward.launches = 0
+    ops.backward_kernel_launches(reset=True)
     ops.hash_decode.launches = 0               # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
@@ -452,8 +456,10 @@ def phase_slice():
     many_ms = (time.perf_counter() - t0) * 1e3
     launches = {"hash_decode": ops.hash_decode.launches,
                 "hash_decode_backward": ops.hash_decode_backward.launches,
+                "hash_decode_backward_by_kernel": ops.backward_kernel_launches(),
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
+    check_backward_launches(launches, "serve")
     check(launches["flash_attention"] == 0, "the serving path ran attention")
     check(launches["lsh_encode"] == 0, "the serving path ran an encode")
     check(launches["hash_decode_backward"] == 0, "the serving path ran a backward")
@@ -691,14 +697,17 @@ def phase_train():
     by_kernel.update(dict.fromkeys(by_kernel, 0))
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     hd_ops.hash_decode_backward.launches = 0
+    hd_ops.backward_kernel_launches(reset=True)
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
                 log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
                 "hash_decode_backward": hd_ops.hash_decode_backward.launches,
+                "hash_decode_backward_by_kernel": hd_ops.backward_kernel_launches(),
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
+    check_backward_launches(launches, "train")
     launches["flash_attention_by_kernel"] = dict(by_kernel)
     launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
@@ -1073,14 +1082,17 @@ def phase_reconstruct() -> dict:
     fa_ops.flash_attention.launches = 0
     hd_ops.hash_decode.launches = 0
     hd_ops.hash_decode_backward.launches = 0
+    hd_ops.backward_kernel_launches(reset=True)
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))  # the path starts here
     res = run(**REC, steps=REC_STEPS, schemes=REC_SCHEMES, device="cuda",
               log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
     launches = {"hash_decode": hd_ops.hash_decode.launches,
                 "hash_decode_backward": hd_ops.hash_decode_backward.launches,
+                "hash_decode_backward_by_kernel": hd_ops.backward_kernel_launches(),
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values()),
                 "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
+    check_backward_launches(launches, "reconstruct")
     launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
     print(f"[reconstruct] schemes {list(res['schemes'])}: wall {wall:.2f} s, launches "
@@ -1222,6 +1234,17 @@ def time_lsh() -> dict:
 # backward kernel
 # ---------------------------------------------------------------------------
 
+def check_backward_launches(launches: dict, path: str) -> None:
+    """A path's backward calls (``hash_decode_backward.launches``, one a
+    call) against the CUDA launches the library counted where it launched
+    each of its kernels: every call launches the count, place and sum
+    kernels once each."""
+    by_kernel = launches["hash_decode_backward_by_kernel"]
+    calls = launches["hash_decode_backward"]
+    check(all(n == calls for n in by_kernel.values()),
+          f"{path}: {calls} backward calls launched its kernels {by_kernel} times")
+
+
 GNN_STEPS = 300                     # the main path's run, with prefetch
 GNN_TIMED = 20                      # steps of each prefetch_depth timing run
 # AdamW's rate for the GNN runs: at RuntimeSpec's default 1e-2 the loss
@@ -1231,12 +1254,20 @@ GNN_LR = 1e-3
 GNN_CKPT = ROOT / "build" / "gnn_ckpt"
 
 
-def _bwd_operands(B, m, c, d_c, variant, seed):
-    """codes, g, w0 (or None) on the card, and the codebooks' dtype."""
+def _bwd_operands(B, m, c, d_c, variant, seed, kind="uniform"):
+    """codes (``ref.code_set``'s ``kind``), g, w0 (or None) on the card, and
+    the codebooks' dtype.  Uniform codes are drawn here, as ``code_set``
+    draws them, so that ``time_hd_backward`` also runs over an earlier
+    commit's package, which has no ``code_set``."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    codes = torch.from_numpy(rng.integers(0, c, (B, m)).astype(np.int32)).cuda()
+    if kind == "uniform":
+        codes = rng.integers(0, c, (B, m)).astype(np.int32)
+    else:
+        from repro_torch.kernels.hash_decode.ref import code_set
+        codes = code_set(kind, B, m, c, rng)
+    codes = torch.from_numpy(codes).cuda()
     g = torch.from_numpy(rng.standard_normal((B, d_c)).astype(np.float32)).cuda()
     dtype, _, with_w0 = variant.partition("+")
     w0 = (torch.from_numpy(rng.standard_normal(d_c).astype(np.float32)).cuda()
@@ -1244,42 +1275,65 @@ def _bwd_operands(B, m, c, d_c, variant, seed):
     return codes, g, w0, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
 
 
-def phase_hd_backward_check(frontier_rows: int) -> tuple:
-    """The hash_decode backward kernel (the codebook gradient) against its
-    plain version run on CPU copies of the same operands, bitwise, and two
-    calls against each other, at B in {1, 512, a real training frontier,
-    61,696}, m in {3, 16}, d_c in {130, 512}, with and without w0, f32 and
-    bf16 codebooks.  Returns the number of cases and the largest error."""
+def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
+    """The hash_decode backward kernels (the codebook gradient) against
+    their plain versions run on CPU copies of the same operands, bitwise,
+    and two calls against each other: the sort alone (``code_order``) and
+    the whole gradient, at B in {1, 512, a real training frontier, 61,696},
+    m in {3, 16}, d_c in {130, 512} with uniform codes, then at skewed codes
+    (every row one code, Zipf, c = 16 at 61,696 rows) and the real codes of
+    the GNN run's first batch (``gnn_codes``, its frontier with its padding
+    rows); each with and without w0, f32 and bf16 codebooks.  Returns the
+    number of cases and the largest error."""
     import torch
     from repro_torch.kernels.hash_decode import ops
-    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    from repro_torch.kernels.hash_decode.ref import code_order, hash_decode_backward_ref
     n, worst = 0, 0.0
-    for B in (1, REC_BATCH, frontier_rows, 61_696):
-        for m, c in ((16, 256), (3, 16)):
-            for d_c in (512, 130):
-                for variant in ("float32", "float32+w0", "bfloat16", "bfloat16+w0"):
-                    codes, g, w0, dtype = _bwd_operands(B, m, c, d_c, variant, seed=n)
-                    before = ops.hash_decode_backward.launches
-                    a = ops.codebook_grad(codes, g, w0, c, dtype)
-                    b = ops.codebook_grad(codes, g, w0, c, dtype)
-                    torch.cuda.synchronize()
-                    check(ops.hash_decode_backward.launches == before + 2,
-                          "the backward kernel did not launch")
-                    ref = hash_decode_backward_ref(codes.cpu(), g.cpu(),
-                                                   None if w0 is None else w0.cpu(), c, dtype)
-                    same, again = torch.equal(a.cpu(), ref), torch.equal(a, b)
-                    err = float((a.cpu().float() - ref.float()).abs().max())
-                    worst = max(worst, err)
-                    if B in (frontier_rows, 61_696) or not (same and again):
-                        print(f"[backward] hash_decode_backward B={B} m={m} c={c} d_c={d_c} "
-                              f"{variant}: bitwise={same} (max_abs_err {err}), two calls "
-                              f"bitwise={again}", flush=True)
-                    check(same and again, f"hash_decode_backward {(B, m, c, d_c, variant)} "
-                                          f"differs from its plain version or itself")
-                    n += 1
-                    del codes, g, w0, a, b, ref
+    cases = [("uniform", B, m, c, d_c) for B in (1, REC_BATCH, frontier_rows, 61_696)
+             for m, c in ((16, 256), (3, 16)) for d_c in (512, 130)]
+    cases += [("one_code", frontier_rows, 16, 256, 512), ("one_code", 61_696, 3, 16, 130),
+              ("zipf", frontier_rows, 16, 256, 512), ("zipf", 61_696, 16, 256, 130),
+              ("uniform", 61_696, 16, 16, 512), ("gnn", gnn_codes.shape[0], 16, 256, 512)]
+    for kind, B, m, c, d_c in cases:
+        for variant in ("float32", "float32+w0", "bfloat16", "bfloat16+w0"):
+            codes, g, w0, dtype = _bwd_operands(B, m, c, d_c, variant, seed=n,
+                                                kind="uniform" if kind == "gnn" else kind)
+            if kind == "gnn":
+                codes = gnn_codes.cuda()
+            offsets, rows = ops.code_order(codes, c)
+            want_offsets, want_rows = code_order(codes.cpu(), c)
+            check(torch.equal(offsets.cpu(), want_offsets)
+                  and torch.equal(rows.cpu(), want_rows),
+                  f"the backward's sort {(kind, B, m, c)} differs from code_order")
+            before = ops.hash_decode_backward.launches
+            before_kernels = ops.backward_kernel_launches()
+            a = ops.codebook_grad(codes, g, w0, c, dtype)
+            b = ops.codebook_grad(codes, g, w0, c, dtype)
+            torch.cuda.synchronize()
+            after_kernels = ops.backward_kernel_launches()
+            check(ops.hash_decode_backward.launches == before + 2
+                  and all(after_kernels[k] == before_kernels[k] + 2 for k in after_kernels),
+                  f"two backward calls launched its kernels {before_kernels} -> "
+                  f"{after_kernels} times")
+            ref = hash_decode_backward_ref(codes.cpu(), g.cpu(),
+                                           None if w0 is None else w0.cpu(), c, dtype)
+            same, again = torch.equal(a.cpu(), ref), torch.equal(a, b)
+            err = float((a.cpu().float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            shown = (B in (frontier_rows, 61_696) and variant == "float32") or kind != "uniform"
+            if shown or not (same and again):
+                longest = int((offsets[:, 1:] - offsets[:, :-1]).max())
+                print(f"[backward] hash_decode_backward {kind} B={B} m={m} c={c} "
+                      f"d_c={d_c} {variant}: sort equal to code_order (longest "
+                      f"segment {longest} rows); bitwise={same} (max_abs_err {err}), "
+                      f"two calls bitwise={again}", flush=True)
+            check(same and again, f"hash_decode_backward {(kind, B, m, c, d_c, variant)} "
+                                  f"differs from its plain version or itself")
+            n += 1
+            del codes, g, w0, a, b, ref, offsets, rows
     print(f"[backward] hash_decode_backward: {n} cases bitwise equal to the plain "
-          f"version, two calls bitwise equal in each", flush=True)
+          f"version, two calls bitwise equal in each, the sort equal to code_order in "
+          f"each", flush=True)
     torch.cuda.empty_cache()
     return n, worst
 
@@ -1308,45 +1362,55 @@ def check_gnn_frontiers(sizes) -> float:
     return worst
 
 
-def time_hd_backward(rows: int) -> dict:
-    """The backward kernel at ``rows`` rows (m=16, c=256, d_c=512, f32, no
-    w0) beside its bounds, the one-hot contraction it replaced, its plain
-    version (index_add_ on the card) and the backward of
-    ``F.embedding_bag(mode="sum")`` over the flattened (m*c, d_c) table."""
+def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False) -> dict:
+    """The backward kernels at ``rows`` rows (m=16, c=256, d_c=512, no w0,
+    ``storage`` codebooks) beside their bound, the one-hot contraction they
+    replaced, their plain version (index_add_ on the card) and the backward
+    of ``F.embedding_bag(mode="sum")`` over the flattened (m*c, d_c) table
+    (in ``storage``, its cotangent cast to it).  ``graph``: the kernels timed
+    as a CUDA graph (at small B the host enqueues a call slower than the
+    card runs it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
     m, c, d_c = 16, 256, 512
-    codes, g, _, _ = _bwd_operands(rows, m, c, d_c, "float32", seed=11)
-    kernel_ms, enqueue_ms = time_ms(lambda: ops.codebook_grad(codes, g, None, c, torch.float32), 20)
+    codes, g, _, dtype = _bwd_operands(rows, m, c, d_c, storage, seed=11)
+
+    def kernel():
+        return ops.codebook_grad(codes, g, None, c, dtype)
+
+    events_ms, enqueue_ms = time_ms(kernel, 20)
+    kernel_ms = graph_time_ms(kernel, 20) if graph else events_ms
 
     def onehot():
         iota = torch.arange(c, dtype=codes.dtype, device=codes.device)
-        return torch.einsum("bmc,bd->mcd", (codes[:, :, None] == iota).float(), g)
+        return torch.einsum("bmc,bd->mcd", (codes[:, :, None] == iota).float(), g).to(dtype)
 
     onehot_ms, _ = time_ms(onehot, 5)
-    onehot_err = float((onehot() - ops.codebook_grad(codes, g, None, c, torch.float32)).abs().max())
-    plain_ms, _ = time_ms(lambda: hash_decode_backward_ref(codes, g, None, c, torch.float32), 5)
-    table = torch.zeros(m * c, d_c, device="cuda", requires_grad=True)
+    onehot_err = float((onehot().float() - kernel().float()).abs().max())
+    plain_ms, _ = time_ms(lambda: hash_decode_backward_ref(codes, g, None, c, dtype), 5)
+    table = torch.zeros(m * c, d_c, device="cuda", dtype=dtype, requires_grad=True)
     idx = codes.long() + (torch.arange(m, device="cuda") * c)[None, :]
     out = F.embedding_bag(idx, table, mode="sum")
-    library_ms, _ = time_ms(lambda: torch.autograd.grad(out, table, g, retain_graph=True), 20)
-    lib_err = float((torch.autograd.grad(out, table, g, retain_graph=True)[0].reshape(m, c, d_c)
-                     - ops.codebook_grad(codes, g, None, c, torch.float32)).abs().max())
-    nbytes = rows * d_c * 4 + rows * m * 4 + m * c * d_c * 4
+    g_lib = g.to(dtype)
+    library_ms, _ = time_ms(lambda: torch.autograd.grad(out, table, g_lib, retain_graph=True), 20)
+    lib_err = float((torch.autograd.grad(out, table, g_lib, retain_graph=True)[0].float()
+                     .reshape(m, c, d_c) - kernel().float()).abs().max())
+    nbytes = rows * d_c * 4 + rows * m * 4 + m * c * d_c * table.element_size()
     adds = rows * m * d_c
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     adds_ms = adds / F32_ADDS_PER_S * 1e3
     bound_ms = max(bytes_ms, adds_ms)
     bound_by = "bytes" if bytes_ms >= adds_ms else "operations"
-    print(f"[time] hash_decode_backward B={rows} m={m} c={c} d_c={d_c} f32: kernel "
-          f"{kernel_ms:.4f} ms (host enqueues a call in {enqueue_ms:.4f} ms), one-hot "
+    how = f"as a CUDA graph ({events_ms:.4f} ms back to back)" if graph else "back to back"
+    print(f"[time] hash_decode_backward B={rows} m={m} c={c} d_c={d_c} {storage}: kernels "
+          f"{kernel_ms:.4f} ms {how} (host enqueues a call in {enqueue_ms:.4f} ms), one-hot "
           f"contraction {onehot_ms:.4f} ms (max diff {onehot_err}), plain (index_add_ on "
           f"the card) {plain_ms:.4f} ms, embedding_bag backward {library_ms:.4f} ms (max "
           f"diff {lib_err}); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B in "
-          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms); kernel "
-          f"{kernel_ms / bound_ms:.1f}x its bound", flush=True)
+          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms); kernels "
+          f"{kernel_ms / bound_ms:.1f}x their bound", flush=True)
     del codes, g, table, out
     torch.cuda.empty_cache()
     return dict(rows=rows, ms=kernel_ms, plain_ms=plain_ms, onehot_ms=onehot_ms,
@@ -1411,10 +1475,13 @@ def phase_gnn_train(graph):
     then prefetch against none, one step's breakdown and profile,
     ``evaluate("val")`` and a killed-and-resumed run against a straight
     one.  Returns the path's launch counts, the breakdown step's frontier
-    rows, the frontier rows of every step of the main run, and timings."""
+    rows, the frontier rows of every step of the main run, and the codes
+    of its first batch's frontier (padding rows included)."""
     import shutil
     import numpy as np
     import torch
+    from repro_torch.core.embedding import lookup_codes
+    from repro_torch.graph.engine import batch_to
     from repro_torch.graph.runtime import GraphRuntime
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
@@ -1432,8 +1499,16 @@ def phase_gnn_train(graph):
     # one batch through the prefetching iterator, which is then rewound:
     # load_state_dict stops the producer and drops what it had queued
     start = rt.data_iter.state_dict()
-    check_gnn_grads_deterministic(rt, rt.data_iter.next_batch())
+    first = rt.data_iter.next_batch()
+    check_gnn_grads_deterministic(rt, first)
     rt.data_iter.load_state_dict(start)
+    # the run's first batch's codes, at its frontier with its padding rows
+    frontier = batch_to(first, rt.device)["frontier"]
+    first_codes = lookup_codes(rt.params["embed"], frontier.unique,
+                               rt.model.cfg.embedding_config()).cpu()
+    print(f"[gnn_train] first batch: {first_codes.shape[0]} frontier rows "
+          f"({frontier.n_unique} unique, the rest padding) for the backward check",
+          flush=True)
     step, frontiers = rt.train_step, []
 
     def recording_step(state, batch):       # the frontier rows of each step
@@ -1445,14 +1520,17 @@ def phase_gnn_train(graph):
     fa_ops.flash_attention.launches = 0
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     hd_ops.hash_decode.launches = 0
-    hd_ops.hash_decode_backward.launches = 0     # the training path's run starts here
+    hd_ops.hash_decode_backward.launches = 0
+    hd_ops.backward_kernel_launches(reset=True)  # the training path's run starts here
     res, periods = _train_timed(rt, GNN_STEPS)
     torch.cuda.synchronize()
     rt.train_step = step
     launches = {"hash_decode": hd_ops.hash_decode.launches,
                 "hash_decode_backward": hd_ops.hash_decode_backward.launches,
+                "hash_decode_backward_by_kernel": hd_ops.backward_kernel_launches(),
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
+    check_backward_launches(launches, "gnn_train")
     peak = torch.cuda.max_memory_allocated()
     losses = res.losses
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1469,6 +1547,8 @@ def phase_gnn_train(graph):
                                 f"{last} is not 1 below the uniform predictor's {uniform}")
     check(len(frontiers) == GNN_STEPS, f"{len(frontiers)} frontiers for {GNN_STEPS} steps")
     check(launches == {"hash_decode": GNN_STEPS, "hash_decode_backward": GNN_STEPS,
+                       "hash_decode_backward_by_kernel": dict.fromkeys(
+                           ("count", "place", "sum"), GNN_STEPS),
                        "flash_attention": 0, "lsh_encode": 0},
           f"expected one forward and one backward hash_decode launch a step: {launches}")
     stats = rt.data_iter.stats()
@@ -1544,7 +1624,7 @@ def phase_gnn_train(graph):
     shutil.rmtree(GNN_CKPT, ignore_errors=True)
     del rt, rt0, straight, resumed
     torch.cuda.empty_cache()
-    return launches, frontier_rows, sorted(set(frontiers)), dict(periods=med, peak=peak)
+    return launches, frontier_rows, sorted(set(frontiers)), first_codes
 
 
 def main() -> None:
@@ -1566,10 +1646,10 @@ def main() -> None:
     serve_launches, cap, graph = phase_slice()
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
     phase_small_reference()
-    gnn_launches, frontier_rows, frontier_sizes, _ = phase_gnn_train(graph)
+    gnn_launches, frontier_rows, frontier_sizes, gnn_codes = phase_gnn_train(graph)
     del graph
     timing["max_abs_err"] = max(timing["max_abs_err"], check_gnn_frontiers(frontier_sizes))
-    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows)
+    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
     train_launches, _ = phase_train()
@@ -1577,7 +1657,9 @@ def main() -> None:
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
-    bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696)}
+    bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696),
+                 "lm": time_hd_backward(LM_BATCH * LM_SEQ, "bfloat16"),
+                 "reconstruct": time_hd_backward(REC_BATCH, graph=True)}
     variants = time_variants()
     lsh_times = time_lsh()
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
@@ -1589,6 +1671,9 @@ def main() -> None:
     lsh_by_kernel = {k: train_launches["lsh_encode_by_kernel"][k]
                      + rec_launches["lsh_encode_by_kernel"][k]
                      for k in train_launches["lsh_encode_by_kernel"]}
+    bwd_by_kernel = {k: sum(counts["hash_decode_backward_by_kernel"][k]
+                            for counts in paths.values())
+                     for k in serve_launches["hash_decode_backward_by_kernel"]}
     print(json.dumps({"kernels": [
         dict(name="hash_decode", route="cuda",
              source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
@@ -1616,9 +1701,11 @@ def main() -> None:
              source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
              replaces="src/repro/kernels/hash_decode/ops.py:125 (_bwd, XLA; not a TPU kernel)",
              launches=sum(bwd_by_path.values()), launches_by_path=bwd_by_path,
+             launches_by_kernel=bwd_by_kernel,
              bitwise=bwd_err == 0.0, bitwise_cases=bwd_cases, max_abs_err=bwd_err,
              **{k: v for k, v in bwd_times["frontier"].items() if k != "rows"},
-             frontier_rows=frontier_rows, at_61696=bwd_times["cap"]),
+             frontier_rows=frontier_rows, at_61696=bwd_times["cap"],
+             at_lm_bf16=bwd_times["lm"], at_reconstruct_graph=bwd_times["reconstruct"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

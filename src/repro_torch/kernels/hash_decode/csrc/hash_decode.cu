@@ -49,34 +49,58 @@
 // multiple of the slice, or of 4, takes the element-wise variant), so
 // callers never pad.
 //
-// The backward (hash_decode_bwd_kernel, at the end) is the codebook
-// gradient, which the JAX package computes in XLA, not in Pallas (its
-// kernels/hash_decode/ops.py, _bwd: a one-hot contraction):
+// The backward (at the end) is the codebook gradient, which the JAX package
+// computes in XLA, not in Pallas (its kernels/hash_decode/ops.py, _bwd: a
+// one-hot contraction):
 //
 //   d_cb[j, k, :] = sum over b ascending with codes[b, j] = k of g[b, :] * w0
 //
-// summed in f32 from 0 with __fadd_rn (g * w0 rounded by __fmul_rn first),
+// summed in f32 from +0 with __fadd_rn (g * w0 rounded by __fmul_rn first),
 // then rounded once to the codebooks' type (f32 or bf16, round to nearest
 // even).  Every (j, k, f) sum belongs to one thread and runs in ascending
 // b, so the result is the plain version's (ref.py, index_add_ on the CPU)
-// bit for bit and the same on every run: no atomics.  What bounds it: the
-// gradient g must be read once (B*d_c*4 bytes, 49 MB at a 24,000-row
+// bit for bit and the same on every run: no atomics in any float sum.
+// What bounds it: g must be read once (B*d_c*4 bytes, 49 MB at a 24,000-row
 // training frontier) and d_cb written once (8 MB at m = 16, c = 256,
-// d_c = 512); the one-hot contraction it replaces does 2*B*m*c*d_c flops
-// instead.  Its design: one block per (codebook j, 32-feature tile), its
-// (c, 32) f32 accumulator in shared memory (32 KiB at c = 256); lane l owns
-// feature f0 + l, and each of the 8 warps owns c/8 codes.  A warp sifts 256
-// rows' codes a pass (the next 256 already in flight): ballots write the
-// rows whose code is its own, in ascending order, to a list in shared
-// memory, and the warp then loads their g rows (128 coalesced bytes each)
-// 32 at a time before adding them in list order.  Each warp's passes run
-// one after another, so the time goes with B / 256 times a load's latency
-// and 32 shared-memory adds; g is read m times in all, mostly from L2
-// (m*B*d_c*4 bytes, 0.79 GB at 24,000 rows).
+// d_c = 512); but each of the m codebooks needs all of g, so m*B*d_c*4
+// bytes (0.79 GB) cross from L2 to the SMs however the work is cut, and L2's
+// bandwidth sets the floor.  Its design, in two steps:
+//
+//   1. a stable counting sort of each codebook's rows by their (clamped)
+//      code, into offsets (m, c+1) and rows (m, B) int32 (ref.py,
+//      code_order), in two launches over parts of R >= 512 rows (at most 32
+//      parts).  hash_decode_count_kernel reads each part's codes once, in
+//      order, and counts each codebook's codes (shared-memory atomics: an
+//      integer count does not depend on their order).  hash_decode_place_-
+//      kernel, one block a (part, codebook), starts each code's rows after
+//      the rows of smaller codes and its own rows in earlier parts (from the
+//      counts), and places the part's rows: ballots over the code's bits
+//      group a warp's 32 rows by code, so a row's rank among its warp's rows
+//      of the same code is a popcount, and the warps' per-code counts,
+//      scanned per code, give each warp its start.  Positions come from
+//      ranks, never from the order of atomics.
+//   2. hash_decode_sum_kernel, one warp a (feature slice, j, k) segment: the
+//      warp reads its segment's row ids 32 at a time (coalesced), loads the g
+//      rows of the next kSumAhead of them at once (each lane kSumFeatures/32
+//      consecutive features, one 16-byte load at 128 features), then adds
+//      them in list order (ascending b) into registers; it rounds once and
+//      stores its slice of d_cb[j, k] (an empty segment stores +0).  No
+//      shared memory, no read-modify-write: a segment of L rows is a chain of
+//      L adds behind loads already in flight.  The grid runs slice-major
+//      (every (j, k) of one feature slice before the next slice), so a
+//      slice of g (B*512 bytes at 128 features) stays in L2 while the m
+//      codebooks read it and g comes from device memory about once.
+//
+// The sort and the sum are separate launches at every B: one launch whose
+// blocks each sort their codebook in shared memory before summing is
+// slower even at 512 rows on an H100 (ablate.py, fused_4096).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
 
 namespace {
 
@@ -368,10 +392,15 @@ void launch_typed(const int32_t* codes, const void* cb, const float* w0,
 
 // ----- backward: the codebook gradient --------------------------------------
 
-constexpr int kBwdTile = 32;     // features a block: one a lane
-constexpr int kBwdWarps = 8;     // warps a block, each owning ceil(c / 8) codes
-constexpr int kBwdRows = 256;    // rows a warp sifts a pass
-constexpr int kBwdBatch = 32;    // matched rows whose g a warp loads at once
+constexpr int kPartRows = 512;       // rows of a sort part at least (32 * kPlaceWarps)
+constexpr int kMaxParts = 32;        // parts of a sort at most: more rows a part above
+constexpr int kPlaceWarps = 16;      // warps of a place block, one block a (part, codebook)
+constexpr int kSortAhead = 4;        // 32-row steps whose codes a warp loads at once
+constexpr int kSumWarps = 8;         // warps of a sum block
+constexpr int kSumFeatures = 128;    // features of g a warp sums
+constexpr int kSumAhead = 8;         // rows whose g a warp loads before adding them
+constexpr int kLaneF = kSumFeatures / 32;   // consecutive features a lane
+static_assert(kSumFeatures % 32 == 0 && kLaneF <= 4, "a lane holds 1, 2 or 4 features");
 
 template <typename T> __device__ __forceinline__ T round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
@@ -379,99 +408,350 @@ template <> __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// grid (ceil(d_c / 32), m), kBwdWarps * 32 threads; dynamic shared memory:
-// the (c, kBwdTile) f32 accumulator, then a list of kBwdRows entries a warp.
-template <typename T, bool W0>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-hash_decode_bwd_kernel(const int32_t* __restrict__ codes, const float* __restrict__ g,
-                       const float* __restrict__ w0, T* __restrict__ d_cb,
-                       int B, int m, int c, int d_c, int codes_per_warp) {
-  constexpr int kSub = kBwdRows / 32;
-  extern __shared__ float s_acc[];                  // (c, kBwdTile)
-  const int j = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // this warp's matched rows of a pass, ascending: code * kBwdRows + row
-  int* s_list = reinterpret_cast<int*>(s_acc + c * kBwdTile) + warp * kBwdRows;
-  const int f0 = blockIdx.x * kBwdTile;
-  const int f = f0 + lane;
-  const bool live = f < d_c;
-  for (int i = threadIdx.x; i < c * kBwdTile; i += blockDim.x) s_acc[i] = 0.f;
-  const float wf = (W0 && live) ? w0[f] : 1.f;
-  const int k_lo = warp * codes_per_warp;
-  const int k_hi = min(c, k_lo + codes_per_warp);
-  const unsigned below = (1u << lane) - 1u;         // the lanes below this one
-  // row b's code for codebook j, clamped as the forward clamps it; -1 past B
-  auto code_of = [&](int b) {
-    return b < B ? min(max(codes[static_cast<size_t>(b) * m + j], 0), c - 1) : -1;
-  };
-  int code[kSub];                                   // rows b0 + 32 i + lane
+// The lanes of the warp whose key equals this lane's, for keys in [-1, c):
+// one ballot for the sign, then one a bit of c - 1 (9 ballots at c = 256;
+// on an H100 the whole backward is 2-3% slower at 61,696 and 512 rows with
+// __match_any_sync instead, and as fast at 24,064: ablate.py, match_any).
+__device__ __forceinline__ unsigned same_key(int key, int bits) {
+  const unsigned valid = __ballot_sync(0xffffffffu, key >= 0);
+  unsigned same = key >= 0 ? valid : ~valid;
+  for (int i = 0; i < bits; ++i) {
+    const bool bit = (key >> i) & 1;
+    const unsigned set = __ballot_sync(0xffffffffu, bit);
+    same &= bit ? set : ~set;
+  }
+  return same;
+}
+
+// The exclusive prefix, over the block's threads in order, of `own`; scan
+// holds W + 1 ints of shared memory (scan[W] = the total).  Every thread
+// of the W warps calls it.
+template <int W>
+__device__ int block_exclusive_scan(int own, int* scan) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = own;
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) code[i] = code_of(32 * i + lane);
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) scan[warp] = incl;
   __syncthreads();
-  for (int b0 = 0; b0 < B; b0 += kBwdRows) {
-    int next[kSub];                                 // the next pass's, in flight
+  if (warp == 0) {
+    const int v = lane < W ? scan[lane] : 0;
+    int x = v;
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) next[i] = code_of(b0 + kBwdRows + 32 * i + lane);
-    int count = 0;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const bool mine = code[i] >= k_lo && code[i] < k_hi;
-      const unsigned ballot = __ballot_sync(0xffffffffu, mine);
-      if (mine) s_list[count + __popc(ballot & below)] = code[i] * kBwdRows + 32 * i + lane;
-      count += __popc(ballot);
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += u;
     }
-    __syncwarp();
-    for (int base = 0; base < count; base += kBwdBatch) {   // in list order
-      int e[kBwdBatch];
-      float v[kBwdBatch];
-#pragma unroll
-      for (int u = 0; u < kBwdBatch; ++u) e[u] = base + u < count ? s_list[base + u] : -1;
-#pragma unroll
-      for (int u = 0; u < kBwdBatch; ++u) {
-        v[u] = (e[u] >= 0 && live)
-                   ? g[static_cast<size_t>(b0 + e[u] % kBwdRows) * d_c + f] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kBwdBatch; ++u) {
-        if (e[u] >= 0) {
-          float* a = s_acc + (e[u] / kBwdRows) * kBwdTile + lane;
-          *a = __fadd_rn(*a, W0 ? __fmul_rn(v[u], wf) : v[u]);
-        }
-      }
-    }
-    __syncwarp();                                   // the list is rewritten next pass
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) code[i] = next[i];
+    if (lane < W) scan[lane] = x - v;
+    if (lane == 31) scan[W] = x;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < c * kBwdTile; i += blockDim.x) {
-    const int k = i / kBwdTile, l = i % kBwdTile;
-    if (f0 + l < d_c) {
-      d_cb[(static_cast<size_t>(j) * c + k) * d_c + f0 + l] = round_to<T>(s_acc[i]);
+  return scan[warp] + incl - own;
+}
+
+// Places rows [r_lo, r_hi) of codebook j in the stable order by code:
+// given start[k], the place of the part's first row of code k, each row
+// goes to rows_out[start[code] + its rank among the part's rows of that
+// code].  The block's W warps each own a contiguous chunk of the part (a
+// multiple of 32 rows), so ascending (warp, step, lane) is ascending b; a
+// row's rank is the count of its code in the warps before its own (the
+// warps' per-code counts, hist, scanned per code) plus its rank in its
+// warp's earlier steps and in its own step (a popcount of its same_key
+// group).  Integers only: the same on every run.  hist: c * (W + 1) ints
+// of shared memory ([code][warp], a row of W + 1 so that a warp's codes
+// fall in different banks).
+template <int W>
+__device__ void place_rows(const int32_t* __restrict__ codes, int m, int j, int c,
+                           int r_lo, int r_hi, const int* start, int* hist, int* rows_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;         // the lanes below this one
+  const int chunk = (r_hi - r_lo + 32 * W - 1) / (32 * W) * 32;
+  const int b_lo = r_lo + warp * chunk, b_hi = min(r_hi, b_lo + chunk);
+  const int bits = 32 - __clz(c - 1);               // bits of the largest code
+  for (int i = threadIdx.x; i < c * (W + 1); i += 32 * W) hist[i] = 0;
+  // row b's code, or -1 past the chunk; out-of-range codes clamp, as the
+  // forward's do
+  auto key = [&](int b) {
+    return b < b_hi ? min(max(codes[static_cast<size_t>(b) * m + j], 0), c - 1) : -1;
+  };
+  __syncthreads();
+  for (int b0 = b_lo; b0 < b_hi; b0 += 32 * kSortAhead) {   // count
+    int q[kSortAhead];
+#pragma unroll
+    for (int s = 0; s < kSortAhead; ++s) q[s] = key(b0 + 32 * s + lane);
+#pragma unroll
+    for (int s = 0; s < kSortAhead; ++s) {
+      if (b0 + 32 * s >= b_hi) break;
+      const unsigned same = same_key(q[s], bits);
+      if (q[s] >= 0 && (same & below) == 0) hist[q[s] * (W + 1) + warp] += __popc(same);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < c; k += 32 * W) {          // each warp's start a code
+    int run = start[k];
+    for (int w = 0; w < W; ++w) {
+      const int v = hist[k * (W + 1) + w];
+      hist[k * (W + 1) + w] = run;
+      run += v;
+    }
+  }
+  __syncthreads();
+  for (int b0 = b_lo; b0 < b_hi; b0 += 32 * kSortAhead) {   // place
+    int q[kSortAhead];
+#pragma unroll
+    for (int s = 0; s < kSortAhead; ++s) q[s] = key(b0 + 32 * s + lane);
+#pragma unroll
+    for (int s = 0; s < kSortAhead; ++s) {
+      if (b0 + 32 * s >= b_hi) break;
+      const unsigned same = same_key(q[s], bits);
+      if (q[s] >= 0) {
+        rows_out[hist[q[s] * (W + 1) + warp] + __popc(same & below)] = b0 + 32 * s + lane;
+      }
+      __syncwarp();
+      if (q[s] >= 0 && (same & below) == 0) hist[q[s] * (W + 1) + warp] += __popc(same);
+      __syncwarp();
     }
   }
 }
 
-template <typename T>
-int launch_backward(const int32_t* codes, const float* g, const float* w0, void* d_cb,
-                    int B, int m, int c, int d_c, cudaStream_t stream) {
-  T* out = static_cast<T*>(d_cb);
-  auto kernel = w0 != nullptr ? hash_decode_bwd_kernel<T, true>
-                              : hash_decode_bwd_kernel<T, false>;
-  const int smem = (c * kBwdTile + kBwdWarps * kBwdRows) * static_cast<int>(sizeof(float));
-  static int allowed[2] = {0, 0};                   // as in launch_staged
-  const int slot = w0 != nullptr;
-  if (smem > 48 * 1024 && smem > allowed[slot]) {
+// The sort's first launch: grid P (one block a part of R rows), 512
+// threads; dynamic shared memory m * c ints.  counts (P, m, c): how many
+// rows of each part have each (clamped) code in each codebook.  The part's
+// codes are read once, in order (coalesced); the counts are shared-memory
+// atomics, whose order cannot change an integer count.
+__global__ void __launch_bounds__(512)
+hash_decode_count_kernel(const int32_t* __restrict__ codes, int B, int m, int c, int R,
+                         int* __restrict__ counts) {
+  extern __shared__ int s_count[];
+  const int mc = m * c;
+  for (int i = threadIdx.x; i < mc; i += blockDim.x) s_count[i] = 0;
+  __syncthreads();
+  const int e0 = blockIdx.x * R * m;                 // B * m < 2^31 (the wrapper checks)
+  const int e1 = min(B, (blockIdx.x + 1) * R) * m;
+  constexpr int kAhead = 8;                          // codes a thread loads at once
+  for (int e = e0 + threadIdx.x; e < e1; e += kAhead * blockDim.x) {
+    int k[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int i = e + u * blockDim.x;
+      k[u] = i < e1 ? min(max(codes[i], 0), c - 1) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (k[u] >= 0) atomicAdd(&s_count[(e + u * blockDim.x) % m * c + k[u]], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < mc; i += blockDim.x) {
+    counts[static_cast<size_t>(blockIdx.x) * mc + i] = s_count[i];
+  }
+}
+
+// The sort's second launch: grid (P, m), 32 * kPlaceWarps threads, block
+// (p, j) places part p's rows of codebook j.  Its codes' places start after
+// all rows of smaller codes and this code's rows in parts before p (both
+// from counts); block (0, j) writes offsets[j].  Dynamic shared memory
+// c * (kPlaceWarps + 2) + kPlaceWarps + 1 ints.
+__global__ void __launch_bounds__(32 * kPlaceWarps)
+hash_decode_place_kernel(const int32_t* __restrict__ codes, int B, int m, int c, int R,
+                         int P, const int* __restrict__ counts, int* __restrict__ offsets,
+                         int* __restrict__ rows) {
+  constexpr int W = kPlaceWarps;
+  extern __shared__ int s_place[];
+  int* hist = s_place;                               // c * (W + 1)
+  int* start = hist + c * (W + 1);                   // c
+  int* scan = start + c;                             // W + 1
+  const int p = blockIdx.x, j = blockIdx.y;
+  const int per = (c + 32 * W - 1) / (32 * W);       // codes a thread
+  const int k0 = min(c, static_cast<int>(threadIdx.x) * per), k1 = min(c, k0 + per);
+  int own = 0;                                       // the rows of this thread's codes
+  for (int k = k0; k < k1; ++k) {
+    const int* col = counts + static_cast<size_t>(j) * c + k;
+    int before = 0, total = 0;
+#pragma unroll 8
+    for (int q = 0; q < P; ++q) {
+      const int v = col[static_cast<size_t>(q) * m * c];
+      total += v;
+      before += q < p ? v : 0;
+    }
+    start[k] = before;
+    hist[k] = total;
+    own += total;
+  }
+  int run = block_exclusive_scan<W>(own, scan);      // the rows of smaller codes
+  int* off = offsets + static_cast<size_t>(j) * (c + 1);
+  for (int k = k0; k < k1; ++k) {
+    if (p == 0) off[k] = run;
+    start[k] += run;
+    run += hist[k];
+  }
+  if (p == 0 && threadIdx.x == 0) off[c] = B;
+  __syncthreads();                                   // hist is reused
+  place_rows<W>(codes, m, j, c, p * R, min(B, (p + 1) * R), start, hist,
+                rows + static_cast<size_t>(j) * B);
+}
+
+// kLaneF f32 (g) or T (d_cb) values that one lane loads or stores at once
+template <typename T> struct alignas(kLaneF * sizeof(T)) Lanes { T v[kLaneF]; };
+
+// One segment: out[f .. f + kLaneF) (this lane's features of d_cb[j, k]) =
+// the sum over rows[beg .. end), in list order, of g[b, f ..] (* w0).
+// `left` = d_c - f masks the ragged end; VEC: d_c a multiple of kLaneF and
+// g, d_cb aligned to a lane's vector.
+template <typename T, bool W0, bool VEC>
+__device__ __forceinline__ void sum_segment(const int* rows, int beg, int end,
+                                            const float* __restrict__ g,
+                                            const float* __restrict__ w0, T* __restrict__ out,
+                                            int d_c, int f) {
+  const int lane = threadIdx.x & 31;
+  const int left = d_c - f;
+  float acc[kLaneF], w[kLaneF];
+#pragma unroll
+  for (int x = 0; x < kLaneF; ++x) {
+    acc[x] = 0.f;
+    w[x] = (W0 && x < left) ? w0[f + x] : 1.f;
+  }
+  for (int base = beg; base < end; base += 32) {
+    const int n = min(32, end - base);             // row ids, 32 at a time
+    const int mine = lane < n ? rows[base + lane] : 0;
+    for (int u0 = 0; u0 < n; u0 += kSumAhead) {
+      float v[kSumAhead][kLaneF];
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) {      // kSumAhead loads in flight
+        const int b = __shfl_sync(0xffffffffu, mine, (u0 + u) & 31);
+        const float* src = g + static_cast<size_t>(b) * d_c + f;
+        if (VEC && u0 + u < n && left > 0) {
+          const Lanes<float> x = *reinterpret_cast<const Lanes<float>*>(src);
+#pragma unroll
+          for (int k = 0; k < kLaneF; ++k) v[u][k] = x.v[k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < kLaneF; ++k) v[u][k] = (u0 + u < n && k < left) ? src[k] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) {      // then added in list order
+        if (u0 + u < n) {
+#pragma unroll
+          for (int k = 0; k < kLaneF; ++k) {
+            acc[k] = __fadd_rn(acc[k], W0 ? __fmul_rn(v[u][k], w[k]) : v[u][k]);
+          }
+        }
+      }
+    }
+  }
+  if (left <= 0) return;
+  if (VEC) {
+    Lanes<T> y;
+#pragma unroll
+    for (int k = 0; k < kLaneF; ++k) y.v[k] = round_to<T>(acc[k]);
+    *reinterpret_cast<Lanes<T>*>(out + f) = y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLaneF; ++k) {
+      if (k < left) out[f + k] = round_to<T>(acc[k]);
+    }
+  }
+}
+
+// grid ceil(n_slices * m * c / kSumWarps), 32 * kSumWarps threads, no shared
+// memory; warp -> (feature slice, j, k), slice-major: all (j, k) of a slice,
+// then the next, so that the slice of g stays in L2 while the m codebooks
+// read it.
+template <typename T, bool W0, bool VEC>
+__global__ void __launch_bounds__(32 * kSumWarps)
+hash_decode_sum_kernel(const int* __restrict__ offsets, const int* __restrict__ rows,
+                       const float* __restrict__ g, const float* __restrict__ w0,
+                       T* __restrict__ d_cb, int B, int m, int c, int d_c, int n_slices) {
+  const int mc = m * c;
+  const int wid = blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  if (wid >= n_slices * mc) return;
+  const int slice = wid / mc;
+  const int jk = wid % mc;                                  // j * c + k
+  const int j = jk / c;
+  const int* off = offsets + static_cast<size_t>(j) * (c + 1) + (jk - j * c);
+  sum_segment<T, W0, VEC>(rows + static_cast<size_t>(j) * B, off[0], off[1], g, w0,
+                          d_cb + static_cast<size_t>(jk) * d_c, d_c,
+                          slice * kSumFeatures + (threadIdx.x & 31) * kLaneF);
+}
+
+// dynamic shared memory above 48 KiB is allowed once per kernel, for the
+// largest size asked so far
+template <typename K>
+int allow_smem(K kernel, int smem, int& allowed) {
+  if (smem > 48 * 1024 && smem > allowed) {
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    allowed[slot] = smem;
+    allowed = smem;
   }
-  const dim3 grid((d_c + kBwdTile - 1) / kBwdTile, m);
-  kernel<<<grid, kBwdWarps * 32, smem, stream>>>(codes, g, w0, out, B, m, c, d_c,
-                                                 (c + kBwdWarps - 1) / kBwdWarps);
+  return 0;
+}
+
+// the dynamic shared memory of a count block ((m, c) counts) and of a place
+// block (hist, start and scan of place_rows), in bytes
+long long count_smem(int m, int c) { return 4LL * m * c; }
+long long place_smem(int c) {
+  return 4LL * (static_cast<long long>(c) * (kPlaceWarps + 2) + kPlaceWarps + 1);
+}
+
+// CUDA launches of the backward's kernels (count, place, sum), counted on
+// the host where each is launched
+std::atomic<unsigned long long> g_launched[3];
+
+// The stable sort: parts of R rows, R a multiple of kPartRows chosen so
+// that there are at most kMaxParts; counts is kMaxParts * m * c ints.
+int launch_sort(const int32_t* codes, int B, int m, int c, int* offsets, int* rows,
+                int* counts, cudaStream_t stream) {
+  const int R = kPartRows * max(1, (B + kPartRows * kMaxParts - 1) / (kPartRows * kMaxParts));
+  const int P = (B + R - 1) / R;
+  static int allowed[2] = {0, 0};
+  const int smem[2] = {static_cast<int>(count_smem(m, c)), static_cast<int>(place_smem(c))};
+  int err = allow_smem(hash_decode_count_kernel, smem[0], allowed[0]);
+  if (err == 0) err = allow_smem(hash_decode_place_kernel, smem[1], allowed[1]);
+  if (err != 0) return err;
+  hash_decode_count_kernel<<<P, 512, smem[0], stream>>>(codes, B, m, c, R, counts);
+  ++g_launched[0];
+  hash_decode_place_kernel<<<dim3(P, m), 32 * kPlaceWarps, smem[1], stream>>>(
+      codes, B, m, c, R, P, counts, offsets, rows);
+  ++g_launched[1];
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool W0, bool VEC>
+int launch_backward_typed(const int32_t* codes, const float* g, const float* w0, T* out,
+                          int B, int m, int c, int d_c, int* work, cudaStream_t stream) {
+  const int n_slices = (d_c + kSumFeatures - 1) / kSumFeatures;
+  int* offsets = work;
+  int* rows = offsets + static_cast<size_t>(m) * (c + 1);
+  const int err = launch_sort(codes, B, m, c, offsets, rows, rows + static_cast<size_t>(m) * B,
+                              stream);
+  if (err != 0) return err;
+  const long long warps = static_cast<long long>(n_slices) * m * c;
+  hash_decode_sum_kernel<T, W0, VEC><<<static_cast<unsigned>((warps + kSumWarps - 1) / kSumWarps),
+                                       32 * kSumWarps, 0, stream>>>(
+      offsets, rows, g, w0, out, B, m, c, d_c, n_slices);
+  ++g_launched[2];
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_backward(const int32_t* codes, const float* g, const float* w0, void* d_cb,
+                    int B, int m, int c, int d_c, int* work, cudaStream_t stream) {
+  T* out = static_cast<T*>(d_cb);
+  const bool vec = d_c % kLaneF == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % sizeof(Lanes<float>) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % sizeof(Lanes<T>) == 0;
+  if (w0 != nullptr) {
+    return vec ? launch_backward_typed<T, true, true>(codes, g, w0, out, B, m, c, d_c, work, stream)
+               : launch_backward_typed<T, true, false>(codes, g, w0, out, B, m, c, d_c, work, stream);
+  }
+  return vec ? launch_backward_typed<T, false, true>(codes, g, w0, out, B, m, c, d_c, work, stream)
+             : launch_backward_typed<T, false, false>(codes, g, w0, out, B, m, c, d_c, work, stream);
 }
 
 }  // namespace
@@ -544,22 +824,56 @@ extern "C" int hash_decode_staged_launch(const void* codes, const void* cb,
 
 // The codebook gradient: codes (B, m) int32, g (B, d_c) f32, w0 (d_c,) f32
 // or null -> d_cb (m, c, d_c) written whole, f32 (storage 0) or bf16 (1).
+// work: hash_decode_backward_sizes' sizes[0] int32 of device scratch for
+// the sort's offsets, rows and counts.  Three launches: the sort's two, then
+// the sum.
 extern "C" int hash_decode_backward_launch(const void* codes, const void* g,
                                            const void* w0, void* d_cb, int storage,
-                                           int B, int m, int c, int d_c, int device,
-                                           void* stream) {
+                                           int B, int m, int c, int d_c, void* work,
+                                           int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int32_t* ci = static_cast<const int32_t*>(codes);
   const float* gf = static_cast<const float*>(g);
   const float* w = static_cast<const float*>(w0);
+  int* wk = static_cast<int*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case kF32:
-      return launch_backward<float>(ci, gf, w, d_cb, B, m, c, d_c, st);
+      return launch_backward<float>(ci, gf, w, d_cb, B, m, c, d_c, wk, st);
     case kBF16:
-      return launch_backward<__nv_bfloat16>(ci, gf, w, d_cb, B, m, c, d_c, st);
+      return launch_backward<__nv_bfloat16>(ci, gf, w, d_cb, B, m, c, d_c, wk, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward's stable sort alone: codes (B, m) int32 -> offsets (m, c + 1)
+// and rows (m, B) int32 (ref.py, code_order); counts: sizes[1] int32 of
+// scratch.
+extern "C" int hash_decode_sort_launch(const void* codes, int B, int m, int c, void* offsets,
+                                       void* rows, void* counts, int device, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  return launch_sort(static_cast<const int32_t*>(codes), B, m, c, static_cast<int*>(offsets),
+                     static_cast<int*>(rows), static_cast<int*>(counts),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The backward's sizes at (B, m, c), so that its callers hold no copy of
+// the layout: sizes[0] = int32 elements of its scratch (offsets (m, c + 1),
+// rows (m, B), then the parts' counts), sizes[1] = the counts' share
+// (kMaxParts * m * c), sizes[2] = the larger dynamic shared memory of the
+// sort's two blocks, in bytes.
+extern "C" void hash_decode_backward_sizes(int B, int m, int c, long long* sizes) {
+  const long long counts = static_cast<long long>(kMaxParts) * m * c;
+  sizes[0] = static_cast<long long>(m) * (c + 1) + static_cast<long long>(m) * B + counts;
+  sizes[1] = counts;
+  sizes[2] = std::max(count_smem(m, c), place_smem(c));
+}
+
+// The backward kernels' launches since the library was loaded or last
+// reset: out[0..2] = count, place, sum; reset != 0 sets them to 0 after.
+extern "C" void hash_decode_backward_kernel_launches(unsigned long long* out, int reset) {
+  for (int i = 0; i < 3; ++i) out[i] = reset ? g_launched[i].exchange(0) : g_launched[i].load();
 }

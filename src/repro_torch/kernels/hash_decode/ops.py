@@ -17,10 +17,14 @@ either device.  Its backward computes what the JAX package's ``_bwd``
     d_w0       = sum_b g[b] * sum_j cb[j, codes[b, j]]   the sum re-decoded
 
 in f32, cast to the operands' dtypes.  ``d_cb`` comes from the CUDA
-backward kernel (CUDA operands; ``hash_decode_backward.launches``) or its
-plain version ``ref.hash_decode_backward_ref`` (CPU operands, ``index_add_``
-on the CPU); both sum each (j, k, feature) in ascending b with no atomics,
-so they agree bit for bit and two passes give the same bits.  ``d_w0`` is
+backward kernels (CUDA operands; ``hash_decode_backward.launches`` counts
+a call): a stable counting sort of each codebook's rows by code (two launches),
+then one warp a (feature slice, codebook, code) sums its rows in
+registers.  On CPU operands it is the plain version
+``ref.hash_decode_backward_ref`` (``index_add_`` on the CPU).  Both sum
+each (j, k, feature) in ascending b with no atomics, so they agree bit for
+bit and two passes give the same bits.  ``code_order`` runs the sort alone
+(the kernel, or ``ref.code_order`` on the CPU).  ``d_w0`` is
 a decode through the forward kernel and a reduction.  The int8
 straight-through backward is not ported yet and raises.
 
@@ -38,7 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import build_shared_library, load_library
-from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref, hash_decode_ref
+from repro_torch.kernels.hash_decode.ref import (code_order as code_order_ref,
+                                                 hash_decode_backward_ref, hash_decode_ref)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hash_decode.cu"
 NAME = "hash_decode"
@@ -76,8 +81,34 @@ def _backward_entry():
     fn = load_library(NAME, SOURCE).hash_decode_backward_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        fn.argtypes = [p, p, p, p] + [i] * 5 + [p, i, p]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _sort_entry():
+    fn = load_library(NAME, SOURCE).hash_decode_sort_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, p, p, p, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _sizes_entry():
+    fn = load_library(NAME, SOURCE).hash_decode_backward_sizes
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = None
+    return fn
+
+
+def _launches_entry():
+    fn = load_library(NAME, SOURCE).hash_decode_backward_kernel_launches
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        fn.restype = None
     return fn
 
 
@@ -211,19 +242,75 @@ def _forward(codes, codebooks, w0, scales, variant: Optional[str] = None) -> tor
     return out
 
 
-def backward_smem(c: int) -> int:
-    """A backward block's shared memory: the (c, 32) f32 accumulator of its
-    32-feature tile and a 256-entry row list for each of its 8 warps (csrc
-    ``kBwdTile``, ``kBwdRows``, ``kBwdWarps``)."""
-    return (c * 32 + 8 * 256) * 4
+BACKWARD_KERNELS = ("count", "place", "sum")     # the backward's launches, in order
+
+
+def sort_sizes(B: int, m: int, c: int) -> Tuple[int, int]:
+    """(int32 elements of the backward's scratch, of the sort's counts in
+    it), as the library lays them out; raises ValueError, before any
+    launch, where the sort cannot run: B*m codes beyond its int32 indices,
+    or blocks above ``SMEM_LIMIT`` of shared memory (the count block holds
+    an (m, c) int32 histogram, so m*c*4 B; a place block (c*18 + 17)*4 B)."""
+    if B * m >= 2 ** 31:
+        raise ValueError(f"B*m = {B * m} codes are beyond the sort's int32 indices")
+    sizes = (ctypes.c_longlong * 3)()
+    _sizes_entry()(B, m, c, sizes)
+    if sizes[2] > SMEM_LIMIT:
+        raise ValueError(f"m={m} x c={c} codes need {sizes[2]} B of shared memory "
+                         f"in the backward's sort, above {SMEM_LIMIT}")
+    return sizes[0], sizes[1]
+
+
+def backward_kernel_launches(reset: bool = False) -> dict:
+    """The backward's CUDA launches by kernel (``BACKWARD_KERNELS``: the
+    sort's count and place, then the sum) since the library was loaded or
+    last reset, as the library counts them where it launches each; ``reset``
+    sets them to 0 after reading.  ``hash_decode_backward.launches`` counts
+    calls (one a call, which launches each of the three once)."""
+    out = (ctypes.c_ulonglong * 3)()
+    _launches_entry()(out, int(reset))
+    return dict(zip(BACKWARD_KERNELS, map(int, out)))
+
+
+def code_order(codes: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offsets (m, c + 1) int32, rows (m, B) int32): each codebook's rows
+    in a stable counting sort by their clamped code, as the backward kernel
+    sorts them first; the sort kernel on CUDA codes, ``ref.code_order`` on
+    CPU ones."""
+    dev = codes.device
+    if dev.type == "cpu":
+        return code_order_ref(codes, c)
+    if dev.type != "cuda":
+        raise ValueError(f"code_order runs on cuda (kernel) or cpu (plain), got {dev}")
+    if codes.dim() != 2 or codes.dtype != torch.int32:
+        raise TypeError(f"codes must be (B, m) int32, got {tuple(codes.shape)} {codes.dtype}")
+    if not codes.is_contiguous():
+        raise ValueError("code_order's codes must be contiguous")
+    B, m = codes.shape
+    _, n_counts = sort_sizes(B, m, c)
+    offsets = torch.zeros((m, c + 1), dtype=torch.int32, device=dev)
+    rows = torch.empty((m, B), dtype=torch.int32, device=dev)
+    if B == 0 or m == 0:
+        return offsets, rows
+    counts = torch.empty(n_counts, dtype=torch.int32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = _sort_entry()(codes.data_ptr(), B, m, c, offsets.data_ptr(), rows.data_ptr(),
+                        counts.data_ptr(), index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_decode sort kernel launch failed: cudaError {err}")
+    return offsets, rows
 
 
 def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tensor],
                   c: int, dtype: torch.dtype) -> torch.Tensor:
     """d_cb (m, c, d_c) in ``dtype`` (float32 or bfloat16) for codes (B, m)
     int32, g (B, d_c) float32 and w0 (d_c,) float32 or None: the backward
-    kernel on CUDA operands (counted in ``hash_decode_backward.launches``),
-    its plain version on CPU ones."""
+    kernels on CUDA operands (one call counted in
+    ``hash_decode_backward.launches``, each kernel's launch in
+    ``backward_kernel_launches``; the sort's offsets and rows in a scratch
+    tensor from the caching allocator), its plain version on CPU ones.
+    Raises ValueError where the sort cannot run (``sort_sizes``: at most
+    m*c = 58,112 codes, c <= 3,227, B*m < 2**31)."""
     dev = codes.device
     if dev.type == "cpu":
         return hash_decode_backward_ref(codes, g, w0, c, dtype)
@@ -239,9 +326,7 @@ def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tenso
     d_c = g.shape[1]
     if w0 is not None and (w0.dtype != torch.float32 or tuple(w0.shape) != (d_c,)):
         raise TypeError(f"w0 must be ({d_c},) float32, got {tuple(w0.shape)} {w0.dtype}")
-    if backward_smem(c) > SMEM_LIMIT:
-        raise ValueError(f"c={c} codes need {backward_smem(c)} B of shared memory in "
-                         f"the backward kernel, above {SMEM_LIMIT}")
+    n_work, _ = sort_sizes(B, m, c)
     if not all(t.is_contiguous() and t.device == dev for t in (codes, g)) or (
             w0 is not None and (not w0.is_contiguous() or w0.device != dev)):
         raise ValueError("hash_decode_backward operands must be contiguous, on one device")
@@ -249,9 +334,10 @@ def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tenso
     if B == 0 or d_c == 0 or m == 0:
         return d_cb.zero_()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
+    work = torch.empty(n_work, dtype=torch.int32, device=dev)
     err = _backward_entry()(
         codes.data_ptr(), g.data_ptr(), None if w0 is None else w0.data_ptr(),
-        d_cb.data_ptr(), _STORAGE[dtype], B, m, c, d_c, index,
+        d_cb.data_ptr(), _STORAGE[dtype], B, m, c, d_c, work.data_ptr(), index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hash_decode backward kernel launch failed: cudaError {err}")

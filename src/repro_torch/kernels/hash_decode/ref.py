@@ -15,12 +15,17 @@ the codebook gradient: ``g * w0`` rounded in f32, then for each codebook j
 an ``index_add_`` of its rows into a zero (c, d_c) f32 table at the
 (clamped) codes, which on the CPU adds in ascending row order (the tests
 hold it to a Python loop), then one rounding to the codebooks' dtype.
+``code_order`` is the plain version of the backward kernel's first step, a
+stable counting sort of each codebook's rows by their (clamped) code;
+``code_set`` makes the code sets, uniform and skewed, that the backward
+and its sort are held to these plain versions on.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -56,3 +61,39 @@ def hash_decode_backward_ref(codes: torch.Tensor, g: torch.Tensor,
     for j in range(m):
         out[j].index_add_(0, idx[:, j], gw)
     return out.to(dtype)
+
+
+def code_order(codes: torch.Tensor, c: int):
+    """codes (B, m) -> (offsets (m, c + 1) int32, rows (m, B) int32): for
+    each codebook j, ``rows[j, offsets[j, k]:offsets[j, k + 1]]`` are the
+    rows b whose code j, clamped to [0, c), is k, in ascending b."""
+    idx = codes.to(torch.int64).clamp(0, c - 1).t()
+    m, B = idx.shape
+    rows = torch.sort(idx, dim=1, stable=True).indices.to(torch.int32)
+    counts = torch.zeros((m, c), dtype=torch.int64, device=codes.device)
+    counts.scatter_add_(1, idx, torch.ones_like(idx))
+    offsets = torch.zeros((m, c + 1), dtype=torch.int32, device=codes.device)
+    offsets[:, 1:] = counts.cumsum(1)
+    return offsets, rows
+
+
+def code_set(kind: str, B: int, m: int, c: int, rng: np.random.Generator) -> np.ndarray:
+    """(B, m) int32 codes drawn from ``rng``: ``uniform`` in [0, c);
+    ``clamped``, uniform in [-5, c + 5), so that some clamp; ``one_code``,
+    every row one code per codebook (codebook 0's above the range, 1's
+    below, both clamped); ``zipf``, Zipf-distributed (a = 1.3), mostly the
+    smallest codes."""
+    if kind == "one_code":
+        codes = np.broadcast_to((7 * np.arange(m)) % c, (B, m)).copy()
+        codes[:, 0] = c + 5
+        if m > 1:
+            codes[:, 1] = -3
+    elif kind == "zipf":
+        codes = np.minimum(rng.zipf(1.3, (B, m)) - 1, c - 1)
+    elif kind == "clamped":
+        codes = rng.integers(-5, c + 5, (B, m))
+    elif kind == "uniform":
+        codes = rng.integers(0, c, (B, m))
+    else:
+        raise ValueError(f"unknown code set {kind!r}")
+    return codes.astype(np.int32)

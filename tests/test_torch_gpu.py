@@ -505,6 +505,66 @@ def test_backward_kernel_bitwise_plain_version(cuda, shape, variant):
     assert a.dtype == dtype and torch.equal(a.cpu(), ref) and torch.equal(a, b)
 
 
+# skewed code sets (kind, B, m, c, d_c) of ``ref.code_set``: every row one
+# code per codebook (codebook 0's out of range above, codebook 1's below,
+# both clamped), Zipf codes, c = 16 at 61,696 rows (segments of about 3,900
+# rows), and the sort's part sizes on either side of 32 parts of 512 rows
+# (B <= 16,384: parts of 512 rows; 16,385: 17 parts of 1,024, the last of 1)
+BWD_SKEWED = [("one_code", 24_064, 16, 256, 512), ("one_code", 61_696, 3, 16, 130),
+              ("one_code", 512, 16, 256, 512), ("zipf", 24_064, 16, 256, 512),
+              ("zipf", 61_696, 16, 256, 130), ("zipf", 16_384, 16, 256, 130),
+              ("uniform", 61_696, 16, 16, 512), ("uniform", 16_385, 3, 16, 130)]
+
+
+def _skewed_codes(kind, B, m, c, seed=0):
+    from repro_torch.kernels.hash_decode.ref import code_set
+    return torch.from_numpy(code_set(kind, B, m, c, np.random.default_rng(seed)))
+
+
+@pytest.mark.parametrize("variant", ["float32", "float32+w0", "bfloat16", "bfloat16+w0"])
+@pytest.mark.parametrize("case", BWD_SKEWED, ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernel_bitwise_on_skewed_codes(cuda, case, variant):
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    kind, B, m, c, d_c = case
+    _, g, w0, dtype = _bwd((B, m, c, d_c), variant, cuda, seed=1)
+    codes = _skewed_codes(kind, B, m, c).to(cuda)
+    a = ops.codebook_grad(codes, g, w0, c, dtype)
+    b = ops.codebook_grad(codes, g, w0, c, dtype)
+    ref = hash_decode_backward_ref(codes.cpu(), g.cpu(), None if w0 is None else w0.cpu(),
+                                   c, dtype)
+    assert torch.equal(a.cpu(), ref) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", BWD_SKEWED + [("clamped", 1, 3, 16, 0), ("clamped", 9_999, 16, 256, 0),
+                                               ("clamped", 0, 4, 16, 0)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sort_kernel_matches_code_order(cuda, case):
+    from repro_torch.kernels.hash_decode.ref import code_order
+    kind, B, m, c, _ = case
+    codes = _skewed_codes(kind, B, m, c, seed=2 if kind == "clamped" else 0)
+    offsets, rows = ops.code_order(codes.to(cuda), c)
+    want_offsets, want_rows = code_order(codes, c)
+    assert torch.equal(offsets.cpu(), want_offsets) and torch.equal(rows.cpu(), want_rows)
+
+
+def test_backward_sizes_from_the_library(cuda):
+    """The scratch holds the sort's offsets (m, c+1), rows (m, B) and 32
+    parts' (m, c) counts.  A count block's (m, c) int32 histogram and a
+    place block's (c*18 + 17) ints must fit a block's 227 KiB of shared
+    memory: m*c above 58,112 or c above 3,227 is refused before any launch,
+    whatever B."""
+    assert ops.sort_sizes(24_064, 16, 256) == (16 * 257 + 16 * 24_064 + 32 * 16 * 256,
+                                               32 * 16 * 256)
+    ops.sort_sizes(1, 32, 1_816)                         # m*c = 58,112
+    ops.sort_sizes(1, 1, 3_227)
+    for m, c in ((32, 1_817), (1, 3_228), (256, 1024)):
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.sort_sizes(8, m, c)
+        codes = torch.zeros(8, m, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.codebook_grad(codes, torch.zeros(8, 4, device=cuda), None, c, torch.float32)
+
+
 def _gnn_spec(n=3000, **kw):
     cfg = paper_gnn_config("sage", n_nodes=n, n_classes=8)
     cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(cfg.embedding,
@@ -519,8 +579,10 @@ def test_gnn_train_steps_on_card_match_cpu(cuda):
     cpu = GraphRuntime.from_spec(spec, graph=(card.adj, card.labels), device="cpu",
                                  params=_to(card.params, "cpu", copy=True))
     ops.hash_decode.launches = ops.hash_decode_backward.launches = 0
+    ops.backward_kernel_launches(reset=True)
     a, b = card.train(3).losses, cpu.train(3).losses
     assert ops.hash_decode.launches == 3 and ops.hash_decode_backward.launches == 3
+    assert ops.backward_kernel_launches() == {"count": 3, "place": 3, "sum": 3}
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
     ev_card, ev_cpu = card.evaluate("val"), cpu.evaluate("val")
     assert ev_card["n"] == ev_cpu["n"] == len(card.splits["val"])

@@ -155,3 +155,80 @@ def test_cached_build_returns_its_compiler_log(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="building hash_decode failed"):
         build.build_shared_library(t_ops.NAME, t_ops.SOURCE)
 
+
+
+# ---------------- the backward's sort and its plain version ----------------
+
+def _codes(kind, B, m, c, seed=0):
+    from repro_torch.kernels.hash_decode.ref import code_set
+    return code_set(kind, B, m, c, np.random.default_rng(seed))
+
+
+@pytest.mark.parametrize("kind,B,m,c", [("uniform", 300, 4, 16), ("clamped", 257, 3, 16),
+                                        ("clamped", 0, 3, 16), ("clamped", 1, 3, 16),
+                                        ("one_code", 500, 3, 8), ("zipf", 1000, 2, 256),
+                                        ("uniform", 40, 2, 1)])
+def test_code_order_is_a_stable_argsort_by_clamped_code(kind, B, m, c):
+    """``ref.code_order`` (and the wrapper on CPU codes): for each codebook,
+    numpy's stable argsort of the clamped codes, and each code's offsets."""
+    codes = _codes(kind, B, m, c)
+    offsets, rows = t_ops.code_order(torch.from_numpy(codes), c)
+    assert offsets.dtype == rows.dtype == torch.int32
+    assert tuple(offsets.shape) == (m, c + 1) and tuple(rows.shape) == (m, B)
+    for j in range(m):
+        k = np.clip(codes[:, j], 0, c - 1)
+        np.testing.assert_array_equal(rows[j].numpy(), np.argsort(k, kind="stable"))
+        np.testing.assert_array_equal(
+            offsets[j].numpy(), np.concatenate([[0], np.cumsum(np.bincount(k, minlength=c))]))
+
+
+@pytest.mark.parametrize("kind,B,m,c,d_c", [("one_code", 300, 3, 16, 130),
+                                            ("zipf", 400, 4, 256, 130),
+                                            ("clamped", 200, 2, 16, 33)])
+def test_backward_plain_version_on_skewed_codes_is_the_python_loop(kind, B, m, c, d_c):
+    """Every row one code, Zipf codes and clamped codes, ragged d_c: the
+    plain version of the codebook gradient equals a Python loop adding the
+    rows in ascending b, with and without w0."""
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    codes = _codes(kind, B, m, c, seed=B)
+    rng = np.random.default_rng(B + 1)
+    g = (rng.standard_normal((B, d_c)) * np.exp(3 * rng.standard_normal((B, 1)))).astype(np.float32)
+    w0 = rng.standard_normal(d_c).astype(np.float32)
+    for w in (None, w0):
+        gw = g * w[None, :] if w is not None else g
+        loop = np.zeros((m, c, d_c), np.float32)
+        for b in range(B):
+            for j in range(m):
+                loop[j, min(max(codes[b, j], 0), c - 1)] += gw[b]
+        got = hash_decode_backward_ref(torch.from_numpy(codes), torch.from_numpy(g),
+                                       None if w is None else torch.from_numpy(w), c,
+                                       torch.float32)
+        np.testing.assert_array_equal(got.numpy(), loop)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_empty_and_negative_zero_segments_give_positive_zero(dtype):
+    """A code no row has, and a code whose rows' terms are all -0 (g = -0,
+    or g = +0 times a negative w0), give +0, not -0: the sum starts from +0."""
+    B, m, c, d_c = 6, 2, 8, 4
+    codes = torch.tensor([[1, 2]] * 3 + [[3, 2]] * 3, dtype=torch.int32)
+    g = torch.full((B, d_c), -0.0)
+    g[3:] = 0.0
+    w0 = torch.tensor([-1.0, -2.0, 3.0, -0.5])
+    for w in (None, w0):
+        d_cb = t_ops.codebook_grad(codes, g, w, c, dtype)
+        assert d_cb.dtype == dtype
+        assert torch.equal(d_cb.float(), torch.zeros(m, c, d_c))
+        assert not torch.signbit(d_cb.float()).any()
+
+
+def test_backward_scratch_and_shared_memory():
+    """The scratch and shared-memory sizes come from the library (held on
+    the card: ``test_torch_gpu.py::test_backward_sizes_from_the_library``);
+    codes beyond the sort's int32 indices, and a device that is neither
+    cuda nor cpu, are refused before the library is loaded or anything
+    launched."""
+    with pytest.raises(ValueError, match="int32"):
+        t_ops.sort_sizes(2 ** 20, 2 ** 11, 16)
+    with pytest.raises(ValueError, match="cuda"):
+        t_ops.code_order(torch.zeros(4, 2, dtype=torch.int32, device="meta"), 16)
