@@ -17,15 +17,30 @@ weights and data from a seed:
          (``paper_gnn_config("sage")``: c=256, m=16, d_c=d_m=512, 3-layer
          decoder, d_e=64, 2 SAGE layers x 128, fanout 15, f32) on a
          169,343-node power-law graph (the size of ogbn-arxiv):
-         ``GraphRuntime.from_spec`` -> ``rt.serve()`` -> 8 requests of 256
-         nodes and one ``serve_many`` of 4;
+         ``GraphRuntime.from_spec`` -> ``rt.serve(cache_capacity=0)`` -> 8
+         requests of 256 nodes and one ``serve_many`` of 4 (the uncached
+         reference);
+  serve_cached  ``rt.serve()`` with no arguments: the hot-node cache at the
+         JAX default capacity (all 169,343 nodes), miss-only decode; the
+         same 12 requests and 8 repeats, each call's miss rows held bitwise
+         against the uncached decode, its outputs against the uncached
+         engine's, its bookkeeping against a CPU replay, and a
+         ``serve_many`` of 4's peak memory against the uncached one's;
+  serve_batched  ``rt.serve(batching=BatchingSpec(max_batch=4))`` with 16
+         requests from 4 threads, against a sequential cached engine;
   gnn_train  the same model trained on the same graph through
-         ``GraphRuntime.train`` (batch 256, AdamW, prefetched batches): 40
+         ``GraphRuntime.train`` (batch 256, AdamW, prefetched batches): 300
          steps, one forward and one backward ``hash_decode`` launch a step;
          steps timed with and without prefetch, one step's stage breakdown
          and profile, ``evaluate("val")``, and a run killed at step 10 and
          resumed with ``GraphRuntime.resume`` against a straight one, bit
          for bit;
+  gnn_train_cached  the same training with the hot-node cache (96,256
+         slots, serving's rule of 4 frontiers), 20 steps from the same
+         init: staleness 0 against the uncached losses bit for bit;
+         staleness 4, plain and with the miss planner, the host shadow
+         held against the card's bookkeeping after every step; the
+         planned run killed at 10 and resumed, bit for bit;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -415,9 +430,7 @@ def phase_slice():
     from repro_torch.core import embedding as emb_lib
     from repro_torch.device import make_generator
     from repro_torch.graph.runtime import GraphRuntime
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops
-    from repro_torch.kernels.lsh_encode import ops as lsh_ops
 
     spec = _spec("auto", N_NODES, N_CLASSES)
     t0 = time.perf_counter()
@@ -437,11 +450,7 @@ def phase_slice():
     requests = [rng.choice(N_NODES, REQUEST, replace=False) for _ in range(12)]
     torch.cuda.reset_peak_memory_stats()
 
-    fa_ops.flash_attention.launches = 0
-    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
-    ops.hash_decode_backward.launches = 0
-    ops.backward_kernel_launches(reset=True)
-    ops.hash_decode.launches = 0               # the serving path's run starts here
+    zero_counts()                              # the serving path's run starts here
     results, times, per_request = [], [], []
     for ids in requests[:8]:
         before = ops.hash_decode.launches
@@ -454,14 +463,7 @@ def phase_slice():
     many = engine.serve_many(requests[8:12])
     torch.cuda.synchronize()
     many_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"hash_decode": ops.hash_decode.launches,
-                "hash_decode_backward": ops.hash_decode_backward.launches,
-                "hash_decode_backward_by_kernel": ops.backward_kernel_launches(),
-                "flash_attention": fa_ops.flash_attention.launches,
-                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
-    check_backward_launches(launches, "serve")
-    check(launches["flash_attention"] == 0, "the serving path ran attention")
-    check(launches["lsh_encode"] == 0, "the serving path ran an encode")
+    launches = read_counts("serve")            # ... and ends here
     check(launches["hash_decode_backward"] == 0, "the serving path ran a backward")
     check(all(n >= 1 for n in per_request), f"a request decoded without the kernel: {per_request}")
     check(launches["hash_decode"] >= 9,
@@ -511,11 +513,11 @@ def phase_slice():
           flush=True)
     check(worst <= 1e-6, f"embeddings differ from the gather path by {worst}")
     phase_breakdown(engine, requests[:8])
-    rt.close()
-    return launches, engine.frontier_cap, (rt.adj, rt.labels)
+    return launches, engine.frontier_cap, (rt.adj, rt.labels), (rt, engine, requests,
+                                                                 results + many)
 
 
-def phase_breakdown(engine, requests):
+def phase_breakdown(engine, requests, label: str = ""):
     """Where one request's time goes: ``engine.serve`` under a
     ``StageTimer``, which synchronises the card around each stage the
     serving path marks, so the stages do not overlap."""
@@ -531,7 +533,7 @@ def phase_breakdown(engine, requests):
           f"stages marked unevenly: { {s: len(v) for s, v in timer.ms.items()} }")
     total = sum(med.values())
     dev_ms = sum(med.get(s, 0.0) for s in ("unpack", "decode", "mlp", "sage", "logits"))
-    print(f"[breakdown] median ms per request over {len(requests)} timed "
+    print(f"[breakdown]{label} median ms per request over {len(requests)} timed "
           f"requests: " + ", ".join(f"{s} {v:.3f}" for s, v in med.items())
           + f"; sum {total:.3f}; device stages {dev_ms:.3f} "
           f"({100 * dev_ms / total:.1f}% of the sum); mean timed request "
@@ -765,9 +767,15 @@ def phase_train():
 
 
 def profile_step(step, state, batch) -> None:
-    """Device time of one training step by kernel, from torch.profiler.
-    A profiler that cannot start is reported as not measured; a step that
-    raises under it fails the run like any other phase."""
+    """Device time of one training step by kernel, from torch.profiler."""
+    profile_call("one step", lambda: float(step(state, batch)[1]["loss"]))
+
+
+def profile_call(label: str, fn) -> None:
+    """Device time of ``fn()`` (which ends by reading a result back) by
+    kernel, from torch.profiler.  A profiler that cannot start is reported
+    as not measured; a call that raises under it fails the run like any
+    other phase."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -781,8 +789,7 @@ def profile_step(step, state, batch) -> None:
         return
     try:
         t0 = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         prof.stop()
@@ -794,7 +801,7 @@ def profile_step(step, state, batch) -> None:
     if not rows:
         print("[profile] the profiler recorded no device time: not measured", flush=True)
         return
-    print(f"[profile] one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}%, sum of kernel times; {len(rows)} kernels)",
           flush=True)
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:20]:
@@ -1338,7 +1345,7 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
     return n, worst
 
 
-def check_gnn_frontiers(sizes) -> float:
+def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run") -> float:
     """The forward and the backward kernel at every frontier size the GNN
     training run gave them (m=16, c=256, d_c=512, f32 codebooks, no w0:
     the paper GraphSAGE's decode), each bitwise against its plain version;
@@ -1357,7 +1364,7 @@ def check_gnn_frontiers(sizes) -> float:
               f"hash_decode_backward at the training frontier B={B} differs from its plain version")
         del codes, g, got, ref
     print(f"[gnn_train] forward (both variants) and backward kernels bitwise to their plain "
-          f"versions at all {len(sizes)} frontier sizes of the run: {list(sizes)}", flush=True)
+          f"versions at all {len(sizes)} {what}: {list(sizes)}", flush=True)
     torch.cuda.empty_cache()
     return worst
 
@@ -1483,9 +1490,6 @@ def phase_gnn_train(graph):
     from repro_torch.core.embedding import lookup_codes
     from repro_torch.graph.engine import batch_to
     from repro_torch.graph.runtime import GraphRuntime
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.hash_decode import ops as hd_ops
-    from repro_torch.kernels.lsh_encode import ops as lsh_ops
     from repro_torch.stages import StageTimer
     shutil.rmtree(GNN_CKPT, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1517,20 +1521,11 @@ def phase_gnn_train(graph):
     rt.train_step = recording_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
-    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
-    hd_ops.hash_decode.launches = 0
-    hd_ops.hash_decode_backward.launches = 0
-    hd_ops.backward_kernel_launches(reset=True)  # the training path's run starts here
+    zero_counts()                              # the training path's run starts here
     res, periods = _train_timed(rt, GNN_STEPS)
     torch.cuda.synchronize()
     rt.train_step = step
-    launches = {"hash_decode": hd_ops.hash_decode.launches,
-                "hash_decode_backward": hd_ops.hash_decode_backward.launches,
-                "hash_decode_backward_by_kernel": hd_ops.backward_kernel_launches(),
-                "flash_attention": fa_ops.flash_attention.launches,
-                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
-    check_backward_launches(launches, "gnn_train")
+    launches = read_counts("gnn_train")        # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     losses = res.losses
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1624,7 +1619,479 @@ def phase_gnn_train(graph):
     shutil.rmtree(GNN_CKPT, ignore_errors=True)
     del rt, rt0, straight, resumed
     torch.cuda.empty_cache()
-    return launches, frontier_rows, sorted(set(frontiers)), first_codes
+    uncached = dict(init=init, losses=res.losses[:CACHED_STEPS], period_ms=med[2])
+    return launches, frontier_rows, sorted(set(frontiers)), first_codes, uncached
+
+
+# -- the hot-node cache and the batching tier ---------------------------------
+
+CACHED_CAP = 4 * 24_064             # training cache: serving's rule, 4 frontiers
+CACHED_STEPS = 20
+EARLY_STEPS = 5                     # the span of the port's bounds against JAX
+CACHED_CKPT = ROOT / "build" / "gnn_ckpt_cached"
+CACHE_FIELDS = ("node_ids", "values", "version", "last_used", "version_counter", "clock",
+                "hits", "misses")
+
+
+def zero_counts() -> None:
+    """Every kernel's launch counts to 0: a path's run starts here."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    fa_ops.flash_attention.launches = 0
+    lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
+    hd_ops.hash_decode.launches = 0
+    hd_ops.hash_decode_backward.launches = 0
+    hd_ops.backward_kernel_launches(reset=True)
+
+
+def read_counts(path: str) -> dict:
+    """Every kernel's launch counts since ``zero_counts``: a path's run ends
+    here.  None of the cache's paths runs attention or an encode."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    launches = {"hash_decode": hd_ops.hash_decode.launches,
+                "hash_decode_backward": hd_ops.hash_decode_backward.launches,
+                "hash_decode_backward_by_kernel": hd_ops.backward_kernel_launches(),
+                "flash_attention": fa_ops.flash_attention.launches,
+                "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}
+    check_backward_launches(launches, path)
+    check(launches["flash_attention"] == 0 and launches["lsh_encode"] == 0,
+          f"{path} ran attention or an encode: {launches}")
+    return launches
+
+
+def _diff(a, b) -> float:
+    import numpy as np
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def check_rows_against(results, reference, what: str) -> bool:
+    """Embeddings and logits of two lists of served results: bitwise, or
+    within 1e-6 (the bound the serving phase holds between backends) where
+    cuBLAS rounds a row differently at another row count.  Prints the
+    largest difference; returns whether every row was bitwise."""
+    import numpy as np
+    emb = max(_diff(r.embeddings, q.embeddings) for r, q in zip(results, reference))
+    lg = max(_diff(r.logits, q.logits) for r, q in zip(results, reference))
+    bitwise = all(np.array_equal(r.embeddings, q.embeddings)
+                  and np.array_equal(r.logits, q.logits) for r, q in zip(results, reference))
+    print(f"[cache] {what}: embeddings max abs diff {emb}, logits {lg}; bitwise {bitwise}",
+          flush=True)
+    check(emb <= 1e-6 and lg <= 1e-6, f"{what}: embeddings differ by {emb}, logits by {lg}")
+    return bitwise
+
+
+def phase_cached_serve(rt, plain, requests, uncached):
+    """The serving path as ``rt.serve()`` gives it with no arguments: the
+    hot-node cache at the JAX default capacity (the whole graph here),
+    miss-only decode.  The uncached phase's 12 requests (8 ``serve`` and a
+    ``serve_many`` of 4), then the first 8 again.  Returns the path's
+    launch counts and the decode row counts it ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core import embedding as emb_lib
+    from repro_torch.core.backend import CachedDecodeBackend, CacheState
+    from repro_torch.kernels.hash_decode import ops
+    engine = rt.serve()
+    check(engine.cached and engine.cache_capacity == min(4 * engine.frontier_cap, N_NODES),
+          f"rt.serve() has cache capacity {engine.cache_capacity}")
+    calls = [[ids] for ids in requests[:8]] + [requests[8:12]] + [[ids] for ids in requests[:8]]
+    planned, served, times, launched, counters, peak = [], [], [], [], [], None
+    zero_counts()                              # the cached serving path's run starts here
+    for i, reqs in enumerate(calls):
+        planned.append(engine.planned_frontier(reqs))   # the host's plan, no launch
+        if len(reqs) > 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = ops.hash_decode.launches
+        t0 = time.perf_counter()
+        served.append(engine.serve_many(reqs))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launched.append(ops.hash_decode.launches - before)
+        if len(reqs) > 1:
+            peak = torch.cuda.max_memory_allocated()
+        st = engine.stats()
+        counters.append((st["hits"], st["misses"]))
+    launches = read_counts("serve_cached")     # ... and ends here
+    n_decode = [fb.n_decode for fb in planned]
+    rows = [out[0].rows_decoded for out in served]
+    hit_rate, prev = [], (0, 0)
+    for h, m in counters:
+        hit_rate.append(round((h - prev[0]) / max(h - prev[0] + m - prev[1], 1), 4))
+        prev = (h, m)
+    print(f"[cache] serve, capacity {engine.cache_capacity}: per call (8 serve, serve_many "
+          f"of 4, 8 repeats) rows decoded {rows} of {[len(c) * engine.frontier_cap for c in calls]}"
+          f"; hit rate {hit_rate}; host-clock ms {[round(t, 3) for t in times]}; launches "
+          f"{launched}; stats {engine.stats()}", flush=True)
+    check(rows == n_decode, f"rows decoded {rows} are not the plans' {n_decode}")
+    check(launched == [int(n > 0) for n in n_decode],
+          f"hash_decode launched {launched} times for calls decoding {n_decode} rows")
+    check(all(n == 0 for n in n_decode[9:]), f"repeated requests decoded {n_decode[9:]} rows")
+
+    results = [r for out in served for r in out]
+    reference = uncached + uncached[:8]
+    bitwise = check_rows_against(results, reference, "cached serve against the uncached engine")
+    check_rows_against(uncached[8:], [plain.serve(ids) for ids in requests[8:12]],
+                       "uncached serve_many of 4 against single uncached requests")
+
+    # each call's miss rows through the kernel at the call's bucket, against
+    # the uncached engine's decode of the whole frontier (B = cap, x4)
+    ecfg = rt.cfg.embedding_config()
+    cb = engine.params["embed"]["decoder"]["codebooks"]
+    checked = 0
+    for reqs, fb in zip(calls, planned):
+        if not fb.n_decode:
+            continue
+        full = plain.coalesced_frontier(reqs)
+        ids = torch.from_numpy(fb.unique[:fb.n_decode].astype(np.int64)).to(rt.device)
+        keys = torch.from_numpy(full.unique[:full.n_unique].astype(np.int64)).to(rt.device)
+        rows_full = plain.model.backend.decode(
+            emb_lib.lookup_codes(plain.params["embed"],
+                                 torch.from_numpy(full.unique).to(rt.device), ecfg), cb)
+        rows_miss = engine.model.backend.decode(
+            emb_lib.lookup_codes(engine.params["embed"], ids, ecfg), cb)
+        check(torch.equal(rows_miss, rows_full[torch.searchsorted(keys, ids)]),
+              f"miss rows decoded at {fb.n_decode} rows differ from the uncached decode")
+        checked += 1
+    print(f"[cache] the miss rows of {checked} calls decode bitwise as the uncached engine's "
+          f"rows of the same nodes (kernel at {sorted({n for n in n_decode if n})} rows against "
+          f"the whole frontier)", flush=True)
+
+    # the card's bookkeeping against a CPU replay of the same lookups
+    replay = CacheState.create(engine.cache_capacity, rt.cfg.d_e)
+    cache = CachedDecodeBackend(staleness=0)
+    for fb in planned:
+        _, replay = cache.lookup_missonly(
+            replay, torch.from_numpy(fb.unique), lambda i: torch.zeros(i.shape[0], rt.cfg.d_e),
+            fb.n_decode, valid=torch.from_numpy(fb.valid))
+    card = engine._cache_state
+    same = [f for f in CACHE_FIELDS if f != "values"
+            and torch.equal(getattr(card, f).cpu(), getattr(replay, f))]
+    print(f"[cache] card CacheState against a CPU replay of the {len(planned)} lookups: "
+          f"equal fields {same}; {int((card.node_ids >= 0).sum())} slots held", flush=True)
+    check(len(same) == len(CACHE_FIELDS) - 1, "the card's cache bookkeeping is not the replay's")
+    held = card.node_ids.cpu().numpy()
+    check(not engine._held_stale and np.array_equal(np.flatnonzero(engine._held),
+                                                    np.sort(held[held >= 0])),
+          "the engine's host table of cached ids is not the card's slot ids")
+
+    # peak memory of a serve_many of 4, cached (above) and uncached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain.serve_many(requests[8:12])
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    print(f"[cache] max_memory_allocated over a serve_many of 4: cached {peak} B, uncached "
+          f"{plain_peak} B (a dense (U, C) compare would add 41.8 GB)", flush=True)
+    check(peak <= plain_peak + (1 << 30), "the cached serve_many took over 1 GB more memory")
+
+    # the plan's membership test: the engine's kept table of cached ids, a
+    # table of bools built from the slot ids (the training planner's), and
+    # np.isin, each with the same stable partition (median of 5, host clock)
+    fb = planned[0]
+    cached_ids = card.node_ids.cpu().numpy()
+
+    def by_isin(ids, valid):
+        return CachedDecodeBackend.partition(valid & ~np.isin(ids, cached_ids[cached_ids >= 0]))
+
+    plan_ms = {}
+    for name, fn in (("the engine's kept table",
+                      lambda i, v: CachedDecodeBackend.partition(v & ~engine._held[i])),
+                     ("a table built from the slot ids",
+                      lambda i, v: CachedDecodeBackend.plan_missonly(cached_ids, i, v)),
+                     ("np.isin", by_isin)):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            perm, n_miss = fn(fb.unique, fb.valid)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        plan_ms[name] = (float(np.median(runs)), perm, n_miss)
+    (_, k_perm, k_n) = plan_ms["np.isin"]
+    same = all(np.array_equal(perm, k_perm) and n == k_n for _, perm, n in plan_ms.values())
+    print(f"[cache] plan at {fb.unique.shape[0]} rows against {engine.cache_capacity} slots "
+          f"(median of 5): membership by " + ", by ".join(
+              f"{name} {ms:.3f} ms" for name, (ms, _, _) in plan_ms.items())
+          + f"; same plan {same}", flush=True)
+    check(same, "the membership tests disagree")
+
+    rng = np.random.default_rng(7)
+    phase_breakdown(engine, [rng.choice(N_NODES, REQUEST, replace=False) for _ in range(8)],
+                    label=" cached")
+    fresh, repeat = rng.choice(N_NODES, REQUEST, replace=False), requests[0]
+    profile_call(f"one cached request ({engine.planned_frontier([fresh]).n_decode} rows "
+                 f"decoded)", lambda: engine.serve(fresh))
+    profile_call("one cached request (a repeat, 0 rows decoded)", lambda: engine.serve(repeat))
+    profile_call("one uncached request", lambda: plain.serve(fresh))
+    sizes = sorted({n for n in n_decode if n})
+    for i, B in enumerate(sizes):
+        check_decode_case((B, 16, 256, 512), "float32", seed=300 + i)
+    return launches, bitwise, sizes
+
+
+def phase_batching(rt, n_requests: int = 16, threads: int = 4):
+    """The continuous-batching tier: ``rt.serve(batching=...)``, 16 requests
+    (sharing 32 hub nodes) submitted from 4 threads, against the same ids
+    through a sequential cached engine, and hash_decode held bitwise to its
+    plain version at every microbatch's decode size.  Returns the path's
+    launch counts, those sizes and the kernel's largest error there."""
+    import numpy as np
+    from repro_torch.serving import BatchingSpec
+    rng = np.random.default_rng(11)
+    hubs = rng.choice(N_NODES, 32, replace=False)
+    requests = [np.concatenate([hubs, rng.choice(N_NODES, REQUEST - 32, replace=False)])
+                for _ in range(n_requests)]
+    zero_counts()                              # the batching path's run starts here
+    t0 = time.perf_counter()
+    tier = rt.serve(batching=BatchingSpec(max_batch=4, max_delay_ms=20.0))
+    with ThreadPoolExecutor(threads) as ex:
+        futures = [ex.submit(lambda chunk: [tier.serve(r) for r in chunk],
+                             requests[i::threads]) for i in range(threads)]
+        chunks = [f.result() for f in futures]
+    stats = tier.stats()
+    tier.close()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts("serve_batched")    # ... and ends here
+    got = [None] * n_requests
+    for i, chunk in enumerate(chunks):
+        got[i::threads] = chunk
+    print(f"[batching] {n_requests} requests from {threads} threads, max_batch 4: "
+          f"{wall_ms:.3f} ms; stats {stats}; launches {launches}", flush=True)
+    check(stats["completed"] == n_requests and stats["shed"] == 0,
+          f"the batcher completed {stats['completed']} and shed {stats['shed']}")
+    check(stats["microbatches"] < n_requests, "the batcher coalesced nothing")
+    check(launches["hash_decode"] <= stats["microbatches"],
+          "more hash_decode launches than microbatches")
+    sequential = rt.serve()
+    check_rows_against(got, [sequential.serve(r) for r in requests],
+                       "batched responses against the sequential cached serve")
+    # one response per request, each carrying its microbatch's decode size
+    sizes = sorted({r.rows_decoded for r in got if r.rows_decoded})
+    check(len(sizes) > 0, "no microbatch decoded a row")
+    err = max(check_decode_case((B, 16, 256, 512), "float32", seed=400 + i)
+              for i, B in enumerate(sizes))
+    print(f"[batching] hash_decode bitwise to its plain version at the microbatches' decode "
+          f"sizes {sizes}", flush=True)
+    return launches, sizes, err
+
+
+def _plain_against_planned(rt, state, batch):
+    """From one state (params and cache), the step's loss and gradients
+    through the plain cached lookup (every frontier row decoded) and
+    through the planned miss-only lookup: (losses bitwise, the largest
+    gradient difference over the largest gradient, leaf by leaf)."""
+    import dataclasses
+    import torch
+    from repro_torch.graph.engine import batch_to
+    from repro_torch.models import gnn
+    from repro_torch.nn.module import leaves_with_path, value_and_grad
+    batch = batch_to(batch, rt.device)
+    out = []
+    for fb in (dataclasses.replace(batch["frontier"], n_decode=None), batch["frontier"]):
+        def loss_fn(p, fb=fb):
+            h, _ = rt.model.apply_cached(p, fb, state["cache"])
+            return gnn.node_loss(rt.model.logits(p, h), batch["labels"])
+        out.append(value_and_grad(loss_fn, state["params"]))
+    (la, ga), (lb, gb) = out
+    ga, gb = dict(leaves_with_path(ga)), dict(leaves_with_path(gb))
+    rel = max(float((ga[k] - gb[k]).abs().max() / ga[k].abs().max().clamp_min(1e-30))
+              for k in ga)
+    return torch.equal(la, lb), rel
+
+
+def _param_gap(a, b) -> float:
+    from repro_torch.nn.module import leaves_with_path
+    a, b = dict(leaves_with_path(a)), dict(leaves_with_path(b))
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+class _ShuffledRows:
+    """A batch source whose frontiers list the same rows in a seeded random
+    order (index maps remapped, so the batch means the same): the control
+    for what another row order alone does to training's rounding."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def next_batch(self):
+        import numpy as np
+        from repro_torch.graph.sampler import FrontierBatch
+        step = self.source.step
+        batch = dict(self.source.next_batch())
+        fb = batch["frontier"]
+        perm = np.random.default_rng(step).permutation(fb.unique.shape[0]).astype(np.int32)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+        batch["frontier"] = FrontierBatch(fb.unique[perm], tuple(inv[m] for m in fb.index_maps),
+                                          fb.n_unique, valid=fb.valid_mask()[perm])
+        return batch
+
+
+def _permuted_control(graph, init, reference):
+    """Loss gaps by step of an uncached run on shuffled frontiers against
+    the uncached run's losses."""
+    from repro_torch.graph.runtime import GraphRuntime
+    rt = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=0), graph=graph,
+                                params=_snapshot(init))
+    rt.data_iter = _ShuffledRows(rt.source)
+    losses = rt.train(len(reference)).losses
+    return [abs(a - b) for a, b in zip(losses, reference)]
+
+
+def _cached_gnn_spec(**emb):
+    import dataclasses
+    spec = _gnn_spec(**{k: emb.pop(k) for k in ("ckpt_dir", "ckpt_every") if k in emb})
+    return dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, embedding=dataclasses.replace(spec.model.embedding,
+                                                  cache_capacity=CACHED_CAP, **emb)))
+
+
+def phase_gnn_cached(graph, uncached):
+    """GraphSAGE trained with the hot-node cache (capacity 96,256, serving's
+    rule of 4 frontiers) from the main run's init: (a) staleness 0 against
+    the uncached run's first 20 losses; (b) staleness 4, plain and with the
+    miss planner, 20 steps each, the shadow held against the card's
+    bookkeeping after every step; (c) the planned run killed at 10 and
+    resumed, against (b).  Returns the launch counts per run and the
+    planned decode row counts."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.graph.runtime import GraphRuntime
+    init = uncached["init"]
+    counts = {}
+
+    def run(name, steps=CACHED_STEPS, check_shadow=False, **emb):
+        rt = GraphRuntime.from_spec(_cached_gnn_spec(**emb), graph=graph,
+                                    params=_snapshot(init))
+        step, per_step, early = rt.train_step, [], {}
+
+        def recording(state, batch):
+            fb = batch["frontier"]
+            rec = dict(rows=fb.unique.shape[0] if fb.n_decode is None else fb.n_decode)
+            if check_shadow:        # the step's inputs, compared after the run
+                rec["inputs"] = ({"params": _snapshot(state["params"]),
+                                  "cache": state["cache"]}, batch)
+            state, m = step(state, batch)
+            if len(per_step) + 1 == EARLY_STEPS:
+                early.update(_snapshot(state["params"]))
+            rec.update(hits=int(m["cache_hits"]), misses=int(m["cache_misses"]))
+            if check_shadow:
+                book = state["cache"].bookkeeping()
+                shadow = rt.data_iter.state_dict()["miss_shadow"]
+                rec["shadow"] = (all(np.array_equal(shadow[f], book[f])
+                                     for f in ("node_ids", "version", "last_used"))
+                                 and shadow["clock"] == book["clock"]
+                                 and shadow["version_counter"] == book["version_counter"])
+            per_step.append(rec)
+            return state, m
+        rt.train_step = recording
+        zero_counts()                          # each cached run starts here
+        res = rt.train(steps)
+        counts[name] = read_counts(name)       # ... and ends here
+        rt.close()
+        return rt, res, per_step, early
+
+    # (a) staleness 0: every entry is stale after the step's bump
+    rt_a, res_a, steps_a, _ = run("gnn_train_cached_s0", cache_staleness=0)
+    same = res_a.losses == uncached["losses"]
+    print(f"[gnn_cached] (a) staleness 0, {CACHED_STEPS} steps: losses bitwise the uncached "
+          f"run's {same}; hits {steps_a[-1]['hits']}, misses {steps_a[-1]['misses']}; "
+          f"launches {counts['gnn_train_cached_s0']}", flush=True)
+    check(same and steps_a[-1]["hits"] == 0, "staleness-0 cached training is not the uncached run")
+    check(counts["gnn_train_cached_s0"]["hash_decode"] == CACHED_STEPS,
+          "staleness 0 did not decode once a step")
+
+    # (b) staleness 4, plain and planned
+    rt_p, res_p, steps_p, early_p = run("gnn_train_cached_s4", cache_staleness=4)
+    rt_q, res_q, steps_q, early_q = run("gnn_train_cached_s4_planned", cache_staleness=4,
+                                        cache_plan_misses=True, check_shadow=True)
+    for name, per in (("plain", steps_p), ("planned", steps_q)):
+        print(f"[gnn_cached] (b) staleness 4 {name}: rows decoded a step "
+              f"{[s['rows'] for s in per]}; cumulative hits {[s['hits'] for s in per]}, "
+              f"misses {[s['misses'] for s in per]}", flush=True)
+    check(steps_p[-1]["hits"] > 0 and steps_q[-1]["hits"] > 0, "staleness 4 never hit")
+    check([(s["hits"], s["misses"]) for s in steps_p]
+          == [(s["hits"], s["misses"]) for s in steps_q],
+          "the planned run's hit and miss counters differ from the plain run's")
+    check(all(s["shadow"] for s in steps_q), "the shadow left the card's cache bookkeeping")
+    decoded = [s["rows"] for s in steps_q]
+    check(counts["gnn_train_cached_s4_planned"]["hash_decode"] == sum(n > 0 for n in decoded),
+          "the planned run did not decode exactly in the steps with misses")
+    gaps = [abs(a - b) for a, b in zip(res_p.losses, res_q.losses)]
+    early = _param_gap(early_p, early_q)
+    control = _permuted_control(graph, init, uncached["losses"])
+    print(f"[gnn_cached] (b) planned against plain: losses bitwise "
+          f"{res_p.losses == res_q.losses}; loss gap by step {gaps}; param gap after step "
+          f"{EARLY_STEPS} {early}, after step {CACHED_STEPS} "
+          f"{_param_gap(rt_p.params, rt_q.params)}; control (no cache, each frontier's rows "
+          f"shuffled) against the uncached run: loss gap by step {control}; the shadow equals "
+          f"the card's bookkeeping after all {len(steps_q)} steps; launches plain "
+          f"{counts['gnn_train_cached_s4']}, planned {counts['gnn_train_cached_s4_planned']}",
+          flush=True)
+    forced = [_plain_against_planned(rt_q, *s.pop("inputs")) for s in steps_q]
+    worst_rel = max(rel for _, rel in forced)
+    print(f"[gnn_cached] (b) from the planned run's own state at each step, the plain "
+          f"lookup against the miss-only one: losses bitwise at {sum(eq for eq, _ in forced)} "
+          f"of {len(forced)} steps; largest gradient difference over the largest gradient, "
+          f"by step {[rel for _, rel in forced]}", flush=True)
+    # the two runs sum the decoder's weight gradients over other row counts
+    # and positions; where that rounds differently, Adam carries the
+    # difference on (the control shows row order alone does the same), so
+    # the step itself is held: the same loss bits from the same state, and
+    # gradients within 1e-5 of the largest (a rounding bound)
+    check(res_p.losses == res_q.losses
+          or (all(eq for eq, _ in forced) and worst_rel <= 1e-5),
+          f"the planned step differs from the plain one beyond rounding: {forced}")
+    # ... and the trajectory over the first steps: within the port's loss
+    # bound against JAX, and no further from the plain run than the
+    # row-shuffled control is from the uncached run at the same step
+    head = range(EARLY_STEPS)
+    print(f"[gnn_cached] (b) first {EARLY_STEPS} steps: planned-plain loss gaps "
+          f"{[gaps[i] for i in head]}, control gaps {[control[i] for i in head]}", flush=True)
+    check(max(gaps[i] for i in head) <= 1e-5,
+          f"planned against plain losses differ by over 1e-5 in the first {EARLY_STEPS} steps")
+    check(all(gaps[i] <= control[i] for i in head),
+          f"the planned run drifts from the plain one faster than the row-shuffled control "
+          f"in the first {EARLY_STEPS} steps")
+
+    # (c) planned, killed at 10 and resumed
+    shutil.rmtree(CACHED_CKPT, ignore_errors=True)
+    ck = dict(cache_staleness=4, cache_plan_misses=True, ckpt_dir=str(CACHED_CKPT),
+              ckpt_every=CACHED_STEPS // 2)
+    _, res_k, _, _ = run("gnn_train_cached_killed", CACHED_STEPS // 2, **ck)
+    resumed = GraphRuntime.resume(str(CACHED_CKPT), graph=graph)
+    zero_counts()                              # the resumed run starts here
+    res_r = resumed.train(CACHED_STEPS)
+    counts["gnn_train_cached_resumed"] = read_counts("gnn_train_cached_resumed")
+    resumed.close()
+    same_losses = res_k.losses + res_r.losses == res_q.losses
+    same_params = _same_tree(resumed.params, rt_q.params)
+    same_cache = all(torch.equal(getattr(resumed.state["cache"], f),
+                                 getattr(rt_q.state["cache"], f)) for f in CACHE_FIELDS)
+    a, b = (r.data_iter.state_dict()["miss_shadow"] for r in (resumed, rt_q))
+    same_shadow = all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[gnn_cached] (c) planned, killed at {CACHED_STEPS // 2} and resumed from step "
+          f"{res_r.resumed_from}: losses bitwise {same_losses}, params {same_params}, "
+          f"CacheState {same_cache}, shadow {same_shadow}", flush=True)
+    check(res_r.resumed_from == CACHED_STEPS // 2 and same_losses and same_params
+          and same_cache and same_shadow, "the resumed cached run differs from the straight one")
+    shutil.rmtree(CACHED_CKPT, ignore_errors=True)
+
+    # the step period with prefetch 2, planned (not recorded) against uncached
+    rt_t = GraphRuntime.from_spec(_cached_gnn_spec(cache_staleness=4, cache_plan_misses=True),
+                                  graph=graph, params=_snapshot(init))
+    _, periods = _train_timed(rt_t, CACHED_STEPS)
+    rt_t.close()
+    print(f"[gnn_cached] step period (host clock, steps 2-{CACHED_STEPS}; median): planned "
+          f"staleness 4 {float(np.median(periods[1:])):.3f} ms "
+          f"{[round(t, 3) for t in periods[1:]]}; uncached {uncached['period_ms']:.3f} ms",
+          flush=True)
+    del rt_a, rt_p, rt_q, resumed, rt_t
+    torch.cuda.empty_cache()
+    return counts, sorted({n for n in decoded if n})
 
 
 def main() -> None:
@@ -1643,12 +2110,21 @@ def main() -> None:
     timing = phase_kernel_check(b_main)
     flash_err = phase_flash_check()
     phase_backward_check()
-    serve_launches, cap, graph = phase_slice()
+    serve_launches, cap, graph, (serve_rt, plain, requests, uncached) = phase_slice()
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
+    cached_launches, cached_bitwise, serve_sizes = phase_cached_serve(serve_rt, plain, requests,
+                                                                      uncached)
+    batched_launches, batched_sizes, batched_err = phase_batching(serve_rt)
+    serve_rt.close()
+    del serve_rt, plain, uncached
     phase_small_reference()
-    gnn_launches, frontier_rows, frontier_sizes, gnn_codes = phase_gnn_train(graph)
-    del graph
-    timing["max_abs_err"] = max(timing["max_abs_err"], check_gnn_frontiers(frontier_sizes))
+    gnn_launches, frontier_rows, frontier_sizes, gnn_codes, gnn_ref = phase_gnn_train(graph)
+    gnn_cached_launches, planned_sizes = phase_gnn_cached(graph, gnn_ref)
+    del graph, gnn_ref
+    timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
+                                check_gnn_frontiers(frontier_sizes),
+                                check_gnn_frontiers(planned_sizes,
+                                                    "decode sizes of the planned cached run"))
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -1664,7 +2140,9 @@ def main() -> None:
     lsh_times = time_lsh()
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
     paths = {"serve": serve_launches, "train": train_launches,
-             "reconstruct": rec_launches, "gnn_train": gnn_launches}
+             "reconstruct": rec_launches, "gnn_train": gnn_launches,
+             "serve_cached": cached_launches, "serve_batched": batched_launches,
+             **gnn_cached_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -1680,7 +2158,9 @@ def main() -> None:
              replaces="src/repro/kernels/hash_decode/kernel.py:67",
              launches=sum(hd_by_path.values()), launches_by_path=hd_by_path,
              bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"],
-             variants=variants),
+             variants=variants, cached_serve_sizes=serve_sizes,
+             batched_serve_sizes=batched_sizes,
+             cached_serve_bitwise_to_uncached=cached_bitwise),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",

@@ -32,10 +32,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.hash_decode import ops as hd_ops
 from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+from repro_torch.stages import stage
 
 # Later slices of the port (ROADMAP.md queue A).
 NOT_PORTED = {
@@ -244,3 +246,395 @@ def get_backend(spec, *, device: torch.device,
     if option:
         raise ValueError(f"decode backend {base!r} takes no ':{option}' option")
     return _REGISTRY[base](policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# hot-node cache
+# ---------------------------------------------------------------------------
+
+INT32_MIN_HALF = torch.iinfo(torch.int32).min // 2   # an empty slot's version and LRU stamp
+INT32_MAX = torch.iinfo(torch.int32).max
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheState:
+    """State of the hot-node decode cache: tensors on the cache's device, in
+    the JAX package's field order (the checkpoint keys its leaves by that
+    order: ``cache/0`` ... ``cache/7``, as the JAX package's pytree does).
+
+    ``node_ids``   (C,) int32 entity id per slot (-1 = empty)
+    ``values``     (C, d) cached decoded embeddings in the compute dtype
+    ``version``    (C,) int32 codebook version each entry was decoded at
+    ``last_used``  (C,) int32 LRU clock of the last access
+    ``version_counter`` () int32 current codebook version (bumped per
+                   optimizer update)
+    ``clock``      () int32 access counter driving the LRU order
+    ``hits`` / ``misses`` () int32 cumulative accounting
+    """
+
+    node_ids: torch.Tensor
+    values: torch.Tensor
+    version: torch.Tensor
+    last_used: torch.Tensor
+    version_counter: torch.Tensor
+    clock: torch.Tensor
+    hits: torch.Tensor
+    misses: torch.Tensor
+
+    @classmethod
+    def create(cls, capacity: int, d: int, dtype=torch.float32,
+               device=None) -> "CacheState":
+        i32 = dict(dtype=torch.int32, device=device)
+        return cls(
+            node_ids=torch.full((capacity,), -1, **i32),
+            values=torch.zeros((capacity, d), dtype=dtype, device=device),
+            version=torch.full((capacity,), INT32_MIN_HALF, **i32),
+            last_used=torch.full((capacity,), INT32_MIN_HALF, **i32),
+            version_counter=torch.zeros((), **i32),
+            clock=torch.zeros((), **i32),
+            hits=torch.zeros((), **i32),
+            misses=torch.zeros((), **i32),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.node_ids.shape[0]
+
+    def head(self, n: int) -> "CacheState":
+        """The first ``n`` slots (views of this state's tensors) with the
+        same counters: ``CacheState.create(C + 1, ...).head(C)`` is a cache
+        of C slots whose spare last row lets ``lookup_missonly(...,
+        buffers=)`` write in place."""
+        return dataclasses.replace(self, **{f: getattr(self, f)[:n] for f in _SLOT_FIELDS})
+
+    def bookkeeping(self) -> Dict[str, object]:
+        """Everything but the values, on the host (numpy arrays and ints):
+        what ``HostCacheShadow`` replicates."""
+        return {"node_ids": self.node_ids.cpu().numpy(),
+                "version": self.version.cpu().numpy(),
+                "last_used": self.last_used.cpu().numpy(),
+                "version_counter": int(self.version_counter),
+                "clock": int(self.clock)}
+
+
+_SLOT_FIELDS = ("node_ids", "values", "version", "last_used")
+
+
+def _first_slots(node_ids: torch.Tensor, ids: torch.Tensor):
+    """(found, slot): whether each id is held, and the lowest slot holding
+    it — what ``argmax`` of the (U, C) compare ``ids[:, None] ==
+    node_ids[None, :]`` gives, from a stable sort and a left search instead
+    of the (U, C) matrix.  Empty slots hold -1 and ids are >= 0, so an
+    empty slot never matches; ``slot`` of an id that is not found is any
+    slot (it only passes through masks)."""
+    keys, order = torch.sort(node_ids, stable=True)
+    pos = torch.searchsorted(keys, ids).clamp_(max=keys.shape[0] - 1)
+    return keys[pos] == ids, order[pos]
+
+
+def _spare_row(buf: torch.Tensor, buffers: Optional[CacheState], name: str) -> torch.Tensor:
+    """``buf`` with one spare last row for the dropped writes: a new copy,
+    or the field ``name`` of ``buffers`` (C + 1 rows whose first C are
+    ``buf``'s own storage), which is then written in place."""
+    return torch.cat([buf, buf[:1]]) if buffers is None else getattr(buffers, name)
+
+
+def _write_index(state: CacheState, last_used, found, slot, hit, needs_slot, may_write):
+    """The slot each row writes back to (C = no write).  Stale-but-present
+    rows refresh in place; absent ones (``needs_slot``) take the least
+    recently used unprotected slots, stable in slot order among ties (empty
+    slots, protected slots), and only the first ``n_free`` of them get one;
+    only ``may_write`` rows write.  The written slots are distinct."""
+    C = state.capacity
+    drop = torch.full_like(slot, C)
+    protected = torch.zeros(C + 1, dtype=torch.bool, device=slot.device)
+    protected[torch.where(found, slot, drop)] = True
+    protected = protected[:C]
+    n_free = C - protected.sum()
+    evict_order = torch.argsort(
+        torch.where(protected, torch.full_like(last_used, INT32_MAX), last_used),
+        stable=True)
+    rank = torch.cumsum(needs_slot.to(torch.int64), 0) - 1
+    new_slot = evict_order[rank.clamp(0, C - 1)]
+    write = may_write & (found | (needs_slot & (rank < n_free)))
+    return torch.where(write, torch.where(found, slot, new_slot), drop)
+
+
+class CachedDecodeBackend:
+    """LRU cache of decoded embeddings keyed by entity id, around any decode
+    function (counterpart of the JAX package's ``CachedDecodeBackend``,
+    bit for bit in outputs and state).
+
+    ``lookup(state, ids, decode_fn)`` serves each id from the cache when its
+    entry is fresh enough (``version_counter - entry_version <= staleness``)
+    and re-decodes otherwise; re-decoded rows are written back (LRU
+    eviction), hit rows only refresh their LRU stamp.  Gradients flow
+    through ``decode_fn`` for misses only: cached rows are constants from
+    an earlier version.  Each call returns a new ``CacheState`` and leaves
+    the old one as it was, unless ``lookup_missonly`` is given ``buffers``
+    to write in place.
+
+    Ids within one lookup should be unique among the ``valid`` rows; at
+    ``staleness=0`` with one lookup per optimizer step every access
+    re-decodes, so training is bit for bit the uncached path's."""
+
+    def __init__(self, staleness: int = 0):
+        self.staleness = int(staleness)
+
+    def init_state(self, capacity: int, d: int, dtype=torch.float32,
+                   device=None) -> CacheState:
+        return CacheState.create(capacity, d, dtype, device)
+
+    def _classify(self, state: CacheState, ids: torch.Tensor, valid):
+        found, slot = _first_slots(state.node_ids, ids)
+        if valid is not None:
+            found = found & valid
+        age = state.version_counter - state.version[slot]
+        return found, slot, found & (age <= self.staleness)
+
+    def _commit(self, state: CacheState, ids, fresh, found, slot, hit, valid,
+                n_decode: Optional[int] = None,
+                buffers: Optional[CacheState] = None) -> CacheState:
+        """The state after the lookup: hits refresh their LRU stamp, and
+        rows that decoded (all, or the first ``n_decode``) are written
+        back; with ``n_decode == 0`` nothing is written."""
+        C, U = state.capacity, ids.shape[0]
+        clock = state.clock + 1
+        drop = torch.full_like(slot, C)
+        last_used = _spare_row(state.last_used, buffers, "last_used")
+        last_used[torch.where(hit, slot, drop)] = clock
+        n_valid = U if valid is None else valid.sum(dtype=torch.int32)
+        n_hit = hit.sum(dtype=torch.int32)
+        counters = dict(version_counter=state.version_counter, clock=clock,
+                        hits=state.hits + n_hit, misses=state.misses + (n_valid - n_hit))
+        if n_decode == 0:
+            return CacheState(node_ids=state.node_ids, values=state.values,
+                              version=state.version, last_used=last_used[:C], **counters)
+        needs_slot, may_write = ~found, ~hit
+        if valid is not None:
+            needs_slot = needs_slot & valid
+        if n_decode is not None:
+            decoded = torch.arange(U, device=ids.device) < n_decode
+            needs_slot, may_write = needs_slot & decoded, may_write & decoded
+        widx = _write_index(state, last_used[:C], found, slot, hit, needs_slot, may_write)
+
+        def put(name, src):
+            out = _spare_row(getattr(state, name), buffers, name)
+            out.index_copy_(0, widx, src.to(out.dtype))
+            return out[:C]
+        last_used.index_copy_(0, widx, clock.expand(U))
+        return CacheState(node_ids=put("node_ids", ids), values=put("values", fresh.detach()),
+                          version=put("version", state.version_counter.expand(U)),
+                          last_used=last_used[:C], **counters)
+
+    def lookup(self, state: CacheState, ids: torch.Tensor,
+               decode_fn: Callable[[torch.Tensor], torch.Tensor],
+               valid: Optional[torch.Tensor] = None):
+        """ids (U,) -> ((U, d) embeddings, new CacheState).  ``valid`` (U,)
+        bool masks rows out of the cache (they still decode, but never hit,
+        never write and do not count): the frontier's padding rows."""
+        with stage("lookup"):
+            ids = ids.to(torch.int32)
+            found, slot, hit = self._classify(state, ids, valid)
+        fresh = decode_fn(ids)
+        with stage("writeback"):
+            out = torch.where(hit[:, None], state.values[slot].to(fresh.dtype), fresh)
+            return out, self._commit(state, ids, fresh, found, slot, hit, valid)
+
+    @staticmethod
+    def plan_missonly(cached_ids, ids, valid=None):
+        """Host-side miss partition for ``lookup_missonly``: ``(perm,
+        n_miss)``, a stable permutation of ``ids`` placing every row that
+        will miss (valid and not among ``cached_ids``; negative ids, empty
+        slots, are ignored) first, and the count of such rows.  Membership
+        is read from a table of bools indexed by id, which gives
+        ``np.isin``'s answer without sorting."""
+        ids = np.asarray(ids)
+        if valid is None:
+            valid = np.ones(ids.shape[0], bool)
+        cached_ids = np.maximum(np.asarray(cached_ids), -1)
+        size = 1 + max(int(ids.max(initial=-1)), int(cached_ids.max(initial=-1)))
+        held = np.zeros(size + 1, bool)   # every empty slot (-1) marks the spare last entry
+        held[cached_ids] = True
+        return CachedDecodeBackend.partition(np.asarray(valid, bool) & ~held[ids])
+
+    @staticmethod
+    def partition(miss: np.ndarray):
+        """``(perm, n_miss)``: ``argsort(~miss, kind="stable")``, the rows
+        flagged in ``miss`` first, each part in row order."""
+        return np.argsort(~miss, kind="stable").astype(np.int32), int(miss.sum())
+
+    @staticmethod
+    def miss_bucket(n_miss: int, pad_to: int, cap: int) -> int:
+        """``n_decode`` for ``n_miss`` planned misses: 0, or ``pad_to``
+        doubled until it holds them, capped at the frontier's ``cap`` rows
+        (the JAX package's jit-shape buckets, kept so both packages decode
+        the same rows)."""
+        if n_miss <= 0:
+            return 0
+        b = pad_to
+        while b < n_miss:
+            b *= 2
+        return min(b, cap)
+
+    def lookup_missonly(self, state: CacheState, ids: torch.Tensor,
+                        decode_fn: Callable[[torch.Tensor], torch.Tensor],
+                        n_decode: int, valid: Optional[torch.Tensor] = None,
+                        buffers: Optional[CacheState] = None):
+        """Miss-only twin of ``lookup``: ``decode_fn`` runs only on the first
+        ``n_decode`` rows (not at all when it is 0).  The caller permuted
+        ``ids`` miss-first (``plan_missonly``), so every valid row past the
+        prefix is a fresh hit; prefix rows that hit anyway are served from
+        the cache, which keeps the output ``lookup``'s.  State updates are
+        restricted to the decoded prefix.
+
+        ``buffers`` (C + 1 rows, ``state`` its ``head(C)``; see
+        ``CacheState.head``) makes the update in place: the returned state's
+        slots are views of ``buffers`` and ``state`` no longer holds the old
+        contents.  A caller that owns its cache alone (the serving engine)
+        saves a copy of every slot tensor a call; the bits are the same."""
+        with stage("lookup"):
+            ids = ids.to(torch.int32)
+            U, d = ids.shape[0], state.values.shape[1]
+            found, slot, hit = self._classify(state, ids, valid)
+        if n_decode > 0:
+            prefix = decode_fn(ids[:n_decode])
+        with stage("writeback"):
+            fresh = (torch.cat([prefix, prefix.new_zeros((U - n_decode, d))])
+                     if n_decode > 0 else state.values.new_zeros((U, d)))
+            out = torch.where(hit[:, None], state.values[slot].to(fresh.dtype), fresh)
+            return out, self._commit(state, ids, fresh, found, slot, hit, valid,
+                                     n_decode, buffers)
+
+    @staticmethod
+    def bump_version(state: CacheState) -> CacheState:
+        """Codebook/decoder update notification: once per optimizer step
+        that touches decoder parameters."""
+        return dataclasses.replace(state, version_counter=state.version_counter + 1)
+
+
+def _stable_argsort(a: np.ndarray) -> np.ndarray:
+    """``np.argsort(a, kind="stable")`` for int32 ``a``: each value widened
+    to int64 and tagged with its position makes every key distinct, so an
+    unstable sort of the keys gives the stable order (several times faster
+    than numpy's stable sort of int32)."""
+    n = a.shape[0]
+    return np.sort(a.astype(np.int64) * n + np.arange(n, dtype=np.int64)) % n
+
+
+class HostCacheShadow:
+    """Host-side numpy replica of the ``CacheState`` bookkeeping (never the
+    values), used to plan miss-only decode for training
+    (``graph.engine.MissPlanningSource``).
+
+    The bookkeeping depends only on the ``(ids, valid, n_decode)`` sequence,
+    never on decoded values, so a replica fed the same per-step inputs
+    tracks the device cache exactly: ``update`` mirrors
+    ``CachedDecodeBackend.lookup_missonly``'s state update (the same stable
+    sorts and slot assignment) followed by the train step's
+    ``bump_version``.  A predicted miss that hits is harmless; a predicted
+    hit that misses would read zeros, which is why ``clear()`` resets to the
+    empty shadow (everything a miss) and ``sync_from_cache_state``
+    re-anchors it to a restored device cache."""
+
+    _EMPTY = INT32_MIN_HALF   # matches CacheState.create
+
+    def __init__(self, capacity: int, staleness: int = 0):
+        self.capacity = int(capacity)
+        self.staleness = int(staleness)
+        self.clear()
+
+    def clear(self) -> None:
+        C = self.capacity
+        self.node_ids = np.full((C,), -1, np.int32)
+        self.version = np.full((C,), self._EMPTY, np.int32)
+        self.last_used = np.full((C,), self._EMPTY, np.int32)
+        self.version_counter = 0
+        self.clock = 0
+
+    # -- (de)serialisation ----------------------------------------------
+    def snapshot(self) -> Dict[str, object]:
+        """A copy of the shadow (the arrays as numpy copies; the checkpoint
+        writes them to its JSON manifest as lists)."""
+        return {
+            "capacity": self.capacity, "staleness": self.staleness,
+            "node_ids": self.node_ids.copy(),
+            "version": self.version.copy(),
+            "last_used": self.last_used.copy(),
+            "version_counter": int(self.version_counter),
+            "clock": int(self.clock),
+        }
+
+    def restore(self, snap: Dict[str, object]) -> None:
+        if int(snap["capacity"]) != self.capacity:
+            raise ValueError(
+                f"shadow snapshot capacity {snap['capacity']} != {self.capacity}")
+        self.staleness = int(snap["staleness"])
+        self.node_ids = np.array(snap["node_ids"], np.int32)
+        self.version = np.array(snap["version"], np.int32)
+        self.last_used = np.array(snap["last_used"], np.int32)
+        self.version_counter = int(snap["version_counter"])
+        self.clock = int(snap["clock"])
+
+    def sync_from_cache_state(self, state: CacheState) -> None:
+        """Re-anchor to a device cache (exact: same fields, host copies)."""
+        book = state.bookkeeping()
+        self.node_ids = book["node_ids"].astype(np.int32)
+        self.version = book["version"].astype(np.int32)
+        self.last_used = book["last_used"].astype(np.int32)
+        self.version_counter = book["version_counter"]
+        self.clock = book["clock"]
+
+    # -- planning --------------------------------------------------------
+    def fresh_ids(self) -> np.ndarray:
+        """Ids whose cached entry will still be within the staleness budget
+        at the next lookup (the shadow is post-bump, like the device)."""
+        live = self.node_ids >= 0
+        fresh = (self.version_counter - self.version.astype(np.int64)) <= self.staleness
+        return self.node_ids[live & fresh]
+
+    def plan(self, ids: np.ndarray, valid: np.ndarray):
+        """``(perm, n_miss)`` for the next batch: ``plan_missonly`` against
+        the fresh (not merely present) shadow entries."""
+        return CachedDecodeBackend.plan_missonly(self.fresh_ids(), ids, valid)
+
+    # -- state transition ------------------------------------------------
+    def update(self, ids: np.ndarray, valid: np.ndarray, n_decode: int) -> None:
+        """Replay one training step's cache transition: the bookkeeping of
+        ``lookup_missonly(ids, ..., n_decode, valid)`` plus the optimizer's
+        ``bump_version``.  ``ids``/``valid`` are the permuted arrays the
+        device step sees."""
+        C = self.capacity
+        ids = np.asarray(ids, np.int32)
+        valid = np.asarray(valid, bool)
+        U = ids.shape[0]
+        order = _stable_argsort(self.node_ids)
+        keys = self.node_ids[order]
+        pos = np.minimum(np.searchsorted(keys, ids, side="left"), C - 1)
+        found = (keys[pos] == ids) & valid
+        slot = order[pos]
+        age = self.version_counter - self.version[slot].astype(np.int64)
+        hit = found & (age <= self.staleness)
+        decoded = np.arange(U) < int(n_decode)
+
+        self.clock += 1
+        last_used = self.last_used.copy()
+        last_used[slot[hit]] = self.clock                      # hit refresh
+
+        protected = np.zeros((C,), bool)
+        protected[slot[found]] = True
+        n_free = C - int(protected.sum())
+        # the device's argsort is stable: so is this one, which keeps the
+        # slot assignment bit for bit through the INT32_MAX / empty-slot ties
+        evict_order = _stable_argsort(
+            np.where(protected, np.iinfo(np.int32).max, last_used))
+        needs_slot = ~found & decoded & valid
+        rank = np.cumsum(needs_slot) - 1
+        new_slot = evict_order[np.clip(rank, 0, C - 1)]
+        write = ~hit & decoded & (found | (needs_slot & (rank < n_free)))
+        w = np.where(found, slot, new_slot)[write]
+        self.node_ids[w] = ids[write]
+        self.version[w] = self.version_counter
+        last_used[w] = self.clock
+        self.last_used = last_used
+        self.version_counter += 1                              # bump_version

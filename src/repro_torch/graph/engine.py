@@ -10,6 +10,9 @@ counterpart of the single-device part of ``repro/graph/engine.py``.
   ``(seed, shard, step)``: the targets from a generator seeded by the step,
   the neighbours counter-based (``NeighborSampler.sample_hashed``), so
   prefetching and resuming replay the same sequence bit for bit.
+* ``MissPlanningSource`` wraps a source for cached training: it permutes
+  each frontier miss-first against a host replica of the cache's
+  bookkeeping, so the step decodes only the planned misses.
 * ``PrefetchIterator`` runs a source in a producer thread, ``depth`` batches
   ahead.  On a CUDA device each batch is copied from pinned host memory on a
   side stream; the consumer's stream waits on the copy's event before it
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.core.backend import get_backend
+from repro_torch.core.backend import CachedDecodeBackend, HostCacheShadow, get_backend
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, stream_key
 from repro_torch.models import gnn
@@ -70,6 +73,25 @@ class GNNModel:
             return gnn.sage_forward(params, levels, self.cfg, backend=self.backend)
         raise TypeError(f"GNNModel.apply: unsupported batch type {type(batch)!r}")
 
+    def apply_cached(self, params, batch: Batch, cache_state, buffers=None):
+        """``(hidden, new_cache_state)``: a frontier decodes through the
+        hot-node cache (only its planned-miss prefix when it carries
+        ``n_decode``, then in place when given ``buffers``; see
+        ``CachedDecodeBackend.lookup_missonly``); any other batch falls
+        back to ``apply`` with the state passed through."""
+        if isinstance(batch, dict):
+            batch = batch_view(batch)
+        if not isinstance(batch, FrontierBatch):
+            return self.apply(params, batch), cache_state
+        with stage("h2d"):
+            batch = batch.to(self.device)
+        if batch.n_decode is not None:
+            return gnn.sage_forward_frontier_missonly(
+                params, batch, self.cfg, cache_state, batch.n_decode, backend=self.backend,
+                buffers=buffers)
+        return gnn.sage_forward_frontier_cached(params, batch, self.cfg, cache_state,
+                                                backend=self.backend)
+
     def logits(self, params, hidden):
         return gnn.node_logits(params, hidden, self.cfg)
 
@@ -86,11 +108,14 @@ def batch_view(batch: Dict[str, Any]) -> Batch:
 
 def map_arrays(batch, fn: Callable):
     """``fn`` over every array of a batch (dicts, tuples, lists and
-    ``FrontierBatch``es keep their structure)."""
+    ``FrontierBatch``es keep their structure; a frontier's ``valid`` mask
+    is an array too, its ``n_unique`` and ``n_decode`` stay plain ints)."""
     if isinstance(batch, FrontierBatch):
         return FrontierBatch(fn(batch.unique), tuple(fn(m) for m in batch.index_maps),
                              batch.n_unique,
-                             None if batch.codes is None else fn(batch.codes))
+                             valid=None if batch.valid is None else fn(batch.valid),
+                             n_decode=batch.n_decode,
+                             codes=None if batch.codes is None else fn(batch.codes))
     if isinstance(batch, dict):
         return {k: map_arrays(v, fn) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
@@ -99,7 +124,8 @@ def map_arrays(batch, fn: Callable):
 
 
 def batch_to(batch, device: torch.device):
-    """Every array of ``batch`` as an int64 tensor on ``device``."""
+    """Every array of ``batch`` as an int64 tensor on ``device`` (a
+    frontier's ``valid`` mask as 0/1; ``FrontierBatch.to`` makes it bool)."""
     return map_arrays(batch, lambda a: torch.as_tensor(a).to(device, torch.int64))
 
 
@@ -193,6 +219,63 @@ class SageBatchSource:
         self.step = int(state["step"])
 
 
+class MissPlanningSource:
+    """Plan-ahead miss partition for training with the hot-node cache.
+
+    Wraps a batch source and advances a ``core.backend.HostCacheShadow`` (an
+    exact numpy replica of the cache bookkeeping, which depends only on the
+    id sequence) one step per produced batch, so a prefetch producer can
+    partition batch k+1's misses while step k runs.  Each emitted frontier
+    is permuted miss-first, its index maps remapped through the inverse
+    permutation, with an explicit ``valid`` mask and a bucketed
+    ``n_decode`` (``pad_to`` doubling, capped at the frontier's rows); the
+    train step then takes the ``lookup_missonly`` path.  On resume the
+    runtime re-anchors the shadow from the restored ``CacheState``
+    (``sync_shadow``)."""
+
+    def __init__(self, source, capacity: int, staleness: int = 0, pad_to: int = 256):
+        self.source = source
+        self.pad_to = max(1, int(pad_to))
+        self.shadow = HostCacheShadow(capacity, staleness)
+
+    def next_batch(self) -> Dict[str, Any]:
+        batch = dict(self.source.next_batch())
+        fb = batch["frontier"]
+        with stage("plan"):
+            ids = np.asarray(fb.unique)
+            U = ids.shape[0]
+            valid = fb.valid_mask()
+            perm, n_miss = self.shadow.plan(ids, valid)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(U, dtype=np.int32)
+            n_dec = CachedDecodeBackend.miss_bucket(n_miss, self.pad_to, U)
+            ids_p, valid_p = ids[perm], valid[perm]
+            batch["frontier"] = FrontierBatch(
+                ids_p, tuple(inv[np.asarray(m)] for m in fb.index_maps), fb.n_unique,
+                valid=valid_p, n_decode=n_dec)
+            self.shadow.update(ids_p, valid_p, n_dec)
+        return batch
+
+    # -- checkpointable state -------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        sd = dict(self.source.state_dict())
+        sd["miss_shadow"] = self.shadow.snapshot()
+        return sd
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.source.load_state_dict(state)
+        if "miss_shadow" in state:
+            self.shadow.restore(state["miss_shadow"])
+        else:
+            # an empty shadow plans everything as a miss (safe); the
+            # runtime's resume re-syncs it from the device cache
+            self.shadow.clear()
+
+    def sync_shadow(self, cache_state) -> None:
+        """Re-anchor the shadow to a restored device ``CacheState``."""
+        self.shadow.sync_from_cache_state(cache_state)
+
+
 # ---------------------------------------------------------------------------
 # async prefetch
 # ---------------------------------------------------------------------------
@@ -218,7 +301,8 @@ class PrefetchIterator:
     overlap with the step consuming the previous batch.  ``device=None``
     hands the host batches over as they are.
 
-    On a CUDA device the producer gathers each batch's arrays into one
+    On a CUDA device the producer gathers each batch's arrays (a frontier's
+    ``valid`` mask as 0/1; ``n_decode`` rides along as a plain int) into one
     pinned buffer, copies it with ``non_blocking=True`` on a side stream,
     records an event and waits for it (so ``put_us`` is the real
     transfer); ``next_batch`` makes the consumer's current stream wait on

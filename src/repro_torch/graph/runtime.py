@@ -6,15 +6,19 @@ counterpart of ``repro/graph/runtime.py``.
     rt = GraphRuntime.from_spec(spec)            # on the CUDA device
     rt.train()                                   # spec.total_steps steps
     rt.evaluate("val")                           # {"accuracy", "loss", "n"}
-    engine = rt.serve(cache_capacity=0)          # GraphInferenceEngine
+    engine = rt.serve()                          # GraphInferenceEngine, cached
+    tier = rt.serve(batching=BatchingSpec())     # ServingBatcher around it
     rt = GraphRuntime.resume(spec.ckpt_dir)      # from the newest checkpoint
 
 ``RuntimeSpec`` has every field of the JAX package's spec, so a JAX
 ``RuntimeSpec.to_json()`` loads here unchanged (``from_json``) and
-round-trips.  What the port runs is single-device minibatched GraphSAGE:
-sharding, the hot-node cache and continuous batching, full-graph models,
-codes on the host and elastic training are later slices, and a spec that
-asks for them raises ``NotImplementedError`` naming the slice.
+round-trips.  What the port runs is single-device minibatched GraphSAGE,
+with the hot-node decode cache (``cache_capacity`` / ``cache_staleness``
+/ ``cache_plan_misses`` in training, on by default in serving) and the
+continuous-batching tier (``batching``) as spec field changes, as in the
+JAX package.  Sharding, full-graph models, codes on the host and elastic
+training are later slices, and a spec that asks for them raises
+``NotImplementedError`` naming the slice.
 
 Graph, splits and batches are pure functions of the spec's seeds (numpy,
 identical to the JAX package's); the LSH projections and weights come from
@@ -34,24 +38,18 @@ import torch
 
 from repro_torch.configs.base import EmbeddingSpec, GNNConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
-from repro_torch.graph.engine import GNNModel, PrefetchIterator, SageBatchSource, _step_rng
+from repro_torch.graph.engine import (GNNModel, MissPlanningSource, PrefetchIterator,
+                                      SageBatchSource, _step_rng)
 from repro_torch.graph.generate import train_val_test_split
 from repro_torch.graph.sampler import NeighborSampler
 from repro_torch.nn.module import map_tree
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.serving.batcher import BatchingSpec
 
 FULLGRAPH_MODELS = ("gcn", "sgc", "gin")
 
 
-# -- field-only copies of the JAX package's nested spec configs -------------
-
-@dataclasses.dataclass(frozen=True)
-class BatchingSpec:
-    """Continuous-batching knobs (``repro/serving/batcher.py``)."""
-    max_batch: int = 8
-    max_delay_ms: float = 2.0
-    queue_depth: int = 64
-
+# -- field-only copy of the JAX package's elastic spec ----------------------
 
 @dataclasses.dataclass(frozen=True)
 class ElasticSpec:
@@ -97,8 +95,8 @@ class GraphSource:
 @dataclasses.dataclass(frozen=True)
 class RuntimeSpec:
     """Everything needed to build the pipeline; the JAX package's fields,
-    names and defaults.  Fields of later slices (shards, batching,
-    elastic) are carried for the round trip."""
+    names and defaults.  Fields of later slices (shards, elastic) are
+    carried for the round trip."""
 
     graph: GraphSource
     model: GNNConfig
@@ -169,14 +167,8 @@ def _check_ported(spec: RuntimeSpec) -> None:
         later.append(f"model={cfg.model!r}: the full-graph slice (ROADMAP A.12)")
     if spec.n_shards > 1:
         later.append(f"n_shards={spec.n_shards}: the multi-GPU slice (ROADMAP A.14)")
-    if spec.batching is not None:
-        later.append("batching: the continuous-batching tier of the cache "
-                     "slice (ROADMAP A.11)")
     if spec.elastic is not None:
         later.append("elastic: the elastic-training slice (ROADMAP A.16)")
-    if emb.cache_capacity > 0 or emb.cache_plan_misses:
-        later.append("cache_capacity/cache_plan_misses: the hot-node cache "
-                     "slice (ROADMAP A.11)")
     if emb.codes_placement != "device":
         later.append(f"codes_placement={emb.codes_placement!r}: the "
                      f"codes-on-host slice (ROADMAP A.15)")
@@ -226,6 +218,19 @@ class GraphRuntime:
         self.source = SageBatchSource(self.sampler, tr, self.labels, spec.batch_size,
                                       seed=spec.data_seed, dedup=spec.dedup,
                                       pad_to=spec.pad_to, frontier_cap=spec.frontier_cap)
+        emb = cfg.embedding
+        if emb.cache_plan_misses:
+            # plan-ahead miss partition: the producer permutes the next
+            # frontier miss-first against a host replica of the cache, so
+            # the step decodes only the (predicted) misses
+            if emb.cache_capacity <= 0 or not cfg.embedding_config().is_compressed:
+                raise ValueError("cache_plan_misses needs a hot-node cache on a "
+                                 "compressed embedding (cache_capacity > 0)")
+            if spec.n_shards > 1 or not spec.dedup:
+                raise ValueError("cache_plan_misses is single-shard dedup only: the "
+                                 "miss-first permutation needs the dedup frontier")
+            self.source = MissPlanningSource(self.source, emb.cache_capacity,
+                                             emb.cache_staleness, pad_to=spec.pad_to)
         # prefetch is a knob, not a code path: the step takes host or
         # device batches alike
         self.data_iter = (PrefetchIterator(self.source, depth=spec.prefetch_depth,
@@ -269,6 +274,11 @@ class GraphRuntime:
             _step, rt.state, rextra = restored
             if "data" in rextra:
                 rt.data_iter.load_state_dict(rextra["data"])
+            # miss-planning runs: re-anchor the host cache shadow to the
+            # restored device cache (exact even without a shadow snapshot)
+            src = getattr(rt.data_iter, "source", rt.data_iter)
+            if hasattr(src, "sync_shadow") and "cache" in rt.state:
+                src.sync_shadow(rt.state["cache"])
         return rt
 
     # -- training --------------------------------------------------------
@@ -346,18 +356,34 @@ class GraphRuntime:
     def serve(self, *, batching=None, **overrides):
         """Freeze a copy of the current params into a
         ``GraphInferenceEngine`` on the runtime's device (later training
-        does not move it).  Keyword overrides go to the engine constructor
-        (``cache_capacity`` must stay 0 in this slice)."""
-        if batching or self.spec.batching is not None:
-            raise NotImplementedError(
-                "the continuous-batching tier is not ported yet; it comes "
-                "with the hot-node cache slice (ROADMAP A.11)")
+        does not move it): batched frontier sampling and, by default, the
+        miss-only hot-node cached decode.  Keyword overrides go to the
+        engine constructor (``cache_capacity=0`` turns the cache off).
+
+        ``batching`` selects the continuous-batching tier
+        (``serving.batcher.ServingBatcher``): ``None`` defers to
+        ``spec.batching``; a ``BatchingSpec`` (or ``True`` for the
+        defaults) wraps the engine in a batcher whose microbatches get
+        cross-request frontier dedup; ``False`` forces the bare engine.
+        The batcher owns the engine: ``close()`` it (or use it as a
+        context manager) when done."""
         from repro_torch.serving.gnn import GraphInferenceEngine
+        if batching is None:
+            batching = self.spec.batching
+        if batching is True:
+            batching = BatchingSpec()
         kw = dict(serve_batch=self.spec.serve_batch, pad_to=self.spec.pad_to,
                   device=self.device)
+        if batching:
+            # the engine's request-count buckets must admit the batcher's flushes
+            kw.setdefault("max_coalesce", batching.max_batch)
         kw.update(overrides)
         frozen = map_tree(lambda _, t: t.clone(), self.params)
-        return GraphInferenceEngine(self.cfg, frozen, self.sampler, **kw)
+        engine = GraphInferenceEngine(self.cfg, frozen, self.sampler, **kw)
+        if not batching:
+            return engine
+        from repro_torch.serving.batcher import ServingBatcher
+        return ServingBatcher(engine, batching)
 
     def close(self) -> None:
         if hasattr(self.data_iter, "close"):

@@ -59,6 +59,14 @@ class FrontierBatch:
     ``index_maps`` per level, indices into ``unique`` with the naive level
                    shapes: (B,), (B, f1), (B, f1, f2), ...
     ``n_unique``   true unique count before padding.
+    ``valid``      optional (U_pad,) bool: the non-padding rows.  ``None``
+                   means the prefix mask ``arange(U_pad) < n_unique``; a
+                   miss-first permuted frontier carries it explicitly.
+    ``n_decode``   optional int: set by ``graph.engine.MissPlanningSource``
+                   (and the serving engine's cache), the frontier is
+                   permuted so rows [0, n_decode) are the planned cache
+                   misses and every valid row past it a predicted hit
+                   (``CachedDecodeBackend.lookup_missonly``).
     ``codes``      optional (U_pad, n_words) packed code rows of the
                    frontier (``attach_codes``).
     """
@@ -66,6 +74,8 @@ class FrontierBatch:
     unique: Array
     index_maps: Tuple[Array, ...]
     n_unique: int
+    valid: Optional[Array] = None
+    n_decode: Optional[int] = None
     codes: Optional[Array] = None
 
     @classmethod
@@ -94,13 +104,28 @@ class FrontierBatch:
         return cls(uniq.astype(np.int32), tuple(maps), int(n_unique))
 
     def to(self, device) -> "FrontierBatch":
-        """Tensors on ``device`` (ids and maps as int64); a batch already
-        there is returned as it is."""
+        """Tensors on ``device`` (ids and maps as int64, ``valid`` as bool,
+        ``n_decode`` a plain int); a batch already there is returned as it
+        is."""
         def t(a):
             return torch.as_tensor(a).to(device, torch.int64)
-        return FrontierBatch(t(self.unique), tuple(t(m) for m in self.index_maps),
-                             int(self.n_unique),
-                             None if self.codes is None else t(self.codes))
+        return FrontierBatch(
+            t(self.unique), tuple(t(m) for m in self.index_maps), int(self.n_unique),
+            valid=(None if self.valid is None
+                   else torch.as_tensor(self.valid).to(device, torch.bool)),
+            n_decode=self.n_decode,
+            codes=None if self.codes is None else t(self.codes))
+
+    def valid_mask(self):
+        """(U_pad,) bool: True on the genuine (non-padding) frontier rows; a
+        tensor on ``unique``'s device for a tensor batch."""
+        if isinstance(self.unique, torch.Tensor):
+            if self.valid is not None:
+                return torch.as_tensor(self.valid).to(self.unique.device, torch.bool)
+            return torch.arange(self.unique.shape[0], device=self.unique.device) < self.n_unique
+        if self.valid is not None:
+            return np.asarray(self.valid, bool)
+        return np.arange(self.unique.shape[0]) < self.n_unique
 
     def levels(self) -> List[Array]:
         """Rebuild the naive level list."""

@@ -7,23 +7,39 @@ uint32 — and returns the same tree as tensors on ``device``.  The layouts
 are the same in both packages (``x @ w`` with w of shape (in, out); the
 LM's ``blocks`` stacked on a leading layer axis), so nothing is transposed;
 the code words become int64 tensors holding the uint32 bit patterns.
+
+``cache_state_from_jax`` takes a JAX ``CacheState`` (or any object or dict
+with its eight fields, as numpy arrays) and returns the port's, so both
+packages can start from one cache state; ``params_from_jax`` converts a
+train state's ``"cache"`` entry the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.core.backend import CacheState
 from repro_torch.core.codes import from_uint32
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def cache_state_from_jax(state, device: DeviceLike = None) -> CacheState:
+    dev = resolve_device(device)
+    get = state.get if isinstance(state, dict) else lambda f: getattr(state, f)
+    return CacheState(*(torch.from_numpy(np.array(get(f.name))).to(dev)
+                        for f in dataclasses.fields(CacheState)))
 
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
 
     def convert(key: str, value):
+        if key == "cache":
+            return cache_state_from_jax(value, dev)
         if isinstance(value, dict):
             return {k: convert(k, v) for k, v in value.items()}
         arr = np.asarray(value)

@@ -4,6 +4,8 @@ its input features; counterpart of the SAGE part of ``repro/models/gnn.py``.
 GraphSAGE follows Figure 4: sample -> code lookup -> decode ->
 mean-aggregate -> concat -> linear(+ReLU), two layers.  Params are a dict
 of tensors in the JAX package's layout (``x @ w``, w of shape (in, out)).
+The frontier forward has two hot-node-cached twins (``_cached``, and
+``_missonly`` for a miss-first permuted frontier).
 The full-graph models (GCN, SGC, GIN) come with a later slice.
 """
 
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core import embedding as emb_lib
+from repro_torch.core.backend import CachedDecodeBackend
 from repro_torch.core.decoder import Params
 from repro_torch.graph.sampler import FrontierBatch
 from repro_torch.nn.module import dense_init
@@ -76,8 +79,47 @@ def sage_forward_frontier(params, fb: FrontierBatch, cfg: GNNConfig,
     step's gradients are the same bits on every run."""
     hu = emb_lib.embed_lookup(params["embed"], fb.unique, cfg.embedding_config(),
                               backend=backend)                      # (U, de)
+    return _levels(params, hu, fb)
+
+
+def _levels(params, hu: torch.Tensor, fb: FrontierBatch) -> torch.Tensor:
     with stage("sage"):
         return _sage_combine(params, *(F.embedding(m, hu) for m in fb.index_maps[:3]))
+
+
+def sage_forward_frontier_cached(params, fb: FrontierBatch, cfg: GNNConfig,
+                                 cache_state, backend=None):
+    """Hot-node-cached twin of ``sage_forward_frontier``: the unique-frontier
+    decode goes through a ``CachedDecodeBackend`` keyed by node id, so ids
+    whose cached embedding is within the staleness budget are served from
+    the cache (no gradient) and the rest decode fresh and are written back.
+    The frontier's padding rows are masked out of the cache.  Returns
+    ``(hidden, new_cache_state)``."""
+    ecfg = cfg.embedding_config()
+    cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
+    hu, new_state = cache.lookup(
+        cache_state, fb.unique,
+        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend),
+        valid=fb.valid_mask())
+    return _levels(params, hu, fb), new_state
+
+
+def sage_forward_frontier_missonly(params, fb: FrontierBatch, cfg: GNNConfig,
+                                   cache_state, n_decode: int, backend=None,
+                                   buffers=None):
+    """Miss-only twin of ``sage_forward_frontier_cached``: the frontier was
+    permuted miss-first on the host (``CachedDecodeBackend.plan_missonly``),
+    so only its first ``n_decode`` rows enter the decoder and every other
+    valid row is served from the cache.  Returns ``(hidden,
+    new_cache_state)``; with ``buffers`` the cache is updated in place
+    (``CachedDecodeBackend.lookup_missonly``)."""
+    ecfg = cfg.embedding_config()
+    cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
+    hu, new_state = cache.lookup_missonly(
+        cache_state, fb.unique,
+        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend),
+        n_decode, valid=fb.valid_mask(), buffers=buffers)
+    return _levels(params, hu, fb), new_state
 
 
 def node_logits(params, hidden: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:

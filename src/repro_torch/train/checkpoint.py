@@ -10,7 +10,9 @@ runtime spec), ``topology`` and the leaves' shapes and dtypes.
     is opened, and a step without a manifest is never listed;
   * tensors go to numpy on save (bf16 as its int16 bit pattern) and back to
     the template's device and dtype on restore; the integer steps of the
-    train state and of the optimizer are leaves too;
+    train state and of the optimizer are leaves too, and so are the fields
+    of a dataclass in the state (the hot-node ``CacheState``), keyed by
+    position (``cache/0`` ... ``cache/7``, the JAX package's keys);
   * async: the device-to-host copy runs on the caller's thread, the write
     on a background thread, with at most one write outstanding;
   * retention: the newest ``keep`` checkpoints;
@@ -21,6 +23,7 @@ runtime spec), ``topology`` and the leaves' shapes and dtypes.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -31,12 +34,18 @@ import numpy as np
 import torch
 
 
+def _fields(tree):
+    """A dataclass's field values in order (a ``CacheState``): its leaves
+    are keyed by position, as the JAX package keys a pytree's children."""
+    return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+
+
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
+    elif isinstance(tree, (list, tuple)) or dataclasses.is_dataclass(tree):
+        for i, v in enumerate(_fields(tree) if dataclasses.is_dataclass(tree) else tree):
             yield from _leaves(v, f"{prefix}{i}/")
     elif tree is not None:
         yield prefix[:-1], tree
@@ -63,6 +72,9 @@ def _unflatten_into(tree, flat: Dict[str, np.ndarray], prefix: str = ""):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten_into(v, flat, f"{prefix}{i}/")
                           for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(*(_unflatten_into(v, flat, f"{prefix}{i}/")
+                            for i, v in enumerate(_fields(tree))))
     if tree is None:
         return None
     key = prefix[:-1]
@@ -78,6 +90,14 @@ def _unflatten_into(tree, flat: Dict[str, np.ndarray], prefix: str = ""):
             t = t.view(torch.bfloat16)
         return t.to(device=tree.device, dtype=tree.dtype)
     return type(tree)(arr.item())
+
+
+def _jsonable(obj):
+    """numpy values in ``extra`` (a cache shadow's arrays) as JSON lists and
+    numbers."""
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return obj.tolist()
+    raise TypeError(f"{type(obj).__name__} is not JSON serializable")
 
 
 class TopologyMismatch(ValueError):
@@ -139,7 +159,7 @@ class CheckpointManager:
                        for k, v in flat.items()},
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
+            json.dump(manifest, f, default=_jsonable)
             f.flush()
             os.fsync(f.fileno())
         if os.path.exists(final):

@@ -5,8 +5,9 @@
 config's compute dtype, optional global-norm clip, the LR schedule by step
 counter, and gradient accumulation over ``hyper.microbatches``.
 ``make_gnn_train_step(cfg, opt)`` is the node-classification step over
-``GNNModel`` on a batch dict from an engine source (the hot-node cache and
-a mesh come with later slices, ROADMAP A.11 and A.14).
+``GNNModel`` on a batch dict from an engine source; with a ``"cache"`` in
+the state it decodes through the hot-node cache (a mesh comes with a later
+slice, ROADMAP A.14).
 
 The stored params never require grad.  Each step differentiates detached
 views of the trainable leaves (``torch.autograd.grad``, which raises if a
@@ -85,11 +86,21 @@ def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None) -> Callab
 def init_gnn_train_state(generator: torch.Generator, cfg: GNNConfig, codes=None,
                          aux=None, params=None) -> Dict[str, Any]:
     """Train state for the graph engine (the LM state's layout, f32
-    moments); ``params`` replaces the seeded init."""
+    moments); ``params`` replaces the seeded init.  When the embedding
+    config enables the hot-node cache (``cache_capacity > 0`` on a
+    compressed kind) the state carries a ``"cache"`` ``CacheState`` on the
+    params' device, in the compute dtype."""
+    from repro_torch.core.backend import CacheState, torch_dtype
     from repro_torch.models.gnn import init_gnn
     if params is None:
         params = init_gnn(generator, cfg, codes=codes, aux=aux)
-    return {"params": params, "opt": adamw_init(params), "step": 0}
+    state = {"params": params, "opt": adamw_init(params), "step": 0}
+    ecfg = cfg.embedding_config()
+    if ecfg.is_compressed and ecfg.cache_capacity > 0:
+        state["cache"] = CacheState.create(ecfg.cache_capacity, cfg.d_e,
+                                           torch_dtype(cfg.compute_dtype),
+                                           device=params["w1"].device)
+    return state
 
 
 def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
@@ -102,7 +113,15 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
     the card, the ``hash_decode`` forward and backward kernels).  The
     stages ``h2d``, ``logits``, ``loss``, ``backward`` and ``optimizer``
     are marked here, ``unpack``, ``decode``, ``mlp`` and ``sage`` inside
-    the model."""
+    the model.
+
+    If the state carries a ``"cache"``, the frontier decode is served
+    through the hot-node cache (``GNNModel.apply_cached``: only the
+    planned-miss prefix when the batch carries ``n_decode``), the new cache
+    replaces the old one, its version is bumped after the optimizer step
+    (which is what ages cached rows past the staleness budget), and the
+    metrics carry its cumulative ``cache_hits`` and ``cache_misses``."""
+    from repro_torch.core.backend import CachedDecodeBackend
     from repro_torch.graph.engine import GNNModel, batch_to, batch_view
     from repro_torch.models import gnn
     dev = resolve_device(device)
@@ -113,9 +132,14 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
         with stage("h2d"):
             batch = batch_to(batch, dev)
         view = batch_view(batch)
+        new_cache = []
 
         def loss_fn(p):
-            h = model.apply(p, view)
+            if "cache" in state:
+                h, cache = model.apply_cached(p, view, state["cache"])
+                new_cache.append(cache)
+            else:
+                h = model.apply(p, view)
             with stage("logits"):
                 logits = model.logits(p, h)
             with stage("loss"):
@@ -125,6 +149,11 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
         with stage("optimizer"):
             adamw_update(state["params"], grads, state["opt"], ocfg)
         state["step"] += 1
-        return state, {"loss": loss}
+        metrics = {"loss": loss}
+        if new_cache:
+            state["cache"] = CachedDecodeBackend.bump_version(new_cache[0])
+            metrics["cache_hits"] = state["cache"].hits
+            metrics["cache_misses"] = state["cache"].misses
+        return state, metrics
 
     return train_step

@@ -16,6 +16,12 @@ orders by torch's and XLA's CPU backends); parameters after 5 steps within
 its gradient's scale, so a rounding-level gradient difference moves it by
 more than the forward error).  Measured: losses 8.3e-7, parameters 8.8e-6.  Evaluation: the same ``n``
 and accuracy, loss within 1e-5.  Resuming on the CPU is bitwise.
+
+Training with the hot-node cache (capacity 512): staleness 0 is the
+uncached run bit for bit; staleness 4, plain and miss-planned, holds the
+JAX runtime within the bounds above with bitwise hit and miss counters and
+cache bookkeeping; planned batches and the shadow are bitwise JAX's; a
+planned run resumes bit for bit.
 """
 
 import dataclasses
@@ -413,3 +419,166 @@ def test_backward_refuses_other_devices():
     g = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="cuda"):
         hd_ops.codebook_grad(codes, g, None, 16, torch.float32)
+
+
+# ---------------- training with the hot-node cache ----------------
+
+CACHE = dict(cache_capacity=512)
+
+
+def _cached_spec(spec, **emb):
+    return dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, embedding=dataclasses.replace(spec.model.embedding, **emb)))
+
+
+def _cached_run(pair, steps=STEPS, **emb):
+    """The port's runtime with the cache options ``emb``, from the JAX init:
+    (losses, per-step metrics, the runtime)."""
+    _, trt, init = pair
+    rt = GraphRuntime.from_spec(_cached_spec(trt.spec, **emb), graph=(trt.adj, trt.labels),
+                                device="cpu", params=params_from_jax(init, device="cpu"))
+    step, metrics = rt.train_step, []
+
+    def recording(state, batch):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) if k == "loss" else int(v) for k, v in m.items()})
+        return state, m
+    rt.train_step = recording
+    res = rt.train(steps)
+    rt.close()
+    return res.losses, metrics, rt
+
+
+def _assert_cache_is_shadow(cache, shadow):
+    book = cache.bookkeeping()
+    for f in ("node_ids", "version", "last_used"):
+        np.testing.assert_array_equal(np.asarray(shadow[f]), book[f], err_msg=f)
+    assert (shadow["clock"], shadow["version_counter"]) == (book["clock"],
+                                                            book["version_counter"])
+
+
+def test_cached_staleness0_training_is_the_uncached_run(pair):
+    """At staleness 0 every entry is stale after the step's version bump, so
+    each step decodes every row: the losses and params are the uncached
+    run's bit for bit, with no hit (the port's counterpart of the JAX
+    package's ``test_cached_staleness0_exact_on_streaming_engine``)."""
+    plain, _, rt0 = _cached_run(pair)
+    cached, metrics, rt = _cached_run(pair, cache_staleness=0, **CACHE)
+    assert cached == plain
+    _assert_same_tree(rt.params, rt0.params)
+    assert metrics[-1]["cache_hits"] == 0 and metrics[-1]["cache_misses"] > 0
+    assert "cache" in rt.state and "cache" not in rt0.state
+
+
+@pytest.mark.parametrize("plan", [False, True])
+def test_cached_training_matches_jax(pair, plan):
+    """Staleness 4, plain and miss-planned, against the JAX runtime of the
+    same spec: 5 losses within 1e-5 and params within 1e-4 (the file's
+    bounds), the hit and miss counters and the cache's bookkeeping
+    bitwise, its values within the params' bound."""
+    emb = dict(CACHE, cache_staleness=4, cache_plan_misses=plan)
+    jrt = JRuntime.from_spec(_cached_spec(_jspec(log_every=1), **emb))
+    jl = []
+    try:
+        jrt.train(STEPS, on_metrics=lambda s, m: jl.append(float(m["loss"])))
+    finally:
+        jrt.close()
+    tl, metrics, rt = _cached_run(pair, **emb)
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=LOSS_TOL)
+    _assert_params_close(rt.params, _np(jrt.params), PARAM_TOL)
+    jc, tc = jrt.state["cache"], rt.state["cache"]
+    assert metrics[-1]["cache_hits"] == int(jc.hits) > 0
+    assert metrics[-1]["cache_misses"] == int(jc.misses)
+    for f in ("node_ids", "version", "last_used", "version_counter", "clock"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)))
+    np.testing.assert_allclose(tc.values.numpy(), np.asarray(jc.values), rtol=0,
+                               atol=PARAM_TOL)
+
+
+def test_planned_batches_match_jax(pair):
+    """``MissPlanningSource`` over the same batch sequence in both packages:
+    the miss-first permutation, remapped index maps, ``valid``, the
+    bucketed ``n_decode`` and the shadow are bitwise JAX's (its update never
+    reads a value, so no training is needed)."""
+    js, ts = _sources(pair, pad_to=32)
+    jp = j_engine.MissPlanningSource(js, 256, staleness=2, pad_to=32)
+    tp = t_engine.MissPlanningSource(ts, 256, staleness=2, pad_to=32)
+    decoded = []
+    for _ in range(6):
+        a, b = jp.next_batch(), tp.next_batch()
+        _assert_batches_equal(a, b)
+        fa, fb = a["frontier"], b["frontier"]
+        np.testing.assert_array_equal(fb.valid, np.asarray(fa.valid))
+        assert fb.n_decode == fa.n_decode
+        assert fb.n_decode % 32 == 0 or fb.n_decode == fb.unique.shape[0]
+        decoded.append(fb.n_decode)
+    assert min(decoded) < max(decoded)          # the warm cache decodes fewer rows
+    snap = tp.state_dict()["miss_shadow"]
+    for f in ("node_ids", "version", "last_used"):
+        np.testing.assert_array_equal(snap[f], getattr(jp.shadow, f), err_msg=f)
+    assert (snap["clock"], snap["version_counter"]) == (jp.shadow.clock,
+                                                        jp.shadow.version_counter)
+
+
+def test_planned_run_against_the_plain_cached_run(pair):
+    """Planned and plain cached training at staleness 4 count the same hits
+    and misses in every step, and the shadow equals the cache's bookkeeping
+    after the run.  The planned run decodes the same miss rows in another
+    order (miss-first), so the decoder's weight-gradient sums run over
+    other row counts: losses within 1e-5 and params within 1e-4 (measured
+    on the CPU: bitwise for four steps, 1.2e-7 at the fifth)."""
+    pl, pm, prt = _cached_run(pair, cache_staleness=4, cache_plan_misses=True, **CACHE)
+    ql, qm, qrt = _cached_run(pair, cache_staleness=4, **CACHE)
+    assert [(m["cache_hits"], m["cache_misses"]) for m in pm] == \
+        [(m["cache_hits"], m["cache_misses"]) for m in qm]
+    np.testing.assert_allclose(pl, ql, rtol=0, atol=LOSS_TOL)
+    for (path, a), (_, b) in zip(leaves_with_path(prt.params), leaves_with_path(qrt.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=PARAM_TOL,
+                                   err_msg="/".join(path))
+    _assert_cache_is_shadow(prt.state["cache"], prt.data_iter.state_dict()["miss_shadow"])
+
+
+def test_planned_resume_restores_the_shadow_and_the_sequence(pair, tmp_path):
+    """6 straight planned steps equal 3, ``GraphRuntime.resume`` and 3 more,
+    bit for bit: losses, params, the ``CacheState`` and the shadow."""
+    _, trt, init = pair
+    graph = (trt.adj, trt.labels)
+
+    def make(d):
+        spec = dataclasses.replace(
+            _cached_spec(trt.spec, cache_staleness=4, cache_plan_misses=True, **CACHE),
+            ckpt_dir=str(tmp_path / d), ckpt_every=3, prefetch_depth=2)
+        return GraphRuntime.from_spec(spec, graph=graph, device="cpu",
+                                      params=params_from_jax(init, device="cpu"))
+
+    full = make("full")
+    res_full = full.train(6)
+    part = make("part")
+    part.train(3)
+    part.close()
+    resumed = GraphRuntime.resume(str(tmp_path / "part"), graph=graph, device="cpu")
+    _assert_cache_is_shadow(resumed.state["cache"],
+                            resumed.data_iter.source.shadow.snapshot())
+    res_tail = resumed.train(6)
+    assert res_tail.resumed_from == 3 and res_tail.losses == res_full.losses[3:]
+    _assert_same_tree(full.params, resumed.params)
+    for f in ("node_ids", "values", "version", "last_used", "version_counter", "clock",
+              "hits", "misses"):
+        assert torch.equal(getattr(resumed.state["cache"], f),
+                           getattr(full.state["cache"], f)), f
+    a, b = (rt.data_iter.state_dict()["miss_shadow"] for rt in (full, resumed))
+    _assert_cache_is_shadow(full.state["cache"], b)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    resumed.close()
+
+
+def test_plan_misses_spec_is_validated(pair):
+    _, trt, _ = pair
+    graph = (trt.adj, trt.labels)
+    with pytest.raises(ValueError, match="cache_capacity"):
+        GraphRuntime.from_spec(_cached_spec(trt.spec, cache_plan_misses=True), graph=graph,
+                               device="cpu", params=trt.params)
+    with pytest.raises(ValueError, match="single-shard dedup"):
+        GraphRuntime.from_spec(dataclasses.replace(
+            _cached_spec(trt.spec, cache_plan_misses=True, **CACHE), dedup=False),
+            graph=graph, device="cpu", params=trt.params)

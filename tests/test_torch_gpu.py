@@ -639,3 +639,159 @@ def test_prefetch_on_cuda_gives_the_sync_batches(cuda):
         np.testing.assert_array_equal(a["frontier"].unique, b["unique"].cpu().numpy())
         for ma, mb in zip(a["frontier"].index_maps, b["maps"]):
             np.testing.assert_array_equal(ma, mb.cpu().numpy())
+
+
+# ---------------- the hot-node cache on the card ----------------
+
+CACHE_FIELDS = ("node_ids", "values", "version", "last_used", "version_counter", "clock",
+                "hits", "misses")
+
+
+def test_cache_lookup_on_card_is_the_cpu_lookup_at_the_serving_shape(cuda):
+    """``lookup_missonly`` and ``lookup`` at the paper's served frontier
+    (U = 61,696) against a full-graph cache (C = 169,343), three calls
+    each, on the card and on the CPU from one state: outputs and every
+    field bitwise (stable sorts, searches and scatters of distinct slots;
+    the values are a fixed table's rows)."""
+    from repro_torch.core.backend import CachedDecodeBackend, CacheState
+    Ub, Cb, d = 61_696, 169_343, 64
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((Cb, d)).astype(np.float32))
+    states = {dev: CacheState.create(Cb, d, device=dev) for dev in ("cpu", cuda)}
+    cache = CachedDecodeBackend(staleness=1)
+    for k in range(6):
+        ids = rng.choice(Cb, Ub, replace=False).astype(np.int32)
+        valid = np.arange(Ub) < Ub - 97
+        n_dec = Ub if k % 3 == 0 else 4096 * (k + 1)
+        outs = {}
+        for dev, st in states.items():
+            t = torch.from_numpy(ids).to(dev)
+            v = torch.from_numpy(valid).to(dev)
+            dec = (lambda i, dev=dev: table.to(dev)[i.long()])
+            if k % 2:
+                outs[dev], states[dev] = cache.lookup_missonly(st, t, dec, n_dec, valid=v)
+            else:
+                outs[dev], states[dev] = cache.lookup(st, t, dec, valid=v)
+            if k == 3:
+                states[dev] = CachedDecodeBackend.bump_version(states[dev])
+        assert torch.equal(outs[cuda].cpu(), outs["cpu"]), f"call {k}"
+        for f in CACHE_FIELDS:
+            assert torch.equal(getattr(states[cuda], f).cpu(), getattr(states["cpu"], f)), f
+    assert int(states["cpu"].hits) > 0
+
+
+def test_in_place_cache_on_card_is_the_functional_one(cuda):
+    """``lookup_missonly(..., buffers=)``, the serving engine's in-place
+    update, against the functional call on the card at the served
+    frontier (U = 61,696, C = 169,343): four planned calls, the last a
+    repeat that decodes nothing; outputs and every field bitwise."""
+    from repro_torch.core.backend import CachedDecodeBackend, CacheState
+    Ub, Cb, d = 61_696, 169_343, 64
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.standard_normal((Cb, d)).astype(np.float32)).to(cuda)
+    cache = CachedDecodeBackend(staleness=0)
+    functional = CacheState.create(Cb, d, device=cuda)
+    buffers = CacheState.create(Cb + 1, d, device=cuda)
+    in_place = buffers.head(Cb)
+    requests = [rng.choice(Cb, Ub, replace=False).astype(np.int32) for _ in range(3)]
+    for k, ids in enumerate(requests + requests[-1:]):
+        valid = np.arange(Ub) < Ub - 97
+        held = functional.node_ids.cpu().numpy()
+        perm, n_miss = CachedDecodeBackend.plan_missonly(held[held >= 0], ids, valid)
+        n_dec = CachedDecodeBackend.miss_bucket(n_miss, 256, Ub)
+        t = torch.from_numpy(ids[perm]).to(cuda)
+        v = torch.from_numpy(valid[perm]).to(cuda)
+        a, functional = cache.lookup_missonly(functional, t, lambda i: table[i.long()],
+                                              n_dec, valid=v)
+        b, in_place = cache.lookup_missonly(in_place, t, lambda i: table[i.long()],
+                                            n_dec, valid=v, buffers=buffers)
+        assert (n_dec == 0) == (k == 3), (k, n_dec)
+        assert torch.equal(a, b), f"call {k}"
+        for f in CACHE_FIELDS:
+            assert torch.equal(getattr(in_place, f), getattr(functional, f)), (k, f)
+    assert in_place.values.data_ptr() == buffers.values.data_ptr()
+
+
+def _cached(spec, **emb):
+    return dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, embedding=dataclasses.replace(spec.model.embedding, **emb)))
+
+
+def test_cached_staleness0_training_on_card_is_the_uncached_run(cuda):
+    """Staleness 0 through the kernel backend on the card: every row
+    re-decodes every step, so the losses and params are the uncached run's
+    bit for bit and nothing hits."""
+    base = _gnn_spec(prefetch_depth=2)
+    plain = GraphRuntime.from_spec(base)
+    init = _to(plain.params, cuda, copy=True)
+    a = plain.train(5).losses
+    cached = GraphRuntime.from_spec(_cached(base, cache_capacity=4096), graph=(
+        plain.adj, plain.labels), params=init)
+    ops.hash_decode.launches = 0
+    b = cached.train(5).losses
+    assert ops.hash_decode.launches == 5 and a == b
+    assert int(cached.state["cache"].hits) == 0
+    from repro_torch.nn.module import leaves_with_path
+    want, got = dict(leaves_with_path(plain.params)), dict(leaves_with_path(cached.params))
+    assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_planned_cached_resume_on_card_is_bitwise(cuda, tmp_path):
+    """Staleness 4 with the miss planner: a run killed at 3 and resumed to 6
+    equals 6 straight steps bit for bit (losses, params, the card's
+    ``CacheState``), and the shadow equals the card's bookkeeping."""
+    init = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=0))
+    graph = (init.adj, init.labels)
+    spec = _cached(_gnn_spec(ckpt_every=3), cache_capacity=4096, cache_staleness=4,
+                   cache_plan_misses=True)
+
+    def run(d, steps):
+        rt = GraphRuntime.from_spec(dataclasses.replace(spec, ckpt_dir=str(tmp_path / d)),
+                                    graph=graph, params=_to(init.params, cuda, copy=True))
+        res = rt.train(steps)
+        rt.close()
+        return rt, res
+
+    straight, res_a = run("a", 6)
+    _, res_b = run("b", 3)
+    resumed = GraphRuntime.resume(str(tmp_path / "b"), graph=graph)
+    res_c = resumed.train(6)
+    resumed.close()
+    assert res_c.resumed_from == 3 and res_b.losses + res_c.losses == res_a.losses
+    assert int(straight.state["cache"].hits) > 0
+    for f in CACHE_FIELDS:
+        assert torch.equal(getattr(resumed.state["cache"], f),
+                           getattr(straight.state["cache"], f)), f
+    shadow = resumed.data_iter.state_dict()["miss_shadow"]
+    book = resumed.state["cache"].bookkeeping()
+    for f in ("node_ids", "version", "last_used"):
+        np.testing.assert_array_equal(np.asarray(shadow[f]), book[f])
+    from repro_torch.nn.module import leaves_with_path
+    want, got = dict(leaves_with_path(straight.params)), dict(leaves_with_path(resumed.params))
+    assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_cached_serve_on_card_equals_uncached(cuda):
+    """The default cached engine against ``cache_capacity=0`` on the card,
+    over requests with repeats and one ``serve_many``: the decoded miss
+    rows go through the same kernel, and the embeddings and logits agree
+    within 1e-6 (the decoder MLP runs on the miss prefix, not the whole
+    frontier, so cuBLAS may round a row differently; ``chip_smoke.py``
+    prints the measured difference)."""
+    rt = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=0))
+    cached, plain = rt.serve(), rt.serve(cache_capacity=0)
+    assert cached.cached and cached.cache_capacity == min(4 * cached.frontier_cap, 3000)
+    rng = np.random.default_rng(2)
+    reqs = [rng.choice(3000, 256, replace=False) for _ in range(4)]
+    ops.hash_decode.launches = 0
+    got = [cached.serve(r) for r in reqs + reqs[:2]] + cached.serve_many(reqs[1:])
+    assert ops.hash_decode.launches == sum(1 for g in got[:6] if g.rows_decoded) + (
+        1 if got[-1].rows_decoded else 0)
+    for r, g in zip(reqs + reqs[:2] + reqs[1:], got):
+        p = plain.serve(r)
+        np.testing.assert_allclose(g.embeddings, p.embeddings, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(g.logits, p.logits, rtol=0, atol=1e-6)
+    assert got[4].rows_decoded == 0 and cached.stats()["hits"] > 0
+    held = cached._cache_state.node_ids.cpu().numpy()      # the host's table of cached ids
+    assert not cached._held_stale
+    np.testing.assert_array_equal(np.flatnonzero(cached._held), np.sort(held[held >= 0]))

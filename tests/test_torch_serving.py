@@ -7,6 +7,13 @@ and its ``GraphInferenceEngine`` with the cache off and the Pallas kernel in
 interpret mode.  The port loads the same spec from ``to_json()`` on the CPU
 and the JAX init through ``params_from_jax``, then serves the same requests.
 
+The cached engines (``serve()`` with the JAX default capacity,
+``min(4·frontier_cap, n_nodes)``) serve a sequence with repeats in both
+packages: the rows each request decodes and the cache's hit and miss
+counts must be equal, and the port's cached engine must give its uncached
+engine's embeddings and logits bitwise (on the CPU the decoder MLP's rows
+do not depend on how many rows it runs).
+
 Tolerances: frontiers and decoded rows are integer work and the in-order
 gather-sum, so they must be bitwise.  Embeddings and logits go through
 matmuls that torch's and XLA's CPU backends sum in different orders:
@@ -29,6 +36,7 @@ from repro.graph.runtime import GraphSource as JSource
 from repro.graph.runtime import RuntimeSpec as JSpec
 from repro_torch.core import codes as tcodes
 from repro_torch.core import embedding as temb
+from repro_torch.core.backend import CachedDecodeBackend
 from repro_torch.graph.runtime import GraphRuntime, RuntimeSpec
 from repro_torch.interop import params_from_jax
 from repro_torch.serving.gnn import GraphInferenceEngine
@@ -182,19 +190,13 @@ def test_later_slices_raise(slice_pair):
     _, _, trt, _, _ = slice_pair
     spec = trt.spec
     for bad in (dataclasses.replace(spec, n_shards=2),
-                dataclasses.replace(spec, batching={"max_batch": 4}),
                 dataclasses.replace(spec, model=dataclasses.replace(spec.model, model="gcn")),
-                dataclasses.replace(spec, model=dataclasses.replace(
-                    spec.model, embedding=dataclasses.replace(
-                        spec.model.embedding, cache_capacity=64))),
                 dataclasses.replace(spec, model=dataclasses.replace(
                     spec.model, embedding=dataclasses.replace(
                         spec.model.embedding, codes_placement="host")))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GraphRuntime.from_spec(bad, graph=(trt.adj, trt.labels), device="cpu",
                                    params=trt.params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.serve(cache_capacity=128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trt.serve(decode_backend="sharded")
     with pytest.raises(ValueError, match="family"):
@@ -210,3 +212,85 @@ def test_seeded_init_is_deterministic(slice_pair):
     assert torch.equal(a.codes, b.codes)
     assert torch.equal(a.params["w1"], b.params["w1"])
     assert isinstance(a.serve(cache_capacity=0), GraphInferenceEngine)
+
+
+def test_cached_engine_matches_jax_and_the_uncached_engine(slice_pair):
+    _, jrt, trt, _, teng = slice_pair
+    jc, tc = jrt.serve(), trt.serve()
+    assert tc.cached and tc.cache_capacity == jc.cache_capacity == N
+    cap = 4 * tc.frontier_cap                                  # the miss buckets, as JAX's
+    for n_miss in (0, 1, tc.pad_to, tc.pad_to + 1, cap - 1, cap):
+        assert CachedDecodeBackend.miss_bucket(n_miss, tc.pad_to, cap) == jc._bucket(n_miss, cap)
+    assert tc.frontier_for(REQUESTS[2]).n_decode is None      # the unpermuted frontier
+    rng = np.random.default_rng(3)
+    seq = [rng.choice(N, 32, replace=False) for _ in range(5)] + REQUESTS
+    seq += seq[:4]                                             # warm repeats: all hits
+    for ids in seq:
+        j, t, u = jc.serve(ids), tc.serve(ids), teng.serve(ids)
+        js, ts = jc.stats(), tc.stats()
+        assert t.rows_decoded == j.rows_decoded
+        assert (ts["hits"], ts["misses"]) == (js["hits"], js["misses"])
+        np.testing.assert_allclose(t.embeddings, j.embeddings, **TOL)
+        np.testing.assert_allclose(t.logits, j.logits, **TOL)
+        np.testing.assert_array_equal(t.embeddings, u.embeddings)
+        np.testing.assert_array_equal(t.logits, u.logits)
+    assert t.rows_decoded == 0 and tc.stats()["hit_rate"] > 0.5
+    jm, tm = jc.serve_many(seq[:3]), tc.serve_many(seq[:3])
+    for j, t, ids in zip(jm, tm, seq[:3]):
+        assert t.rows_decoded == j.rows_decoded and t.batch_requests == 3
+        np.testing.assert_array_equal(t.embeddings, teng.serve(ids).embeddings)
+    st, js = tc.stats(), jc.stats()
+    for key in ("requests", "microbatches", "rows_decoded", "rows_total", "hits",
+                "misses", "hit_rate"):
+        assert st[key] == js[key], key
+    tc.reset()
+    after = tc.stats()
+    assert (after["requests"], after["hits"], after["misses"]) == (0, 0, 0)
+    assert tc.serve(seq[0]).rows_decoded == 0                  # the contents stay
+
+
+@pytest.mark.parametrize("capacity", [64, 200])
+def test_small_cache_evicts_as_jax_and_tracks_its_ids(slice_pair, capacity):
+    """A cache smaller than the traffic (overflow at 64 slots, LRU eviction
+    at both sizes): rows decoded and the hit and miss counters equal JAX's
+    engine, the slot bookkeeping is JAX's bit for bit, outputs are within
+    the file's tolerance of JAX's and bitwise the uncached engine's, and
+    the host's table of cached ids is the slot ids' whenever it is not
+    marked for a re-read."""
+    _, jrt, trt, _, teng = slice_pair
+    jc, tc = jrt.serve(cache_capacity=capacity), trt.serve(cache_capacity=capacity)
+    rng = np.random.default_rng(capacity)
+    seq = [rng.choice(N, 32, replace=False) for _ in range(6)] + REQUESTS
+    seq += seq[:3]
+    rereads = 0
+    for ids in seq:
+        j, t, u = jc.serve(ids), tc.serve(ids), teng.serve(ids)
+        js, ts = jc.stats(), tc.stats()
+        assert t.rows_decoded == j.rows_decoded
+        assert (ts["hits"], ts["misses"]) == (js["hits"], js["misses"])
+        np.testing.assert_allclose(t.embeddings, j.embeddings, **TOL)
+        np.testing.assert_array_equal(t.embeddings, u.embeddings)
+        np.testing.assert_array_equal(t.logits, u.logits)
+        for f in ("node_ids", "version", "last_used", "clock"):
+            np.testing.assert_array_equal(getattr(tc._cache_state, f).numpy(),
+                                          np.asarray(getattr(jc._cache_state, f)), err_msg=f)
+        node_ids = tc._cache_state.node_ids.numpy()
+        if tc._held_stale:
+            rereads += 1
+        else:
+            np.testing.assert_array_equal(np.flatnonzero(tc._held),
+                                          np.sort(node_ids[node_ids >= 0]))
+    assert rereads > 0 and ts["hits"] > 0
+
+
+def test_cached_serving_marks_the_plan_and_cache_stages(slice_pair):
+    from repro_torch.stages import StageTimer
+    trt = slice_pair[2]
+    eng = trt.serve()
+    eng.serve(REQUESTS[0])
+    with StageTimer() as t:
+        eng.serve_many(REQUESTS)
+    assert set(t.ms) == {"sample", "dedup", "plan", "h2d", "lookup", "unpack", "decode",
+                         "mlp", "writeback", "sage", "logits", "d2h"}
+    fb = eng.planned_frontier(REQUESTS[:1])
+    assert fb.n_decode == 0 and fb.valid.sum() == fb.n_unique   # all cached now
