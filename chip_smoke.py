@@ -10,7 +10,7 @@ in the built libraries' SASS that the bf16 flash_attention kernel runs its
 products on the tensor cores (HGMMA), that lsh_encode's products are fused
 (FFMA) and that hash_decode's sums are not (no FFMA), holds each kernel
 against its plain PyTorch version at the shapes its paths give it,
-and drives four paths through the port's entry points, with random
+and drives these paths through the port's entry points, with random
 weights and data from a seed:
 
   serve  the paper's full-width hash-compressed GraphSAGE
@@ -41,6 +41,23 @@ weights and data from a seed:
          staleness 4, plain and with the miss planner, the host shadow
          held against the card's bookkeeping after every step; the
          planned run killed at 10 and resumed, bit for bit;
+  fullgraph_gcn, fullgraph_sgc, fullgraph_gin  the paper's full-graph
+         models (``paper_gnn_config(model)``, the same widths, hidden 128)
+         on the serve graph through ``GraphRuntime.train`` (50 steps at lr
+         1e-3; every step decodes all 169,343 nodes in one ``hash_decode``
+         call and one backward call, and multiplies by the normalised
+         adjacency uploaded once), ``evaluate("val")`` and ``embed``: step
+         periods, one step's stage breakdown, peak memory; for GCN also two
+         gradients of one step, a run killed at step 10 and resumed, bit
+         for bit, and the sparse product's time at widths 64 and 128 beside
+         ``torch.sparse.mm`` and its byte bound;
+  link   Table 1's link protocol (``benchmarks/table1_gnn.py``):
+         ``holdout_edges``, GCN with ``task="link"``, 60 steps of 512
+         positive and 512 negative pairs through ``link_loss``, hits@50;
+  merchant  Table 3's protocol (``benchmarks/table3_merchant.py``) on the
+         consumer x merchant graph (6,000 x 4,000, 32 categories) at the
+         §5.3.2 widths: naive SAGE on ``NeighborSampler.minibatches``, 4
+         epochs, random and hash codes, accuracy, hit@5 and hit@10;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -60,17 +77,19 @@ weights and data from a seed:
 
 The ``hash_decode`` backward kernels (the codebook gradient: a stable
 sort of each codebook's rows by code, then the sums) are held bitwise
-against their plain versions at 64 uniform shapes, at skewed codes and at
-the GNN run's real codes (the sort against ``code_order`` too), and timed
-at a training frontier, at 61,696 rows, at the LM step's 8,192 bf16 rows
-and at the reconstruction's 512 (as a CUDA graph) beside the one-hot
-contraction they replaced and ``embedding_bag``'s backward.
+against their plain versions at 64 uniform shapes, at skewed codes, at
+the GNN run's real codes and at the full graph's 169,343 rows (uniform
+and the full-graph GCN's codes; the sort against ``code_order`` too), and
+timed at a training frontier, at 61,696 rows, at the LM step's 8,192 bf16
+rows, at the reconstruction's 512 (as a CUDA graph) and at 169,343 rows,
+beside the one-hot contraction they replaced and ``embedding_bag``'s
+backward.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
-graph, the reduced LM config, the reconstruction at the JAX benchmark's
-size) runs on the card and on the CPU (plain versions), and the two must
-agree.  Every check raises on
+graph served, and trained by GCN, SGC and GIN; the reduced LM config, the
+reconstruction at the JAX benchmark's size) runs on the card and on the
+CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
 line and then, as its last line, ``{"ok": true, "device": {...}}`` only
 when every phase passed.  It needs one card and imports nothing of JAX.
@@ -126,6 +145,16 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def _snapshot(tree, dev=None):
+    """A copy of a tree (dicts of tensors, ``None`` moments of buffers and
+    integer counters alike) on ``dev``, or where each tensor lies: the
+    optimizer updates params in place, so a run that must start from them
+    again takes a copy."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v, dev) for k, v in tree.items()}
+    return tree.to(dev or tree.device, copy=True) if hasattr(tree, "to") else tree
 
 
 def time_ms(fn, iters: int) -> tuple:
@@ -391,7 +420,8 @@ def phase_kernel_check(B_main: int):
     """hash_decode vs its plain version, bitwise, at the shapes the serving
     path gives it (one request's frontier, and the coalesced frontier of a
     ``serve_many`` of 4), at the training path's (batch x seq token rows,
-    bf16 codebooks) and at ragged ones; times at both serving shapes."""
+    bf16 codebooks), at the full-graph models' (every node) and at ragged
+    ones; times at both serving shapes and at the full graph."""
     import torch
     m, c, d_c = 16, 256, 512
     cases = [((B_main, m, c, d_c), v) for v in
@@ -400,20 +430,22 @@ def phase_kernel_check(B_main: int):
               ((LM_BATCH * LM_SEQ, m, c, d_c), "bfloat16")]
     cases += [((100, 8, 16, 96), "float32+w0"), ((33, 4, 4, 130), "int8"),
               ((7, 3, 8, 5), "bfloat16+w0"), ((REC_BATCH, m, c, d_c), "float32"),
-              ((5000, m, c, 130), "int8+w0"), ((5000, 3, 8, 5), "bfloat16+w0")]
+              ((5000, m, c, 130), "int8+w0"), ((5000, 3, 8, 5), "bfloat16+w0"),
+              ((N_NODES, m, c, d_c), "float32")]     # a full-graph step decodes every node
     max_err = max(check_decode_case(shape, variant, seed=i)
                   for i, (shape, variant) in enumerate(cases))
     timing = time_at_shape(B_main, m, c, d_c)
     time_at_shape(4 * B_main, m, c, d_c)
+    full = time_at_shape(N_NODES, m, c, d_c)
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, **timing)
+    return dict(max_abs_err=max_err, **timing, at_full_graph=full)
 
 
-def _spec(lookup_impl: str, n_nodes: int, n_classes: int):
+def _spec(lookup_impl: str, n_nodes: int, n_classes: int, model: str = "sage"):
     import dataclasses
     from repro_torch.configs.paper_gnn import paper_gnn_config
     from repro_torch.graph.runtime import GraphSource, RuntimeSpec
-    cfg = paper_gnn_config("sage", n_nodes=n_nodes, n_classes=n_classes)
+    cfg = paper_gnn_config(model, n_nodes=n_nodes, n_classes=n_classes)
     cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
         cfg.embedding, lookup_impl=lookup_impl))
     return RuntimeSpec(
@@ -548,12 +580,8 @@ def phase_small_reference():
     from repro_torch.graph.runtime import GraphRuntime
     spec = _spec("auto", 3000, 8)
     rt = GraphRuntime.from_spec(spec)
-
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
-    cpu_params = to_cpu(rt.params)
     rt_cpu = GraphRuntime.from_spec(spec, graph=(rt.adj, rt.labels), device="cpu",
-                                    params=cpu_params)
+                                    params=_snapshot(rt.params, "cpu"))
     ids = np.arange(0, 3000, 11)[:REQUEST]
     a = rt.serve(cache_capacity=0).serve(ids)
     b = rt_cpu.serve(cache_capacity=0).serve(ids)
@@ -823,13 +851,9 @@ def phase_lm_reference():
     cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
         cfg.embedding, lookup_impl="pallas"))
     params = init_lm(torch.Generator().manual_seed(0), cfg)
-
-    def to(tree, dev):
-        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
-
     states = {}
     for dev in ("cuda", "cpu"):
-        p = to(params, dev)
+        p = _snapshot(params, dev)
         states[dev] = {"params": p, "opt": adamw_init(p), "step": 0}
     step = make_train_step(cfg, TrainHyper(warmup_steps=1, total_steps=3))
     stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=256,
@@ -1152,15 +1176,10 @@ def phase_reconstruct_reference():
     gi = torch.Generator().manual_seed(1)
     ids = [torch.randint(0, n, (512,), generator=gi) for _ in range(5)]
     emb = torch.from_numpy(emb_np)
-
-    def to(tree, dev):       # a copy: the optimizer updates the params in place
-        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
-                for k, v in tree.items()}
-
     _, card = train_decoder_on_reconstruction(None, emb.cuda(), None, cfg, 5,
-                                              params=to(init, "cuda"), ids=ids)
+                                              params=_snapshot(init, "cuda"), ids=ids)
     _, cpu = train_decoder_on_reconstruction(None, emb, None, cfg, 5,
-                                             params=to(init, "cpu"), ids=ids)
+                                             params=_snapshot(init, "cpu"), ids=ids)
     worst = max(abs(a - b) for a, b in zip(card, cpu))
     print(f"[reference] reconstruction n={n}: codes card == CPU bitwise; 5 decoder "
           f"steps (card, CPU) losses {list(zip(card, cpu))}; max abs diff {worst}",
@@ -1282,16 +1301,17 @@ def _bwd_operands(B, m, c, d_c, variant, seed, kind="uniform"):
     return codes, g, w0, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
 
 
-def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
+def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
     """The hash_decode backward kernels (the codebook gradient) against
     their plain versions run on CPU copies of the same operands, bitwise,
     and two calls against each other: the sort alone (``code_order``) and
     the whole gradient, at B in {1, 512, a real training frontier, 61,696},
     m in {3, 16}, d_c in {130, 512} with uniform codes, then at skewed codes
-    (every row one code, Zipf, c = 16 at 61,696 rows) and the real codes of
+    (every row one code, Zipf, c = 16 at 61,696 rows), the real codes of
     the GNN run's first batch (``gnn_codes``, its frontier with its padding
-    rows); each with and without w0, f32 and bf16 codebooks.  Returns the
-    number of cases and the largest error."""
+    rows), and at the full graph's 169,343 rows, uniform and the full-graph
+    GCN's real codes (``full_codes``); each with and without w0, f32 and
+    bf16 codebooks.  Returns the number of cases and the largest error."""
     import torch
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import code_order, hash_decode_backward_ref
@@ -1300,13 +1320,15 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
              for m, c in ((16, 256), (3, 16)) for d_c in (512, 130)]
     cases += [("one_code", frontier_rows, 16, 256, 512), ("one_code", 61_696, 3, 16, 130),
               ("zipf", frontier_rows, 16, 256, 512), ("zipf", 61_696, 16, 256, 130),
-              ("uniform", 61_696, 16, 16, 512), ("gnn", gnn_codes.shape[0], 16, 256, 512)]
+              ("uniform", 61_696, 16, 16, 512), ("gnn", gnn_codes.shape[0], 16, 256, 512),
+              ("uniform", N_NODES, 16, 256, 512), ("fullgraph", N_NODES, 16, 256, 512)]
+    real = {"gnn": gnn_codes, "fullgraph": full_codes}
     for kind, B, m, c, d_c in cases:
         for variant in ("float32", "float32+w0", "bfloat16", "bfloat16+w0"):
             codes, g, w0, dtype = _bwd_operands(B, m, c, d_c, variant, seed=n,
-                                                kind="uniform" if kind == "gnn" else kind)
-            if kind == "gnn":
-                codes = gnn_codes.cuda()
+                                                kind="uniform" if kind in real else kind)
+            if kind in real:
+                codes = real[kind].cuda()
             offsets, rows = ops.code_order(codes, c)
             want_offsets, want_rows = code_order(codes.cpu(), c)
             check(torch.equal(offsets.cpu(), want_offsets)
@@ -1327,7 +1349,8 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
             same, again = torch.equal(a.cpu(), ref), torch.equal(a, b)
             err = float((a.cpu().float() - ref.float()).abs().max())
             worst = max(worst, err)
-            shown = (B in (frontier_rows, 61_696) and variant == "float32") or kind != "uniform"
+            shown = ((B in (frontier_rows, 61_696, N_NODES) and variant == "float32")
+                     or kind != "uniform")
             if shown or not (same and again):
                 longest = int((offsets[:, 1:] - offsets[:, :-1]).max())
                 print(f"[backward] hash_decode_backward {kind} B={B} m={m} c={c} "
@@ -1346,10 +1369,10 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes) -> tuple:
 
 
 def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run") -> float:
-    """The forward and the backward kernel at every frontier size the GNN
-    training run gave them (m=16, c=256, d_c=512, f32 codebooks, no w0:
-    the paper GraphSAGE's decode), each bitwise against its plain version;
-    returns the forward's largest error."""
+    """The forward and the backward kernel at every row count a GNN path
+    gave them (m=16, c=256, d_c=512, f32 codebooks, no w0: the decode of
+    the paper's GraphSAGE and of ``merchant_config``), each bitwise against
+    its plain version; returns the forward's largest error."""
     import torch
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
@@ -1361,7 +1384,7 @@ def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run") -> float
         got = ops.codebook_grad(codes, g, None, c, dtype)
         ref = hash_decode_backward_ref(codes.cpu(), g.cpu(), None, c, dtype)
         check(torch.equal(got.cpu(), ref),
-              f"hash_decode_backward at the training frontier B={B} differs from its plain version")
+              f"hash_decode_backward at B={B} ({what}) differs from its plain version")
         del codes, g, got, ref
     print(f"[gnn_train] forward (both variants) and backward kernels bitwise to their plain "
           f"versions at all {len(sizes)} {what}: {list(sizes)}", flush=True)
@@ -1424,16 +1447,13 @@ def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False) -
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _gnn_spec(**overrides):
+def _gnn_spec(model: str = "sage", n_nodes: int = N_NODES, n_classes: int = N_CLASSES,
+              **overrides):
     import dataclasses
     from repro_torch.optim.adamw import AdamWConfig
-    return dataclasses.replace(_spec("auto", N_NODES, N_CLASSES), log_every=1,
+    return dataclasses.replace(_spec("auto", n_nodes, n_classes, model=model), log_every=1,
                                optimizer=AdamWConfig(lr=GNN_LR, weight_decay=0.0),
                                **overrides)
-
-
-def _snapshot(tree):
-    return {k: _snapshot(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
 def _same_tree(a, b) -> bool:
@@ -1456,20 +1476,17 @@ def check_gnn_grads_deterministic(rt, batch) -> None:
     """Two gradients of the same loss on the same state and batch, leaf by
     leaf: every backward on the step's path must give the same bits."""
     import torch
-    from repro_torch.graph.engine import batch_to, batch_view
-    from repro_torch.models import gnn
+    from repro_torch.graph.engine import batch_to
     from repro_torch.nn.module import leaves_with_path, value_and_grad
+    from repro_torch.train.step import gnn_loss
     batch = batch_to(batch, rt.device)
-
-    def loss_fn(p):
-        logits = rt.model.logits(p, rt.model.apply(p, batch_view(batch)))
-        return gnn.node_loss(logits, batch["labels"])
-
-    (la, ga), (lb, gb) = (value_and_grad(loss_fn, rt.params) for _ in range(2))
+    (la, ga), (lb, gb) = (value_and_grad(lambda p: gnn_loss(rt.model, p, batch), rt.params)
+                          for _ in range(2))
     grads_a, grads_b = dict(leaves_with_path(ga)), dict(leaves_with_path(gb))
     differ = [("/".join(k), float((grads_a[k] - grads_b[k]).abs().max()))
               for k in grads_a if not torch.equal(grads_a[k], grads_b[k])]
-    print(f"[gnn_train] two gradients of one step, leaf by leaf: "
+    print(f"[{'fullgraph' if 'ids' in batch else 'gnn_train'}] two gradients of one step, "
+          f"leaf by leaf: "
           f"{len(grads_a) - len(differ)} of {len(grads_a)} leaves bitwise equal; "
           f"differing {differ}; losses equal {torch.equal(la, lb)}", flush=True)
     check(not differ and torch.equal(la, lb), f"a backward on the GNN step is not "
@@ -2094,6 +2111,396 @@ def phase_gnn_cached(graph, uncached):
     return counts, sorted({n for n in decoded if n})
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the full-graph models, link prediction and the merchant graph
+# ---------------------------------------------------------------------------
+
+FULL_MODELS = ("gcn", "sgc", "gin")
+FULL_STEPS = 50                     # each full-graph model's run
+FULL_CKPT = ROOT / "build" / "full_ckpt"
+LINK_STEPS, LINK_PAIRS = 60, 512    # Table 1's link protocol (benchmarks/table1_gnn.py)
+FREE_LRS = (1e-2, 1e-1)             # the eps = 1 reference's rates: ~lr·g a step
+TABLE_LR = 1e-2                     # the Table 1 and Table 3 benchmarks' AdamW rate
+MERCHANT = dict(n_consumers=6000, n_merchants=4000, n_categories=32)
+MERCHANT_EPOCHS, MERCHANT_BATCH, MERCHANT_TEST = 4, 256, 800
+
+
+def phase_fullgraph(graph):
+    """The paper's GCN, SGC and GIN at full width trained on the serve
+    graph through ``GraphRuntime.train`` (every step decodes all 169,343
+    nodes in one ``hash_decode`` call and its backward in one backward
+    call), then ``evaluate("val")`` and ``embed``; for GCN also two
+    gradients of one step, a run killed at step 10 and resumed against a
+    straight one, and ``embed`` against the evaluate forward's hidden.
+    Returns the launch counts per model, the GCN's codes of all nodes and
+    its runtime (for the sparse product's timing)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.embedding import lookup_codes
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.stages import StageTimer
+    counts, gcn = {}, None
+    for model in FULL_MODELS:
+        t0 = time.perf_counter()
+        rt = GraphRuntime.from_spec(_gnn_spec(model), graph=graph)
+        torch.cuda.synchronize()
+        check(rt.device.type == "cuda" and rt.fullgraph and rt.sampler is None,
+              f"{model}: not a full-graph runtime on the card")
+        print(f"[fullgraph] {model}: GraphRuntime.from_spec on {rt.device}: "
+              f"{time.perf_counter() - t0:.2f} s; normalised adjacency {rt.full.adj.nnz} "
+              f"nonzeros (self loops included) on the card; {len(rt.splits['train'])} "
+              f"training nodes", flush=True)
+        init = _snapshot(rt.params)
+        if model == "gcn":
+            check_gnn_grads_deterministic(rt, rt.data_iter.next_batch())
+            rt.data_iter.load_state_dict({"step": 0})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                          # the model's run starts here
+        res, periods = _train_timed(rt, FULL_STEPS)
+        torch.cuda.synchronize()
+        trained = read_counts(f"fullgraph_{model}")
+        peak = torch.cuda.max_memory_allocated()
+        ev = rt.evaluate("val")
+        ids = np.random.default_rng(3).choice(N_NODES, REQUEST, replace=False)
+        emb = rt.embed(ids)
+        counts[f"fullgraph_{model}"] = launches = read_counts(f"fullgraph_{model}")
+        losses = res.losses
+        check(trained == {"hash_decode": FULL_STEPS, "hash_decode_backward": FULL_STEPS,
+                          "hash_decode_backward_by_kernel": dict.fromkeys(
+                              ("count", "place", "sum"), FULL_STEPS),
+                          "flash_attention": 0, "lsh_encode": 0},
+              f"{model}: expected one forward and one backward hash_decode launch a step: "
+              f"{trained}")
+        check(launches["hash_decode"] == FULL_STEPS + 2
+              and launches["hash_decode_backward"] == FULL_STEPS,
+              f"{model}: evaluate and embed did not decode once each: {launches}")
+        shown = {i + 1: losses[i] for i in sorted({*range(3), *range(9, FULL_STEPS, 10)})}
+        print(f"[fullgraph] {model}: {FULL_STEPS} steps at lr {GNN_LR}: losses by step {shown}; "
+              f"step period (host clock, synchronised, steps 2-{FULL_STEPS}; median) "
+              f"{float(np.median(periods)):.3f} ms (min {min(periods):.3f}, max "
+              f"{max(periods):.3f}); max_memory_allocated {peak} B; launches {launches}",
+              flush=True)
+        check(all(np.isfinite(losses)), f"{model}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{model}: the last loss {losses[-1]} is not below the "
+                                      f"first {losses[0]}")
+        print(f"[fullgraph] {model}: evaluate('val'): accuracy {ev['accuracy']}, loss "
+              f"{ev['loss']}, n {ev['n']} (chance {1 / N_CLASSES:.4f})", flush=True)
+        check(ev["n"] == len(rt.splits["val"]) and np.isfinite(ev["loss"]),
+              f"{model}: evaluate did not count every val node once with a finite loss")
+        check(emb.shape == (REQUEST, rt.cfg.hidden) and np.isfinite(emb).all(),
+              f"{model}: embed gave {emb.shape}")
+        # where one step's time goes
+        with StageTimer() as timer:
+            t0 = time.perf_counter()
+            rt.state, m = rt.train_step(rt.state, rt.data_iter.next_batch())
+            float(m["loss"])
+            step_ms = (time.perf_counter() - t0) * 1e3
+        stages = {k: round(sum(v), 3) for k, v in timer.ms.items()}
+        print(f"[breakdown] one {model} full-graph step under the stage timer: {step_ms:.3f} ms; "
+              f"stages (ms) {stages} (spmm: {len(timer.ms.get('spmm', []))} forward sparse "
+              f"products; their backward runs inside 'backward')", flush=True)
+        if model != "gcn":
+            rt.close()
+            del rt
+            torch.cuda.empty_cache()
+            continue
+        profile_step(rt.train_step, rt.state, rt.data_iter.next_batch())
+        with torch.no_grad():
+            hidden = rt.model.apply(rt.params, rt.full)
+        same = np.array_equal(rt.embed(ids), hidden[torch.from_numpy(ids).cuda()].cpu().numpy())
+        print(f"[fullgraph] gcn: embed(ids) bitwise the rows of the evaluate forward's hidden "
+              f"{same}", flush=True)
+        check(same, "embed differs from the full-graph forward's rows")
+        full_codes = lookup_codes(rt.params["embed"], torch.arange(N_NODES, device=rt.device),
+                                  rt.cfg.embedding_config()).cpu()
+        # killed and resumed: B trains 10 steps, is dropped, resumes to 20
+        shutil.rmtree(FULL_CKPT, ignore_errors=True)
+
+        def run(d, steps):
+            r = GraphRuntime.from_spec(_gnn_spec("gcn", ckpt_dir=str(FULL_CKPT / d),
+                                                  ckpt_every=10), graph=graph,
+                                       params=_snapshot(init))
+            out = r.train(steps)
+            r.close()
+            return r, out
+
+        straight, run_a = run("a", 20)
+        _, run_b = run("b", 10)
+        resumed = GraphRuntime.resume(str(FULL_CKPT / "b"), graph=graph)
+        run_c = resumed.train(20)
+        same_losses = run_b.losses + run_c.losses == run_a.losses
+        same_params = _same_tree(resumed.params, straight.params)
+        print(f"[fullgraph] gcn kill and resume: straight losses 11-20 {run_a.losses[10:]}; "
+              f"resumed from step {run_c.resumed_from}: {run_c.losses}; losses bitwise "
+              f"{same_losses}, final params bitwise {same_params}", flush=True)
+        check(run_c.resumed_from == 10 and same_losses and same_params,
+              "the resumed full-graph run differs from the straight one")
+        shutil.rmtree(FULL_CKPT, ignore_errors=True)
+        del straight, resumed, hidden
+        gcn = rt
+    torch.cuda.empty_cache()
+    return counts, full_codes, gcn
+
+
+def time_spmm(rt) -> dict:
+    """The full-graph sparse product ``Â·X`` (``DeviceCSR.matmat``: a
+    gather, a multiply and a segment sum) and its backward ``Âᵀ·G`` at
+    widths 64 (d_e) and 128 (hidden) on the GCN's normalised adjacency,
+    beside ``torch.sparse.mm`` with the same CSR arrays and the byte bound
+    (values and column ids read once, X read once, the output written
+    once)."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.csr import _rowwise
+    adj = rt.full.adj
+    host = rt.adj_norm
+    order = np.lexsort((host.indices, host.row_ids()))   # cuSPARSE: columns sorted in a row
+    lib = torch.sparse_csr_tensor(*(torch.from_numpy(a).cuda() for a in (
+        host.indptr.astype(np.int64), host.indices[order].astype(np.int64), host.data[order])),
+        size=host.shape, check_invariants=True)
+    out = {}
+    for width in (64, 128):
+        rng = np.random.default_rng(width)
+        X = torch.from_numpy(rng.standard_normal((N_NODES, width)).astype(np.float32)).cuda()
+        fwd_ms, _ = time_ms(lambda: adj.matmat(X), 20)
+        bwd_ms, _ = time_ms(lambda: _rowwise(*adj.t_arrays, X), 20)
+        library_ms, _ = time_ms(lambda: torch.sparse.mm(lib, X), 20)
+        lib_err = float((torch.sparse.mm(lib, X) - adj.matmat(X)).abs().max())
+        nbytes = adj.nnz * 8 + 2 * N_NODES * width * 4
+        flops = 2 * adj.nnz * width
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        moved = 5 * adj.nnz * width * 4 + adj.nnz * 12 + N_NODES * width * 4
+        print(f"[spmm] width {width}, nnz {adj.nnz}: forward (gather, multiply, segment sum) "
+              f"{fwd_ms:.4f} ms, backward over the transpose {bwd_ms:.4f} ms, torch.sparse.mm "
+              f"(cuSPARSE) {library_ms:.4f} ms (max diff {lib_err}); bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({nbytes} B in {bytes_ms:.4f} ms, {flops} flops in "
+              f"{ops_ms:.4f} ms); forward {fwd_ms / bound_ms:.1f}x its bound; the pipeline "
+              f"moves about {moved} B (five passes over an (nnz, width) f32 array: the "
+              f"gather read and written, the product read and written, the sum's read)",
+              flush=True)
+        out[width] = dict(ms=fwd_ms, backward_ms=bwd_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        del X
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_link(graph):
+    """Table 1's link protocol (``benchmarks/table1_gnn.py``) at full width
+    on the serve graph: ``holdout_edges(0, adj, 0.1)``, the paper's GCN with
+    ``task="link"`` through ``GNNModel`` and a ``FullGraphBatch`` of the
+    training adjacency, ``link_loss`` and AdamW, 60 steps of 512 positive
+    and 512 uniform negative pairs, then hits@50 over the held-out edges;
+    at the benchmark's lr 1e-2 and at gnn_train's 1e-3, from one init.
+    Returns the path's launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import embedding as emb_lib
+    from repro_torch.device import make_generator
+    from repro_torch.graph.engine import FullGraphBatch, GNNModel
+    from repro_torch.graph.generate import holdout_edges
+    from repro_torch.models import gnn
+    from repro_torch.nn.module import value_and_grad
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    adj, _ = graph
+    train_adj, pos_eval = holdout_edges(0, adj, 0.1)
+    cfg = dataclasses.replace(_spec("auto", N_NODES, N_CLASSES, model="gcn").model, task="link")
+    model = GNNModel(cfg)
+    full = FullGraphBatch(train_adj.with_self_loops().normalized("sym").on(model.device))
+    rid, cid = train_adj.row_ids(), train_adj.indices
+    chance = 50 / pos_eval.shape[0]     # hits@50 of a scorer that ignores the graph
+    zero_counts()                              # the link path's run starts here
+    for lr in (TABLE_LR, GNN_LR):
+        gen = make_generator(0, model.device)
+        params = model.init(gen, codes=emb_lib.make_codes(gen, cfg.embedding_config(),
+                                                          aux=adj))
+        check("w_out" not in params, "a link model has no classifier")
+        rng = np.random.default_rng(0)
+        opt, ocfg = adamw_init(params), AdamWConfig(lr=lr, weight_decay=0.0)
+        losses, times = [], []
+        for _ in range(LINK_STEPS):
+            sel = rng.integers(0, rid.shape[0], LINK_PAIRS)
+            pos = torch.from_numpy(np.stack([rid[sel], cid[sel]], 1)).cuda()
+            neg = torch.from_numpy(rng.integers(0, N_NODES, (LINK_PAIRS, 2))).cuda()
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(
+                lambda p: gnn.link_loss(model.apply(p, full), pos, neg), params)
+            adamw_update(params, grads, opt, ocfg)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            h = model.apply(params, full)
+        neg_eval = rng.integers(0, N_NODES, pos_eval.shape)
+        hits = gnn.hits_at_k(gnn.link_scores(h, pos_eval), gnn.link_scores(h, neg_eval), 50)
+        print(f"[link] Table 1 protocol, GCN task='link', {train_adj.nnz} training nonzeros, "
+              f"{pos_eval.shape[0]} held-out edges: {LINK_STEPS} steps of "
+              f"{LINK_PAIRS}+{LINK_PAIRS} pairs at lr {lr}: losses by step "
+              f"{ {i + 1: round(losses[i], 4) for i in sorted({0, 1, 2, *range(9, LINK_STEPS, 10)})} }; "
+              f"step "
+              f"(host clock, synchronised, median of 2-{LINK_STEPS}) "
+              f"{float(np.median(times[1:])):.3f} ms; hits@50 {hits} (a scorer blind to the "
+              f"graph: {chance:.5f})", flush=True)
+        check(all(np.isfinite(losses)) and np.isfinite(h.cpu().numpy()).all(),
+              f"non-finite link loss or hidden at lr {lr}")
+        check(losses[-1] < losses[0], f"the link loss did not fall at lr {lr}: "
+                                      f"{losses[0]} -> {losses[-1]}")
+        del h, params, opt
+    launches = read_counts("link")             # ... and ends here
+    print(f"[link] launches {launches}", flush=True)
+    check(launches["hash_decode"] == 2 * (LINK_STEPS + 1)
+          and launches["hash_decode_backward"] == 2 * LINK_STEPS,
+          f"the link path did not decode all nodes once a step: {launches}")
+    del full
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_merchant():
+    """Table 3's protocol (``benchmarks/table3_merchant.py``): the consumer
+    × merchant graph ``bipartite_transaction_graph(0, 6000, 4000, 32)``,
+    ``merchant_config`` at its §5.3.2 widths (c=256, m=16, d_c=d_m=512),
+    the naive ``sage_forward`` on ``NeighborSampler.minibatches`` levels, 4
+    epochs, random and hash codes; accuracy, hit@5 and hit@10
+    on 800 test merchants; at the benchmark's lr 1e-2 and at gnn_train's
+    1e-3.  Returns the path's launch counts and the row counts it decoded
+    (each level of each training and test batch)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_gnn import merchant_config
+    from repro_torch.core import embedding as emb_lib
+    from repro_torch.device import make_generator
+    from repro_torch.graph.engine import GNNModel
+    from repro_torch.graph.generate import bipartite_transaction_graph, train_val_test_split
+    from repro_torch.graph.sampler import NeighborSampler
+    from repro_torch.models import gnn
+    from repro_torch.nn.module import value_and_grad
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    t0 = time.perf_counter()
+    adj, labels, n_cons = bipartite_transaction_graph(
+        0, MERCHANT["n_consumers"], MERCHANT["n_merchants"], MERCHANT["n_categories"])
+    n_nodes = n_cons + MERCHANT["n_merchants"]
+    merchants = np.arange(MERCHANT["n_merchants"]) + n_cons
+    tr_i, _, te_i = train_val_test_split(0, MERCHANT["n_merchants"])
+    print(f"[merchant] bipartite_transaction_graph(0, 6000, 4000, 32): {adj.nnz} nonzeros, "
+          f"{time.perf_counter() - t0:.2f} s; {len(tr_i)} training and {len(te_i)} test "
+          f"merchants", flush=True)
+    results, steps, sizes = {}, 0, set()
+    zero_counts()                              # the merchant path's run starts here
+    for lr, kind in ((lr, kind) for lr in (TABLE_LR, GNN_LR)
+                     for kind in ("random_full", "hash_full")):
+        cfg = merchant_config(n_nodes, MERCHANT["n_categories"], kind)
+        cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(cfg.embedding,
+                                                                     lookup_impl="auto"))
+        model = GNNModel(cfg)
+        gen = make_generator(0, model.device)
+        params = model.init(gen, codes=emb_lib.make_codes(gen, cfg.embedding_config(),
+                                                          aux=adj))
+        sampler = NeighborSampler(adj, cfg.fanouts, max_deg=64, seed=0)
+        opt, ocfg = adamw_init(params), AdamWConfig(lr=lr, weight_decay=0.0)
+        losses, times = [], []
+        for _ in range(MERCHANT_EPOCHS):
+            for levels, batch in sampler.minibatches(merchants[tr_i], MERCHANT_BATCH):
+                sizes.update(int(np.size(level)) for level in levels)
+                y = torch.from_numpy(labels[batch - n_cons].astype(np.int64)).cuda()
+                t1 = time.perf_counter()
+                loss, grads = value_and_grad(
+                    lambda p: gnn.node_loss(model.logits(p, model.apply(p, levels)), y), params)
+                adamw_update(params, grads, opt, ocfg)
+                losses.append(float(loss))
+                times.append((time.perf_counter() - t1) * 1e3)
+        steps += len(losses)
+        levels, batch = next(sampler.minibatches(merchants[te_i], MERCHANT_TEST, shuffle=False))
+        sizes.update(int(np.size(level)) for level in levels)
+        with torch.no_grad():
+            logits = model.logits(params, model.apply(params, levels))
+        y = labels[batch - n_cons]
+        res = dict(acc=gnn.accuracy(logits, y), hit5=gnn.hit_rate_at_k(logits, y, 5),
+                   hit10=gnn.hit_rate_at_k(logits, y, 10))
+        results[lr, kind] = res
+        print(f"[merchant] {kind} at lr {lr}: {len(losses)} steps of {MERCHANT_BATCH} merchants "
+              f"({MERCHANT_BATCH * (1 + 5 + 25)} decoded rows in 3 calls a step): losses "
+              f"{[round(x, 4) for x in losses[:2]]} ... {[round(x, 4) for x in losses[-2:]]}; "
+              f"step (host clock, median) {float(np.median(times[1:])):.3f} ms; acc "
+              f"{res['acc']}, hit@5 {res['hit5']}, hit@10 {res['hit10']} (chance "
+              f"{1 / MERCHANT['n_categories']:.4f})", flush=True)
+        check(all(np.isfinite(losses)) and np.isfinite(logits.cpu().numpy()).all(),
+              f"merchant {kind}: non-finite loss or logits")
+        check(res["acc"] <= res["hit5"] <= res["hit10"], f"merchant {kind}: hit@k not monotone")
+        del params, opt, model
+    launches = read_counts("merchant")         # ... and ends here
+    held = {lr: all(results[lr, "hash_full"][k] > results[lr, "random_full"][k]
+                    for k in ("acc", "hit5", "hit10")) for lr in (TABLE_LR, GNN_LR)}
+    print(f"[merchant] launches {launches}; Table 3's direction (Hash above Rand on every "
+          f"metric) held at this cut, by lr: {held}", flush=True)
+    check(launches["hash_decode"] == 3 * (steps + 4)
+          and launches["hash_decode_backward"] == 3 * steps,
+          f"the merchant path did not decode each level once a step: {launches}")
+    torch.cuda.empty_cache()
+    return launches, sorted(sizes)
+
+
+def phase_fullgraph_reference():
+    """GCN, SGC and GIN on a 3,000-node graph from one init on the card
+    (kernels) and on the CPU (plain versions), at two Adam settings: 5
+    steps left to run free, then 5 more, each from the card's state copied
+    to the CPU.  At gnn_train's eps of 1e-8 (lr 1e-3) every step from one
+    state within 1e-4 in loss; free-running, Adam's update g / (|g| + 1e-8)
+    turns a rounding-level difference of a gradient entry near 1e-8 into
+    one of O(lr), and the next forward carries it on, so those gaps are
+    printed.  At eps 1 (an update of about lr·g, nothing amplified; lr
+    1e-2 and 0.1, where the params move more) the 5 free steps within 1e-4
+    in loss and params.  Each param gap names its leaf."""
+    import dataclasses
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.nn.module import leaves_with_path
+
+    def param_gap(card, cpu):
+        want = dict(leaves_with_path(card.params))
+        return max((float((t - want[k].cpu()).abs().max()), "/".join(k))
+                   for k, t in leaves_with_path(cpu.params))
+
+    def trajectories(spec):
+        card = GraphRuntime.from_spec(spec)
+        cpu = GraphRuntime.from_spec(spec, graph=(card.adj, card.labels), device="cpu",
+                                     params=_snapshot(card.params, "cpu"))
+        init = dict(leaves_with_path(_snapshot(card.params)))
+        a, b = card.train(5).losses, cpu.train(5).losses
+        free = dict(losses=(a[0], a[-1]), loss_gaps=[abs(x - y) for x, y in zip(a, b)],
+                    param_gap=param_gap(card, cpu),
+                    moved=max(float((t - init[k]).abs().max())
+                              for k, t in leaves_with_path(card.params)))
+        gaps, pgaps = [], []
+        for _ in range(5):
+            cpu.state = _snapshot(card.state, "cpu")
+            gaps.append(abs(card.train(1).losses[0] - cpu.train(1).losses[0]))
+            pgaps.append(param_gap(card, cpu))
+        card.close()
+        cpu.close()
+        return free, dict(loss_gaps=gaps, param_gaps=pgaps)
+
+    for model in FULL_MODELS:
+        spec = _gnn_spec(model, n_nodes=3000, n_classes=8)
+        runs = {(1e-8, GNN_LR): trajectories(spec)}
+        for lr in FREE_LRS:
+            runs[1.0, lr] = trajectories(dataclasses.replace(spec, optimizer=dataclasses.replace(
+                spec.optimizer, lr=lr, eps=1.0)))
+        for (eps, lr), (free, stepped) in runs.items():
+            print(f"[reference] 3,000-node {model}, card vs CPU plain path, Adam eps {eps}, lr "
+                  f"{lr}: 5 free steps {free}; 5 steps each from the card's state {stepped}",
+                  flush=True)
+            check(max(stepped["loss_gaps"]) <= 1e-4,
+                  f"{model}: a step on the card and on the CPU disagree: {stepped}")
+            check(eps < 1.0 or max(free["loss_gaps"]) <= 1e-4 and free["param_gap"][0] <= 1e-4,
+                  f"{model}: 5 free steps at Adam eps 1, lr {lr}, on the card and on the CPU "
+                  f"part: {free}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2120,12 +2527,21 @@ def main() -> None:
     phase_small_reference()
     gnn_launches, frontier_rows, frontier_sizes, gnn_codes, gnn_ref = phase_gnn_train(graph)
     gnn_cached_launches, planned_sizes = phase_gnn_cached(graph, gnn_ref)
+    full_launches, full_codes, gcn = phase_fullgraph(graph)
+    time_spmm(gcn)
+    gcn.close()
+    del gcn
+    link_launches = phase_link(graph)
+    merchant_launches, merchant_sizes = phase_merchant()
+    phase_fullgraph_reference()
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
                                 check_gnn_frontiers(planned_sizes,
-                                                    "decode sizes of the planned cached run"))
-    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes)
+                                                    "decode sizes of the planned cached run"),
+                                check_gnn_frontiers(merchant_sizes,
+                                                    "decode sizes of the merchant path"))
+    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
     train_launches, _ = phase_train()
@@ -2135,14 +2551,16 @@ def main() -> None:
     lm = time_lm_kernels()
     bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696),
                  "lm": time_hd_backward(LM_BATCH * LM_SEQ, "bfloat16"),
-                 "reconstruct": time_hd_backward(REC_BATCH, graph=True)}
+                 "reconstruct": time_hd_backward(REC_BATCH, graph=True),
+                 "full": time_hd_backward(N_NODES)}
     variants = time_variants()
     lsh_times = time_lsh()
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
     paths = {"serve": serve_launches, "train": train_launches,
              "reconstruct": rec_launches, "gnn_train": gnn_launches,
              "serve_cached": cached_launches, "serve_batched": batched_launches,
-             **gnn_cached_launches}
+             **gnn_cached_launches, **full_launches, "link": link_launches,
+             "merchant": merchant_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -2159,7 +2577,7 @@ def main() -> None:
              launches=sum(hd_by_path.values()), launches_by_path=hd_by_path,
              bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"],
              variants=variants, cached_serve_sizes=serve_sizes,
-             batched_serve_sizes=batched_sizes,
+             batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
              cached_serve_bitwise_to_uncached=cached_bitwise),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -2185,7 +2603,8 @@ def main() -> None:
              bitwise=bwd_err == 0.0, bitwise_cases=bwd_cases, max_abs_err=bwd_err,
              **{k: v for k, v in bwd_times["frontier"].items() if k != "rows"},
              frontier_rows=frontier_rows, at_61696=bwd_times["cap"],
-             at_lm_bf16=bwd_times["lm"], at_reconstruct_graph=bwd_times["reconstruct"]),
+             at_lm_bf16=bwd_times["lm"], at_reconstruct_graph=bwd_times["reconstruct"],
+             at_full_graph=bwd_times["full"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -5,17 +5,20 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 and names so each module has an obvious counterpart, and it imports neither
 JAX nor anything of ``repro``.  What is ported so far is the paper's
 hash-compressed GraphSAGE (training, serving, the hot-node cache and the
-batching tier), the embedding reconstruction, and LM training of the
-dense family (``qwen1.5-0.5b``, its vocabulary hash-compressed):
+batching tier), its full-graph GCN, SGC and GIN (training, evaluation,
+link prediction), the consumer × merchant graph, the embedding
+reconstruction, and LM training of the dense family (``qwen1.5-0.5b``,
+its vocabulary hash-compressed):
 
 core      LSH coding (Algorithm 1), packed codes, decode backends, the
           hot-node decode cache, decoder, embedding layer
 kernels   hand-written CUDA kernels for Hopper (``hash_decode`` with its
           autograd backward, ``flash_attention``, ``lsh_encode``)
-graph     CSR graphs, generators, neighbour sampling, model entry point,
-          ``GraphRuntime``
-models    GraphSAGE forward and node-classification heads; the dense
-          decoder LM (``models.lm``)
+graph     CSR graphs (and their device-resident product), generators,
+          neighbour sampling, model entry point, ``GraphRuntime``
+models    the GraphSAGE and full-graph GCN / SGC / GIN forwards,
+          node-classification heads, link scores and losses, hits@K and
+          hit@k; the dense decoder LM (``models.lm``)
 nn        parameter conventions, layers, RoPE, attention (no KV cache)
 optim     AdamW and learning-rate schedules
 train     the LM and GNN train steps, the training loop, checkpoints

@@ -4,7 +4,10 @@ as a sparse matrix in CRS format as all the operations on A are row-wise").
 Counterpart of ``repro/graph/csr.py``.  The matrix itself lives on the host
 as numpy arrays (the generators and the neighbour sampler are numpy);
 ``matmat`` moves the arrays to the device of its dense operand and runs the
-row-wise product there.
+row-wise product there.  ``on(device)`` uploads them once instead: the
+``DeviceCSR`` it returns is what the full-graph models multiply by every
+step, a differentiable product whose backward is a fixed-order product by
+the transpose (uploaded on the first backward).
 """
 
 from __future__ import annotations
@@ -64,15 +67,48 @@ class CSRMatrix:
         return np.repeat(np.arange(self.shape[0], dtype=np.int32), self.degrees())
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """A @ X for dense X on X's device: gather the neighbour rows, then
-        a segment sum over each row's contiguous run of stored elements.
-        No atomics, so the result is the same on every call."""
-        dev = X.device
-        data = torch.from_numpy(self.data).to(dev, X.dtype)
-        indices = torch.from_numpy(self.indices).to(dev, torch.int64)
-        lengths = torch.from_numpy(self.degrees()).to(dev, torch.int64)
-        contrib = data[:, None] * X[indices]                    # (nnz, w)
-        return torch.segment_reduce(contrib, "sum", lengths=lengths, axis=0)
+        """A @ X for dense X, the arrays uploaded to X's device for the call
+        (``on`` keeps them there).  No atomics, so the result is the same
+        on every call."""
+        return _rowwise(*_upload(self, X.device), X)
+
+    def normalized(self, kind: str = "sym") -> "CSRMatrix":
+        """Degree-normalised values on the same pattern: 'sym' ->
+        d_i^-1/2 d_j^-1/2, 'row' -> d_i^-1 (add self loops first for GCN's
+        D^-1/2 (A+I) D^-1/2).  The degrees are float32, as the JAX
+        package's, so every value has its bits."""
+        deg = np.maximum(self.degrees().astype(np.float32), np.float32(1.0))
+        rid = self.row_ids()
+        if kind == "sym":
+            vals = self.data / np.sqrt(deg[rid] * deg[self.indices])
+        elif kind == "row":
+            vals = self.data / deg[rid]
+        else:
+            raise ValueError(kind)
+        return CSRMatrix(vals.astype(np.float32), self.indices, self.indptr, self.shape)
+
+    def with_self_loops(self) -> "CSRMatrix":
+        """A + I: each row's stored elements, then its diagonal one."""
+        n = self.shape[0]
+        rows = np.concatenate([self.row_ids(), np.arange(n)])
+        cols = np.concatenate([self.indices, np.arange(n)])
+        vals = np.concatenate([self.data, np.ones(n, np.float32)])
+        return CSRMatrix.from_coo(rows, cols, vals, self.shape)
+
+    def transpose(self) -> "CSRMatrix":
+        """Aᵀ, each of its rows in ascending column order of A's rows."""
+        order = np.argsort(self.indices, kind="stable")
+        rows = self.row_ids()[order]
+        cols = self.indices[order]
+        indptr = np.zeros(self.shape[1] + 1, np.int32)
+        np.add.at(indptr, cols.astype(np.int64) + 1, 1)
+        return CSRMatrix(self.data[order], rows.astype(np.int32),
+                         np.cumsum(indptr, dtype=np.int32), (self.shape[1], self.shape[0]))
+
+    def on(self, device) -> "DeviceCSR":
+        """The matrix uploaded to ``device`` once (its transpose on the
+        first backward)."""
+        return DeviceCSR(self, torch.device(device))
 
     def neighbor_padded(self, max_deg: int) -> Tuple[np.ndarray, np.ndarray]:
         """(n, max_deg) neighbour table padded with -1 + (n,) true degree.
@@ -85,3 +121,57 @@ class CSRMatrix:
         keep = pos < max_deg
         table[rid[keep], pos[keep]] = self.indices[keep]
         return table, deg
+
+
+def _upload(m: CSRMatrix, device: torch.device):
+    """(values, column ids, row lengths) on ``device``."""
+    return (torch.from_numpy(m.data).to(device),
+            torch.from_numpy(m.indices).to(device, torch.int64),
+            torch.from_numpy(m.degrees()).to(device, torch.int64))
+
+
+def _rowwise(data: torch.Tensor, indices: torch.Tensor, lengths: torch.Tensor,
+             X: torch.Tensor) -> torch.Tensor:
+    """A @ X from A's arrays on X's device: gather the neighbour rows, then
+    a segment sum over each row's contiguous run of stored elements."""
+    contrib = data.to(X.dtype)[:, None] * X[indices]        # (nnz, w)
+    return torch.segment_reduce(contrib, "sum", lengths=lengths, axis=0)
+
+
+class DeviceCSR:
+    """A ``CSRMatrix`` held on one device: its values, column ids and row
+    lengths uploaded once, and those of its transpose on the first backward
+    (built once on the host; a forward-only product never pays for it).
+    ``matmat(X)`` is differentiable in X: the forward gives
+    ``CSRMatrix.matmat``'s bits; the backward is Aᵀ·G by the same gather
+    and segment sum over the transpose.  Neither adds with atomics or an
+    accumulating ``index_put_``, so two calls give the same bits on either
+    device."""
+
+    def __init__(self, adj: CSRMatrix, device: torch.device):
+        self.shape = adj.shape
+        self.nnz = adj.nnz
+        self.device = device
+        self.arrays = _upload(adj, device)
+        self._adj = adj
+        self._t_arrays = None
+
+    @property
+    def t_arrays(self):
+        if self._t_arrays is None:
+            self._t_arrays = _upload(self._adj.transpose(), self.device)
+        return self._t_arrays
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        return _CSRProduct.apply(X, self)
+
+
+class _CSRProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, X, mat: DeviceCSR):
+        ctx.mat = mat
+        return _rowwise(*mat.arrays, X)
+
+    @staticmethod
+    def backward(ctx, G):
+        return _rowwise(*ctx.mat.t_arrays, G.contiguous()), None

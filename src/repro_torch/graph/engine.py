@@ -2,10 +2,11 @@
 counterpart of the single-device part of ``repro/graph/engine.py``.
 
 * ``GNNModel.apply(params, batch)`` accepts a ``FrontierBatch`` (dedup-decode
-  GraphSAGE), a naive level list or a batch dict, with the decode backend
-  resolved once from the config's ``lookup_impl`` for the model's device.
-  It carries gradients; the serving and evaluation call sites run it under
-  ``torch.no_grad``.
+  GraphSAGE), a naive level list, a ``FullGraphBatch`` (or a
+  ``CSRMatrix``: full-graph GCN / SGC / GIN) or a batch dict, with the
+  decode backend resolved once from the config's ``lookup_impl`` for the
+  model's device.  It carries gradients; the serving and evaluation call
+  sites run it under ``torch.no_grad``.
 * ``SageBatchSource`` draws one batch per step, a pure function of
   ``(seed, shard, step)``: the targets from a generator seeded by the step,
   the neighbours counter-based (``NeighborSampler.sample_hashed``), so
@@ -22,6 +23,7 @@ counterpart of the single-device part of ``repro/graph/engine.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -33,20 +35,33 @@ import torch
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import CachedDecodeBackend, HostCacheShadow, get_backend
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graph.csr import CSRMatrix, DeviceCSR
 from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, stream_key
 from repro_torch.models import gnn
 from repro_torch.stages import stage
 
-Batch = Union[FrontierBatch, Sequence[Any], Dict[str, Any]]
-
 CODES_ON_HOST_SLICE = "the codes-on-host slice (ROADMAP A.15)"
 
 
+@dataclasses.dataclass(frozen=True)
+class FullGraphBatch:
+    """Full-graph "batch": a handle on the normalised adjacency, already on
+    the device (``CSRMatrix.on``).  ``apply`` returns hidden states for ALL
+    nodes (the paper trains GCN/SGC/GIN without minibatches, §C.1)."""
+
+    adj: DeviceCSR
+
+
+Batch = Union[FrontierBatch, FullGraphBatch, CSRMatrix, Sequence[Any], Dict[str, Any]]
+
+
 class GNNModel:
-    """Single entry point over the ported GNN family (GraphSAGE).
+    """Single entry point over the paper's GNN family.
 
     ``apply`` moves host batches to the model's device: a ``FrontierBatch``
-    runs the dedup-decode forward, a list of levels the naive one."""
+    runs the dedup-decode forward, a list of levels the naive one, a
+    ``FullGraphBatch`` the full-graph GCN / SGC / GIN (a ``CSRMatrix`` is
+    uploaded for the call)."""
 
     def __init__(self, cfg: GNNConfig, device: DeviceLike = None,
                  backend: Optional[str] = None):
@@ -71,6 +86,10 @@ class GNNModel:
             with stage("h2d"):
                 levels = [torch.as_tensor(l).to(self.device, torch.int64) for l in batch]
             return gnn.sage_forward(params, levels, self.cfg, backend=self.backend)
+        if isinstance(batch, CSRMatrix):
+            batch = FullGraphBatch(batch.on(self.device))
+        if isinstance(batch, FullGraphBatch):
+            return gnn.fullgraph_forward(params, batch.adj, self.cfg, backend=self.backend)
         raise TypeError(f"GNNModel.apply: unsupported batch type {type(batch)!r}")
 
     def apply_cached(self, params, batch: Batch, cache_state, buffers=None):
@@ -97,19 +116,22 @@ class GNNModel:
 
 
 def batch_view(batch: Dict[str, Any]) -> Batch:
-    """The model-facing view of a source's batch dict ({"frontier": ...}
-    or {"levels": ...})."""
-    if "frontier" in batch:
-        return batch["frontier"]
-    if "levels" in batch:
-        return batch["levels"]
-    raise KeyError("batch dict has neither 'frontier' nor 'levels'")
+    """The model-facing view of a source's batch dict ({"frontier": ...},
+    {"levels": ...}, or the runtime's full-graph {"full": FullGraphBatch,
+    "ids": ..., "labels": ...})."""
+    for key in ("frontier", "levels", "full"):
+        if key in batch:
+            return batch[key]
+    raise KeyError("batch dict has none of 'frontier' / 'levels' / 'full'")
 
 
 def map_arrays(batch, fn: Callable):
     """``fn`` over every array of a batch (dicts, tuples, lists and
     ``FrontierBatch``es keep their structure; a frontier's ``valid`` mask
-    is an array too, its ``n_unique`` and ``n_decode`` stay plain ints)."""
+    is an array too, its ``n_unique`` and ``n_decode`` stay plain ints; a
+    ``FullGraphBatch`` is already on its device and passes as it is)."""
+    if isinstance(batch, FullGraphBatch):
+        return batch
     if isinstance(batch, FrontierBatch):
         return FrontierBatch(fn(batch.unique), tuple(fn(m) for m in batch.index_maps),
                              batch.n_unique,

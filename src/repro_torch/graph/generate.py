@@ -6,6 +6,8 @@ identical graph and labels as the JAX package's generators.
 * ``powerlaw_graph`` — preferential-attachment graph (heavy-tailed degree)
                        with planted community labels.
 * ``sbm_graph``      — stochastic-block-model graph (clean community signal).
+* ``bipartite_transaction_graph`` — consumer × merchant graph (paper §5.3).
+* ``holdout_edges``  — the link-prediction split (paper §5.2).
 * ``clustered_embeddings`` — Gaussian-mixture "pre-trained embeddings" with
                        planted labels (the reconstruction experiment's input).
 """
@@ -101,6 +103,52 @@ def sbm_graph(
     return CSRMatrix.from_edges(src[keep], dst[keep], n_nodes, symmetric=True), labels
 
 
+def bipartite_transaction_graph(
+    seed: int,
+    n_consumers: int,
+    n_merchants: int,
+    n_categories: int = 64,
+    avg_tx_per_consumer: int = 12,
+    consumer_affinity: int = 3,
+) -> Tuple[CSRMatrix, np.ndarray, int]:
+    """Consumer–merchant bipartite graph (paper §5.3 stand-in).
+
+    Nodes [0, n_consumers) are consumers, [n_consumers, n) merchants.
+    Each consumer has ``consumer_affinity`` preferred categories; its
+    transactions go to merchants of those categories with a Zipf
+    popularity bias, which gives the category signal and the degree
+    imbalance the paper describes.  Returns (adjacency, merchant_labels,
+    n_consumers).
+    """
+    rng = np.random.default_rng(seed)
+    n = n_consumers + n_merchants
+    merchant_cat = rng.integers(0, n_categories, n_merchants).astype(np.int32)
+    merchants_by_cat = [np.where(merchant_cat == cl)[0] for cl in range(n_categories)]
+    pop = {}                                    # Zipf popularity within a category
+    for cl in range(n_categories):
+        sz = merchants_by_cat[cl].size
+        if sz:
+            w = 1.0 / np.arange(1, sz + 1) ** 1.1
+            pop[cl] = w / w.sum()
+    srcs, dsts = [], []
+    aff = rng.integers(0, n_categories, (n_consumers, consumer_affinity))
+    for i in range(n_consumers):
+        k = max(1, rng.poisson(avg_tx_per_consumer))
+        cats = aff[i, rng.integers(0, consumer_affinity, k)]
+        tgt = np.empty(k, np.int64)
+        for j, cl in enumerate(cats):
+            mbc = merchants_by_cat[cl]
+            if mbc.size:
+                tgt[j] = mbc[rng.choice(mbc.size, p=pop[cl])]
+            else:
+                tgt[j] = rng.integers(0, n_merchants)
+        srcs.append(np.full(k, i))
+        dsts.append(tgt + n_consumers)
+    adj = CSRMatrix.from_edges(np.concatenate(srcs), np.concatenate(dsts), n,
+                               symmetric=True)
+    return adj, merchant_cat, n_consumers
+
+
 def clustered_embeddings(
     seed: int,
     n: int,
@@ -126,3 +174,20 @@ def train_val_test_split(seed: int, n: int, frac=(0.7, 0.1, 0.2)):
     n_tr = int(frac[0] * n)
     n_va = int(frac[1] * n)
     return perm[:n_tr], perm[n_tr: n_tr + n_va], perm[n_tr + n_va:]
+
+
+def holdout_edges(seed: int, adj: CSRMatrix, frac: float = 0.1):
+    """Link-prediction split: (train_adj, pos_eval_edges (E, 2)).  The
+    held-out edges leave the training adjacency in both directions."""
+    rng = np.random.default_rng(seed)
+    rid, cid = adj.row_ids(), adj.indices
+    upper = rid < cid
+    er, ec = rid[upper], cid[upper]
+    n_hold = int(frac * er.shape[0])
+    hold = rng.choice(er.shape[0], n_hold, replace=False)
+    mask = np.zeros(er.shape[0], bool)
+    mask[hold] = True
+    keep_r = np.concatenate([er[~mask], ec[~mask]])
+    keep_c = np.concatenate([ec[~mask], er[~mask]])
+    train = CSRMatrix.from_coo(keep_r, keep_c, np.ones_like(keep_r, np.float32), adj.shape)
+    return train, np.stack([er[mask], ec[mask]], axis=1)

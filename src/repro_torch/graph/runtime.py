@@ -12,13 +12,16 @@ counterpart of ``repro/graph/runtime.py``.
 
 ``RuntimeSpec`` has every field of the JAX package's spec, so a JAX
 ``RuntimeSpec.to_json()`` loads here unchanged (``from_json``) and
-round-trips.  What the port runs is single-device minibatched GraphSAGE,
+round-trips.  What the port runs on one device: minibatched GraphSAGE,
 with the hot-node decode cache (``cache_capacity`` / ``cache_staleness``
 / ``cache_plan_misses`` in training, on by default in serving) and the
 continuous-batching tier (``batching``) as spec field changes, as in the
-JAX package.  Sharding, full-graph models, codes on the host and elastic
-training are later slices, and a spec that asks for them raises
-``NotImplementedError`` naming the slice.
+JAX package; and the full-graph GCN / SGC / GIN (``model``), which train,
+evaluate and embed in one pass over all nodes with the normalised
+adjacency uploaded once (``FullGraphSource``; no sampler, no prefetch,
+no serving).  Sharding, codes on the host and elastic training are later
+slices, and a spec that asks for them raises ``NotImplementedError``
+naming the slice.
 
 Graph, splits and batches are pure functions of the spec's seeds (numpy,
 identical to the JAX package's); the LSH projections and weights come from
@@ -38,8 +41,8 @@ import torch
 
 from repro_torch.configs.base import EmbeddingSpec, GNNConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
-from repro_torch.graph.engine import (GNNModel, MissPlanningSource, PrefetchIterator,
-                                      SageBatchSource, _step_rng)
+from repro_torch.graph.engine import (FullGraphBatch, GNNModel, MissPlanningSource,
+                                      PrefetchIterator, SageBatchSource, _step_rng)
 from repro_torch.graph.generate import train_val_test_split
 from repro_torch.graph.sampler import NeighborSampler
 from repro_torch.nn.module import map_tree
@@ -161,10 +164,8 @@ class RuntimeSpec:
 
 def _check_ported(spec: RuntimeSpec) -> None:
     """Raise for every spec knob whose slice is not ported yet."""
-    cfg, emb = spec.model, spec.model.embedding
+    emb = spec.model.embedding
     later = []
-    if cfg.model in FULLGRAPH_MODELS:
-        later.append(f"model={cfg.model!r}: the full-graph slice (ROADMAP A.12)")
     if spec.n_shards > 1:
         later.append(f"n_shards={spec.n_shards}: the multi-GPU slice (ROADMAP A.14)")
     if spec.elastic is not None:
@@ -176,21 +177,55 @@ def _check_ported(spec: RuntimeSpec) -> None:
         raise NotImplementedError("not ported yet — " + "; ".join(later))
 
 
+class FullGraphSource:
+    """Batch source for GCN / SGC / GIN (the paper trains them without
+    minibatches, §C.1): every step is the same full-graph handle plus the
+    training nodes' ids and labels, all on the device once, so a step
+    copies nothing from the host.  Its state is the step count."""
+
+    def __init__(self, full: FullGraphBatch, nodes: np.ndarray, labels: np.ndarray):
+        dev = full.adj.device
+        nodes = np.asarray(nodes)
+        self._batch = {"full": full,
+                       "ids": torch.from_numpy(nodes.astype(np.int64)).to(dev),
+                       "labels": torch.from_numpy(
+                           np.asarray(labels)[nodes].astype(np.int64)).to(dev)}
+        self.step = 0
+
+    def next_batch(self) -> Dict[str, Any]:
+        self.step += 1
+        return self._batch
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self.step}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])
+
+
 class GraphRuntime:
     """Build once from a spec, then ``train`` / ``evaluate`` / ``embed`` /
     ``serve`` on one device.
 
-    Construction wires graph -> codes -> train state -> splits -> sampler
-    -> batch source -> (prefetching) iterator -> train step -> checkpoint
-    manager the way the JAX runtime does.  ``state`` (params, optimizer,
+    Construction wires graph -> codes -> train state -> splits -> train
+    step -> checkpoint manager -> sampler -> batch source -> (prefetching)
+    iterator the way the JAX runtime does; a full-graph model takes the
+    normalised adjacency, uploaded once, and a ``FullGraphSource`` in place
+    of the last three.  ``state`` (params, optimizer,
     step), ``data_iter`` and ``train_step`` are exposed for callers that
     drive steps themselves."""
 
     def __init__(self, spec: RuntimeSpec, *, adj, labels, device: torch.device,
                  params=None):
+        cfg = spec.model
+        self.fullgraph = cfg.model in FULLGRAPH_MODELS
+        if self.fullgraph and cfg.embedding.codes_placement == "host":
+            raise ValueError(
+                "codes_placement='host' needs the sampled (frontier) model "
+                "family — full-graph models decode every node per step, so "
+                "there is no O(frontier) working set to stream")
         _check_ported(spec)
         self.spec = spec
-        cfg = spec.model
         if spec.graph.kind != "external" and cfg.n_nodes != spec.graph.n_nodes:
             raise ValueError(f"model.n_nodes {cfg.n_nodes} != graph.n_nodes "
                              f"{spec.graph.n_nodes}")
@@ -213,6 +248,20 @@ class GraphRuntime:
 
         tr, va, te = train_val_test_split(spec.split_seed, cfg.n_nodes, spec.split_frac)
         self.splits = {"train": tr, "val": va, "test": te}
+        self.train_step = make_gnn_train_step(cfg, spec.optimizer, device)
+        self.ckpt = None
+        if spec.ckpt_dir:
+            from repro_torch.train.checkpoint import CheckpointManager
+            self.ckpt = CheckpointManager(spec.ckpt_dir, keep=2)
+        if self.fullgraph:
+            # no neighbour table (full-graph models never sample) and no
+            # prefetch (the one batch is on the device already)
+            self.sampler = None
+            self.adj_norm = adj.with_self_loops().normalized("sym")
+            self.full = FullGraphBatch(self.adj_norm.on(device))
+            self.source = self.data_iter = FullGraphSource(self.full, tr, self.labels)
+            return
+        self.adj_norm = self.full = None
         self.sampler = NeighborSampler(adj, cfg.fanouts, max_deg=spec.max_deg,
                                        seed=spec.data_seed)
         self.source = SageBatchSource(self.sampler, tr, self.labels, spec.batch_size,
@@ -236,11 +285,6 @@ class GraphRuntime:
         self.data_iter = (PrefetchIterator(self.source, depth=spec.prefetch_depth,
                                            device=device)
                           if spec.prefetch_depth > 0 else self.source)
-        self.train_step = make_gnn_train_step(cfg, spec.optimizer, device)
-        self.ckpt = None
-        if spec.ckpt_dir:
-            from repro_torch.train.checkpoint import CheckpointManager
-            self.ckpt = CheckpointManager(spec.ckpt_dir, keep=2)
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -317,14 +361,21 @@ class GraphRuntime:
     @torch.no_grad()
     def evaluate(self, split: str = "val",
                  batch_size: Optional[int] = None) -> Dict[str, float]:
-        """Accuracy and loss over a named split ("train" / "val" / "test")
-        in minibatches of ``eval_batch`` frontiers, neighbours drawn from
-        ``(eval_seed, batch index)`` so repeat calls agree; the short last
-        batch is padded and the padding masked, so every split node counts
-        once."""
+        """Accuracy and loss over a named split ("train" / "val" / "test").
+        GraphSAGE evaluates in minibatches of ``eval_batch`` frontiers,
+        neighbours drawn from ``(eval_seed, batch index)`` so repeat calls
+        agree; the short last batch is padded and the padding masked, so
+        every split node counts once.  Full-graph models evaluate in one
+        pass over all nodes and read the split's rows."""
         from repro_torch.models import gnn
         nodes = self.splits[split]
         params = self.params
+        if self.fullgraph:
+            logits = self.model.logits(params, self.model.apply(params, self.full))
+            logits = logits[torch.from_numpy(nodes).to(self.device)].float().cpu()
+            labels = torch.from_numpy(self.labels[nodes].astype(np.int64))
+            return {"accuracy": float(np.mean((logits.argmax(-1) == labels).numpy())),
+                    "loss": float(gnn.node_loss(logits, labels)), "n": int(len(nodes))}
         bs = int(batch_size or self.spec.eval_batch)
         correct, loss_sum, seen = 0, 0.0, 0
         for bi, s in enumerate(range(0, len(nodes), bs)):
@@ -347,8 +398,12 @@ class GraphRuntime:
     @torch.no_grad()
     def embed(self, node_ids) -> np.ndarray:
         """Final hidden representations (B, H) for ``node_ids`` through the
-        current params (neighbour draws seeded by ``eval_seed``)."""
+        current params (neighbour draws seeded by ``eval_seed``; full-graph
+        models: the rows of one pass over all nodes)."""
         ids = np.asarray(node_ids, np.int32)
+        if self.fullgraph:
+            h = self.model.apply(self.params, self.full)
+            return h[torch.from_numpy(ids.astype(np.int64)).to(self.device)].cpu().numpy()
         rng = np.random.default_rng(self.spec.eval_seed)
         fb = self.sampler.sample_frontier(ids, pad_to=self.spec.pad_to, rng=rng)
         return self.model.apply(self.params, fb).cpu().numpy()
@@ -367,6 +422,10 @@ class GraphRuntime:
         cross-request frontier dedup; ``False`` forces the bare engine.
         The batcher owns the engine: ``close()`` it (or use it as a
         context manager) when done."""
+        if self.fullgraph:
+            raise NotImplementedError(
+                "serving is minibatched GraphSAGE only; full-graph models "
+                "evaluate via runtime.evaluate()")
         from repro_torch.serving.gnn import GraphInferenceEngine
         if batching is None:
             batching = self.spec.batching

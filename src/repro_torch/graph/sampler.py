@@ -215,3 +215,26 @@ class NeighborSampler:
             cur, pids = self._sample_level_hashed(cur, pids, f, lkey)
             levels.append(cur)
         return levels
+
+    # -- epoch iteration (the paper's Table 3 protocol) ------------------
+    def minibatches(self, nodes: np.ndarray, batch_size: int, shuffle: bool = True):
+        """Yield (levels, batch_node_ids); the short last batch is wrapped
+        (padded from the start of the order) so every batch has
+        ``batch_size`` targets."""
+        for batch in self._batch_ids(nodes, batch_size, shuffle):
+            yield self.sample(batch), batch
+
+    def frontier_minibatches(self, nodes: np.ndarray, batch_size: int,
+                             shuffle: bool = True, pad_to: int = 256):
+        """Dedup-decode twin of ``minibatches``: yields (FrontierBatch, ids)."""
+        for batch in self._batch_ids(nodes, batch_size, shuffle):
+            yield self.sample_frontier(batch, pad_to=pad_to), batch
+
+    def _batch_ids(self, nodes: np.ndarray, batch_size: int, shuffle: bool):
+        order = self.rng.permutation(nodes) if shuffle else np.asarray(nodes)
+        n = order.shape[0]
+        for s in range(0, n, batch_size):
+            batch = order[s: s + batch_size]
+            if batch.shape[0] < batch_size:
+                batch = np.concatenate([batch, order[: batch_size - batch.shape[0]]])
+            yield batch

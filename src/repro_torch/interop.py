@@ -6,7 +6,10 @@ numpy arrays — nested dicts of arrays, the packed ``embed.codes_buf`` as
 uint32 — and returns the same tree as tensors on ``device``.  The layouts
 are the same in both packages (``x @ w`` with w of shape (in, out); the
 LM's ``blocks`` stacked on a leading layer axis), so nothing is transposed;
-the code words become int64 tensors holding the uint32 bit patterns.
+the code words become int64 tensors holding the uint32 bit patterns;
+0-d leaves (GIN's ``eps1`` / ``eps2``) stay 0-d, nested dicts (GIN's
+``mlp1`` / ``mlp2``) stay nested, and ``None`` leaves (an AdamW state's
+moments of a ``*_buf`` buffer) stay ``None``.
 
 ``cache_state_from_jax`` takes a JAX ``CacheState`` (or any object or dict
 with its eight fields, as numpy arrays) and returns the port's, so both
@@ -38,6 +41,8 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str
     dev = resolve_device(device)
 
     def convert(key: str, value):
+        if value is None:            # a train state's moments of a buffer
+            return None
         if key == "cache":
             return cache_state_from_jax(value, dev)
         if isinstance(value, dict):

@@ -1,12 +1,18 @@
-"""The paper's GraphSAGE (§4/§5.2) with the compressed-embedding layer as
-its input features; counterpart of the SAGE part of ``repro/models/gnn.py``.
+"""The paper's GNN stack (§4/§5.2): GraphSAGE, GCN, SGC and GIN with the
+compressed-embedding layer as their input features; counterpart of
+``repro/models/gnn.py``.
 
 GraphSAGE follows Figure 4: sample -> code lookup -> decode ->
 mean-aggregate -> concat -> linear(+ReLU), two layers.  Params are a dict
 of tensors in the JAX package's layout (``x @ w``, w of shape (in, out)).
 The frontier forward has two hot-node-cached twins (``_cached``, and
 ``_missonly`` for a miss-first permuted frontier).
-The full-graph models (GCN, SGC, GIN) come with a later slice.
+
+GCN / SGC / GIN are full-graph (paper §C.1 trains them without
+minibatches): every step decodes ALL nodes in one call and multiplies by
+the normalised adjacency (``graph.csr.DeviceCSR``).  Link prediction
+(§5.2): dot-product scores, a logistic loss over positive and uniform
+negative pairs, hits@K; the merchant task (§5.3) reads hit@k.
 """
 
 from __future__ import annotations
@@ -25,22 +31,32 @@ from repro_torch.graph.sampler import FrontierBatch
 from repro_torch.nn.module import dense_init
 from repro_torch.stages import stage
 
-FULLGRAPH_SLICE = "the full-graph slice (ROADMAP A.12)"
-
-
 def init_gnn(generator: torch.Generator, cfg: GNNConfig,
              codes: Optional[torch.Tensor] = None, aux=None) -> Params:
-    if cfg.model != "sage":
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet; it comes with {FULLGRAPH_SLICE}")
+    """The JAX package's leaves: SAGE and GCN ``w1 b1 w2 b2``, SGC ``w1
+    b1``, GIN 0-d ``eps1 eps2`` and two-layer ``mlp1`` / ``mlp2``; with
+    ``task="node"`` also ``w_out b_out``."""
+    if cfg.model not in ("sage", "gcn", "sgc", "gin"):
+        raise ValueError(cfg.model)
     dev = generator.device
     params: Params = {"embed": emb_lib.init_embedding(
         generator, cfg.embedding_config(), codes=codes, aux=aux)}
     d_e, H = cfg.d_e, cfg.hidden
-    params["w1"] = dense_init(generator, (2 * d_e, H))
-    params["b1"] = torch.zeros(H, device=dev)
-    params["w2"] = dense_init(generator, (2 * H, H))
-    params["b2"] = torch.zeros(H, device=dev)
+
+    def linear(i: str, d_in: int, tree: Params):       # w{i} (d_in, H), b{i}
+        tree[f"w{i}"] = dense_init(generator, (d_in, H))
+        tree[f"b{i}"] = torch.zeros(H, device=dev)
+        return tree
+
+    if cfg.model == "gin":
+        params["eps1"] = torch.zeros((), device=dev)
+        params["eps2"] = torch.zeros((), device=dev)
+        params["mlp1"] = linear("2", H, linear("1", d_e, {}))
+        params["mlp2"] = linear("2", H, linear("1", H, {}))
+    else:
+        linear("1", 2 * d_e if cfg.model == "sage" else d_e, params)
+        if cfg.model != "sgc":
+            linear("2", 2 * H if cfg.model == "sage" else H, params)
     if cfg.task == "node":
         params["w_out"] = dense_init(generator, (H, cfg.n_classes))
         params["b_out"] = torch.zeros(cfg.n_classes, device=dev)
@@ -122,6 +138,48 @@ def sage_forward_frontier_missonly(params, fb: FrontierBatch, cfg: GNNConfig,
     return _levels(params, hu, fb), new_state
 
 
+# ---------------------------------------------------------------------------
+# full-graph models
+# ---------------------------------------------------------------------------
+
+def _all_features(params, cfg: GNNConfig, backend=None) -> torch.Tensor:
+    """Every node's input features: the dense table, or ONE decode of
+    ``arange(n_nodes)`` through ``backend`` (on the card the
+    ``hash_decode`` kernel, and its backward kernel in training)."""
+    ecfg = cfg.embedding_config()
+    if ecfg.kind == "dense":
+        return params["embed"]["table"]
+    dev = params["embed"]["codes_buf"].device
+    ids = torch.arange(cfg.n_nodes, device=dev)
+    return emb_lib.embed_lookup(params["embed"], ids, ecfg, backend=backend)
+
+
+def fullgraph_forward(params, adj_norm, cfg: GNNConfig, backend=None) -> torch.Tensor:
+    """Final hidden for all nodes (n, H); ``adj_norm`` is the normalised
+    adjacency on the params' device (``CSRMatrix.on``)."""
+    X = _all_features(params, cfg, backend)
+
+    def spmm(h):
+        with stage("spmm"):
+            return adj_norm.matmat(h)
+
+    if cfg.model == "gcn":
+        h = torch.relu(spmm(X) @ params["w1"] + params["b1"])
+        return spmm(h) @ params["w2"] + params["b2"]
+    if cfg.model == "sgc":
+        return spmm(spmm(X)) @ params["w1"] + params["b1"]
+    if cfg.model == "gin":
+        def gmlp(m, h):
+            return torch.relu(h @ m["w1"] + m["b1"]) @ m["w2"] + m["b2"]
+        h = torch.relu(gmlp(params["mlp1"], (1 + params["eps1"]) * X + spmm(X)))
+        return gmlp(params["mlp2"], (1 + params["eps2"]) * h + spmm(h))
+    raise ValueError(cfg.model)
+
+
+# ---------------------------------------------------------------------------
+# losses / metrics
+# ---------------------------------------------------------------------------
+
 def node_logits(params, hidden: torch.Tensor, cfg: GNNConfig) -> torch.Tensor:
     return hidden @ params["w_out"] + params["b_out"]
 
@@ -132,6 +190,45 @@ def node_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
+def link_scores(hidden: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """edges (E, 2) -> dot-product scores (E,).  The row gathers are
+    ``F.embedding``, whose backward sums a node's repeated rows in a fixed
+    order (an edge list repeats nodes)."""
+    edges = torch.as_tensor(edges, device=hidden.device).to(torch.int64)
+    return (F.embedding(edges[:, 0], hidden) * F.embedding(edges[:, 1], hidden)).sum(-1)
+
+
+def link_loss(hidden: torch.Tensor, pos_edges, neg_edges) -> torch.Tensor:
+    """softplus(-pos) + softplus(neg), each a mean; softplus is
+    ``logaddexp(x, 0)`` as JAX's (``F.softplus`` turns linear past 20)."""
+    pos = link_scores(hidden, pos_edges)
+    neg = link_scores(hidden, neg_edges)
+    zero = torch.zeros((), device=hidden.device)
+    return torch.logaddexp(-pos, zero).mean() + torch.logaddexp(neg, zero).mean()
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def hits_at_k(pos_scores, neg_scores, k: int) -> float:
+    """OGB hits@K: the fraction of positives scored above the K-th
+    highest negative."""
+    neg = np.sort(_np(neg_scores))[::-1]
+    thresh = neg[min(k, len(neg)) - 1]
+    return float((_np(pos_scores) > thresh).mean())
+
+
 def accuracy(logits, labels) -> float:
     pred = torch.as_tensor(logits).argmax(-1).cpu().numpy()
     return float((pred == np.asarray(torch.as_tensor(labels).cpu())).mean())
+
+
+def hit_rate_at_k(logits, labels, k: int) -> float:
+    """§5.3 hit@k: the label is among the k top-scored categories.  At a
+    tie the lower category index enters the top k first, as in
+    ``jax.lax.top_k`` (a stable descending sort)."""
+    logits = torch.as_tensor(logits)
+    topk = torch.sort(logits, dim=-1, descending=True, stable=True).indices[..., :k]
+    labels = torch.as_tensor(labels).to(topk.device, torch.int64)
+    return float(np.mean(_np((topk == labels[:, None]).any(dim=1))))

@@ -5,7 +5,8 @@
 config's compute dtype, optional global-norm clip, the LR schedule by step
 counter, and gradient accumulation over ``hyper.microbatches``.
 ``make_gnn_train_step(cfg, opt)`` is the node-classification step over
-``GNNModel`` on a batch dict from an engine source; with a ``"cache"`` in
+``GNNModel`` on a batch dict from an engine source (or the runtime's
+full-graph source); with a ``"cache"`` in
 the state it decodes through the hot-node cache (a mesh comes with a later
 slice, ROADMAP A.14).
 
@@ -103,16 +104,38 @@ def init_gnn_train_state(generator: torch.Generator, cfg: GNNConfig, codes=None,
     return state
 
 
+def gnn_loss(model, params, batch, hidden: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The node-classification loss the GNN step differentiates: ``model``
+    (a ``GNNModel``) over ``batch`` (a device-resident batch dict), or over
+    its ``hidden`` when the caller decoded it (the cached step).  A
+    full-graph batch gives hidden for ALL nodes; the loss reads its
+    training nodes ``ids`` (distinct, so the gather's backward adds each row
+    once)."""
+    from repro_torch.graph.engine import batch_view
+    from repro_torch.models import gnn
+    if hidden is None:
+        hidden = model.apply(params, batch_view(batch))
+    with stage("logits"):
+        logits = model.logits(params, hidden)
+        if "ids" in batch:
+            logits = logits.index_select(0, batch["ids"])
+    with stage("loss"):
+        return gnn.node_loss(logits, batch["labels"])
+
+
 def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
                         device: DeviceLike = None) -> Callable:
     """Node-classification step on ``device``: the batch is
-    {"frontier": FrontierBatch, "labels": y} (dedup decode) or
+    {"frontier": FrontierBatch, "labels": y} (dedup decode),
     {"levels": tuple, "labels": y} (naive), on the host or already on the
-    device.  The decode runs on the backend of the config's
-    ``lookup_impl`` and its gradient through that backend's backward (on
-    the card, the ``hash_decode`` forward and backward kernels).  The
-    stages ``h2d``, ``logits``, ``loss``, ``backward`` and ``optimizer``
-    are marked here, ``unpack``, ``decode``, ``mlp`` and ``sage`` inside
+    device, or the runtime's full-graph {"full": FullGraphBatch, "ids":
+    train nodes, "labels": y} (GCN / SGC / GIN: logits for all nodes, the
+    loss over ``ids``); the loss is ``gnn_loss``.  The decode runs on the
+    backend of the config's ``lookup_impl`` and its gradient through that
+    backend's backward (on the card, the ``hash_decode`` forward and
+    backward kernels).  The stages ``h2d`` and ``optimizer`` are marked
+    here, ``logits`` and ``loss`` in ``gnn_loss``, ``backward`` in
+    ``value_and_grad``, ``unpack``, ``decode``, ``mlp`` and ``sage`` inside
     the model.
 
     If the state carries a ``"cache"``, the frontier decode is served
@@ -123,7 +146,6 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
     metrics carry its cumulative ``cache_hits`` and ``cache_misses``."""
     from repro_torch.core.backend import CachedDecodeBackend
     from repro_torch.graph.engine import GNNModel, batch_to, batch_view
-    from repro_torch.models import gnn
     dev = resolve_device(device)
     model = GNNModel(cfg, dev)
     ocfg = opt or AdamWConfig(lr=1e-2, weight_decay=0.0)
@@ -135,15 +157,11 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
         new_cache = []
 
         def loss_fn(p):
+            h = None
             if "cache" in state:
                 h, cache = model.apply_cached(p, view, state["cache"])
                 new_cache.append(cache)
-            else:
-                h = model.apply(p, view)
-            with stage("logits"):
-                logits = model.logits(p, h)
-            with stage("loss"):
-                return gnn.node_loss(logits, batch["labels"])
+            return gnn_loss(model, p, batch, h)
 
         loss, grads = value_and_grad(loss_fn, state["params"])
         with stage("optimizer"):

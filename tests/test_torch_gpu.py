@@ -7,7 +7,10 @@ step on the card against the CPU, the hand-written ``lsh_encode`` kernel
 against its plain version, the reconstruction path on the card against
 the CPU, and the GNN training slice: the ``hash_decode`` backward kernel
 against its plain version, a GNN step on the card against the CPU, a
-resumed run against a straight one, and ``PrefetchIterator`` on CUDA.
+resumed run against a straight one, and ``PrefetchIterator`` on CUDA; and
+the full-graph slice: both kernels at every node of the serve graph, the
+device-resident sparse product, full-graph GCN / SGC / GIN steps against
+the CPU and a resumed GCN run.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -795,3 +798,88 @@ def test_cached_serve_on_card_equals_uncached(cuda):
     held = cached._cache_state.node_ids.cpu().numpy()      # the host's table of cached ids
     assert not cached._held_stale
     np.testing.assert_array_equal(np.flatnonzero(cached._held), np.sort(held[held >= 0]))
+
+
+# ---------------- the full-graph slice ----------------
+# A full-graph step decodes every node: the kernel and its backward at the
+# serve graph's 169,343 rows (m=16, c=256, d_c=512, f32, no w0: the paper
+# GCN's decode), bitwise to their plain versions.  The sparse product
+# (``DeviceCSR``) is a gather and a segment sum without atomics: its forward
+# is ``CSRMatrix.matmat``'s bits and two backward calls give the same bits.
+# A full-graph step on the card and on the CPU agree within 1e-4 on the
+# loss, as the GraphSAGE step does; a resumed GCN run equals the straight
+# one bit for bit.
+
+FULL_ROWS = 169_343
+
+
+def test_kernels_bitwise_at_the_full_graph_rows(cuda):
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    shape = (FULL_ROWS, 16, 256, 512)
+    args = _operands(shape, "float32", cuda, seed=19)
+    assert torch.equal(ops.hash_decode(*args), hash_decode_ref(*args))
+    codes, g, _, dtype = _bwd(shape, "float32", cuda, seed=19)
+    a = ops.codebook_grad(codes, g, None, 256, dtype)
+    assert torch.equal(a, ops.codebook_grad(codes, g, None, 256, dtype))
+    assert torch.equal(a.cpu(), hash_decode_backward_ref(codes.cpu(), g.cpu(), None, 256, dtype))
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_device_csr_product_on_card(cuda, width):
+    adj, _ = powerlaw_graph(0, 20_000, avg_degree=14, n_classes=8)
+    a = adj.with_self_loops().normalized("sym")
+    dev = a.on(cuda)
+    rng = np.random.default_rng(width)
+    X = torch.from_numpy(rng.standard_normal((20_000, width)).astype(np.float32)).to(cuda)
+    G = torch.from_numpy(rng.standard_normal((20_000, width)).astype(np.float32)).to(cuda)
+    assert torch.equal(dev.matmat(X), a.matmat(X))
+
+    def grad():
+        x = X.clone().requires_grad_(True)
+        return torch.autograd.grad(dev.matmat(x), x, G)[0]
+
+    ga = grad()
+    assert torch.equal(ga, grad())
+    np.testing.assert_allclose(ga.cpu().numpy(), a.transpose().matmat(G.cpu()).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", ["gcn", "sgc", "gin"])
+def test_fullgraph_steps_on_card_match_cpu(cuda, model):
+    spec = dataclasses.replace(_gnn_spec(), model=dataclasses.replace(_gnn_spec().model,
+                                                                      model=model))
+    card = GraphRuntime.from_spec(spec)
+    cpu = GraphRuntime.from_spec(spec, graph=(card.adj, card.labels), device="cpu",
+                                 params=_to(card.params, "cpu", copy=True))
+    ops.hash_decode.launches = ops.hash_decode_backward.launches = 0
+    a, b = card.train(3).losses, cpu.train(3).losses
+    assert ops.hash_decode.launches == 3 and ops.hash_decode_backward.launches == 3
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    ev_card, ev_cpu = card.evaluate("val"), cpu.evaluate("val")
+    assert ev_card["n"] == ev_cpu["n"] == len(card.splits["val"])
+    assert abs(ev_card["loss"] - ev_cpu["loss"]) <= 1e-4
+    with pytest.raises(NotImplementedError, match="full-graph"):
+        card.serve()
+
+
+def test_fullgraph_resume_on_card_is_bitwise(cuda, tmp_path):
+    base = _gnn_spec()
+    spec = dataclasses.replace(base, model=dataclasses.replace(base.model, model="gcn"))
+    init = GraphRuntime.from_spec(spec)
+    graph = (init.adj, init.labels)
+
+    def run(d, steps):
+        rt = GraphRuntime.from_spec(dataclasses.replace(spec, ckpt_dir=str(tmp_path / d),
+                                                        ckpt_every=2),
+                                    graph=graph, params=_to(init.params, cuda, copy=True))
+        return rt, rt.train(steps)
+
+    straight, res_a = run("a", 6)
+    _, res_b = run("b", 3)
+    resumed = GraphRuntime.resume(str(tmp_path / "b"), graph=graph)
+    res_c = resumed.train(6)
+    assert res_c.resumed_from == 3 and res_b.losses + res_c.losses == res_a.losses
+    from repro_torch.nn.module import leaves_with_path
+    want, got = dict(leaves_with_path(straight.params)), dict(leaves_with_path(resumed.params))
+    assert want.keys() == got.keys()
+    assert all(torch.equal(want[k], got[k]) for k in want)

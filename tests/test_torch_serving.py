@@ -37,7 +37,7 @@ from repro.graph.runtime import RuntimeSpec as JSpec
 from repro_torch.core import codes as tcodes
 from repro_torch.core import embedding as temb
 from repro_torch.core.backend import CachedDecodeBackend
-from repro_torch.graph.runtime import GraphRuntime, RuntimeSpec
+from repro_torch.graph.runtime import ElasticSpec, GraphRuntime, RuntimeSpec
 from repro_torch.interop import params_from_jax
 from repro_torch.serving.gnn import GraphInferenceEngine
 
@@ -189,8 +189,10 @@ def test_from_spec_without_device_needs_cuda(slice_pair):
 def test_later_slices_raise(slice_pair):
     _, _, trt, _, _ = slice_pair
     spec = trt.spec
+    # full-graph models are ported (tests/test_torch_fullgraph.py); an
+    # elastic spec waits for its slice
     for bad in (dataclasses.replace(spec, n_shards=2),
-                dataclasses.replace(spec, model=dataclasses.replace(spec.model, model="gcn")),
+                dataclasses.replace(spec, elastic=ElasticSpec()),
                 dataclasses.replace(spec, model=dataclasses.replace(
                     spec.model, embedding=dataclasses.replace(
                         spec.model.embedding, codes_placement="host")))):
