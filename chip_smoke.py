@@ -58,6 +58,19 @@ weights and data from a seed:
          consumer x merchant graph (6,000 x 4,000, 32 categories) at the
          §5.3.2 widths: naive SAGE on ``NeighborSampler.minibatches``, 4
          epochs, random and hash codes, accuracy, hit@5 and hit@10;
+  families_hashemb, families_tt, families_int8  gnn_train's spec with
+         one field changed by ``RuntimeSpec.with_updates``:
+         ``lookup_impl="hashemb"`` (position hashes, pools folded with
+         their per-position weights, decoded by the kernel),
+         ``lookup_impl="tt", tt_rank=8`` (a core pair decoded in PyTorch:
+         no ``hash_decode`` launch) and ``quantize="int8"`` (the kernel's
+         int8 variant, the gradient straight through to the f32 masters):
+         300 steps each, ``evaluate("val")``, ``rt.serve()`` against
+         ``serve(cache_capacity=0)`` bit for bit, two gradients of one
+         step, and for hashemb and tt a run killed at step 10 and resumed;
+         the int8 variant and the backward held bitwise at every row count
+         the int8 path decoded; TT's decode and the int8 kernel timed at
+         the paths' frontiers;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -87,7 +100,8 @@ backward.
 
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
-graph served, and trained by GCN, SGC and GIN; the reduced LM config, the
+graph served, and trained by GCN, SGC and GIN and under each family and
+int8; the reduced LM config, the
 reconstruction at the JAX benchmark's size) runs on the card and on the
 CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
@@ -894,6 +908,9 @@ def time_lm_kernels() -> dict:
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
     q32, k32, v32 = (t.float() for t in (q, k, v))
     f32_ms, f32_enqueue_ms = time_ms(lambda: fa_ops.flash_attention(q32, k32, v32), 10)
+    qh32, kh32, vh32 = (t.float() for t in (qh, kh, vh))
+    f32_library_ms, _ = time_ms(
+        lambda: F.scaled_dot_product_attention(qh32, kh32, vh32, is_causal=True), 10)
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * D * pairs * B * H
     nbytes = 4 * B * S * H * D * q.element_size()
@@ -906,7 +923,7 @@ def time_lm_kernels() -> dict:
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                  tflops=flops / kernel_ms / 1e9,
                  variants={"bf16_wgmma": dict(ms=kernel_ms, bound_ms=max(bytes_ms, ops_ms)),
-                           "f32_cuda_core": dict(ms=f32_ms,
+                           "f32_cuda_core": dict(ms=f32_ms, library_ms=f32_library_ms,
                                                  bound_ms=max(f32_bytes_ms, f32_ops_ms))})
     print(f"[time] flash_attention B={B} H={H} S={S} D={D} causal {dtype}: wgmma kernel "
           f"{kernel_ms:.4f} ms (host enqueues in {enqueue_ms:.4f} ms), plain "
@@ -917,10 +934,11 @@ def time_lm_kernels() -> dict:
           f"its bound, {kernel_ms / library_ms:.2f}x scaled_dot_product_attention",
           flush=True)
     print(f"[time] flash_attention same shape in float32: CUDA-core kernel {f32_ms:.4f} ms "
-          f"(host enqueues in {f32_enqueue_ms:.4f} ms); bound {max(f32_bytes_ms, f32_ops_ms):.4f} "
+          f"(host enqueues in {f32_enqueue_ms:.4f} ms), scaled_dot_product_attention in "
+          f"float32 {f32_library_ms:.4f} ms; bound {max(f32_bytes_ms, f32_ops_ms):.4f} "
           f"ms at the f32 CUDA-core peak ({f32_ops_ms:.4f} ms) and by bytes "
           f"({f32_bytes_ms:.4f} ms); kernel at {flops / f32_ms / 1e9:.1f} TFLOP/s", flush=True)
-    del q, k, v, qh, kh, vh, lib, q32, k32, v32
+    del q, k, v, qh, kh, vh, lib, q32, k32, v32, qh32, kh32, vh32
 
     rows, m, c, d_c = LM_BATCH * LM_SEQ, 16, 256, 512
     codes, cb, _, _ = _operands(rows, m, c, d_c, "bfloat16", seed=9)
@@ -1368,26 +1386,29 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
     return n, worst
 
 
-def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run") -> float:
+def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run",
+                        variant: str = "float32") -> float:
     """The forward and the backward kernel at every row count a GNN path
-    gave them (m=16, c=256, d_c=512, f32 codebooks, no w0: the decode of
-    the paper's GraphSAGE and of ``merchant_config``), each bitwise against
-    its plain version; returns the forward's largest error."""
+    gave them (m=16, c=256, d_c=512, no w0: the decode of the paper's
+    GraphSAGE and of ``merchant_config``; the forward from ``variant``
+    storage, f32 or int8, the backward's gradient f32, as for f32 or int8
+    masters), each bitwise against its plain version; returns the
+    forward's largest error."""
     import torch
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
     m, c, d_c = 16, 256, 512
     worst = 0.0
     for i, B in enumerate(sizes):
-        worst = max(worst, check_decode_case((B, m, c, d_c), "float32", seed=100 + i))
+        worst = max(worst, check_decode_case((B, m, c, d_c), variant, seed=100 + i))
         codes, g, _, dtype = _bwd_operands(B, m, c, d_c, "float32", seed=100 + i)
         got = ops.codebook_grad(codes, g, None, c, dtype)
         ref = hash_decode_backward_ref(codes.cpu(), g.cpu(), None, c, dtype)
         check(torch.equal(got.cpu(), ref),
               f"hash_decode_backward at B={B} ({what}) differs from its plain version")
         del codes, g, got, ref
-    print(f"[gnn_train] forward (both variants) and backward kernels bitwise to their plain "
-          f"versions at all {len(sizes)} {what}: {list(sizes)}", flush=True)
+    print(f"[gnn_train] forward ({variant}, both variants) and backward kernels bitwise to "
+          f"their plain versions at all {len(sizes)} {what}: {list(sizes)}", flush=True)
     torch.cuda.empty_cache()
     return worst
 
@@ -1472,7 +1493,7 @@ def _train_timed(rt, steps: int):
     return res, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
 
 
-def check_gnn_grads_deterministic(rt, batch) -> None:
+def check_gnn_grads_deterministic(rt, batch, label: str = "") -> None:
     """Two gradients of the same loss on the same state and batch, leaf by
     leaf: every backward on the step's path must give the same bits."""
     import torch
@@ -1485,7 +1506,8 @@ def check_gnn_grads_deterministic(rt, batch) -> None:
     grads_a, grads_b = dict(leaves_with_path(ga)), dict(leaves_with_path(gb))
     differ = [("/".join(k), float((grads_a[k] - grads_b[k]).abs().max()))
               for k in grads_a if not torch.equal(grads_a[k], grads_b[k])]
-    print(f"[{'fullgraph' if 'ids' in batch else 'gnn_train'}] two gradients of one step, "
+    label = label or ("fullgraph" if "ids" in batch else "gnn_train")
+    print(f"[{label}] two gradients of one step, "
           f"leaf by leaf: "
           f"{len(grads_a) - len(differ)} of {len(grads_a)} leaves bitwise equal; "
           f"differing {differ}; losses equal {torch.equal(la, lb)}", flush=True)
@@ -2501,6 +2523,350 @@ def phase_fullgraph_reference():
                   f"part: {free}")
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the hashemb and TT compression families, and int8 storage
+# ---------------------------------------------------------------------------
+
+FAMILY_PATHS = {"families_hashemb": dict(lookup_impl="hashemb"),
+                "families_tt": dict(lookup_impl="tt", tt_rank=8),
+                "families_int8": dict(lookup_impl="pallas", quantize="int8")}
+FAMILY_CKPT = ROOT / "build" / "family_ckpt"
+FAMILY_REQUESTS = 8
+
+
+def _family_spec(path: str, n_nodes=None, n_classes: int = N_CLASSES, **overrides):
+    """gnn_train's spec (lr 1e-3, batch 256, prefetch 2) with the path's
+    one-field family or precision change; ``n_nodes`` None: the serve graph's."""
+    return _gnn_spec(n_nodes=n_nodes or N_NODES, n_classes=n_classes).with_updates(
+        **FAMILY_PATHS[path], **overrides)
+
+
+def _table_bytes(rt) -> dict:
+    """The decode stage's table in the params (f32 masters), what the decode
+    reads of it (int8 values and scales under int8), and the codes: 4 uint32
+    words a node (the port holds each word in an int64)."""
+    from repro_torch.nn.module import leaves_with_path
+    dec = rt.params["embed"]["decoder"]
+    table = sum(t.numel() * t.element_size() for path, t in leaves_with_path(dec)
+                if path[0] != "mlp")
+    emb = rt.spec.model.embedding
+    read = (emb.m * emb.c * emb.d_c + emb.m * emb.c * 4 if emb.quantize == "int8" else table)
+    codes = rt.codes
+    words = 0 if codes is None else codes.numel() * 4
+    return dict(table=table, decode_reads=read, codes_uint32=words,
+                codes_held=0 if codes is None else codes.numel() * codes.element_size())
+
+
+def _serve_timed(engine, requests) -> tuple:
+    """Each request through ``engine.serve``, host clock to the results'
+    return (they are host arrays, so the card has finished)."""
+    import torch
+    outs, ms = [], []
+    for ids in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(engine.serve(ids))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _family_path(graph, path: str) -> dict:
+    """One family path at full width: 300 steps of ``GraphRuntime.train``,
+    ``evaluate("val")``, ``rt.serve()`` against ``serve(cache_capacity=0)``
+    bitwise, two gradients of one step, and (hashemb, tt) a run killed at
+    step 10 and resumed against a straight one."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    t0 = time.perf_counter()
+    rt = GraphRuntime.from_spec(_family_spec(path), graph=graph)
+    torch.cuda.synchronize()
+    emb = rt.spec.model.embedding
+    sizes = _table_bytes(rt)
+    print(f"[{path}] GraphRuntime.from_spec on {rt.device} with lookup_impl={emb.lookup_impl!r}, "
+          f"quantize={emb.quantize!r}, tt_rank={emb.tt_rank}: "
+          f"{time.perf_counter() - t0:.2f} s; decoder leaves "
+          f"{sorted(k for k in rt.params['embed']['decoder'] if k != 'mlp')}; decode-stage "
+          f"table {sizes['table']} B of params ({sizes['decode_reads']} B read a decode), codes "
+          f"{sizes['codes_uint32']} B as uint32 ({sizes['codes_held']} B held as int64); "
+          f"backend {rt.model.backend.name}"
+          f"{'/' + rt.model.backend.base.name if hasattr(rt.model.backend, 'base') else ''}",
+          flush=True)
+    check(rt.device.type == "cuda", f"{path}: the runtime is not on the card")
+    check((rt.codes is None) == (path == "families_hashemb"),
+          f"{path}: codes {'missing' if rt.codes is None else 'present'}")
+    init = _snapshot(rt.params)
+    start = rt.data_iter.state_dict()
+    check_gnn_grads_deterministic(rt, rt.data_iter.next_batch(), label=path)
+    rt.data_iter.load_state_dict(start)
+    step, frontiers = rt.train_step, []
+
+    def recording_step(state, batch):
+        frontiers.append(int(batch["frontier"].unique.shape[0]))
+        return step(state, batch)
+    rt.train_step = recording_step
+    # every row count the path decodes (training, evaluate, serve), held
+    # bitwise by ``phase_families`` afterwards
+    decoded, forward = set(), hd_ops._forward
+
+    def recording_forward(codes, *args, **kw):
+        decoded.add(int(codes.shape[0]))
+        return forward(codes, *args, **kw)
+    hd_ops._forward = recording_forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                              # the path's training run starts here
+    res, periods = _train_timed(rt, GNN_STEPS)
+    torch.cuda.synchronize()
+    train_launches = read_counts(path)         # ... and ends here
+    rt.train_step = step
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    med20, med_run = float(np.median(periods[1:GNN_TIMED])), float(np.median(periods[1:]))
+    shown = {i + 1: losses[i] for i in sorted({*range(5), *range(49, GNN_STEPS, 50),
+                                               *range(GNN_STEPS - 3, GNN_STEPS)})}
+    print(f"[{path}] {GNN_STEPS} steps, prefetch_depth 2, lr {GNN_LR}: losses by step {shown}; "
+          f"mean of the first 5 {first}, of the last 5 {last} (uniform predictor "
+          f"{math.log(N_CLASSES)}); step period median {med20:.3f} ms (steps 2-{GNN_TIMED}), "
+          f"{med_run:.3f} ms (steps 2-{GNN_STEPS}); frontier rows a step "
+          f"{min(frontiers)}-{max(frontiers)}; training launches {train_launches}; "
+          f"max_memory_allocated {peak} B", flush=True)
+    check(all(np.isfinite(losses)), f"{path}: non-finite loss {losses}")
+    check(len(frontiers) == GNN_STEPS, f"{path}: {len(frontiers)} frontiers for {GNN_STEPS} steps")
+    n = 0 if path == "families_tt" else GNN_STEPS
+    check(train_launches["hash_decode"] == n and train_launches["hash_decode_backward"] == n,
+          f"{path}: expected {n} forward and {n} backward hash_decode launches: {train_launches}")
+
+    zero_counts()                              # evaluate and serve through the front door
+    ev = rt.evaluate("val")
+    rng = np.random.default_rng(20)
+    requests = [rng.choice(N_NODES, REQUEST, replace=False) for _ in range(FAMILY_REQUESTS)]
+    engine = rt.serve()
+    cached, cached_ms = _serve_timed(engine, requests)
+    uncached, uncached_ms = _serve_timed(rt.serve(cache_capacity=0), requests)
+    torch.cuda.synchronize()
+    serve_launches = read_counts(path + "_serve")
+    hd_ops._forward = forward
+    bitwise = all(np.array_equal(a.embeddings, b.embeddings) and np.array_equal(a.logits, b.logits)
+                  for a, b in zip(cached, uncached))
+    print(f"[{path}] evaluate('val'): accuracy {ev['accuracy']}, loss {ev['loss']}, n {ev['n']} "
+          f"(chance {1 / N_CLASSES}); serve: {FAMILY_REQUESTS} requests of {REQUEST}, cached "
+          f"(rt.serve()) ms {[round(t, 3) for t in cached_ms]}, uncached ms "
+          f"{[round(t, 3) for t in uncached_ms]}, median of requests 3-{FAMILY_REQUESTS} cached "
+          f"{np.median(cached_ms[2:]):.3f} / uncached {np.median(uncached_ms[2:]):.3f} ms; rows "
+          f"decoded {[r.rows_decoded for r in cached]} of {cached[0].rows_total}; cached and "
+          f"uncached outputs bitwise {bitwise}; launches of evaluate and serve {serve_launches}",
+          flush=True)
+    check(ev["n"] == len(rt.splits["val"]) and np.isfinite(ev["loss"]),
+          f"{path}: evaluate did not count every val node once, or its loss is not finite")
+    check(all(np.isfinite(r.embeddings).all() and r.embeddings.shape == (REQUEST, 128)
+              for r in cached), f"{path}: served embeddings not finite or of the wrong shape")
+    check(bitwise, f"{path}: cached and uncached serving differ")
+    check((serve_launches["hash_decode"] == 0) == (path == "families_tt")
+          and serve_launches["hash_decode_backward"] == 0,
+          f"{path}: evaluate and serve launched {serve_launches}")
+    out = dict(train=train_launches, serve=serve_launches, frontiers=sorted(set(frontiers)),
+               decoded=sorted(decoded),
+               period_ms=med20, period_run_ms=med_run, accuracy=ev["accuracy"], peak=peak,
+               serve_ms=float(np.median(cached_ms[2:])),
+               serve_uncached_ms=float(np.median(uncached_ms[2:])), sizes=sizes,
+               losses=(losses[0], last))
+
+    if path != "families_int8":            # killed and resumed, bit for bit
+        shutil.rmtree(FAMILY_CKPT, ignore_errors=True)
+        straight = GraphRuntime.from_spec(
+            _family_spec(path, ckpt_dir=str(FAMILY_CKPT / "a"), ckpt_every=10), graph=graph,
+            params=_snapshot(init))
+        run_a = straight.train(20)
+        straight.close()
+        killed = GraphRuntime.from_spec(
+            _family_spec(path, ckpt_dir=str(FAMILY_CKPT / "b"), ckpt_every=10), graph=graph,
+            params=_snapshot(init))
+        run_b = killed.train(10)
+        killed.close()
+        del killed
+        resumed = GraphRuntime.resume(str(FAMILY_CKPT / "b"), graph=graph)
+        run_c = resumed.train(20)
+        resumed.close()
+        same_losses = run_b.losses + run_c.losses == run_a.losses
+        same_params = _same_tree(resumed.params, straight.params)
+        print(f"[{path}] kill and resume: resumed from step {run_c.resumed_from} with the "
+              f"spec's family {resumed.spec.model.embedding.lookup_impl!r}; losses 11-20 "
+              f"bitwise {same_losses}, final params bitwise {same_params}", flush=True)
+        check(run_c.resumed_from == 10 and same_losses and same_params
+              and resumed.spec.model.embedding == rt.spec.model.embedding,
+              f"{path}: the resumed run differs from the straight one")
+        shutil.rmtree(FAMILY_CKPT, ignore_errors=True)
+        del straight, resumed
+    if path == "families_tt":
+        out["cores"] = tuple(rt.params["embed"]["decoder"][k].detach().clone()
+                             for k in ("tt_g0", "tt_g1"))
+    rt.close()
+    del rt, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_tt(cores, rows: int) -> dict:
+    """TT's decode (two ``F.embedding`` row gathers and one f32 batched
+    product) and its backward at ``rows`` rows with the path's trained cores
+    and uniform codes, beside the ``hash_decode`` kernel and its backward
+    kernel at the same rows of the paper's dense (16, 256, 512) table; each
+    with its bound (bytes: codes and the cores or table read, the output or
+    the gradients written; operations: the product's f32 multiply-adds)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels.hash_decode import ops
+    g0, g1 = (t.requires_grad_(True) for t in cores)
+    m, c1, d1, r = g0.shape
+    _, c2, _, d2 = g1.shape
+    rng = np.random.default_rng(12)
+    codes = torch.from_numpy(rng.integers(0, c1 * c2, (rows, m)).astype(np.int32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((rows, d1 * d2)).astype(np.float32)).cuda()
+    be = get_backend("tt", device=codes.device)
+    out = be.decode(codes, (g0, g1))
+    fwd_ms, _ = time_ms(lambda: be.decode(codes, (g0, g1)), 20)
+    bwd_ms, _ = time_ms(lambda: torch.autograd.grad(out, (g0, g1), g, retain_graph=True), 20)
+    a, b = torch.autograd.grad(out, (g0, g1), g, retain_graph=True)
+    a2, b2 = torch.autograd.grad(out, (g0, g1), g, retain_graph=True)
+    deterministic = torch.equal(a, a2) and torch.equal(b, b2)
+    core_bytes = (g0.numel() + g1.numel()) * 4
+    flops = 2 * rows * m * d1 * r * d2
+    fwd_bytes = rows * m * 4 + core_bytes + rows * d1 * d2 * 4
+    bwd_bytes = rows * m * 4 + rows * d1 * d2 * 4 + 2 * core_bytes
+    fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, 2 * flops / F32_FLOPS) * 1e3
+    cb = torch.from_numpy(rng.standard_normal((m, 256, 512)).astype(np.float32)).cuda()
+    kernel_ms, _ = time_ms(lambda: ops.hash_decode(codes, cb), 20)
+    kernel_bwd_ms, _ = time_ms(lambda: ops.codebook_grad(codes, g, None, 256, torch.float32), 20)
+    inter = rows * m * (d1 * r + r * d2) * 4
+    print(f"[time] tt decode B={rows} m={m} c1={c1} c2={c2} d1={d1} d2={d2} r={r} f32: forward "
+          f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms: {fwd_bytes} B, {flops} flops), backward "
+          f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms: {bwd_bytes} B, {2 * flops} flops), two "
+          f"backward passes bitwise {deterministic}; the two row gathers write {inter} B; "
+          f"hash_decode kernel at the same rows (16, 256, 512) {kernel_ms:.4f} ms, its backward "
+          f"kernel {kernel_bwd_ms:.4f} ms", flush=True)
+    check(deterministic, "tt: two backward passes of one decode differ")
+    del out, a, b, a2, b2, codes, g, cb
+    torch.cuda.empty_cache()
+    return dict(rows=rows, ms=fwd_ms, bound_ms=fwd_bound, backward_ms=bwd_ms,
+                backward_bound_ms=bwd_bound, kernel_ms=kernel_ms, kernel_backward_ms=kernel_bwd_ms)
+
+
+def time_int8(rows: int) -> dict:
+    """``hash_decode`` from int8 storage at ``rows`` rows (m=16, c=256,
+    d_c=512, no w0) beside the f32 kernel and the plain version at the same
+    rows, with its bound: bytes (codes, int8 values and scales read once,
+    f32 rows written) or operations (a dequantising multiply and an add per
+    term); and the int8 quantize pass a training step makes of the masters."""
+    import torch
+    from repro_torch.kernels.hash_decode import ops
+    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+    m, c, d_c = 16, 256, 512
+    codes, q, _, scales = _operands(rows, m, c, d_c, "int8", seed=13)
+    _, cb, _, _ = _operands(rows, m, c, d_c, "float32", seed=13)
+    int8_ms, _ = time_ms(lambda: ops.hash_decode(codes, q, None, scales), 50)
+    f32_ms, _ = time_ms(lambda: ops.hash_decode(codes, cb), 50)
+    plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, q, None, scales), 10)
+    quantize_ms, _ = time_ms(lambda: ops.quantize_codebooks(cb), 20)
+    nbytes = rows * m * 4 + m * c * d_c + m * c * 4 + rows * d_c * 4
+    operations = rows * m * d_c + rows * (m - 1) * d_c
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = operations / F32_ADDS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[time] hash_decode int8 B={rows} m={m} c={c} d_c={d_c}: kernel {int8_ms:.4f} ms, f32 "
+          f"kernel at the same rows {f32_ms:.4f} ms (int8/f32 {int8_ms / f32_ms:.2f}), plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B in "
+          f"{bytes_ms:.4f} ms, {operations} multiplies and adds in {ops_ms:.4f} ms); the quantize "
+          f"pass of the (16, 256, 512) masters {quantize_ms:.4f} ms", flush=True)
+    del codes, q, scales, cb
+    torch.cuda.empty_cache()
+    return dict(rows=rows, ms=int8_ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, quantize_ms=quantize_ms)
+
+
+def phase_families(graph) -> tuple:
+    """The three family paths, then the int8 variant and the backward held
+    bitwise at every row count the int8 path decoded (training frontiers,
+    evaluate's and serve's decodes), TT's decode timed at its largest
+    training frontier and the int8 kernel at the int8 path's.
+    Returns the launches by path, the int8 sizes, the forward's largest
+    error there and the times."""
+    runs = {path: _family_path(graph, path) for path in FAMILY_PATHS}
+    int8_sizes = runs["families_int8"]["decoded"]
+    check(set(runs["families_int8"]["frontiers"]) <= set(int8_sizes),
+          "the int8 path's training frontiers are missing from its decode sizes")
+    check(not runs["families_tt"]["decoded"], "the tt path decoded through hash_decode")
+    err = check_gnn_frontiers(int8_sizes, "decode sizes of the int8 path", variant="int8")
+    times = dict(tt=time_tt(runs["families_tt"].pop("cores"),
+                            max(runs["families_tt"]["frontiers"])),
+                 int8=time_int8(max(runs["families_int8"]["frontiers"])))
+    launches = {}
+    for path, run in runs.items():
+        launches[path] = {k: (run["train"][k] + run["serve"][k] if isinstance(run["train"][k], int)
+                              else {kk: run["train"][k][kk] + run["serve"][k][kk]
+                                    for kk in run["train"][k]})
+                          for k in run["train"]}
+        print(f"[families] {path}: period {run['period_ms']:.3f} ms (run median "
+              f"{run['period_run_ms']:.3f}), val accuracy {run['accuracy']}, serve "
+              f"{run['serve_ms']:.3f} ms cached / {run['serve_uncached_ms']:.3f} uncached, peak "
+              f"{run['peak']} B, table {run['sizes']}, launches {launches[path]}", flush=True)
+    return launches, int8_sizes, err, times
+
+
+def phase_families_reference():
+    """hashemb, tt and int8 (full and light) on a 3,000-node graph from one
+    init on the card (kernels) and on the CPU (plain versions): 5 steps
+    each from the card's state copied to the CPU, loss within 1e-5; and 5
+    free steps at Adam eps 1, lr 1e-2 (an update of about lr·g, nothing
+    amplified), losses and params within 1e-4.  Each param gap names its
+    leaf."""
+    import dataclasses
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.nn.module import leaves_with_path
+
+    def param_gap(card, cpu):
+        want = dict(leaves_with_path(card.params))
+        return max((float((t - want[k].cpu()).abs().max()), "/".join(k))
+                   for k, t in leaves_with_path(cpu.params))
+
+    def pair(spec):
+        card = GraphRuntime.from_spec(spec)
+        cpu = GraphRuntime.from_spec(spec, graph=(card.adj, card.labels), device="cpu",
+                                     params=_snapshot(card.params, "cpu"))
+        return card, cpu
+
+    cases = [(path, {}) for path in FAMILY_PATHS] + [("families_int8", {"kind": "hash_light"})]
+    for path, extra in cases:
+        spec = _family_spec(path, n_nodes=3000, n_classes=8, prefetch_depth=0, **extra)
+        card, cpu = pair(spec)
+        gaps = []
+        for _ in range(5):
+            cpu.state = _snapshot(card.state, "cpu")
+            gaps.append(abs(card.train(1).losses[0] - cpu.train(1).losses[0]))
+        card.close()
+        cpu.close()
+        card, cpu = pair(dataclasses.replace(spec, optimizer=dataclasses.replace(
+            spec.optimizer, lr=1e-2, eps=1.0)))
+        a, b = card.train(5).losses, cpu.train(5).losses
+        free = [abs(x - y) for x, y in zip(a, b)]
+        pgap = param_gap(card, cpu)
+        card.close()
+        cpu.close()
+        label = f"{path}{' light' if extra else ''}"
+        print(f"[reference] 3,000-node {label}, card vs CPU plain path: each step from the card's "
+              f"state, loss gaps {gaps}; 5 free steps at Adam eps 1, lr 1e-2: losses {a[0]} -> "
+              f"{a[-1]}, loss gaps {free}, largest param gap {pgap}", flush=True)
+        check(max(gaps) <= 1e-5, f"{label}: a step on the card and on the CPU disagree: {gaps}")
+        check(max(free) <= 1e-4 and pgap[0] <= 1e-4,
+              f"{label}: 5 free steps at Adam eps 1 on the card and on the CPU part: {free}, {pgap}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2534,13 +2900,16 @@ def main() -> None:
     link_launches = phase_link(graph)
     merchant_launches, merchant_sizes = phase_merchant()
     phase_fullgraph_reference()
+    family_launches, int8_sizes, int8_err, family_times = phase_families(graph)
+    phase_families_reference()
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
                                 check_gnn_frontiers(planned_sizes,
                                                     "decode sizes of the planned cached run"),
                                 check_gnn_frontiers(merchant_sizes,
-                                                    "decode sizes of the merchant path"))
+                                                    "decode sizes of the merchant path"),
+                                int8_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -2560,7 +2929,7 @@ def main() -> None:
              "reconstruct": rec_launches, "gnn_train": gnn_launches,
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
-             "merchant": merchant_launches}
+             "merchant": merchant_launches, **family_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -2578,6 +2947,8 @@ def main() -> None:
              bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"],
              variants=variants, cached_serve_sizes=serve_sizes,
              batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
+             int8_sizes=int8_sizes, int8_at_frontier=family_times["int8"],
+             tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -14,17 +14,32 @@ Registered implementations:
            counterpart unchanged; on CPU tensors the wrapper runs the
            kernel's plain version.
 
+Two more entries select another *compression family* (how the table is
+parameterised) rather than another way to run the decode:
+
+  hashemb  position-based hash embeddings (arXiv:2109.00101): m shared
+           pools and per-position weights ``wpos``, folded into one
+           (m, c, d_c) table before the call (``core.decoder``), so the
+           decode is delegated verbatim to a base backend
+           (``"hashemb:gather"`` pins it; none: ``auto``'s choice).
+  tt       tensor-train codebooks (arXiv:2206.10581): the (m, c, d_c) table
+           as two cores ``g0 (m, c1, d1, r)`` / ``g1 (m, c2, r, d2)``; the
+           decode gathers both cores' rows and contracts them in f32, never
+           forming the table (plain tensor code, as the JAX package's is
+           XLA).
+
 ``auto`` resolves to ``pallas`` on a CUDA device and to ``onehot`` on the
 CPU, as the JAX package picks its kernel only on its accelerator.
 
-Every backend carries a ``MixedPrecisionPolicy``: codebooks may be stored
-bf16 or absmax-int8 (int8 is fused into the kernel; gather and onehot
-decode the dequantized values, which are the same f32 products), but the
-sum is always f32.
+Every backend carries a ``MixedPrecisionPolicy`` and states it in
+``dtype_contract()``: codebooks may be stored bf16 or absmax-int8 (int8 is
+fused into the kernel; gather, onehot and tt decode the dequantized values
+through ``quantize_dequantize``, which are the same f32 products), the
+gradient goes straight through to the float masters, and the sum is
+always f32.
 
-The collective backends (``sharded``, ``owner``) and the other compression
-families (``hashemb``, ``tt``) belong to later slices of the port and raise
-``NotImplementedError`` naming their ROADMAP item.
+The collective backends (``sharded``, ``owner``) belong to a later slice of
+the port and raise ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,11 +58,7 @@ from repro_torch.stages import stage
 NOT_PORTED = {
     "sharded": "the multi-GPU slice (ROADMAP A.14)",
     "owner": "the multi-GPU slice (ROADMAP A.14)",
-    "hashemb": "the families-and-precision slice (ROADMAP A.13)",
-    "tt": "the families-and-precision slice (ROADMAP A.13)",
 }
-
-FAMILY_BACKENDS = ("hashemb", "tt")
 
 # Documented decode drift bounds vs the all-f32 path: max-abs output error
 # <= bound * max-abs(f32 output) per decode.
@@ -115,22 +126,38 @@ class DecodeBackend:
                w0: Optional[torch.Tensor] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    def feature_dim(self, codebooks) -> int:
+        """Output width ``d_c`` of ``decode`` for its ``codebooks`` operand:
+        the dense layout's last dim (``tt``'s core pair overrides it)."""
+        return int(codebooks.shape[2])
+
     def _prep(self, codebooks, w0):
-        """Cast params to the policy's storage dtype."""
+        """Cast params to the policy's storage dtype; ``codebooks`` may be a
+        tuple (``tt``'s core pair), whose every tensor is cast."""
         p = self.policy
         if p.param_dtype is not None:
             dt = torch_dtype(p.param_dtype)
-            codebooks = codebooks.to(dt)
+            codebooks = (tuple(t.to(dt) for t in codebooks)
+                         if isinstance(codebooks, tuple) else codebooks.to(dt))
             w0 = None if w0 is None else w0.to(dt)
         return codebooks, w0
 
     def _prep_values(self, codebooks, w0):
-        """Storage cast, then the decode-visible int8 values (q * s)."""
+        """Storage cast, then the decode-visible int8 values (q * s), with
+        the gradient straight through to the masters."""
         codebooks, w0 = self._prep(codebooks, w0)
         if self.policy.quantize == "int8":
-            codebooks = hd_ops.dequantize_codebooks(
-                *hd_ops.quantize_codebooks(codebooks))
+            codebooks = hd_ops.quantize_dequantize(codebooks)
         return codebooks, w0
+
+    def dtype_contract(self) -> Dict[str, str]:
+        """The backend's stated dtype contract (the JAX package's keys)."""
+        p = self.policy
+        storage = ("int8 values + float32 scales" if p.quantize == "int8"
+                   else (p.param_dtype or "caller-provided"))
+        return {"backend": self.name, "storage": storage,
+                "compute": p.compute_dtype or "float32",
+                "accumulate": p.reduce_dtype, "output": "float32"}
 
 
 class GatherBackend(DecodeBackend):
@@ -169,25 +196,161 @@ class KernelBackend(DecodeBackend):
     feature width run as they are (the kernel masks ragged edges).
 
     Differentiable: the wrapper's ``torch.autograd.Function`` gives the
-    codebooks and ``w0`` their gradients on both devices.  The int8
-    straight-through backward is not ported yet, so an int8 decode that
-    needs a gradient raises instead of returning none."""
+    codebooks and ``w0`` their gradients on both devices; under int8 the
+    codebook gradient goes straight through to the float masters."""
 
     name = "pallas"
     capabilities = BackendCapabilities(grad=True, fused=True)
 
     def decode(self, codes, codebooks, w0=None):
         codebooks, w0 = self._prep(codebooks, w0)
-        scales = None
+        scales = masters = None
         if self.policy.quantize == "int8":
-            if hd_ops.needs_grad(codebooks, w0):
-                raise NotImplementedError(hd_ops.INT8_GRAD)
-            codebooks, scales = hd_ops.quantize_codebooks(codebooks)
+            masters = codebooks
+            codebooks, scales = hd_ops.quantize_codebooks(codebooks.detach())
         elif codebooks.dtype not in (torch.float32, torch.bfloat16):
             codebooks = codebooks.float()
         return hd_ops.hash_decode(
             codes.to(torch.int32).contiguous(), codebooks.contiguous(),
-            None if w0 is None else w0.float().contiguous(), scales)
+            None if w0 is None else w0.float().contiguous(), scales, masters)
+
+
+# ---------------------------------------------------------------------------
+# compression families
+# ---------------------------------------------------------------------------
+
+FAMILY_BACKENDS = ("hashemb", "tt")
+
+
+def family_of(lookup_impl: Optional[str]) -> str:
+    """Compression family a ``lookup_impl`` string selects: "hashemb",
+    "tt", or "paper" (every other spelling)."""
+    for part in (lookup_impl or "auto").split(":"):
+        if part in FAMILY_BACKENDS:
+            return part
+    return "paper"
+
+
+class HashEmbBackend(DecodeBackend):
+    """Position-based hash embeddings (arXiv:2109.00101).  What reaches it
+    is the (m, c, d_c) table of pools already scaled by ``wpos``
+    (``core.decoder`` folds them), so it decodes through its ``base``
+    backend unchanged, int8 and bf16 policies included.  ``base`` None
+    takes ``auto``'s choice for ``device``: the kernel on the card,
+    ``onehot`` on the CPU."""
+
+    name = "hashemb"
+    capabilities = BackendCapabilities(grad=True, fused=False)
+
+    def __init__(self, base: Optional[str] = None,
+                 policy: Optional[MixedPrecisionPolicy] = None, *,
+                 device: torch.device):
+        base = base or resolve_auto(device)
+        if base.split(":")[0] in FAMILY_BACKENDS + tuple(NOT_PORTED):
+            raise ValueError(f"hashemb decodes through a plain backend, not {base!r}")
+        self.base = get_backend(base, device=device, policy=policy)
+        self.policy = self.base.policy
+
+    def dtype_contract(self) -> Dict[str, str]:
+        return dict(self.base.dtype_contract(), backend=self.name,
+                    family="hashemb (pools + per-position weights)")
+
+    def decode(self, codes, codebooks, w0=None):
+        return self.base.decode(codes, codebooks, w0)
+
+
+def tt_factor_pair(n: int) -> Tuple[int, int]:
+    """Most balanced ``n = a * b`` with ``a <= b`` (a scans down from
+    isqrt): the code split ``c = c1*c2`` and the feature split ``d_c =
+    d1*d2`` of the ``tt`` family."""
+    if n < 1:
+        raise ValueError(f"cannot factor {n}")
+    a = int(np.sqrt(n))
+    while n % a:
+        a -= 1
+    return a, n // a
+
+
+def tt_materialize(g0: torch.Tensor, g1: torch.Tensor) -> torch.Tensor:
+    """The dense (m, c, d_c) table a core pair factorises, in f32:
+    ``cb[j, x1*c2 + x2, u*d2 + v] = sum_r g0[j, x1, u, r] * g1[j, x2, r, v]``.
+    The oracle of the tests, never on the decode path."""
+    m, c1, d1, _ = g0.shape
+    _, c2, _, d2 = g1.shape
+    full = torch.einsum("jxur,jyrv->jxyuv", g0.float(), g1.float())
+    return full.reshape(m, c1 * c2, d1 * d2)
+
+
+class _RowGather(torch.autograd.Function):
+    """``table[idx].float()`` for a 2-D table and 1-D ``idx``, whose
+    backward sums each table row's cotangents in f32 in ascending position
+    of ``idx`` (a stable sort, then ``segment_reduce``) and rounds once to
+    the table's dtype: the same bits on every run.  ``F.embedding``'s CUDA
+    backward adds the repeats of a row in an order that changes from run to
+    run when a row repeats thousands of times, as a TT core's do."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table.index_select(0, idx).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        order = torch.sort(idx, stable=True).indices
+        lengths = torch.bincount(idx, minlength=ctx.rows)
+        summed = torch.segment_reduce(g.float().index_select(0, order), "sum",
+                                      lengths=lengths, axis=0)
+        return summed.to(ctx.dtype), None
+
+
+class TTBackend(DecodeBackend):
+    """Tensor-train codebooks (arXiv:2206.10581): ``codebooks`` is the core
+    pair ``(g0 (m, c1, d1, r), g1 (m, c2, r, d2))``.  A code splits as
+    ``x1 = code // c2``, ``x2 = code % c2``; both cores' rows are gathered
+    from the cores flattened to (m*c1, d1*r) and (m*c2, r*d2) (``_RowGather``:
+    a fixed-order backward, no atomics) and one f32 batched product sums
+    the rank and the m positions together: (B, d1, m*r) x (B, m*r, d2).
+    The dense table is never formed."""
+
+    name = "tt"
+    capabilities = BackendCapabilities(grad=True, fused=False)
+
+    def dtype_contract(self) -> Dict[str, str]:
+        return dict(super().dtype_contract(),
+                    family="tt (rank-r core pair, contraction fused)",
+                    accumulate="float32 (core einsum + position sum)")
+
+    def feature_dim(self, codebooks) -> int:
+        g0, g1 = codebooks
+        return int(g0.shape[2]) * int(g1.shape[3])
+
+    def _quantized(self, g0, g1):
+        """absmax int8 per (codebook, code row) of each core, straight
+        through, as the dense tables are."""
+        m, c1, d1, r = g0.shape
+        _, c2, _, d2 = g1.shape
+        g0 = hd_ops.quantize_dequantize(g0.reshape(m, c1, d1 * r)).reshape(m, c1, d1, r)
+        g1 = hd_ops.quantize_dequantize(g1.reshape(m, c2, r * d2)).reshape(m, c2, r, d2)
+        return g0, g1
+
+    def decode(self, codes, codebooks, w0=None):
+        (g0, g1), w0 = self._prep(tuple(codebooks), w0)
+        if self.policy.quantize == "int8":
+            g0, g1 = self._quantized(g0, g1)
+        m, c1, d1, r = g0.shape
+        _, c2, _, d2 = g1.shape
+        B = codes.shape[0]
+        codes = codes.to(torch.int64)
+        base = torch.arange(m, dtype=torch.int64, device=codes.device)[None, :]
+        a0 = _RowGather.apply(g0.reshape(m * c1, d1 * r), (base * c1 + codes // c2).reshape(-1))
+        a1 = _RowGather.apply(g1.reshape(m * c2, r * d2), (base * c2 + codes % c2).reshape(-1))
+        a0 = a0.reshape(B, m, d1, r).permute(0, 2, 1, 3).reshape(B, d1, m * r)
+        out = torch.bmm(a0, a1.reshape(B, m * r, d2)).reshape(B, d1 * d2)
+        if w0 is not None:
+            out = out * w0.float()[None, :]
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +368,12 @@ def register_backend(name: str, factory: Callable[..., DecodeBackend]) -> None:
 register_backend("gather", GatherBackend)
 register_backend("onehot", OnehotBackend)
 register_backend("pallas", KernelBackend)
+register_backend("hashemb", HashEmbBackend)
+register_backend("tt", TTBackend)
 
 
 def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
-
-
-def family_of(lookup_impl: Optional[str]) -> str:
-    """Compression family a ``lookup_impl`` string selects: "hashemb",
-    "tt", or "paper" (every other spelling)."""
-    for part in (lookup_impl or "auto").split(":"):
-        if part in FAMILY_BACKENDS:
-            return part
-    return "paper"
 
 
 def resolve_auto(device: torch.device) -> str:
@@ -229,7 +385,9 @@ def resolve_auto(device: torch.device) -> str:
 def get_backend(spec, *, device: torch.device,
                 policy: Optional[MixedPrecisionPolicy] = None) -> DecodeBackend:
     """Resolve a backend from a config string (or pass an instance through).
-    ``device`` is where the decode will run (it decides ``auto``)."""
+    ``device`` is where the decode will run (it decides ``auto``, also as
+    ``hashemb``'s base).  Only ``hashemb`` takes an option, its base:
+    ``"hashemb:gather"``."""
     if isinstance(spec, DecodeBackend):
         return spec
     name = spec or "auto"
@@ -243,6 +401,8 @@ def get_backend(spec, *, device: torch.device,
     if base not in _REGISTRY:
         raise ValueError(
             f"unknown decode backend {name!r}; known: {available_backends()}")
+    if base == "hashemb":
+        return _REGISTRY[base](base=option or None, policy=policy, device=device)
     if option:
         raise ValueError(f"decode backend {base!r} takes no ':{option}' option")
     return _REGISTRY[base](policy=policy)

@@ -137,8 +137,8 @@ def position_codes(ids, c: int, m: int, seed: int = 0) -> torch.Tensor:
         raise ValueError(f"code length m must be >= 1, got {m}")
     ids = torch.as_tensor(ids).to(torch.int64) & MASK32
     base = ((2 * seed + 1) * 0x85EBCA6B) & MASK32
-    keys = torch.tensor([(j * 0x9E3779B9 + base) & MASK32 for j in range(m)],
-                        dtype=torch.int64, device=ids.device)
+    keys = (torch.arange(m, dtype=torch.int64, device=ids.device) * 0x9E3779B9
+            + base) & MASK32
     x = ids[:, None] ^ keys[None, :]
     x = _mul32(x ^ (x >> 16), 0x7FEB352D)
     x = _mul32(x ^ (x >> 15), 0x846CA68B)

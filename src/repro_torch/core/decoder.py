@@ -1,5 +1,5 @@
 """Decoder model (paper §3.2, Figure 2); counterpart of
-``repro/core/decoder.py`` for the ``paper`` compression family.
+``repro/core/decoder.py``.
 
 codes (B, m) ints in [0, c)
   -> retrieve one vector per codebook (m codebooks, each (c, d_c))
@@ -8,22 +8,35 @@ codes (B, m) ints in [0, c)
      full  variant: no W0 (codebooks trainable)
   -> l-layer MLP with ReLU between linear layers: d_c -> d_m -> ... -> d_e
 
+``lookup_impl`` also selects the compression family, the layout of the
+decode stage's params (``core.backend.family_of``):
+
+  paper    m dense codebooks ``codebooks`` (m, c, d_c), the scheme above.
+  hashemb  shared ``pools`` (m, c, d_c) and per-position weights ``wpos``
+           (m, d_c); ``wpos`` is folded into the pools in f32 before the
+           decode (``sum_j (wpos[j]*P[j])[h_j] == sum_j wpos[j]*P[j][h_j]``),
+           so the base backend sees a dense table.  light: frozen
+           ``pools_buf``, trainable ``wpos``.
+  tt       the core pair ``tt_g0`` (m, c1, d1, r) / ``tt_g1`` (m, c2, r,
+           d2), ``c = c1*c2``, ``d_c = d1*d2``, r = ``tt_rank``.  light:
+           frozen ``tt_g0_buf`` / ``tt_g1_buf`` and a trainable ``w0``.
+
 Params are a nested dict of tensors in the JAX package's layout: MLP
 weights ``w{i}`` are (in, out) and apply as ``x @ w``.  Non-trainable
-buffers end in ``_buf`` (``codebooks_buf`` of the light variant).
+buffers end in ``_buf``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.backend import (NOT_PORTED, DecodeBackend,
-                                      MixedPrecisionPolicy, family_of,
-                                      get_backend, torch_dtype)
+from repro_torch.core.backend import (DecodeBackend, MixedPrecisionPolicy,
+                                      family_of, get_backend, torch_dtype,
+                                      tt_factor_pair)
 from repro_torch.nn.module import dense_init
 from repro_torch.stages import stage
 
@@ -49,17 +62,36 @@ class DecoderConfig:
     def family(self) -> str:
         return family_of(self.lookup_impl)
 
-    def check_family(self) -> None:
-        if self.family != "paper":
-            raise NotImplementedError(
-                f"the {self.family!r} compression family is not ported yet; "
-                f"it comes with {NOT_PORTED[self.family]}")
+    def tt_dims(self) -> Tuple[int, int, int, int]:
+        """(c1, c2, d1, d2): the balanced code and feature splits of the
+        ``tt`` family's core pair."""
+        return (*tt_factor_pair(self.c), *tt_factor_pair(self.d_c))
 
     def precision_policy(self) -> MixedPrecisionPolicy:
         return MixedPrecisionPolicy(
             param_dtype=self.param_dtype or self.compute_dtype,
             compute_dtype=self.compute_dtype, reduce_dtype="float32",
             quantize=self.quantize)
+
+    def _decode_stage_params(self) -> int:
+        """Parameters of the decode stage's table (family-dependent)."""
+        if self.family == "tt":
+            c1, c2, d1, d2 = self.tt_dims()
+            return self.m * self.tt_rank * (c1 * d1 + c2 * d2)
+        return self.m * self.c * self.d_c    # paper codebooks / hashemb pools
+
+    def trainable_params(self) -> int:
+        """Closed-form trainable parameters (paper §3.2, extended to the
+        other families; MLP biases not counted, as the paper does not)."""
+        mlp = sum(a * b for a, b in mlp_dims(self))
+        light = self.variant == "light"
+        if self.family == "hashemb":
+            wpos = self.m * self.d_c
+            return wpos + mlp + (0 if light else self._decode_stage_params())
+        return mlp + (self.d_c if light else self._decode_stage_params())
+
+    def frozen_params(self) -> int:
+        return self._decode_stage_params() if self.variant == "light" else 0
 
 
 def mlp_dims(cfg: DecoderConfig):
@@ -69,18 +101,41 @@ def mlp_dims(cfg: DecoderConfig):
             + [(cfg.d_m, cfg.d_e)])
 
 
-def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> Params:
-    cfg.check_family()
+def _init_decode_stage(generator: torch.Generator, cfg: DecoderConfig) -> Params:
+    """The family's decode-stage leaves, with the JAX package's names; the
+    light variant freezes the table (``_buf``) and trains only ``w0`` or
+    ``wpos``."""
     if cfg.variant not in ("light", "full"):
         raise ValueError(f"unknown decoder variant {cfg.variant!r}")
     dev = generator.device
-    cb = dense_init(generator, (cfg.m, cfg.c, cfg.d_c), scale=1.0 / math.sqrt(cfg.m))
+    light = cfg.variant == "light"
+    buf = "_buf" if light else ""
     params: Params = {}
-    if cfg.variant == "light":
-        params["codebooks_buf"] = cb
-        params["w0"] = torch.ones(cfg.d_c, device=dev)
+    if cfg.family == "tt":
+        c1, c2, d1, d2 = cfg.tt_dims()
+        r = cfg.tt_rank
+        # a table entry sums r products of two factors: factor std s gives
+        # it variance r*s^4, so s = (m*r)^(-1/4) matches the paper
+        # codebooks' 1/sqrt(m)
+        s = float((cfg.m * r) ** -0.25)
+        params["tt_g0" + buf] = dense_init(generator, (cfg.m, c1, d1, r), scale=s)
+        params["tt_g1" + buf] = dense_init(generator, (cfg.m, c2, r, d2), scale=s)
     else:
-        params["codebooks"] = cb
+        name = "pools" if cfg.family == "hashemb" else "codebooks"
+        params[name + buf] = dense_init(generator, (cfg.m, cfg.c, cfg.d_c),
+                                        scale=1.0 / math.sqrt(cfg.m))
+    if cfg.family == "hashemb":
+        # wpos = 1 decodes the plain pool sum at init; trainable in both
+        # variants (in the light one it is the per-position W0)
+        params["wpos"] = torch.ones(cfg.m, cfg.d_c, device=dev)
+    elif light:
+        params["w0"] = torch.ones(cfg.d_c, device=dev)
+    return params
+
+
+def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> Params:
+    params = _init_decode_stage(generator, cfg)
+    dev = generator.device
     mlp = {}
     for i, dims in enumerate(mlp_dims(cfg)):
         mlp[f"w{i}"] = dense_init(generator, dims)
@@ -89,15 +144,25 @@ def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> Params:
     return params
 
 
+def _decode_stage_operands(params: Params, cfg: DecoderConfig, pdtype: torch.dtype):
+    """The backend's ``(codebooks, w0)`` from the params, in the storage
+    dtype.  hashemb folds ``wpos`` into the pools in f32 (exact, and
+    differentiable to both); tt passes its core pair as a tuple."""
+    buf = "_buf" if cfg.variant == "light" else ""
+    w0 = params["w0"].to(pdtype) if "w0" in params else None
+    if cfg.family == "hashemb":
+        pools = params["pools" + buf].float()
+        return (pools * params["wpos"].float()[:, None, :]).to(pdtype), None
+    if cfg.family == "tt":
+        return (params["tt_g0" + buf].to(pdtype), params["tt_g1" + buf].to(pdtype)), w0
+    return params["codebooks" + buf].to(pdtype), w0
+
+
 def decode_stage(params: Params, codes2d: torch.Tensor, cfg: DecoderConfig,
                  backend: Optional[DecodeBackend] = None) -> torch.Tensor:
     """The codebook sum (and W0 rescale): codes (B, m) -> (B, d_c) f32."""
-    cfg.check_family()
     policy = cfg.precision_policy()
-    pdtype = torch_dtype(policy.param_dtype)
-    light = cfg.variant == "light"
-    cb = params["codebooks_buf" if light else "codebooks"].to(pdtype)
-    w0 = params["w0"].to(pdtype) if light else None
+    cb, w0 = _decode_stage_operands(params, cfg, torch_dtype(policy.param_dtype))
     be = backend if backend is not None else get_backend(
         cfg.lookup_impl, device=codes2d.device, policy=policy)
     with stage("decode"):

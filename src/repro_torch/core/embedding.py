@@ -10,7 +10,11 @@ counterpart of ``repro/core/embedding.py``.
 
 For compressed kinds the per-entity state is a packed code row
 (``codes_buf``, int64 words holding the uint32 bit patterns); the decoder
-parameters are shared by all entities.
+parameters are shared by all entities.  ``lookup_impl`` may select another
+compression family (``core.decoder``): ``hashemb`` stores no codes at all
+(``needs_codes`` is False) and hashes each id at lookup
+(``codes.position_codes``); ``tt`` keeps the codes and factorises the
+codebooks.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.core import codes as codes_lib
 from repro_torch.core import lsh
-from repro_torch.core.backend import DecodeBackend, torch_dtype
+from repro_torch.core.backend import DecodeBackend, family_of, torch_dtype
 from repro_torch.core.decoder import (DecoderConfig, Params, apply_decoder,
                                       init_decoder)
 from repro_torch.stages import stage
@@ -54,6 +58,17 @@ class EmbeddingConfig:
     @property
     def is_compressed(self) -> bool:
         return self.kind in COMPRESSED_KINDS
+
+    @property
+    def family(self) -> str:
+        """Compression family of ``lookup_impl``: "paper", "hashemb" or "tt"."""
+        return family_of(self.lookup_impl)
+
+    @property
+    def needs_codes(self) -> bool:
+        """Whether the config stores a per-entity ``codes_buf``: hashemb
+        hashes the ids at lookup instead."""
+        return self.is_compressed and self.family != "hashemb"
 
     def decoder_config(self) -> DecoderConfig:
         variant = "light" if self.kind.endswith("light") else "full"
@@ -94,6 +109,8 @@ def init_embedding(generator: torch.Generator, cfg: EmbeddingConfig,
                                      device=dev) * 0.02}
     if not cfg.is_compressed:
         raise ValueError(f"unknown embedding kind {cfg.kind!r}")
+    if not cfg.needs_codes:
+        return {"decoder": init_decoder(generator, cfg.decoder_config())}
     if codes is None:
         codes = make_codes(generator, cfg, aux)
     expected = (cfg.n_entities, codes_lib.n_words(cfg.c, cfg.m))
@@ -105,8 +122,12 @@ def init_embedding(generator: torch.Generator, cfg: EmbeddingConfig,
 
 def lookup_codes(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig
                  ) -> torch.Tensor:
-    """ids (...,) -> unpacked codes (..., m) int32."""
+    """ids (...,) -> codes (..., m) int32: the stored row unpacked, or
+    (hashemb) the id's position hashes."""
     with stage("unpack"):
+        if not cfg.needs_codes:
+            return codes_lib.position_codes(ids.reshape(-1), cfg.c, cfg.m).reshape(
+                *ids.shape, cfg.m)
         packed = params["codes_buf"][ids.to(torch.int64)]
         return codes_lib.unpack_codes(packed, cfg.c, cfg.m)
 
@@ -126,7 +147,7 @@ def decode_all(params: Params, cfg: EmbeddingConfig, block: int = 8192,
     """The full reconstructed table, decoded in blocks to bound peak memory."""
     if cfg.kind == "dense":
         return params["table"]
-    dev = params["codes_buf"].device
+    dev = params["decoder"]["mlp"]["w0"].device
     with torch.no_grad():
         return torch.cat([
             embed_lookup(params, torch.arange(s, min(s + block, cfg.n_entities),

@@ -135,6 +135,29 @@ class RuntimeSpec:
     # ignores it (the device decides between kernel and plain version).
     interpret: Optional[bool] = None
 
+    def with_updates(self, **kw) -> "RuntimeSpec":
+        """Replace fields across the nesting in one call: RuntimeSpec fields
+        first, then ``EmbeddingSpec`` fields, then ``GNNConfig`` fields, as
+        the JAX package's: ``spec.with_updates(lookup_impl="tt",
+        tt_rank=8)``, ``spec.with_updates(quantize="int8")``."""
+        groups = [{f.name for f in dataclasses.fields(cls)}
+                  for cls in (RuntimeSpec, EmbeddingSpec, GNNConfig)]
+        spec_kw, emb_kw, model_kw = {}, {}, {}
+        for k, v in kw.items():
+            for names, out in zip(groups, (spec_kw, emb_kw, model_kw)):
+                if k in names:
+                    out[k] = v
+                    break
+            else:
+                raise TypeError(f"with_updates: unknown field {k!r}")
+        model = spec_kw.pop("model", self.model)
+        if emb_kw:
+            model = dataclasses.replace(
+                model, embedding=dataclasses.replace(model.embedding, **emb_kw))
+        if model_kw:
+            model = dataclasses.replace(model, **model_kw)
+        return dataclasses.replace(self, model=model, **spec_kw)
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -240,8 +263,8 @@ class GraphRuntime:
             from repro_torch.core import embedding as emb_lib
             gen = make_generator(spec.init_seed, device)
             ecfg = cfg.embedding_config()
-            codes = (emb_lib.make_codes(gen, ecfg, aux=adj)
-                     if ecfg.is_compressed else None)
+            # hashemb stores no codes: it hashes the ids at every lookup
+            codes = emb_lib.make_codes(gen, ecfg, aux=adj) if ecfg.needs_codes else None
             params = self.model.init(gen, codes=codes)
         from repro_torch.train.step import init_gnn_train_state, make_gnn_train_step
         self.state = init_gnn_train_state(None, cfg, params=params)
@@ -332,7 +355,8 @@ class GraphRuntime:
 
     @property
     def codes(self) -> Optional[torch.Tensor]:
-        """The packed code buffer (int64 words), or None for dense kinds."""
+        """The packed code buffer (int64 words), or None for dense kinds
+        and the hashemb family."""
         return self.params["embed"].get("codes_buf")
 
     def train(self, steps: Optional[int] = None,

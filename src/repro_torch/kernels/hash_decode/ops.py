@@ -25,11 +25,19 @@ registers.  On CPU operands it is the plain version
 each (j, k, feature) in ascending b with no atomics, so they agree bit for
 bit and two passes give the same bits.  ``code_order`` runs the sort alone
 (the kernel, or ``ref.code_order`` on the CPU).  ``d_w0`` is
-a decode through the forward kernel and a reduction.  The int8
-straight-through backward is not ported yet and raises.
+a decode through the forward kernel and a reduction.
+
+int8 storage (the JAX package's ``_hash_decode_int8`` / ``_bwd_int8``):
+the kernel decodes the int8 values and their (m, c) scales, and the
+gradient goes straight through to the float ``masters`` they were
+quantized from.  ``d_cb`` never reads codebook values, so it is the
+unquantized ``d_cb`` bit for bit, in the masters' dtype; ``d_w0`` sums
+``g`` against what the forward decoded, the int8 decode without w0.
 
 ``quantize_codebooks`` / ``dequantize_codebooks`` are the per-(codebook,
-code) absmax int8 scheme of the JAX package, bit for bit.
+code) absmax int8 scheme of the JAX package, bit for bit;
+``quantize_dequantize`` is their composition with an identity backward,
+the straight-through int8 of the plain decode backends.
 """
 
 from __future__ import annotations
@@ -58,9 +66,6 @@ _DIRECT_THREADS = 256
 # 256, d_c = 512) the direct one is faster at 4,096 rows and the staged one
 # at 6,144, in f32 and bf16 (chip_smoke.py's variant times).
 STAGED_MIN_ROWS = 6144
-
-INT8_GRAD = ("the int8 straight-through backward of hash_decode is not ported "
-             "yet; it comes with the families-and-precision slice (ROADMAP A.13)")
 
 
 def build() -> Tuple[Path, str]:
@@ -117,7 +122,11 @@ def quantize_codebooks(codebooks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     (m, c)); all-zero code vectors get scale 1 so dequant is exact."""
     cb = codebooks.float()
     absmax = cb.abs().amax(dim=2)
-    scales = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    # divide by a tensor: CUDA turns a division by a Python scalar into a
+    # product with its reciprocal, which rounds differently from the CPU's
+    # and JAX's division
+    scales = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                         torch.ones_like(absmax))
     q = torch.clamp(torch.round(cb / scales[:, :, None]), -127, 127).to(torch.int8)
     return q, scales
 
@@ -125,6 +134,25 @@ def quantize_codebooks(codebooks: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
 def dequantize_codebooks(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(q int8 (m, c, d_c), scales f32 (m, c)) -> f32 (m, c, d_c)."""
     return q.float() * scales.float()[:, :, None]
+
+
+class _QuantizeDequantize(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, codebooks):
+        ctx.dtype = codebooks.dtype
+        return dequantize_codebooks(*quantize_codebooks(codebooks))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def quantize_dequantize(codebooks: torch.Tensor) -> torch.Tensor:
+    """dequant(quantize(cb)) in f32, the values an int8 decode sees, with a
+    straight-through (identity) backward to the float masters, cast to
+    their dtype (the JAX package's ``quantize_dequantize``)."""
+    return _QuantizeDequantize.apply(codebooks)
 
 
 class Launch(NamedTuple):
@@ -347,56 +375,66 @@ def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tenso
 
 def hash_decode_backward(codes: torch.Tensor, codebooks: torch.Tensor,
                          w0: Optional[torch.Tensor], g: torch.Tensor,
-                         need_cb: bool = True, need_w0: bool = True):
-    """(d_codebooks in codebooks' dtype or None, d_w0 in w0's dtype or
-    None) for the output cotangent ``g`` (B, d_c)."""
+                         need_cb: bool = True, need_w0: bool = True,
+                         scales: Optional[torch.Tensor] = None,
+                         cb_dtype: Optional[torch.dtype] = None):
+    """(d_codebooks or None, d_w0 in w0's dtype or None) for the output
+    cotangent ``g`` (B, d_c).  ``d_codebooks`` is in ``cb_dtype`` (default:
+    the codebooks' dtype).  For int8 ``codebooks`` with their ``scales``,
+    ``cb_dtype`` is the float masters' and ``d_w0`` sums ``g`` against the
+    int8 decode."""
     g = g.float().contiguous()
     d_cb = d_w0 = None
     if need_cb:
+        dtype = cb_dtype or codebooks.dtype
+        sums = dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
         d_cb = codebook_grad(codes, g, None if w0 is None else w0.float().contiguous(),
-                             codebooks.shape[1], codebooks.dtype)
+                             codebooks.shape[1], sums).to(dtype)
     if need_w0 and w0 is not None:
-        summed = _forward(codes, codebooks, None, None)
+        summed = _forward(codes, codebooks, None, scales)
         d_w0 = (g * summed).sum(dim=0).to(w0.dtype)
     return d_cb, d_w0
 
 
 class _HashDecode(torch.autograd.Function):
+    """``(codes, codebooks, w0, scales, masters)``: ``masters`` is None, or
+    for int8 ``codebooks`` the float tensor they were quantized from, which
+    takes the codebook gradient in their place."""
 
     @staticmethod
-    def forward(ctx, codes, codebooks, w0, scales):
-        ctx.save_for_backward(codes, codebooks, w0)
-        ctx.quantized = scales is not None
+    def forward(ctx, codes, codebooks, w0, scales, masters):
+        ctx.save_for_backward(codes, codebooks, w0, scales)
+        ctx.cb_dtype = None if masters is None else masters.dtype
         return _forward(codes, codebooks, w0, scales)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.quantized:
-            raise NotImplementedError(INT8_GRAD)
-        codes, codebooks, w0 = ctx.saved_tensors
+        codes, codebooks, w0, scales = ctx.saved_tensors
+        cb_slot = 1 if scales is None else 4
         d_cb, d_w0 = hash_decode_backward(
-            codes, codebooks, w0, g, need_cb=ctx.needs_input_grad[1],
-            need_w0=ctx.needs_input_grad[2])
-        return None, d_cb, d_w0, None
-
-
-def needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+            codes, codebooks, w0, g, need_cb=ctx.needs_input_grad[cb_slot],
+            need_w0=ctx.needs_input_grad[2], scales=scales, cb_dtype=ctx.cb_dtype)
+        grads = [None, None, d_w0, None, None]
+        grads[cb_slot] = d_cb
+        return tuple(grads)
 
 
 def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
                 w0: Optional[torch.Tensor] = None,
-                scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                scales: Optional[torch.Tensor] = None,
+                masters: Optional[torch.Tensor] = None) -> torch.Tensor:
     """codes (B, m) int32, codebooks (m, c, d_c) f32/bf16/int8 (+ scales
     (m, c) f32 for int8), w0 (d_c,) f32 or None -> (B, d_c) f32.
 
     CUDA operands launch the kernel on the current stream (no
     synchronisation; ``hash_decode.launches`` counts the launches); CPU
     operands run the plain version.  Differentiable in ``codebooks`` and
-    ``w0`` (not for int8 storage, whose backward raises)."""
+    ``w0``.  int8 codebooks take no gradient; ``masters`` (m, c, d_c), the
+    float tensor they were quantized from, takes it straight through."""
     _check(codes, codebooks, w0, scales)
-    return _HashDecode.apply(codes, codebooks, w0, scales)
+    if masters is not None and (scales is None or masters.shape != codebooks.shape):
+        raise ValueError("masters go with int8 codebooks and scales, in their shape")
+    return _HashDecode.apply(codes, codebooks, w0, scales, masters)
 
 
 hash_decode.launches = 0

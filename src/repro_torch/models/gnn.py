@@ -149,7 +149,7 @@ def _all_features(params, cfg: GNNConfig, backend=None) -> torch.Tensor:
     ecfg = cfg.embedding_config()
     if ecfg.kind == "dense":
         return params["embed"]["table"]
-    dev = params["embed"]["codes_buf"].device
+    dev = params["embed"]["decoder"]["mlp"]["w0"].device
     ids = torch.arange(cfg.n_nodes, device=dev)
     return emb_lib.embed_lookup(params["embed"], ids, ecfg, backend=backend)
 

@@ -93,7 +93,7 @@ def init_lm(generator: torch.Generator, cfg: LMConfig,
     neither, random codes (ALONE), as in the JAX package."""
     check_ported(cfg)
     ecfg = cfg.embedding_config()
-    if ecfg.is_compressed and codes is None and aux is None:
+    if ecfg.needs_codes and codes is None and aux is None:
         codes = lsh.encode_random(generator, ecfg.n_entities, ecfg.c, ecfg.m)
     params: Params = {
         "embed": emb_lib.init_embedding(generator, ecfg, codes=codes, aux=aux),

@@ -883,3 +883,116 @@ def test_fullgraph_resume_on_card_is_bitwise(cuda, tmp_path):
     want, got = dict(leaves_with_path(straight.params)), dict(leaves_with_path(resumed.params))
     assert want.keys() == got.keys()
     assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+# ---------------- the hashemb and tt families, int8 storage ----------------
+
+@pytest.mark.parametrize("with_w0", [False, True], ids=["full", "light"])
+@pytest.mark.parametrize("masters", ["float32", "bfloat16"])
+def test_int8_kernel_backward_is_its_plain_version(cuda, masters, with_w0):
+    """The int8 kernel path at a training frontier (24,064 rows, m=16,
+    c=256, d_c=512): the forward and ``d_cb`` bitwise the CPU's plain
+    versions, ``d_cb`` bitwise the unquantized kernel path's (it never
+    reads codebook values), in the masters' dtype; ``d_w0`` sums the
+    cotangent against the int8 decode, within 1e-5 of the CPU's largest
+    entry (the reduction over rows sums in another order)."""
+    rng = np.random.default_rng(5)
+    B, m, c, d_c = 24_064, 16, 256, 512
+    dtype = getattr(torch, masters)
+    codes = torch.from_numpy(rng.integers(0, c, (B, m)).astype(np.int32))
+    cb = torch.from_numpy(rng.standard_normal((m, c, d_c)).astype(np.float32)).to(dtype)
+    w0 = torch.from_numpy(rng.standard_normal(d_c).astype(np.float32)) if with_w0 else None
+    g = torch.from_numpy(rng.standard_normal((B, d_c)).astype(np.float32))
+
+    def run(device, quantize):
+        policy = backend_mod.MixedPrecisionPolicy(quantize=quantize)
+        tcb = cb.clone().to(device).requires_grad_(True)
+        tw0 = None if w0 is None else w0.clone().to(device).requires_grad_(True)
+        out = backend_mod.get_backend("pallas", device=device, policy=policy).decode(
+            codes.to(device), tcb, tw0)
+        out.backward(g.to(device))
+        return out.detach().cpu(), tcb.grad.cpu(), None if tw0 is None else tw0.grad.cpu()
+
+    ops.hash_decode_backward.launches = 0
+    out, d_cb, d_w0 = run(cuda, "int8")
+    assert ops.hash_decode_backward.launches == 1
+    ref_out, ref_cb, ref_w0 = run(torch.device("cpu"), "int8")
+    assert d_cb.dtype == dtype
+    assert torch.equal(out, ref_out) and torch.equal(d_cb, ref_cb)
+    assert torch.equal(d_cb, run(cuda, "none")[1])
+    if with_w0:
+        np.testing.assert_allclose(d_w0.numpy(), ref_w0.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref_w0.abs().max()))
+
+
+def test_hashemb_decode_on_card_is_the_cpus(cuda):
+    """The hashemb decode stage at full width on 24,064 ids: the position
+    hashes, the ``wpos`` fold and the kernel on the card give the CPU's
+    plain version's bits (``hashemb:pallas`` there; ``auto``'s base on the
+    card is the kernel)."""
+    from repro_torch.core import decoder as dec_lib
+    cfg = emb_lib.EmbeddingConfig(kind="random_full", n_entities=169_343, d_e=64,
+                                  lookup_impl="hashemb", compute_dtype="float32")
+    params = emb_lib.init_embedding(torch.Generator().manual_seed(0), cfg)
+    params["decoder"]["wpos"] = torch.randn(16, 512, generator=torch.Generator().manual_seed(1))
+    ids = torch.from_numpy(np.random.default_rng(2).choice(169_343, 24_064, replace=False))
+    card = _to(params, cuda, copy=True)
+    be = backend_mod.get_backend("hashemb", device=cuda, policy=cfg.decoder_config()
+                                 .precision_policy())
+    assert be.base.name == "pallas"
+    got = dec_lib.decode_stage(card["decoder"], emb_lib.lookup_codes(card, ids.to(cuda), cfg),
+                               cfg.decoder_config(), be)
+    cpu_cfg = dataclasses.replace(cfg, lookup_impl="hashemb:pallas")
+    want = dec_lib.decode_stage(params["decoder"], emb_lib.lookup_codes(params, ids, cpu_cfg),
+                                cpu_cfg.decoder_config())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_tt_decode_on_card_matches_cpu_and_its_gradient_is_deterministic(cuda):
+    """TT at full width (c=256 -> 16 x 16, d_c=512 -> 16 x 32, r=8) on
+    24,064 rows: within 1e-5 of the CPU's largest output (the f32 product
+    sums m*r terms in cuBLAS' order); two gradients of one decode bitwise
+    equal (the core rows' gather sums each row's cotangents in a fixed
+    order; ``F.embedding``'s CUDA backward did not, at these repeats)."""
+    rng = np.random.default_rng(3)
+    g0 = torch.from_numpy(rng.standard_normal((16, 16, 16, 8)).astype(np.float32))
+    g1 = torch.from_numpy(rng.standard_normal((16, 16, 8, 32)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (24_064, 16)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((24_064, 512)).astype(np.float32)).to(cuda)
+    want = backend_mod.get_backend("tt", device=torch.device("cpu")).decode(codes, (g0, g1))
+    cores = tuple(t.to(cuda).requires_grad_(True) for t in (g0, g1))
+    be = backend_mod.get_backend("tt", device=cuda)
+    ops.hash_decode.launches = 0
+    out = be.decode(codes.to(cuda), cores)
+    assert ops.hash_decode.launches == 0
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    a = torch.autograd.grad(out, cores, g, retain_graph=True)
+    b = torch.autograd.grad(out, cores, g, retain_graph=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("family", [dict(lookup_impl="hashemb"),
+                                    dict(lookup_impl="tt", tt_rank=8)], ids=["hashemb", "tt"])
+def test_family_resume_on_card_is_bitwise(cuda, tmp_path, family):
+    init = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=0).with_updates(**family))
+    graph = (init.adj, init.labels)
+
+    def run(d, steps):
+        spec = _gnn_spec(ckpt_dir=str(tmp_path / d), ckpt_every=2).with_updates(**family)
+        rt = GraphRuntime.from_spec(spec, graph=graph, params=_to(init.params, cuda, copy=True))
+        res = rt.train(steps)
+        rt.close()
+        return rt, res
+
+    straight, res_a = run("a", 6)
+    _, res_b = run("b", 3)
+    resumed = GraphRuntime.resume(str(tmp_path / "b"), graph=graph)
+    res_c = resumed.train(6)
+    resumed.close()
+    assert resumed.spec.model.embedding.lookup_impl == family["lookup_impl"]
+    assert res_c.resumed_from == 3 and res_b.losses + res_c.losses == res_a.losses
+    from repro_torch.nn.module import leaves_with_path
+    want, got = dict(leaves_with_path(straight.params)), dict(leaves_with_path(resumed.params))
+    assert want.keys() == got.keys()
+    assert all(torch.equal(want[k], got[k]) for k in want)
