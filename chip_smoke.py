@@ -68,9 +68,10 @@ weights and data from a seed:
          300 steps each, ``evaluate("val")``, ``rt.serve()`` against
          ``serve(cache_capacity=0)`` bit for bit, two gradients of one
          step, and for hashemb and tt a run killed at step 10 and resumed;
-         the int8 variant and the backward held bitwise at every row count
-         the int8 path decoded; TT's decode and the int8 kernel timed at
-         the paths' frontiers;
+         the forward and the backward held bitwise at every row count the
+         hashemb path (f32) and the int8 path (the int8 variant) decoded;
+         TT's decode and the int8 kernel timed at the paths' frontiers,
+         beside the f32 kernels at the same rows;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -322,51 +323,62 @@ def smi_query(field: str) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def smem_ceiling_ms(B: int, m: int, d_c: int) -> tuple:
-    """(ms, MHz): the staged decode's shared-memory reads, B*m*d_c*4 bytes
-    (each output element sums m terms), at 128 B/clock/SM on every SM at
-    the card's maximum SM clock as nvidia-smi reports it."""
+def smem_ceiling_ms(B: int, m: int, d_c: int, elem: int = 4) -> tuple:
+    """(ms, MHz): the staged decode's shared-memory reads, B*m*d_c*elem
+    bytes (each output element sums m terms of ``elem``-byte storage), at
+    128 B/clock/SM on every SM at the card's maximum SM clock as
+    nvidia-smi reports it."""
     import torch
     mhz = float(smi_query("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return B * m * d_c * 4 / (128 * sms * mhz * 1e6) * 1e3, mhz
+    return B * m * d_c * elem / (128 * sms * mhz * 1e6) * 1e3, mhz
 
 
-def time_at_shape(B: int, m: int, c: int, d_c: int) -> dict:
-    """Kernel, plain and ``embedding_bag`` times of the f32 decode without
-    w0 at one shape, and the bound computed from that shape."""
+def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") -> dict:
+    """Kernel, plain and ``embedding_bag`` times of the decode without w0
+    at one shape from ``storage`` codebooks (f32, or int8 with its
+    per-(codebook, code) scales), and the bound computed from that shape:
+    bytes (codes, codebooks and scales read once, f32 rows written) or
+    operations (the adds, and under int8 a dequantising multiply a term).
+    int8 has no library call: none takes per-row scales."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_ref
-    codes, cb, _, _ = _operands(B, m, c, d_c, "float32", seed=0)
-    offsets = (torch.arange(m, device="cuda") * c)[None, :]
-    idx = codes.long() + offsets
-    table = cb.reshape(m * c, d_c)
-    lib = F.embedding_bag(idx, table, mode="sum")
-    lib_err = float((lib - ops.hash_decode(codes, cb)).abs().max())
-    kernel_ms, enqueue_ms = time_ms(lambda: ops.hash_decode(codes, cb), 50)
-    plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, cb), 10)
-    library_ms, _ = time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), 50)
-    bytes_moved = B * m * 4 + m * c * d_c * 4 + B * d_c * 4
-    adds = B * (m - 1) * d_c
+    codes, cb, _, scales = _operands(B, m, c, d_c, storage, seed=0)
+    kernel_ms, enqueue_ms = time_ms(lambda: ops.hash_decode(codes, cb, None, scales), 50)
+    plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, cb, None, scales), 10)
+    library_ms, library = None, "none (no library call takes per-row scales)"
+    if scales is None:
+        idx = codes.long() + (torch.arange(m, device="cuda") * c)[None, :]
+        table = cb.reshape(m * c, d_c)
+        lib_err = float((F.embedding_bag(idx, table, mode="sum")
+                         - ops.hash_decode(codes, cb)).abs().max())
+        library_ms, _ = time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), 50)
+        library = f"embedding_bag {library_ms:.4f} ms (max diff to kernel {lib_err})"
+    quantized = scales is not None
+    bytes_moved = (B * m * 4 + cb.numel() * cb.element_size() + B * d_c * 4
+                   + (scales.numel() * 4 if quantized else 0))
+    operations = B * (m - 1) * d_c + (B * m * d_c if quantized else 0)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    adds_ms = adds / F32_ADDS_PER_S * 1e3
-    bound_ms = max(bytes_ms, adds_ms)
-    bound_by = "bytes" if bytes_ms >= adds_ms else "operations"
-    smem_ms, mhz = smem_ceiling_ms(B, m, d_c)
-    variant = ops.launch_shape(B, m, c, d_c, 4, False,
+    ops_ms = operations / F32_ADDS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    smem_ms, mhz = smem_ceiling_ms(B, m, d_c, cb.element_size())
+    variant = ops.launch_shape(B, m, c, d_c, cb.element_size(), quantized,
                                torch.cuda.get_device_properties(0).multi_processor_count).variant
-    print(f"[kernel] shape ({B}, {m}, {c}, {d_c}) f32, {variant} variant: kernel "
+    print(f"[kernel] shape ({B}, {m}, {c}, {d_c}) {storage}, {variant} variant: kernel "
           f"{kernel_ms:.4f} ms (host enqueues a launch in {enqueue_ms:.4f} "
-          f"ms), plain {plain_ms:.4f} ms, embedding_bag "
-          f"{library_ms:.4f} ms (max diff to kernel {lib_err}), bound "
+          f"ms), plain {plain_ms:.4f} ms, {library}, bound "
           f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved} B in "
-          f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms), shared-memory "
-          f"ceiling {smem_ms:.4f} ms ({B * m * d_c * 4} B at 128 B/clock/SM, "
-          f"{mhz:.0f} MHz); {bytes_moved / kernel_ms / 1e6:.1f} GB/s of required "
-          f"traffic; {B * m * d_c * 4 / kernel_ms / 1e6:.1f} GB/s of summed "
+          f"{bytes_ms:.4f} ms, {operations} {'multiplies and ' if quantized else ''}adds in "
+          f"{ops_ms:.4f} ms), shared-memory ceiling {smem_ms:.4f} ms "
+          f"({B * m * d_c * cb.element_size()} B at 128 B/clock/SM, {mhz:.0f} MHz); "
+          f"{bytes_moved / kernel_ms / 1e6:.1f} GB/s of required traffic; "
+          f"{B * m * d_c * cb.element_size() / kernel_ms / 1e6:.1f} GB/s of summed "
           f"codebook rows", flush=True)
+    del codes, cb, scales
+    torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, smem_ceiling_ms=smem_ms)
 
@@ -2711,16 +2723,14 @@ def _family_path(graph, path: str) -> dict:
 
 
 def time_tt(cores, rows: int) -> dict:
-    """TT's decode (two ``F.embedding`` row gathers and one f32 batched
-    product) and its backward at ``rows`` rows with the path's trained cores
-    and uniform codes, beside the ``hash_decode`` kernel and its backward
-    kernel at the same rows of the paper's dense (16, 256, 512) table; each
-    with its bound (bytes: codes and the cores or table read, the output or
-    the gradients written; operations: the product's f32 multiply-adds)."""
+    """TT's decode (two row gathers and one f32 batched product) and its
+    backward at ``rows`` rows with the path's trained cores and uniform
+    codes, each with its bound (bytes: codes and the cores read, the output
+    or the gradients written; operations: the product's f32 multiply-adds);
+    two backward passes bitwise."""
     import numpy as np
     import torch
     from repro_torch.core.backend import get_backend
-    from repro_torch.kernels.hash_decode import ops
     g0, g1 = (t.requires_grad_(True) for t in cores)
     m, c1, d1, r = g0.shape
     _, c2, _, d2 = g1.shape
@@ -2740,72 +2750,64 @@ def time_tt(cores, rows: int) -> dict:
     bwd_bytes = rows * m * 4 + rows * d1 * d2 * 4 + 2 * core_bytes
     fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
     bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, 2 * flops / F32_FLOPS) * 1e3
-    cb = torch.from_numpy(rng.standard_normal((m, 256, 512)).astype(np.float32)).cuda()
-    kernel_ms, _ = time_ms(lambda: ops.hash_decode(codes, cb), 20)
-    kernel_bwd_ms, _ = time_ms(lambda: ops.codebook_grad(codes, g, None, 256, torch.float32), 20)
     inter = rows * m * (d1 * r + r * d2) * 4
     print(f"[time] tt decode B={rows} m={m} c1={c1} c2={c2} d1={d1} d2={d2} r={r} f32: forward "
           f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms: {fwd_bytes} B, {flops} flops), backward "
           f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms: {bwd_bytes} B, {2 * flops} flops), two "
-          f"backward passes bitwise {deterministic}; the two row gathers write {inter} B; "
-          f"hash_decode kernel at the same rows (16, 256, 512) {kernel_ms:.4f} ms, its backward "
-          f"kernel {kernel_bwd_ms:.4f} ms", flush=True)
+          f"backward passes bitwise {deterministic}; the two row gathers write {inter} B",
+          flush=True)
     check(deterministic, "tt: two backward passes of one decode differ")
-    del out, a, b, a2, b2, codes, g, cb
+    del out, a, b, a2, b2, codes, g
     torch.cuda.empty_cache()
     return dict(rows=rows, ms=fwd_ms, bound_ms=fwd_bound, backward_ms=bwd_ms,
-                backward_bound_ms=bwd_bound, kernel_ms=kernel_ms, kernel_backward_ms=kernel_bwd_ms)
+                backward_bound_ms=bwd_bound)
 
 
-def time_int8(rows: int) -> dict:
-    """``hash_decode`` from int8 storage at ``rows`` rows (m=16, c=256,
-    d_c=512, no w0) beside the f32 kernel and the plain version at the same
-    rows, with its bound: bytes (codes, int8 values and scales read once,
-    f32 rows written) or operations (a dequantising multiply and an add per
-    term); and the int8 quantize pass a training step makes of the masters."""
+def time_quantize(m: int = 16, c: int = 256, d_c: int = 512) -> float:
+    """The int8 quantize pass a training step makes of the f32 masters."""
     import torch
     from repro_torch.kernels.hash_decode import ops
-    from repro_torch.kernels.hash_decode.ref import hash_decode_ref
-    m, c, d_c = 16, 256, 512
-    codes, q, _, scales = _operands(rows, m, c, d_c, "int8", seed=13)
-    _, cb, _, _ = _operands(rows, m, c, d_c, "float32", seed=13)
-    int8_ms, _ = time_ms(lambda: ops.hash_decode(codes, q, None, scales), 50)
-    f32_ms, _ = time_ms(lambda: ops.hash_decode(codes, cb), 50)
-    plain_ms, _ = time_ms(lambda: hash_decode_ref(codes, q, None, scales), 10)
-    quantize_ms, _ = time_ms(lambda: ops.quantize_codebooks(cb), 20)
-    nbytes = rows * m * 4 + m * c * d_c + m * c * 4 + rows * d_c * 4
-    operations = rows * m * d_c + rows * (m - 1) * d_c
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = operations / F32_ADDS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[time] hash_decode int8 B={rows} m={m} c={c} d_c={d_c}: kernel {int8_ms:.4f} ms, f32 "
-          f"kernel at the same rows {f32_ms:.4f} ms (int8/f32 {int8_ms / f32_ms:.2f}), plain "
-          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B in "
-          f"{bytes_ms:.4f} ms, {operations} multiplies and adds in {ops_ms:.4f} ms); the quantize "
-          f"pass of the (16, 256, 512) masters {quantize_ms:.4f} ms", flush=True)
-    del codes, q, scales, cb
+    _, cb, _, _ = _operands(1, m, c, d_c, "float32", seed=13)
+    ms, _ = time_ms(lambda: ops.quantize_codebooks(cb), 20)
+    print(f"[time] quantize_codebooks of the ({m}, {c}, {d_c}) f32 masters: {ms:.4f} ms",
+          flush=True)
+    del cb
     torch.cuda.empty_cache()
-    return dict(rows=rows, ms=int8_ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, quantize_ms=quantize_ms)
+    return ms
 
 
 def phase_families(graph) -> tuple:
-    """The three family paths, then the int8 variant and the backward held
-    bitwise at every row count the int8 path decoded (training frontiers,
-    evaluate's and serve's decodes), TT's decode timed at its largest
-    training frontier and the int8 kernel at the int8 path's.
-    Returns the launches by path, the int8 sizes, the forward's largest
-    error there and the times."""
+    """The three family paths; then the kernels held bitwise at every row
+    count the hashemb path (f32, its folded pools) and the int8 path (int8
+    storage) decoded: training frontiers, evaluate's and serve's decodes,
+    the forward in both variants and the backward; TT's decode timed at its
+    largest training frontier beside the kernels at the same rows, and the
+    int8 kernel at the int8 path's.  Returns the launches by path, the
+    decode sizes by path, the forward's largest error there and the times."""
     runs = {path: _family_path(graph, path) for path in FAMILY_PATHS}
-    int8_sizes = runs["families_int8"]["decoded"]
-    check(set(runs["families_int8"]["frontiers"]) <= set(int8_sizes),
-          "the int8 path's training frontiers are missing from its decode sizes")
+    sizes = {"hashemb": runs["families_hashemb"]["decoded"],
+             "int8": runs["families_int8"]["decoded"]}
+    for fam, decoded in sizes.items():
+        check(set(runs[f"families_{fam}"]["frontiers"]) <= set(decoded),
+              f"the {fam} path's training frontiers are missing from its decode sizes")
     check(not runs["families_tt"]["decoded"], "the tt path decoded through hash_decode")
-    err = check_gnn_frontiers(int8_sizes, "decode sizes of the int8 path", variant="int8")
-    times = dict(tt=time_tt(runs["families_tt"].pop("cores"),
-                            max(runs["families_tt"]["frontiers"])),
-                 int8=time_int8(max(runs["families_int8"]["frontiers"])))
+    err = max(check_gnn_frontiers(sizes["hashemb"], "decode sizes of the hashemb path"),
+              check_gnn_frontiers(sizes["int8"], "decode sizes of the int8 path",
+                                  variant="int8"))
+    tt_rows = max(runs["families_tt"]["frontiers"])
+    int8_rows = max(runs["families_int8"]["frontiers"])
+    f32 = {rows: time_at_shape(rows, 16, 256, 512) for rows in {tt_rows, int8_rows}}
+    times = dict(tt=dict(**time_tt(runs["families_tt"].pop("cores"), tt_rows),
+                         kernel_ms=f32[tt_rows]["ms"],
+                         kernel_backward_ms=time_hd_backward(tt_rows)["ms"]),
+                 int8=dict(rows=int8_rows, **time_at_shape(int8_rows, 16, 256, 512, "int8"),
+                           f32_ms=f32[int8_rows]["ms"], quantize_ms=time_quantize()))
+    print(f"[time] int8 kernel at B={int8_rows}: {times['int8']['ms']:.4f} ms against the f32 "
+          f"kernel's {times['int8']['f32_ms']:.4f} (int8/f32 "
+          f"{times['int8']['ms'] / times['int8']['f32_ms']:.2f}); tt at B={tt_rows}: forward "
+          f"{times['tt']['ms']:.4f} / backward {times['tt']['backward_ms']:.4f} ms against the "
+          f"kernels' {times['tt']['kernel_ms']:.4f} / {times['tt']['kernel_backward_ms']:.4f}",
+          flush=True)
     launches = {}
     for path, run in runs.items():
         launches[path] = {k: (run["train"][k] + run["serve"][k] if isinstance(run["train"][k], int)
@@ -2816,7 +2818,7 @@ def phase_families(graph) -> tuple:
               f"{run['period_run_ms']:.3f}), val accuracy {run['accuracy']}, serve "
               f"{run['serve_ms']:.3f} ms cached / {run['serve_uncached_ms']:.3f} uncached, peak "
               f"{run['peak']} B, table {run['sizes']}, launches {launches[path]}", flush=True)
-    return launches, int8_sizes, err, times
+    return launches, sizes, err, times
 
 
 def phase_families_reference():
@@ -2900,7 +2902,7 @@ def main() -> None:
     link_launches = phase_link(graph)
     merchant_launches, merchant_sizes = phase_merchant()
     phase_fullgraph_reference()
-    family_launches, int8_sizes, int8_err, family_times = phase_families(graph)
+    family_launches, family_sizes, family_err, family_times = phase_families(graph)
     phase_families_reference()
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
@@ -2909,7 +2911,7 @@ def main() -> None:
                                                     "decode sizes of the planned cached run"),
                                 check_gnn_frontiers(merchant_sizes,
                                                     "decode sizes of the merchant path"),
-                                int8_err)
+                                family_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -2947,7 +2949,8 @@ def main() -> None:
              bitwise=timing["max_abs_err"] == 0.0, **timing, train_shape=lm["hash_lm"],
              variants=variants, cached_serve_sizes=serve_sizes,
              batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
-             int8_sizes=int8_sizes, int8_at_frontier=family_times["int8"],
+             hashemb_sizes=family_sizes["hashemb"], int8_sizes=family_sizes["int8"],
+             int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),
         dict(name="flash_attention", route="cuda",

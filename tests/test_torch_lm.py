@@ -304,8 +304,10 @@ def test_hash_decode_backward_is_deterministic_and_int8_grad_raises():
     be = t_backend.get_backend(
         "pallas", device=torch.device("cpu"),
         policy=t_backend.MixedPrecisionPolicy(quantize="int8"))
-    # the int8 backward no longer raises: its codebook gradient goes
-    # straight through to the masters, the unquantized gradient's bits
+    # The name is older than the int8 backward and kept, so the test keeps
+    # its identity across the change: the int8 backward no longer raises,
+    # its codebook gradient goes straight through to the masters, the
+    # unquantized gradient's bits
     masters = cb.clone().requires_grad_(True)
     (be.decode(codes, masters) * g).sum().backward()
     assert torch.equal(masters.grad, hd_ops.hash_decode_backward(codes, cb, None, g)[0])
