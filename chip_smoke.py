@@ -72,6 +72,20 @@ weights and data from a seed:
          hashemb path (f32) and the int8 path (the int8 variant) decoded;
          TT's decode and the int8 kernel timed at the paths' frontiers,
          beside the f32 kernels at the same rows;
+  codes_host, codes_host_serve, codes_host_int8  gnn_train's spec with
+         ``codes_placement="host"`` (the packed codes stay in host RAM;
+         the prefetch producer gathers each frontier's rows into the
+         batch's pinned buffer) beside device placement from one init and
+         one code buffer, each placement alone on the card: 50 steps at
+         prefetch 2 and 20 at prefetch 0, ``evaluate("val")``, ``embed``,
+         ``rt.serve()``, ``serve(cache_capacity=0)`` and the batching tier,
+         a host run killed at step 10 and resumed, and int8 storage for 20
+         steps, all bitwise the device placement's; the period, the
+         producer's stages, the code bytes moved a batch and held on the
+         card and the peak memory of each; then the same at a fixed
+         61,696-row frontier on the serve graph and on one of 8x its nodes
+         (random codes); the kernels held bitwise at every row count the
+         host path decoded;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -2869,6 +2883,326 @@ def phase_families_reference():
               f"{label}: 5 free steps at Adam eps 1 on the card and on the CPU part: {free}, {pgap}")
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the packed codes kept on the host
+# ---------------------------------------------------------------------------
+
+HOST_STEPS, HOST_STEPS0 = 50, 20    # the paired training runs at prefetch 2 and 0
+HOST_CKPT = ROOT / "build" / "codes_host_ckpt"
+SWEEP_NODES = 8 * N_NODES           # the sweep's larger graph, 1,354,744 nodes
+SWEEP_CAP = 61_696                  # its fixed frontier: serve's cap
+SWEEP_STEPS = 22
+
+
+def _resident_code_bytes(rt) -> int:
+    """Bytes of packed codes the params hold on the card (8 a word)."""
+    buf = rt.params["embed"].get("codes_buf")
+    return 0 if buf is None else buf.numel() * buf.element_size()
+
+
+def _placed(spec, graph, init, codes, placement: str):
+    """A runtime at ``placement`` from the params ``init`` (on the host, with
+    their ``codes_buf``): device placement keeps it; host placement drops
+    it and takes the packed uint32 ``codes`` as its buffer."""
+    from repro_torch.graph.runtime import GraphRuntime
+    params = _snapshot(init, "cuda")
+    if placement == "device":
+        return GraphRuntime.from_spec(spec, graph=graph, params=params)
+    del params["embed"]["codes_buf"]
+    rt = GraphRuntime.from_spec(spec.with_updates(codes_placement="host"), graph=graph,
+                                params=params, codes=codes)
+    check(rt.codes_on_host and _resident_code_bytes(rt) == 0,
+          "host placement left codes in the params")
+    return rt
+
+
+def _card_baseline() -> int:
+    """What the card holds before a runtime is built (after a collection),
+    so a run's peak is read above it, whatever earlier phases left."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _placement_run(rt, steps: int, path: str = "", baseline: int = 0) -> dict:
+    """``steps`` of ``rt.train`` timed at every step, with the card's peak
+    memory over the run above ``baseline`` (``_card_baseline`` before the
+    runtime was built: its params, the codes included, count) and, with
+    ``path``, the launch counts zeroed just before and read just after."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if path:
+        zero_counts()
+    res, periods = _train_timed(rt, steps)
+    torch.cuda.synchronize()
+    out = dict(losses=res.losses, periods=periods,
+               peak=torch.cuda.max_memory_allocated() - baseline,
+               median_ms=float(np.median(periods[1:GNN_TIMED])),
+               resident=_resident_code_bytes(rt), params=_snapshot(rt.params, "cpu"))
+    if path:
+        out["launches"] = read_counts(path)
+    if hasattr(rt.data_iter, "stats"):
+        st = rt.data_iter.stats()
+        n = max(st["n_produced"], 1)
+        out["producer"] = {k: round(st[k] / n, 1) for k in ("sample_us", "code_gather_us",
+                                                              "put_us")}
+        out["bytes_per_batch"] = st["transferred_code_bytes_per_batch"]
+        out["uint32_bytes_per_batch"] = st["uint32_code_bytes_per_batch"]
+    return out
+
+
+def _same_run(a: dict, b: dict, label: str) -> None:
+    """Two runs' losses and final params, bitwise (the device run's
+    ``codes_buf`` aside)."""
+    pa, pb = ({**r["params"], "embed": {"decoder": r["params"]["embed"]["decoder"]}}
+              for r in (a, b))
+    losses, params = a["losses"] == b["losses"], _same_tree(pa, pb)
+    print(f"[codes_host] {label}: host against device placement, {len(a['losses'])} losses "
+          f"bitwise {losses}, final params bitwise {params}", flush=True)
+    check(losses and params, f"codes_host {label}: host placement differs from device "
+                             f"placement")
+
+
+def _serve_routes(rt, requests, path: str = "") -> dict:
+    """``rt.serve()`` (cached), ``serve(cache_capacity=0)`` and the batching
+    tier (the requests submitted at once and taken as one microbatch), with
+    the medians of requests 3-8 and, with ``path``, the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import BatchingSpec
+    if path:
+        zero_counts()
+    cached, cached_ms = _serve_timed(rt.serve(), requests)
+    uncached, uncached_ms = _serve_timed(rt.serve(cache_capacity=0), requests)
+    with rt.serve(batching=BatchingSpec(max_batch=len(requests), max_delay_ms=50.0)) as tier:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = [f.result() for f in [tier.submit(r) for r in requests]]
+        batched_ms = (time.perf_counter() - t0) * 1e3
+    check(all(r.batch_requests == len(requests) for r in batched),
+          "codes_host: the batching tier did not take the requests as one microbatch")
+    out = dict(cached=cached, uncached=uncached, batched=batched,
+               cached_ms=float(np.median(cached_ms[2:])),
+               uncached_ms=float(np.median(uncached_ms[2:])), batched_ms=batched_ms)
+    if path:
+        out["launches"] = read_counts(path)
+    return out
+
+
+def _copies(graph, k: int):
+    """``k`` disjoint copies of ``(adj, labels)`` as one graph: the degree
+    distribution of the original at k times its nodes (the power-law
+    generator's own 1,354,744-node graph takes minutes on the host)."""
+    import numpy as np
+    from repro_torch.graph.csr import CSRMatrix
+    adj, labels = graph
+    n, nnz = adj.shape[0], adj.nnz
+    indptr = np.concatenate([adj.indptr[:1]] + [adj.indptr[1:] + c * nnz for c in range(k)])
+    indices = np.concatenate([adj.indices + c * n for c in range(k)])
+    return (CSRMatrix(np.tile(adj.data, k), indices.astype(np.int32), indptr.astype(np.int32),
+                      (k * n, k * n)), np.tile(labels, k))
+
+
+def phase_codes_host(graph) -> tuple:
+    """``codes_placement="host"`` at gnn_train's full width against device
+    placement from the same init and codes, in one run: 50 steps at prefetch
+    2 and 20 at prefetch 0 (losses and params bitwise), ``evaluate("val")``
+    and ``embed``, cached, uncached and batched serving, a killed and
+    resumed host run against 20 straight steps, the int8 family for 20
+    steps; the period, the producer's stages, the code bytes moved a batch
+    and held on the card and the peak memory of each; then the same at a
+    fixed frontier on the serve graph and on one of 8x its nodes.  Each
+    placement's runs hold the card alone.  Returns the launches by path,
+    every f32 and int8 row count the host path decoded, and the forward's
+    largest error at those sizes."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.codes import to_uint32
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    decoded, forward = {"float32": set(), "int8": set()}, hd_ops._forward
+
+    def recording_forward(codes, cb, *args, **kw):
+        decoded["int8" if cb.dtype == torch.int8 else "float32"].add(int(codes.shape[0]))
+        return forward(codes, cb, *args, **kw)
+
+    def seeded(spec, g):                   # the seeded init and codes, kept on the host
+        rt = GraphRuntime.from_spec(spec, graph=g)
+        out = _snapshot(rt.params, "cpu"), to_uint32(rt.codes)
+        rt.close()
+        del rt
+        torch.cuda.empty_cache()
+        return out
+
+    hd_ops._forward = recording_forward
+    spec = _gnn_spec()
+    init, codes = seeded(spec, graph)
+    rng = np.random.default_rng(20)
+    requests = [rng.choice(N_NODES, REQUEST, replace=False) for _ in range(8)]
+    eval_ids = rng.choice(N_NODES, REQUEST, replace=False).astype(np.int32)
+    runs, served, launches = {}, {}, {}
+    for placement in ("device", "host"):
+        host = placement == "host"
+        baseline = _card_baseline()
+        rt = _placed(spec, graph, init, codes, placement)
+        run = _placement_run(rt, HOST_STEPS, "codes_host" if host else "", baseline)
+        if host:                               # evaluate, embed and serve: one path
+            zero_counts()
+        run.update(evaluate=rt.evaluate("val"), embed=rt.embed(eval_ids))
+        rt.close()                             # stops the producer; serving reads the params
+        served[placement] = _serve_routes(rt, requests)
+        if host:
+            torch.cuda.synchronize()
+            launches["codes_host"] = run["launches"]
+            launches["codes_host_serve"] = read_counts("codes_host_serve")
+        runs[placement] = run
+        del rt
+        torch.cuda.empty_cache()
+        print(f"[codes_host] {placement} placement, {HOST_STEPS} steps at prefetch 2: period "
+              f"median {run['median_ms']:.3f} ms (steps 2-{GNN_TIMED}) "
+              f"{[round(t, 3) for t in run['periods'][1:GNN_TIMED]]}; producer a batch (us) "
+              f"{run['producer']}; code bytes moved a batch {run['bytes_per_batch']:.0f} (as "
+              f"int64 words; {run['uint32_bytes_per_batch']:.0f} as uint32), held on the card "
+              f"{run['resident']}; peak memory above the card's baseline {run['peak']} B; "
+              f"evaluate('val') "
+              f"{run['evaluate']}", flush=True)
+    dev, host = runs["device"], runs["host"]
+    _same_run(dev, host, f"{HOST_STEPS} steps at prefetch 2")
+    check(dev["evaluate"] == host["evaluate"] and np.array_equal(dev["embed"], host["embed"]),
+          "codes_host: evaluate or embed differs between the placements")
+    check(launches["codes_host"]["hash_decode"] == HOST_STEPS
+          and launches["codes_host"]["hash_decode_backward"] == HOST_STEPS,
+          f"codes_host: expected one forward and one backward launch a step: {launches}")
+    check(launches["codes_host_serve"]["hash_decode"] > 0
+          and launches["codes_host_serve"]["hash_decode_backward"] == 0,
+          f"codes_host: evaluate and serving launched {launches['codes_host_serve']}")
+    check(host["bytes_per_batch"] > 0 and dev["bytes_per_batch"] == 0
+          and dev["resident"] == 8 * codes.size and host["resident"] == 0,
+          "codes_host: the code bytes moved or held are not the placements'")
+    for route in ("cached", "uncached", "batched"):
+        check(all(np.array_equal(a.embeddings, b.embeddings)
+                  and np.array_equal(a.logits, b.logits) and a.rows_decoded == b.rows_decoded
+                  for a, b in zip(served["device"][route], served["host"][route])),
+              f"codes_host: {route} serving under host placement differs from device")
+    print(f"[codes_host] evaluate('val') and embed of {REQUEST} nodes bitwise equal; peak "
+          f"memory host - device {host['peak'] - dev['peak']} B (codes_buf "
+          f"{dev['resident']} B); serving, requests 3-8 median ms: cached (rt.serve()) device "
+          f"{served['device']['cached_ms']:.3f} / host {served['host']['cached_ms']:.3f}; "
+          f"uncached {served['device']['uncached_ms']:.3f} / {served['host']['uncached_ms']:.3f}; "
+          f"batched, {len(requests)} requests in one microbatch "
+          f"{served['device']['batched_ms']:.3f} / {served['host']['batched_ms']:.3f}; host "
+          f"responses bitwise the device's on all three routes; launches of evaluate, embed "
+          f"and serving {launches['codes_host_serve']}", flush=True)
+
+    # prefetch 0: the loop gathers the rows before each step
+    runs0 = {}
+    for placement in ("device", "host"):
+        baseline = _card_baseline()
+        rt = _placed(_gnn_spec(prefetch_depth=0), graph, init, codes, placement)
+        runs0[placement] = _placement_run(rt, HOST_STEPS0, baseline=baseline)
+        rt.close()
+        del rt
+    _same_run(runs0["device"], runs0["host"], f"{HOST_STEPS0} steps at prefetch 0")
+    print(f"[codes_host] prefetch 0 period median (steps 2-{GNN_TIMED}): device "
+          f"{runs0['device']['median_ms']:.3f} / host {runs0['host']['median_ms']:.3f} ms; "
+          f"peak {runs0['device']['peak']} / {runs0['host']['peak']} B", flush=True)
+
+    # killed at step 10 and resumed from the checkpoint alone
+    shutil.rmtree(HOST_CKPT, ignore_errors=True)
+    killed = _placed(_gnn_spec(ckpt_dir=str(HOST_CKPT), ckpt_every=10), graph, init, codes,
+                     "host")
+    head = killed.train(10).losses
+    killed.close()
+    del killed
+    resumed = GraphRuntime.resume(str(HOST_CKPT), graph=graph)
+    tail = resumed.train(HOST_STEPS0)
+    resumed.close()
+    same = head + tail.losses == runs0["host"]["losses"]
+    same_params = _same_tree(_snapshot(resumed.params, "cpu"), runs0["host"]["params"])
+    print(f"[codes_host] kill and resume: resumed from step {tail.resumed_from} with "
+          f"codes_placement {resumed.spec.model.embedding.codes_placement!r}; losses 1-20 "
+          f"bitwise {same}, final params bitwise {same_params} against 20 straight steps",
+          flush=True)
+    check(tail.resumed_from == 10 and resumed.codes_on_host and same and same_params,
+          "codes_host: the resumed host run differs from the straight one")
+    shutil.rmtree(HOST_CKPT, ignore_errors=True)
+    del resumed
+
+    # one family: int8 storage decodes through the int8 kernel
+    int8_spec = _family_spec("families_int8")
+    int8_init, _ = seeded(int8_spec, graph)
+    int8 = {}
+    for placement in ("device", "host"):
+        baseline = _card_baseline()
+        rt = _placed(int8_spec, graph, int8_init, codes, placement)
+        int8[placement] = _placement_run(rt, HOST_STEPS0,
+                                         "codes_host_int8" if placement == "host" else "",
+                                         baseline)
+        rt.close()
+        del rt
+    launches["codes_host_int8"] = int8["host"]["launches"]
+    _same_run(int8["device"], int8["host"], f"int8 storage, {HOST_STEPS0} steps")
+    print(f"[codes_host] int8 period median device {int8['device']['median_ms']:.3f} / host "
+          f"{int8['host']['median_ms']:.3f} ms; host launches {int8['host']['launches']}",
+          flush=True)
+
+    # the sweep: a fixed frontier (serve's cap) on the serve graph and on
+    # 8x its nodes, eight disjoint copies of it; random codes, since the
+    # placement does not depend on what the codes say
+    big = _copies(graph, SWEEP_NODES // N_NODES)
+    sweep, words = {}, {}
+    for n_nodes, g in ((N_NODES, graph), (SWEEP_NODES, big)):
+        sspec = _gnn_spec(n_nodes=n_nodes, frontier_cap=SWEEP_CAP).with_updates(
+            kind="random_full")
+        s_init, s_codes = seeded(sspec, g)
+        words[n_nodes] = s_codes.size
+        for placement in ("device", "host"):
+            baseline = _card_baseline()
+            rt = _placed(sspec, g, s_init, s_codes, placement)
+            sweep[(n_nodes, placement)] = _placement_run(rt, SWEEP_STEPS, baseline=baseline)
+            rt.close()
+            del rt
+            torch.cuda.empty_cache()
+        _same_run(sweep[(n_nodes, "device")], sweep[(n_nodes, "host")],
+                  f"sweep at {n_nodes} nodes, frontier {SWEEP_CAP} rows")
+    del big
+    hd_ops._forward = forward
+    for (n_nodes, placement), r in sweep.items():
+        print(f"[codes_host] sweep {n_nodes} nodes, {placement}: code bytes held on the card "
+              f"{r['resident']}, moved a batch {r['bytes_per_batch']:.0f}; period median "
+              f"{r['median_ms']:.3f} ms; producer a batch (us) {r['producer']}; peak memory "
+              f"above the card's baseline {r['peak']} B", flush=True)
+    check(all(r["resident"] == (8 * words[n] if p == "device" else 0)
+              for (n, p), r in sweep.items()),
+          "codes_host: the sweep's code bytes on the card are not the placements'")
+    sizes = {k: sorted(v) for k, v in decoded.items()}
+    err = max(check_gnn_frontiers(sizes["float32"], "decode sizes of the codes_host path"),
+              check_gnn_frontiers(sizes["int8"], "int8 decode sizes of the codes_host path",
+                                  variant="int8"))
+    summary = dict(period_ms={p: runs[p]["median_ms"] for p in runs},
+                   period0_ms={p: runs0[p]["median_ms"] for p in runs0},
+                   int8_period_ms={p: int8[p]["median_ms"] for p in int8},
+                   producer_us={p: runs[p]["producer"] for p in runs},
+                   bytes_per_batch=host["bytes_per_batch"],
+                   uint32_bytes_per_batch=host["uint32_bytes_per_batch"],
+                   resident={p: runs[p]["resident"] for p in runs},
+                   peak={p: runs[p]["peak"] for p in runs},
+                   serve_ms={p: {k: served[p][k] for k in ("cached_ms", "uncached_ms",
+                                                           "batched_ms")} for p in served},
+                   sweep={f"{n}/{p}": dict(resident=r["resident"], period_ms=r["median_ms"],
+                                           code_gather_us=r["producer"]["code_gather_us"],
+                                           peak=r["peak"])
+                          for (n, p), r in sweep.items()})
+    print(f"[codes_host] summary {json.dumps(summary)}", flush=True)
+    return launches, sizes, err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2904,6 +3238,7 @@ def main() -> None:
     phase_fullgraph_reference()
     family_launches, family_sizes, family_err, family_times = phase_families(graph)
     phase_families_reference()
+    host_launches, host_sizes, host_err = phase_codes_host(graph)
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
@@ -2911,7 +3246,7 @@ def main() -> None:
                                                     "decode sizes of the planned cached run"),
                                 check_gnn_frontiers(merchant_sizes,
                                                     "decode sizes of the merchant path"),
-                                family_err)
+                                family_err, host_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -2931,7 +3266,7 @@ def main() -> None:
              "reconstruct": rec_launches, "gnn_train": gnn_launches,
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
-             "merchant": merchant_launches, **family_launches}
+             "merchant": merchant_launches, **family_launches, **host_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -2950,6 +3285,8 @@ def main() -> None:
              variants=variants, cached_serve_sizes=serve_sizes,
              batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
              hashemb_sizes=family_sizes["hashemb"], int8_sizes=family_sizes["int8"],
+             codes_host_sizes=host_sizes["float32"],
+             codes_host_int8_sizes=host_sizes["int8"],
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

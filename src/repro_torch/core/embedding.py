@@ -15,6 +15,11 @@ compression family (``core.decoder``): ``hashemb`` stores no codes at all
 (``needs_codes`` is False) and hashes each id at lookup
 (``codes.position_codes``); ``tt`` keeps the codes and factorises the
 codebooks.
+
+``codes_placement="host"`` keeps the packed buffer in host RAM: the params
+carry only the decoder, and every lookup takes the batch's packed rows
+(``codes=``, gathered on the host by ``graph.sampler.attach_codes``), which
+replace the ``codes_buf[ids]`` gather bit for bit.
 """
 
 from __future__ import annotations
@@ -70,6 +75,12 @@ class EmbeddingConfig:
         hashes the ids at lookup instead."""
         return self.is_compressed and self.family != "hashemb"
 
+    @property
+    def codes_on_host(self) -> bool:
+        """Whether the codes exist but stay in host RAM (no ``codes_buf``):
+        lookups take the batch's packed rows."""
+        return self.needs_codes and self.codes_placement == "host"
+
     def decoder_config(self) -> DecoderConfig:
         variant = "light" if self.kind.endswith("light") else "full"
         return DecoderConfig(
@@ -99,17 +110,21 @@ def make_codes(generator: torch.Generator, cfg: EmbeddingConfig, aux=None,
 
 def init_embedding(generator: torch.Generator, cfg: EmbeddingConfig,
                    codes: Optional[torch.Tensor] = None, aux=None) -> Params:
-    if cfg.codes_placement != "device":
-        raise NotImplementedError(
-            f"codes_placement={cfg.codes_placement!r} is not ported yet; it "
-            f"comes with the codes-on-host slice (ROADMAP A.15)")
+    """Params of the embedding.  A compressed kind draws its codes first
+    unless ``codes`` is given, then the decoder; under
+    ``codes_placement="host"`` the params carry only the decoder (the caller
+    keeps the codes) and nothing is drawn for them."""
+    if cfg.codes_placement not in ("device", "host"):
+        raise ValueError(
+            f"unknown codes_placement {cfg.codes_placement!r} "
+            f"(expected 'device' or 'host')")
     dev = generator.device
     if cfg.kind == "dense":
         return {"table": torch.randn(cfg.n_entities, cfg.d_e, generator=generator,
                                      device=dev) * 0.02}
     if not cfg.is_compressed:
         raise ValueError(f"unknown embedding kind {cfg.kind!r}")
-    if not cfg.needs_codes:
+    if not cfg.needs_codes or cfg.codes_on_host:
         return {"decoder": init_decoder(generator, cfg.decoder_config())}
     if codes is None:
         codes = make_codes(generator, cfg, aux)
@@ -120,36 +135,58 @@ def init_embedding(generator: torch.Generator, cfg: EmbeddingConfig,
             "decoder": init_decoder(generator, cfg.decoder_config())}
 
 
-def lookup_codes(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig
-                 ) -> torch.Tensor:
+def lookup_codes(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig,
+                 codes=None) -> torch.Tensor:
     """ids (...,) -> codes (..., m) int32: the stored row unpacked, or
-    (hashemb) the id's position hashes."""
+    (hashemb) the id's position hashes.  ``codes`` is the batch's packed
+    rows for ``ids`` (``ids.shape + (n_words,)``, int64 bit patterns or
+    uint32), gathered on the host; required under ``codes_placement="host"``,
+    where the params carry no ``codes_buf``."""
     with stage("unpack"):
         if not cfg.needs_codes:
             return codes_lib.position_codes(ids.reshape(-1), cfg.c, cfg.m).reshape(
                 *ids.shape, cfg.m)
-        packed = params["codes_buf"][ids.to(torch.int64)]
+        if codes is not None:
+            packed = (codes if isinstance(codes, torch.Tensor) and codes.dtype == torch.int64
+                      else codes_lib.from_uint32(codes)).to(ids.device)
+        elif "codes_buf" in params:
+            packed = params["codes_buf"][ids.to(torch.int64)]
+        else:
+            raise ValueError(
+                "embed_lookup: params carry no codes_buf and no batch codes "
+                "were passed — with codes_placement='host' every lookup must "
+                "receive the frontier's packed rows via codes=...")
         return codes_lib.unpack_codes(packed, cfg.c, cfg.m)
 
 
 def embed_lookup(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig, *,
-                 backend: Optional[DecodeBackend] = None) -> torch.Tensor:
+                 backend: Optional[DecodeBackend] = None, codes=None) -> torch.Tensor:
     """ids (...,) -> embeddings (..., d_e).  ``backend`` is an optional
-    resolved ``DecodeBackend`` overriding ``cfg.lookup_impl``."""
+    resolved ``DecodeBackend`` overriding ``cfg.lookup_impl``; ``codes`` the
+    batch's packed rows (``lookup_codes``)."""
     if cfg.kind == "dense":
         return params["table"].to(torch_dtype(cfg.compute_dtype))[ids.to(torch.int64)]
-    return apply_decoder(params["decoder"], lookup_codes(params, ids, cfg),
+    return apply_decoder(params["decoder"], lookup_codes(params, ids, cfg, codes),
                          cfg.decoder_config(), backend=backend)
 
 
 def decode_all(params: Params, cfg: EmbeddingConfig, block: int = 8192,
-               backend: Optional[DecodeBackend] = None) -> torch.Tensor:
-    """The full reconstructed table, decoded in blocks to bound peak memory."""
+               backend: Optional[DecodeBackend] = None, host_codes=None) -> torch.Tensor:
+    """The full reconstructed table, decoded in blocks to bound peak memory.
+    ``host_codes`` is the whole packed buffer (uint32) under
+    ``codes_placement="host"``: each block's rows move to the device as the
+    block is decoded."""
     if cfg.kind == "dense":
         return params["table"]
+    if cfg.codes_on_host and host_codes is None:
+        raise ValueError("decode_all: codes_placement='host' needs "
+                         "host_codes (the full packed buffer)")
     dev = params["decoder"]["mlp"]["w0"].device
+    blocks = []
     with torch.no_grad():
-        return torch.cat([
-            embed_lookup(params, torch.arange(s, min(s + block, cfg.n_entities),
-                                              device=dev), cfg, backend=backend)
-            for s in range(0, cfg.n_entities, block)])
+        for s in range(0, cfg.n_entities, block):
+            e = min(s + block, cfg.n_entities)
+            rows = host_codes[s:e] if cfg.codes_on_host else None
+            blocks.append(embed_lookup(params, torch.arange(s, e, device=dev), cfg,
+                                       backend=backend, codes=rows))
+    return torch.cat(blocks)

@@ -19,6 +19,8 @@ counterpart of the single-device part of ``repro/graph/engine.py``.
   side stream; the consumer's stream waits on the copy's event before it
   uses the batch, and the moved tensors are recorded on the consumer's
   stream so the caching allocator does not hand their memory out early.
+  With codes kept on the host its ``code_gather`` attaches each frontier's
+  packed code rows in the producer, before the copy.
 """
 
 from __future__ import annotations
@@ -36,11 +38,9 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import CachedDecodeBackend, HostCacheShadow, get_backend
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRMatrix, DeviceCSR
-from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, stream_key
+from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, as_int64, stream_key
 from repro_torch.models import gnn
 from repro_torch.stages import stage
-
-CODES_ON_HOST_SLICE = "the codes-on-host slice (ROADMAP A.15)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +147,9 @@ def map_arrays(batch, fn: Callable):
 
 def batch_to(batch, device: torch.device):
     """Every array of ``batch`` as an int64 tensor on ``device`` (a
-    frontier's ``valid`` mask as 0/1; ``FrontierBatch.to`` makes it bool)."""
-    return map_arrays(batch, lambda a: torch.as_tensor(a).to(device, torch.int64))
+    frontier's ``valid`` mask as 0/1, ``FrontierBatch.to`` makes it bool;
+    uint32 code words keep their bit patterns)."""
+    return map_arrays(batch, lambda a: as_int64(a, device))
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +303,13 @@ class MissPlanningSource:
 # async prefetch
 # ---------------------------------------------------------------------------
 
+def _code_words(batch) -> int:
+    """Packed code words a (host) batch carries: its frontier's ``codes``."""
+    fb = batch.get("frontier") if isinstance(batch, dict) else batch
+    codes = getattr(fb, "codes", None)
+    return 0 if codes is None else int(np.size(codes))
+
+
 class _OnCard:
     """A batch copied to the card on the producer's side stream, and the
     event that copy recorded."""
@@ -338,16 +346,19 @@ class PrefetchIterator:
     ``next_batch`` restarts the producer.  A producer's error is raised on
     the consumer's side.
 
-    ``code_gather`` (codes kept on the host) is not ported yet and raises.
+    ``code_gather`` (``codes_placement="host"``) is a host ``batch -> batch``
+    callable, the runtime's ``attach_codes`` of its buffer: the producer
+    runs it on each batch after ``source.next_batch()`` (so after a miss
+    planner's permutation) and before the copy, so a frontier's code rows
+    are gathered and copied while the card runs the previous step, in the
+    batch's one pinned buffer.  ``stats()`` accounts its time and the code
+    bytes it adds.
     """
 
     def __init__(self, source, depth: int = 2, device: DeviceLike = None,
-                 code_gather=None):
-        if code_gather is not None:
-            raise NotImplementedError(
-                f"PrefetchIterator(code_gather=...) is not ported yet; it comes "
-                f"with {CODES_ON_HOST_SLICE}")
+                 code_gather: Optional[Callable[[Any], Any]] = None):
         self.source = source
+        self._code_gather = code_gather
         self.depth = max(1, int(depth))
         self.device = None if device is None else torch.device(device)
         self._stream = None
@@ -363,7 +374,9 @@ class PrefetchIterator:
         self._last_state = self._snapshot()
         self._n_produced = 0
         self._sample_us = 0.0
+        self._code_gather_us = 0.0
         self._put_us = 0.0
+        self._code_words = 0
         self._start()
 
     # -- internals -------------------------------------------------------
@@ -418,10 +431,16 @@ class PrefetchIterator:
                     batch = self.source.next_batch()
                     state = self._snapshot()
                 t1 = time.perf_counter()
-                batch = self._put(batch)
+                if self._code_gather is not None:
+                    batch = self._code_gather(batch)
+                words = _code_words(batch)
                 t2 = time.perf_counter()
+                batch = self._put(batch)
+                t3 = time.perf_counter()
                 self._sample_us += (t1 - t0) * 1e6
-                self._put_us += (t2 - t1) * 1e6
+                self._code_gather_us += (t2 - t1) * 1e6
+                self._put_us += (t3 - t2) * 1e6
+                self._code_words += words
                 self._n_produced += 1
                 item = (batch, state)
                 while not stop.is_set():
@@ -471,11 +490,21 @@ class PrefetchIterator:
             self.source.load_state_dict(self._last_state)
 
     def stats(self) -> Dict[str, float]:
-        """Producer-side wall clock since construction: ``sample_us`` (the
-        source's ``next_batch``) and ``put_us`` (the device copy, waited
-        for), and the number of batches produced."""
-        return {"n_produced": self._n_produced, "sample_us": self._sample_us,
-                "put_us": self._put_us}
+        """Producer-side accounting since construction: the number of
+        batches produced; wall clock of ``sample_us`` (the source's
+        ``next_batch``), ``code_gather_us`` (``code_gather``) and ``put_us``
+        (the device copy, waited for); and the batches' code rows.  The
+        port moves each code word as an int64, so
+        ``transferred_code_bytes`` counts 8 bytes a word; the ``uint32``
+        keys count the JAX package's 4."""
+        n = self._n_produced
+        moved, packed = 8 * self._code_words, 4 * self._code_words
+        return {"n_produced": n, "sample_us": self._sample_us,
+                "code_gather_us": self._code_gather_us, "put_us": self._put_us,
+                "transferred_code_bytes": moved,
+                "transferred_code_bytes_per_batch": moved / n if n else 0.0,
+                "uint32_code_bytes": packed,
+                "uint32_code_bytes_per_batch": packed / n if n else 0.0}
 
     # -- checkpointable state -------------------------------------------
     def state_dict(self):

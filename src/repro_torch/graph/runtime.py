@@ -19,15 +19,19 @@ continuous-batching tier (``batching``) as spec field changes, as in the
 JAX package; and the full-graph GCN / SGC / GIN (``model``), which train,
 evaluate and embed in one pass over all nodes with the normalised
 adjacency uploaded once (``FullGraphSource``; no sampler, no prefetch,
-no serving).  Sharding, codes on the host and elastic training are later
-slices, and a spec that asks for them raises ``NotImplementedError``
-naming the slice.
+no serving).  ``codes_placement="host"`` keeps the packed codes in host
+RAM as the JAX package does: the params carry no ``codes_buf``, and every
+frontier of training, evaluation and serving takes its code rows from the
+runtime's numpy buffer (``codes``) on the host.  Sharding and elastic
+training are later slices, and a spec that asks for them raises
+``NotImplementedError`` naming the slice.
 
 Graph, splits and batches are pure functions of the spec's seeds (numpy,
 identical to the JAX package's); the LSH projections and weights come from
 a ``torch.Generator`` seeded with ``init_seed`` on the runtime's device.
 Parity with a JAX-built runtime goes through ``params=``
-(``repro_torch.interop.params_from_jax``).
+(``repro_torch.interop.params_from_jax``), and under host placement,
+whose params carry no codes, the JAX runtime's buffer through ``codes=``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.graph.engine import (FullGraphBatch, GNNModel, MissPlanningSource,
                                       PrefetchIterator, SageBatchSource, _step_rng)
 from repro_torch.graph.generate import train_val_test_split
-from repro_torch.graph.sampler import NeighborSampler
+from repro_torch.graph.sampler import NeighborSampler, attach_codes
 from repro_torch.nn.module import map_tree
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving.batcher import BatchingSpec
@@ -187,15 +191,11 @@ class RuntimeSpec:
 
 def _check_ported(spec: RuntimeSpec) -> None:
     """Raise for every spec knob whose slice is not ported yet."""
-    emb = spec.model.embedding
     later = []
     if spec.n_shards > 1:
         later.append(f"n_shards={spec.n_shards}: the multi-GPU slice (ROADMAP A.14)")
     if spec.elastic is not None:
         later.append("elastic: the elastic-training slice (ROADMAP A.16)")
-    if emb.codes_placement != "device":
-        later.append(f"codes_placement={emb.codes_placement!r}: the "
-                     f"codes-on-host slice (ROADMAP A.15)")
     if later:
         raise NotImplementedError("not ported yet — " + "; ".join(later))
 
@@ -236,13 +236,18 @@ class GraphRuntime:
     normalised adjacency, uploaded once, and a ``FullGraphSource`` in place
     of the last three.  ``state`` (params, optimizer,
     step), ``data_iter`` and ``train_step`` are exposed for callers that
-    drive steps themselves."""
+    drive steps themselves.  Under ``codes_placement="host"`` the numpy
+    uint32 buffer ``codes`` is the codes' only copy, and a code gather
+    (``attach_codes``) runs in the prefetch producer, or before each step
+    without prefetch."""
 
     def __init__(self, spec: RuntimeSpec, *, adj, labels, device: torch.device,
-                 params=None):
+                 params=None, codes=None):
         cfg = spec.model
+        ecfg = cfg.embedding_config()
         self.fullgraph = cfg.model in FULLGRAPH_MODELS
-        if self.fullgraph and cfg.embedding.codes_placement == "host":
+        self.codes_on_host = ecfg.codes_on_host
+        if self.fullgraph and self.codes_on_host:
             raise ValueError(
                 "codes_placement='host' needs the sampled (frontier) model "
                 "family — full-graph models decode every node per step, so "
@@ -259,13 +264,29 @@ class GraphRuntime:
         self.cfg = cfg
         self.device = device
         self.model = GNNModel(cfg, device)
-        if params is None:
+        if codes is not None and not self.codes_on_host:
+            raise ValueError("codes= is the host buffer of codes_placement='host'; "
+                             "device-placed codes ride in the params")
+        if params is None or (self.codes_on_host and codes is None):
             from repro_torch.core import embedding as emb_lib
             gen = make_generator(spec.init_seed, device)
-            ecfg = cfg.embedding_config()
-            # hashemb stores no codes: it hashes the ids at every lookup
-            codes = emb_lib.make_codes(gen, ecfg, aux=adj) if ecfg.needs_codes else None
-            params = self.model.init(gen, codes=codes)
+            # the codes come first from the seeded generator, so a host
+            # buffer drawn beside given params is the seeded init's; hashemb
+            # stores no codes: it hashes the ids at every lookup
+            if codes is None and ecfg.needs_codes:
+                codes = emb_lib.make_codes(gen, ecfg, aux=adj)
+            if params is None:
+                params = self.model.init(gen, codes=codes)
+        self.host_codes = None
+        self._to_device = lambda b: b
+        if self.codes_on_host:
+            from repro_torch.core.codes import n_words, to_uint32
+            # the authoritative buffer: numpy uint32 words, the JAX layout
+            self.host_codes = np.ascontiguousarray(
+                to_uint32(codes) if isinstance(codes, torch.Tensor) else codes, np.uint32)
+            want = (cfg.n_nodes, n_words(ecfg.c, ecfg.m))
+            if self.host_codes.shape != want:
+                raise ValueError(f"codes shape {self.host_codes.shape} != {want}")
         from repro_torch.train.step import init_gnn_train_state, make_gnn_train_step
         self.state = init_gnn_train_state(None, cfg, params=params)
 
@@ -304,24 +325,43 @@ class GraphRuntime:
             self.source = MissPlanningSource(self.source, emb.cache_capacity,
                                              emb.cache_staleness, pad_to=spec.pad_to)
         # prefetch is a knob, not a code path: the step takes host or
-        # device batches alike
+        # device batches alike.  Host codes: the producer attaches a batch's
+        # rows, or without prefetch the loop does before each step
+        gather = self._attach if self.codes_on_host else None
         self.data_iter = (PrefetchIterator(self.source, depth=spec.prefetch_depth,
-                                           device=device)
+                                           device=device, code_gather=gather)
                           if spec.prefetch_depth > 0 else self.source)
+        if gather is not None and spec.prefetch_depth <= 0:
+            self._to_device = gather
+
+    def _attach(self, batch):
+        """A batch with its frontier's packed code rows from the host buffer."""
+        if isinstance(batch, dict) and "frontier" in batch:
+            batch = dict(batch, frontier=attach_codes(batch["frontier"], self.host_codes))
+        return batch
+
+    def _frontier(self, ids: np.ndarray, rng: np.random.Generator):
+        """An evaluation frontier of ``ids``, with its code rows under host
+        placement."""
+        fb = self.sampler.sample_frontier(ids, pad_to=self.spec.pad_to, rng=rng)
+        return attach_codes(fb, self.host_codes) if self.codes_on_host else fb
 
     # -- construction ----------------------------------------------------
     @classmethod
     def from_spec(cls, spec: RuntimeSpec,
                   graph: Optional[Tuple[Any, np.ndarray]] = None,
-                  device: DeviceLike = None, params=None) -> "GraphRuntime":
+                  device: DeviceLike = None, params=None, codes=None) -> "GraphRuntime":
         """Build the pipeline from a spec on ``device`` (default: the CUDA
         card; raises without one unless ``device="cpu"``).  ``graph``
         overrides the spec's generator with a pre-built ``(adj, labels)``;
         ``params`` replaces the seeded init (e.g. JAX params through
-        ``interop.params_from_jax``)."""
+        ``interop.params_from_jax``).  ``codes`` (``codes_placement="host"``
+        only) is the packed uint32 buffer, (n_nodes, n_words), in place of
+        encoding the graph: JAX's host-placed params carry no codes, and
+        its buffer is ``GraphRuntime.codes`` there."""
         device = resolve_device(device)
         adj, labels = spec.graph.build() if graph is None else graph
-        return cls(spec, adj=adj, labels=labels, device=device, params=params)
+        return cls(spec, adj=adj, labels=labels, device=device, params=params, codes=codes)
 
     @classmethod
     def resume(cls, ckpt_dir: str, graph: Optional[Tuple[Any, np.ndarray]] = None,
@@ -329,7 +369,8 @@ class GraphRuntime:
         """Rebuild a runtime from the spec in ``ckpt_dir``'s newest
         checkpoint and restore its params, optimizer and data state, so
         ``evaluate`` / ``embed`` / ``serve`` see the trained model and a
-        later ``train`` continues the exact step sequence."""
+        later ``train`` continues the exact step sequence.  The spec keeps
+        the codes' placement; host codes are drawn again from its seed."""
         from repro_torch.train.checkpoint import CheckpointManager
         extra = CheckpointManager(ckpt_dir).read_extra()
         if extra is None or "spec" not in extra:
@@ -354,9 +395,12 @@ class GraphRuntime:
         return self.state["params"]
 
     @property
-    def codes(self) -> Optional[torch.Tensor]:
-        """The packed code buffer (int64 words), or None for dense kinds
-        and the hashemb family."""
+    def codes(self):
+        """The packed code buffer: the params' ``codes_buf`` (int64 words on
+        the device), under ``codes_placement="host"`` the numpy uint32
+        buffer on the host; None for dense kinds and the hashemb family."""
+        if self.codes_on_host:
+            return self.host_codes
         return self.params["embed"].get("codes_buf")
 
     def train(self, steps: Optional[int] = None,
@@ -375,7 +419,7 @@ class GraphRuntime:
             self.train_step, self.state, self.data_iter,
             LoopConfig(total_steps=total, ckpt_every=spec.ckpt_every,
                        log_every=spec.log_every),
-            ckpt=self.ckpt, on_metrics=on_metrics,
+            ckpt=self.ckpt, to_device=self._to_device, on_metrics=on_metrics,
             extra_base={"spec": spec.to_dict()}, fence=fence,
             topology={"n_shards": spec.n_shards, "batch_size": spec.batch_size})
         self.state = res.state
@@ -407,8 +451,7 @@ class GraphRuntime:
             n_real = batch.shape[0]
             if n_real < bs:                      # pad (masked out below)
                 batch = np.concatenate([batch, np.full(bs - n_real, batch[0], batch.dtype)])
-            fb = self.sampler.sample_frontier(batch.astype(np.int32), pad_to=self.spec.pad_to,
-                                              rng=_step_rng(self.spec.eval_seed, bi))
+            fb = self._frontier(batch.astype(np.int32), _step_rng(self.spec.eval_seed, bi))
             logits = self.model.logits(params, self.model.apply(params, fb))
             logits = logits[:n_real].float().cpu()
             labels = torch.from_numpy(self.labels[batch[:n_real]].astype(np.int64))
@@ -428,8 +471,7 @@ class GraphRuntime:
         if self.fullgraph:
             h = self.model.apply(self.params, self.full)
             return h[torch.from_numpy(ids.astype(np.int64)).to(self.device)].cpu().numpy()
-        rng = np.random.default_rng(self.spec.eval_seed)
-        fb = self.sampler.sample_frontier(ids, pad_to=self.spec.pad_to, rng=rng)
+        fb = self._frontier(ids, np.random.default_rng(self.spec.eval_seed))
         return self.model.apply(self.params, fb).cpu().numpy()
 
     def serve(self, *, batching=None, **overrides):
@@ -457,6 +499,9 @@ class GraphRuntime:
             batching = BatchingSpec()
         kw = dict(serve_batch=self.spec.serve_batch, pad_to=self.spec.pad_to,
                   device=self.device)
+        if self.codes_on_host:
+            # the engine gathers each serving frontier's rows from the buffer
+            kw.setdefault("host_codes", self.host_codes)
         if batching:
             # the engine's request-count buckets must admit the batcher's flushes
             kw.setdefault("max_coalesce", batching.max_batch)

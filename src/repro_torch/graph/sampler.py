@@ -12,7 +12,9 @@ same levels bit for bit:
 Isolated nodes self-sample.  ``FrontierBatch`` carries the *unique* node
 frontier plus int64 index maps per level, so the embedding decoder runs
 once per unique node (``unique[index_maps[i]] == levels[i]``); ``to``
-moves it to the device as tensors.
+moves it to the device as tensors.  ``attach_codes`` gathers a frontier's
+packed code rows on the host (codes kept on the host, the batch's
+``codes``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,15 @@ def stream_key(seed: int, step: int) -> np.uint64:
     return np.uint64(_mix64(k))
 
 
+def as_int64(a, device) -> torch.Tensor:
+    """An array as an int64 tensor on ``device``.  A numpy array widens on
+    the host, so a uint32 code word at or above 2**31 keeps its bit
+    pattern whatever the device's support for ``torch.uint32``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.int64)
+    return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class FrontierBatch:
     """Deduplicated sampled minibatch (numpy on the host, tensors after
@@ -68,7 +79,8 @@ class FrontierBatch:
                    misses and every valid row past it a predicted hit
                    (``CachedDecodeBackend.lookup_missonly``).
     ``codes``      optional (U_pad, n_words) packed code rows of the
-                   frontier (``attach_codes``).
+                   frontier, row-aligned with ``unique`` (``attach_codes``;
+                   uint32 on the host, int64 bit patterns after ``to``).
     """
 
     unique: Array
@@ -104,11 +116,11 @@ class FrontierBatch:
         return cls(uniq.astype(np.int32), tuple(maps), int(n_unique))
 
     def to(self, device) -> "FrontierBatch":
-        """Tensors on ``device`` (ids and maps as int64, ``valid`` as bool,
-        ``n_decode`` a plain int); a batch already there is returned as it
-        is."""
+        """Tensors on ``device`` (ids, maps and code words as int64,
+        ``valid`` as bool, ``n_decode`` a plain int); a batch already there
+        is returned as it is."""
         def t(a):
-            return torch.as_tensor(a).to(device, torch.int64)
+            return as_int64(a, device)
         return FrontierBatch(
             t(self.unique), tuple(t(m) for m in self.index_maps), int(self.n_unique),
             valid=(None if self.valid is None
@@ -133,12 +145,15 @@ class FrontierBatch:
 
 
 def attach_codes(fb: FrontierBatch, host_codes: np.ndarray) -> FrontierBatch:
-    """Gather the frontier's packed code rows (``host_codes[fb.unique]``)
-    into the batch's ``codes`` field."""
+    """Gather the frontier's packed code rows (``host_codes[fb.unique]``,
+    the bits of the ``codes_buf[ids]`` gather it replaces) into the batch's
+    ``codes`` field.  It keys off the final ``unique``, so it runs after any
+    permutation of the frontier (the miss planner's, the serving plan's); a
+    batch that has its rows already is returned as it is."""
     if fb.codes is not None:
         return fb
-    rows = np.ascontiguousarray(
-        np.asarray(host_codes, np.uint32)[np.asarray(fb.unique)])
+    # np.take copies whole rows: 4-10x the 2-D fancy index's speed, its bits
+    rows = np.take(np.asarray(host_codes, np.uint32), np.asarray(fb.unique), axis=0)
     return dataclasses.replace(fb, codes=rows)
 
 

@@ -92,9 +92,11 @@ def sage_forward_frontier(params, fb: FrontierBatch, cfg: GNNConfig,
     gathers are ``F.embedding``, whose backward sums each frontier row's
     gradients in a fixed order on both devices (``hu[m]``'s backward, an
     accumulating ``index_put_``, adds them with atomics on the CPU), so a
-    step's gradients are the same bits on every run."""
+    step's gradients are the same bits on every run.  A batch that carries
+    its packed code rows (``fb.codes``, codes kept on the host) decodes
+    them in place of the ``codes_buf`` gather."""
     hu = emb_lib.embed_lookup(params["embed"], fb.unique, cfg.embedding_config(),
-                              backend=backend)                      # (U, de)
+                              backend=backend, codes=fb.codes)      # (U, de)
     return _levels(params, hu, fb)
 
 
@@ -109,13 +111,15 @@ def sage_forward_frontier_cached(params, fb: FrontierBatch, cfg: GNNConfig,
     decode goes through a ``CachedDecodeBackend`` keyed by node id, so ids
     whose cached embedding is within the staleness budget are served from
     the cache (no gradient) and the rest decode fresh and are written back.
-    The frontier's padding rows are masked out of the cache.  Returns
-    ``(hidden, new_cache_state)``."""
+    The frontier's padding rows are masked out of the cache.  ``lookup``
+    hands ``decode_fn`` the whole frontier in order, so the batch's code
+    rows go with it as they are.  Returns ``(hidden, new_cache_state)``."""
     ecfg = cfg.embedding_config()
     cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
     hu, new_state = cache.lookup(
         cache_state, fb.unique,
-        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend),
+        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend,
+                                       codes=fb.codes),
         valid=fb.valid_mask())
     return _levels(params, hu, fb), new_state
 
@@ -126,14 +130,17 @@ def sage_forward_frontier_missonly(params, fb: FrontierBatch, cfg: GNNConfig,
     """Miss-only twin of ``sage_forward_frontier_cached``: the frontier was
     permuted miss-first on the host (``CachedDecodeBackend.plan_missonly``),
     so only its first ``n_decode`` rows enter the decoder and every other
-    valid row is served from the cache.  Returns ``(hidden,
-    new_cache_state)``; with ``buffers`` the cache is updated in place
-    (``CachedDecodeBackend.lookup_missonly``)."""
+    valid row is served from the cache; the batch's code rows, aligned
+    with the permuted frontier, are cut to the same prefix.  Returns
+    ``(hidden, new_cache_state)``; with ``buffers`` the cache is updated in
+    place (``CachedDecodeBackend.lookup_missonly``)."""
     ecfg = cfg.embedding_config()
     cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
     hu, new_state = cache.lookup_missonly(
         cache_state, fb.unique,
-        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend),
+        lambda i: emb_lib.embed_lookup(
+            params["embed"], i, ecfg, backend=backend,
+            codes=None if fb.codes is None else fb.codes[:i.shape[0]]),
         n_decode, valid=fb.valid_mask(), buffers=buffers)
     return _levels(params, hu, fb), new_state
 

@@ -20,6 +20,12 @@ frontier row (the uncached reference).
 concatenate into ONE ``FrontierBatch``, so a node requested by several
 requests decodes once; the request count pads to a power-of-two bucket
 with filler requests that repeat request 0 (zero extra unique rows).
+
+Params built with ``codes_placement="host"`` carry no ``codes_buf``: the
+engine takes the packed buffer (``host_codes``) and gathers each planned
+frontier's rows on the host, after the miss-first permutation, so the rows
+stay aligned with the permuted frontier and the card holds only the
+microbatch's code rows.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from repro_torch.core import backend as backend_mod
 from repro_torch.core.backend import CachedDecodeBackend, CacheState
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.engine import GNNModel, default_frontier_cap
-from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, _mix64
+from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, _mix64, attach_codes
 from repro_torch.stages import stage
 
 
@@ -57,13 +63,15 @@ class GraphInferenceEngine:
     ``lookup_impl``; ``"auto"`` resolves for ``device``); unknown names fail
     at construction.  ``cache_capacity`` sizes the cross-request hot-node
     cache (``None``: ~4 frontiers' worth of rows, the JAX default; 0 turns
-    it off)."""
+    it off).  ``host_codes`` is the packed uint32 buffer of params built
+    with ``codes_placement="host"`` (required there)."""
 
     def __init__(self, cfg: GNNConfig, params, sampler: NeighborSampler, *,
                  decode_backend: Optional[str] = None, serve_batch: int = 256,
                  frontier_cap: Optional[int] = None, pad_to: int = 256,
                  cache_capacity: Optional[int] = None, seed: int = 0,
-                 max_coalesce: int = 8, device: DeviceLike = None):
+                 max_coalesce: int = 8, device: DeviceLike = None,
+                 host_codes: Optional[np.ndarray] = None):
         if cfg.model != "sage":
             raise ValueError(
                 f"GraphInferenceEngine serves minibatched GraphSAGE; got "
@@ -83,6 +91,11 @@ class GraphInferenceEngine:
         self.cfg = cfg
         self.params = params
         self.sampler = sampler
+        self.host_codes = None if host_codes is None else np.asarray(host_codes, np.uint32)
+        if cfg.embedding_config().codes_on_host and self.host_codes is None:
+            raise ValueError(
+                "codes_placement='host' params carry no codes_buf — pass "
+                "host_codes (the full packed buffer) to the engine")
         self.model = GNNModel(cfg, self.device)
         self.serve_batch = int(serve_batch)
         self.pad_to = int(pad_to)
@@ -168,8 +181,12 @@ class GraphInferenceEngine:
 
     def frontier_for(self, node_ids) -> FrontierBatch:
         """The exact (padded, fixed-cap) frontier ``serve`` samples for a
-        request.  Deterministic in ``(seed, node_ids)``."""
-        return self.coalesced_frontier([node_ids])
+        request, with its code rows under host codes.  Deterministic in
+        ``(seed, node_ids)``."""
+        return self._attach_codes(self.coalesced_frontier([node_ids]))
+
+    def _attach_codes(self, fb: FrontierBatch) -> FrontierBatch:
+        return fb if self.host_codes is None else attach_codes(fb, self.host_codes)
 
     def coalesced_frontier(self, requests: Sequence) -> FrontierBatch:
         """The ONE frontier ``serve_many(requests)`` decodes: every request's
@@ -195,17 +212,18 @@ class GraphInferenceEngine:
         """The frontier ``serve_many(requests)`` decodes next: the coalesced
         frontier and, with the cache on, permuted miss-first against the
         cache as it stands, with its ``valid`` mask and ``n_decode`` (the
-        miss count's bucket).  A pure function of the requests and the
-        cache state."""
+        miss count's bucket), then with its code rows under host codes.  A
+        pure function of the requests and the cache state."""
         return self._plan(requests)[0]
 
     def _plan(self, requests: Sequence) -> Tuple[FrontierBatch, int]:
         """``(planned_frontier(requests), n_miss)``: the partition is
         ``CachedDecodeBackend.plan_missonly``'s, with membership read from
-        the host's table of cached ids."""
+        the host's table of cached ids.  Host code rows attach last, to the
+        permuted frontier."""
         fb = self.coalesced_frontier(requests)
         if not self.cached:
-            return fb, fb.n_unique
+            return self._attach_codes(fb), fb.n_unique
         with stage("plan"):
             if self._held_stale:
                 self._read_held()
@@ -214,10 +232,10 @@ class GraphInferenceEngine:
             perm, n_miss = CachedDecodeBackend.partition(valid & ~self._held[fb.unique])
             inv = np.empty_like(perm)
             inv[perm] = np.arange(cap, dtype=np.int32)
-            return FrontierBatch(fb.unique[perm], tuple(np.take(inv, m) for m in fb.index_maps),
-                                 fb.n_unique, valid=valid[perm],
-                                 n_decode=CachedDecodeBackend.miss_bucket(
-                                     n_miss, self.pad_to, cap)), n_miss
+            fb = FrontierBatch(fb.unique[perm], tuple(np.take(inv, m) for m in fb.index_maps),
+                               fb.n_unique, valid=valid[perm],
+                               n_decode=CachedDecodeBackend.miss_bucket(n_miss, self.pad_to, cap))
+        return self._attach_codes(fb), n_miss
 
     # -- request API -----------------------------------------------------
     def serve(self, node_ids) -> GraphServeResult:

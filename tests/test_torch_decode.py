@@ -199,7 +199,11 @@ def test_embedding_kinds_and_not_ported_placement():
     assert tuple(temb.embed_lookup(temb.init_embedding(g, dense), torch.arange(4), dense).shape) == (4, 8)
     with pytest.raises(ValueError, match="aux"):
         temb.make_codes(g, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        temb.init_embedding(g, dataclasses.replace(cfg, codes_placement="host"), aux=tadj)
+    # host placement (ported): the params carry the decoder alone; an
+    # unknown placement is refused at init
+    host = dataclasses.replace(cfg, codes_placement="host")
+    assert host.codes_on_host and set(temb.init_embedding(g, host, aux=tadj)) == {"decoder"}
+    with pytest.raises(ValueError, match="codes_placement"):
+        temb.init_embedding(g, dataclasses.replace(cfg, codes_placement="hbm"), aux=tadj)
     hashemb = dataclasses.replace(cfg, lookup_impl="hashemb")      # ported: no codes
     assert set(temb.init_embedding(g, hashemb, aux=tadj)) == {"decoder"}

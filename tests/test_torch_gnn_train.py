@@ -229,8 +229,21 @@ def test_prefetch_propagates_source_errors_and_refuses_code_gather():
             pf.next_batch()
     finally:
         pf.close()
-    with pytest.raises(NotImplementedError, match="A.15"):
-        t_engine.PrefetchIterator(Boom(), code_gather=lambda b: b)
+    # the code gather (codes on the host) runs in the producer too: its
+    # errors reach the consumer the same way
+
+    class One:
+        def next_batch(self):
+            return {"labels": np.zeros(1)}
+
+    def bad_gather(batch):
+        raise RuntimeError("gather")
+    pf = t_engine.PrefetchIterator(One(), depth=1, code_gather=bad_gather)
+    try:
+        with pytest.raises(RuntimeError, match="gather"):
+            pf.next_batch()
+    finally:
+        pf.close()
 
 
 def test_stage_timer_marks_the_training_step_and_ignores_the_producer(pair):

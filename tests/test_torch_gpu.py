@@ -996,3 +996,129 @@ def test_family_resume_on_card_is_bitwise(cuda, tmp_path, family):
     want, got = dict(leaves_with_path(straight.params)), dict(leaves_with_path(resumed.params))
     assert want.keys() == got.keys()
     assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+# ---------------- the frontier gathers' backward at a hub ----------------
+
+HUB_CASES = {  # (frontier rows U, width, level-2 map shape or edge count, hub repeats)
+    "train_frontier": (24_064, 64, (2048, 15, 15), 150_000),
+    "serve_many_8": (192_512, 64, (2048, 15, 15), 120_000),
+    "link_edges": (169_343, 128, 200_000, 120_000),
+}
+
+
+@pytest.mark.parametrize("case", list(HUB_CASES))
+def test_frontier_gathers_backward_is_deterministic_at_a_hub(cuda, case):
+    """The SAGE forward's frontier gathers (``gnn._levels``) and
+    ``link_scores``' row gathers are ``F.embedding``: three backward passes
+    with one row repeated 120,000-150,000 times give the same bits (the
+    latent item of ROADMAP §C; TT's core gathers parted at another shape)."""
+    from repro_torch.graph.sampler import FrontierBatch
+    from repro_torch.models import gnn
+    U, d, shape, hub = HUB_CASES[case]
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.standard_normal((U, d)).astype(np.float32)).to(cuda)
+
+    def with_hub(shape):
+        idx = rng.integers(0, U, shape).reshape(-1)
+        idx[rng.choice(idx.size, min(hub, idx.size), replace=False)] = 7
+        return torch.from_numpy(idx.reshape(shape)).to(cuda)
+
+    if case == "link_edges":
+        edges = torch.stack([with_hub(shape), torch.from_numpy(
+            rng.integers(0, U, shape)).to(cuda)], 1)
+
+        def loss(t):
+            return gnn.link_scores(t, edges).square().sum()
+    else:
+        B, f1, f2 = shape
+        maps = (with_hub((B,)), with_hub((B, f1)), with_hub((B, f1, f2)))
+        fb = FrontierBatch(torch.arange(U, device=cuda), maps, U)
+        params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.1).to(cuda)
+                  for k, s in (("w1", (2 * d, 128)), ("b1", (128,)), ("w2", (256, 128)),
+                               ("b2", (128,)))}
+
+        def loss(t):
+            return gnn._levels(params, t, fb).square().sum()
+    grads = []
+    for _ in range(3):
+        t = table.clone().requires_grad_(True)
+        loss(t).backward()
+        grads.append(t.grad)
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+
+
+# ---------------- codes kept on the host ----------------
+
+def test_pinned_copy_keeps_high_bit_code_words(cuda):
+    """The producer's pinned int64 buffer carries uint32 code words at or
+    above 2**31 to the card as their bit patterns."""
+    from repro_torch.graph.engine import PrefetchIterator
+    from repro_torch.graph.sampler import FrontierBatch, attach_codes
+    words = np.array([[0x80000001, 5], [0xFFFFFFFF, 0x7FFFFFFF], [0xDEADBEEF, 0]], np.uint32)
+    fb = FrontierBatch(np.arange(3, dtype=np.int32), (np.arange(3, dtype=np.int32),), 3)
+
+    class One:
+        def next_batch(self):
+            return {"frontier": fb}
+
+    def gather(batch):
+        return dict(batch, frontier=attach_codes(batch["frontier"], words))
+    with PrefetchIterator(One(), depth=1, device=cuda, code_gather=gather) as pf:
+        got = pf.next_batch()["frontier"].codes
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), torch.from_numpy(words.astype(np.int64)))
+    st = pf.stats()                            # the producer has stopped
+    assert st["transferred_code_bytes"] == st["n_produced"] * words.size * 8 > 0
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_host_codes_on_card_are_device_codes(cuda, depth):
+    """Training (the producer's pinned copy at depth 2, the loop's gather at
+    0), ``evaluate``, ``embed`` and cached, uncached and batched serving on
+    the card: host placement gives the device placement's bits."""
+    from repro_torch.serving.batcher import BatchingSpec
+    dev = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=depth))
+    host = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=depth).with_updates(
+        codes_placement="host"), graph=(dev.adj, dev.labels))
+    try:
+        assert "codes_buf" not in host.params["embed"] and host.codes.dtype == np.uint32
+        assert dev.train(4).losses == host.train(4).losses
+        from repro_torch.nn.module import leaves_with_path
+        want = dict(leaves_with_path(dev.params))
+        want.pop(("embed", "codes_buf"))
+        got = dict(leaves_with_path(host.params))
+        assert want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want)
+        assert dev.evaluate("val") == host.evaluate("val")
+        ids = np.arange(0, 3000, 29, dtype=np.int32)
+        np.testing.assert_array_equal(dev.embed(ids), host.embed(ids))
+        reqs = [np.arange(i, 3000, 97, dtype=np.int32)[:30] for i in range(4)]
+        for kw in ({}, {"cache_capacity": 0}):
+            ed, eh = dev.serve(**kw), host.serve(**kw)
+            for a, b in zip(ed.serve_many(reqs) + [ed.serve(r) for r in reqs],
+                            eh.serve_many(reqs) + [eh.serve(r) for r in reqs]):
+                np.testing.assert_array_equal(a.embeddings, b.embeddings)
+                np.testing.assert_array_equal(a.logits, b.logits)
+        with dev.serve(batching=BatchingSpec(max_batch=4)) as td, \
+                host.serve(batching=BatchingSpec(max_batch=4)) as th:
+            for r in reqs:
+                np.testing.assert_array_equal(td.serve(r).embeddings, th.serve(r).embeddings)
+    finally:
+        dev.close()
+        host.close()
+
+
+def test_host_codes_resume_on_card_is_bitwise(cuda, tmp_path):
+    """Host-placed: 3 steps, a checkpoint, ``GraphRuntime.resume`` and 3
+    more equal 6 straight device-placed steps bit for bit."""
+    dev = GraphRuntime.from_spec(_gnn_spec())
+    want = dev.train(6).losses
+    dev.close()
+    spec = _gnn_spec(ckpt_dir=str(tmp_path), ckpt_every=3).with_updates(codes_placement="host")
+    rt = GraphRuntime.from_spec(spec, graph=(dev.adj, dev.labels))
+    head = rt.train(3).losses
+    rt.close()
+    back = GraphRuntime.resume(str(tmp_path), graph=(dev.adj, dev.labels))
+    tail = back.train(6)
+    back.close()
+    assert back.codes_on_host and tail.resumed_from == 3 and head + tail.losses == want

@@ -189,14 +189,12 @@ def test_from_spec_without_device_needs_cuda(slice_pair):
 def test_later_slices_raise(slice_pair):
     _, _, trt, _, _ = slice_pair
     spec = trt.spec
-    # full-graph models are ported (tests/test_torch_fullgraph.py); an
-    # elastic spec waits for its slice
-    for bad in (dataclasses.replace(spec, n_shards=2),
-                dataclasses.replace(spec, elastic=ElasticSpec()),
-                dataclasses.replace(spec, model=dataclasses.replace(
-                    spec.model, embedding=dataclasses.replace(
-                        spec.model.embedding, codes_placement="host")))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # full-graph models and codes on the host are ported
+    # (tests/test_torch_fullgraph.py, tests/test_torch_codes_offload.py);
+    # shards and an elastic spec wait for their slices
+    for bad, item in ((dataclasses.replace(spec, n_shards=2), "A.14"),
+                      (dataclasses.replace(spec, elastic=ElasticSpec()), "A.16")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             GraphRuntime.from_spec(bad, graph=(trt.adj, trt.labels), device="cpu",
                                    params=trt.params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
