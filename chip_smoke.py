@@ -86,6 +86,18 @@ weights and data from a seed:
          61,696-row frontier on the serve graph and on one of 8x its nodes
          (random codes); the kernels held bitwise at every row count the
          host path decoded;
+  sharded, owner, sharded_auto  gnn_train's spec with ``n_shards=4``: 4
+         ranks of ``torch.distributed`` spawned from this script share the
+         card over gloo (``repro_torch.parallel.sharding.spawn``), under
+         ``lookup_impl`` ``sharded:pallas``, ``owner:pallas`` and ``auto``:
+         20 steps, ``evaluate("val")``, 10 and a checkpoint (rank 0 writes),
+         10 more in memory against 10 after ``GraphRuntime.resume``, and 20
+         at Adam's eps 1, beside 1-shard runs from the same init; each
+         rank's step-0 batch, the decoded rows against the 1-shard
+         frontier's, every rank's params, the owner plans' distinct ids;
+         the period, bytes exchanged, rows decoded and peak memory a rank;
+         launches summed over the ranks; NCCL one card a rank where there
+         are 4 cards;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -121,7 +133,8 @@ reconstruction at the JAX benchmark's size) runs on the card and on the
 CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
 line and then, as its last line, ``{"ok": true, "device": {...}}`` only
-when every phase passed.  It needs one card and imports nothing of JAX.
+when every phase passed.  It needs one card and imports nothing of JAX;
+phase ``sharded`` starts 4 processes on it and stops them.
 """
 
 from __future__ import annotations
@@ -3203,6 +3216,308 @@ def phase_codes_host(graph) -> tuple:
     return launches, sizes, err
 
 
+# -- phase sharded: four ranks over torch.distributed ----------------------
+
+SHARDS = 4
+SHARD_STEPS = 20           # the first run; then 10, a checkpoint, resume, 10 more
+SHARD_MORE = 10
+SHARD_IMPLS = ("sharded:pallas", "owner:pallas", "auto")
+SHARD_CKPT = ROOT / "build" / "sharded_ckpt"
+
+
+def _digest(tree) -> str:
+    """sha256 of every tensor of a tree's bytes, in path order."""
+    import hashlib
+    from repro_torch.nn.module import leaves_with_path
+    h = hashlib.sha256()
+    for path, t in sorted(leaves_with_path(tree), key=lambda kv: kv[0]):
+        h.update("/".join(path).encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(__import__("torch").uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _batch_digest(batch) -> int:
+    """The first 8 bytes of a host batch's sha256, as an int64."""
+    import hashlib
+    import numpy as np
+    fb = batch["frontier"]
+    h = hashlib.sha256()
+    for a in (fb.unique, fb.valid, *fb.index_maps, batch["labels"]):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def _sharded_rank(rank: int, payload: dict) -> dict:
+    """One of the ranks of phase ``sharded``: per decode backend, the
+    step-0 checks, a straight run (launches counted), a run through a
+    checkpoint and ``resume``, and what the parent prints."""
+    import numpy as np
+    import torch
+    from repro_torch.core.decoder import decode_stage
+    from repro_torch.core.embedding import lookup_codes
+    from repro_torch.device import disable_tf32
+    from repro_torch.graph.engine import SageBatchSource, ShardedSageBatchSource
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.parallel import sharding
+    disable_tf32()
+    mesh = sharding.data_mesh(SHARDS)
+    dev = mesh.device
+    graph, init = payload["graph"], payload["init"]
+    # the row counts the straight runs decode at (the training path's)
+    decoded, sink, forward = set(), [set()], hd_ops._forward
+
+    def recording_forward(codes, *args, **kw):
+        sink[0].add(int(codes.shape[0]))
+        return forward(codes, *args, **kw)
+    hd_ops._forward = recording_forward
+
+    def params():
+        return {k: params_of(v) for k, v in init.items()}
+
+    def params_of(v):
+        return ({k: params_of(x) for k, x in v.items()} if isinstance(v, dict)
+                else torch.from_numpy(v).to(dev, copy=True))
+
+    out = {"transport": mesh.backend, "device": str(dev), "impls": {}}
+    for impl in payload["impls"]:
+        r = out["impls"][impl] = {}
+        ckpt = str(SHARD_CKPT / impl.replace(":", "_"))
+        if rank == 0:
+            import shutil
+            shutil.rmtree(ckpt, ignore_errors=True)
+        mesh.barrier()
+        spec = _gnn_spec(n_shards=SHARDS, prefetch_depth=2, ckpt_dir=ckpt,
+                         ckpt_every=1000).with_updates(lookup_impl=impl)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        rt = GraphRuntime.from_spec(spec, graph=graph, params=params())
+        backend = rt.train_step.model.backend
+        src = rt.source
+        r.update(backend=type(backend).__name__, duplication=src.duplication_measured,
+                 owner_plan=src.owner_plan, cap=src.frontier_cap,
+                 owner_caps=(src.owner_cap, src.owner_unique_cap))
+        # step 0: the same global batch on every rank, and its decoded rows
+        # bitwise the 1-shard frontier's
+        probe = ShardedSageBatchSource(
+            rt.sampler, rt.splits["train"], rt.labels, spec.batch_size // SHARDS,
+            n_shards=SHARDS, seed=spec.data_seed, pad_to=spec.pad_to,
+            frontier_cap=spec.frontier_cap, owner_plan=src.owner_plan)
+        batch = probe.next_batch()
+        digests = mesh.all_gather(torch.tensor([_batch_digest(batch)], device=dev))
+        r["same_batch"] = len({int(d) for d in digests}) == 1
+        one = SageBatchSource(rt.sampler, rt.splits["train"], rt.labels, spec.batch_size,
+                              seed=spec.data_seed, pad_to=spec.pad_to).next_batch()["frontier"]
+        ecfg = rt.cfg.embedding_config()
+        dec = rt.params["embed"]["decoder"]
+        with torch.no_grad():
+            fb = rt.place(batch)["frontier"]
+            with sharding.use_sharding(mesh):
+                rows = decode_stage(dec, lookup_codes(rt.params["embed"], fb.unique, ecfg),
+                                    ecfg.decoder_config(), backend, frontier=True,
+                                    plan=fb.plan)
+            ids1 = torch.from_numpy(one.unique.astype(np.int64)).to(dev)
+            rows1 = decode_stage(dec, lookup_codes(rt.params["embed"], ids1, ecfg),
+                                 ecfg.decoder_config(), backend.base)
+        valid = torch.from_numpy(batch["frontier"].valid).to(dev)
+        ids = torch.from_numpy(batch["frontier"].unique.astype(np.int64)).to(dev)[valid]
+        pos = torch.searchsorted(ids1[:one.n_unique], ids)
+        r["rows_bitwise"] = bool(torch.equal(rows[valid], rows1[pos]))
+        r["rows_checked"] = int(valid.sum())
+        del rows, rows1
+        # 20 steps (the path's launches and exchanges; a checkpoint at 20),
+        # evaluate, 10 (a checkpoint at 30); then 10 in memory against 10
+        # from a resume at 30
+        stats0 = dict(rt.mesh.stats)
+        sink[0] = decoded
+        zero_counts()
+        res, periods = _train_timed(rt, SHARD_STEPS)
+        torch.cuda.synchronize(dev)
+        r["launches"] = read_counts(f"sharded {impl}")
+        sink[0] = set()
+        r["bytes_per_step"] = {k[:-6]: (rt.mesh.stats[k] - stats0.get(k, 0)) / SHARD_STEPS
+                               for k in rt.mesh.stats if k.endswith("_bytes")}
+        r.update(period_ms=float(np.median(periods[1:])),
+                 peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+                 overflows=src.plan_overflows,
+                 rows_per_rank=(src.owner_unique_cap if r["backend"] == "OwnerBackend"
+                                and src.owner_plan else src.frontier_cap))
+        t = time.perf_counter()
+        r["eval"] = rt.evaluate("val")
+        r["eval_s"] = time.perf_counter() - t
+        losses = res.losses + rt.train(SHARD_STEPS + SHARD_MORE).losses
+        resumed = GraphRuntime.resume(ckpt, graph=graph)
+        rt.ckpt = None                  # the in-memory run writes no more
+        r["losses"] = losses + rt.train(SHARD_MORE).losses
+        r["resumed_losses"] = resumed.train(SHARD_STEPS + 2 * SHARD_MORE).losses
+        r["resumed_bitwise"] = (r["resumed_losses"] == r["losses"][-SHARD_MORE:]
+                                and _same_tree(_snapshot(resumed.params, "cpu"),
+                                               _snapshot(rt.params, "cpu")))
+        r.update(digest=_digest(rt.params), resumed_digest=_digest(resumed.params))
+        rt.close()
+        resumed.close()
+        del rt, resumed
+        # the same 20 steps at Adam's eps 1, where rounding differences do
+        # not part the trajectories (ROADMAP §C)
+        rt = GraphRuntime.from_spec(spec.with_updates(optimizer=_eps1(spec.optimizer),
+                                                      ckpt_dir=None),
+                                    graph=graph, params=params())
+        r["losses_eps1"] = rt.train(SHARD_STEPS).losses
+        rt.close()
+        del rt
+        # under owner: each planned step's owners decode the distinct ids
+        # of the four blocks, exactly (rank 0 replays the run's stream)
+        if rank == 0 and src.owner_plan:
+            replay = ShardedSageBatchSource(
+                graph_sampler(graph, spec), _train_nodes(spec), graph[1],
+                spec.batch_size // SHARDS, n_shards=SHARDS, seed=spec.data_seed,
+                pad_to=spec.pad_to, frontier_cap=spec.frontier_cap, owner_plan=True)
+            exact = planned = 0
+            for _ in range(SHARD_STEPS + 2 * SHARD_MORE):
+                fb_h = replay.next_batch()["frontier"]
+                if fb_h.plan is not None:
+                    planned += 1
+                    exact += int(fb_h.plan.n_owned.sum()) == np.unique(
+                        fb_h.unique[fb_h.valid]).shape[0]
+            r["owner_check"] = (planned, exact, replay.plan_overflows,
+                                int(fb_h.plan.n_owned.sum()) if fb_h.plan is not None else 0)
+        torch.cuda.empty_cache()
+    hd_ops._forward = forward
+    out["decoded_sizes"] = sorted(decoded)
+    return out
+
+
+def _eps1(opt):
+    import dataclasses
+    return dataclasses.replace(opt, eps=1.0)
+
+
+def graph_sampler(graph, spec):
+    from repro_torch.graph.sampler import NeighborSampler
+    return NeighborSampler(graph[0], spec.model.fanouts, max_deg=spec.max_deg,
+                           seed=spec.data_seed)
+
+
+def _train_nodes(spec):
+    from repro_torch.graph.generate import train_val_test_split
+    return train_val_test_split(spec.split_seed, spec.model.n_nodes, spec.split_frac)[0]
+
+
+def phase_sharded(graph) -> tuple:
+    """gnn_train's GraphSAGE at full width across 4 ranks of
+    ``torch.distributed`` on this card (gloo; NCCL one card a rank where
+    there are 4 cards): ``lookup_impl`` ``sharded:pallas``, ``owner:pallas``
+    and ``auto``, each 20 steps (launches counted), ``evaluate``, 10 steps
+    and a checkpoint, then 10 in memory against 10 after ``resume``, and 20
+    at Adam's eps 1; beside 1-shard runs of the same spec and init.
+    Returns the launches by path, the row counts each backend decoded at,
+    and the kernels' largest error at them."""
+    import numpy as np
+    import torch
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.parallel.sharding import spawn
+    t0 = time.perf_counter()
+    rt1 = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=2), graph=graph)
+    init = _snapshot(rt1.params, "cpu")
+    res1, periods1 = _train_timed(rt1, SHARD_STEPS)
+    one = res1.losses
+    rt1.close()
+    spec1, dev1 = rt1.spec, rt1.device
+    rt1 = GraphRuntime.from_spec(spec1.with_updates(optimizer=_eps1(spec1.optimizer)),
+                                 graph=graph, params=_snapshot(init, dev1))
+    one_eps1 = rt1.train(SHARD_STEPS).losses
+    rt1.close()
+    del rt1
+    torch.cuda.empty_cache()
+    to_np = lambda t: ({k: to_np(v) for k, v in t.items()} if isinstance(t, dict)
+                       else t.numpy())
+    payload = {"graph": graph, "init": to_np(init), "impls": SHARD_IMPLS}
+    try:
+        results = spawn(_sharded_rank, SHARDS, backend="gloo", args=(payload,), timeout_s=900)
+    except RuntimeError as e:
+        fail(f"phase sharded: {e}")
+    secs = time.perf_counter() - t0
+    r0 = results[0]
+    print(f"[sharded] {SHARDS} ranks share {torch.cuda.get_device_name(0)} over "
+          f"{r0['transport']}, CUDA tensors in its collectives (ranks on {sorted({r['device'] for r in results})}); "
+          f"{secs:.1f} s for the phase", flush=True)
+    print(f"[sharded] 1-shard run, same spec and init: period {np.median(periods1[1:]):.3f} ms, "
+          f"losses {one[:3]} ... {one[-1]}", flush=True)
+    launches, sizes = {}, {}
+    for impl in SHARD_IMPLS:
+        rs = [r["impls"][impl] for r in results]
+        a = rs[0]
+        d0 = a["losses"][0] - one[0]
+        drift = max(abs(x - y) for x, y in zip(a["losses"][:SHARD_STEPS], one))
+        drift1 = max(abs(x - y) for x, y in zip(a["losses_eps1"], one_eps1))
+        print(f"[sharded] {impl}: backend {a['backend']} (duplication measured "
+              f"{a['duplication']}, owner plan {a['owner_plan']}, caps {a['owner_caps']}); "
+              f"frontier_cap {a['cap']}, rows decoded per rank {a['rows_per_rank']}; "
+              f"step-0 loss {a['losses'][0]} vs 1-shard {one[0]} (diff {d0}); largest "
+              f"diff over {SHARD_STEPS} free steps {drift} at Adam's eps 1e-8 (rounding "
+              f"parts the trajectories there, ROADMAP §C), {drift1} at eps 1", flush=True)
+        print(f"[sharded] {impl}: period {a['period_ms']:.3f} ms a step (4 ranks share one card "
+              f"over gloo: not a multi-GPU time); exchanged a step per rank "
+              f"{ {k: round(v) for k, v in a['bytes_per_step'].items()} } B; peak memory per "
+              f"rank over its first {SHARD_STEPS} steps "
+              f"{[round(r['peak_bytes'] / 2**20, 1) for r in rs]} MiB; evaluate('val') "
+              f"{a['eval']} in {a['eval_s']:.1f} s", flush=True)
+        check(all(r["same_batch"] for r in rs), f"{impl}: the ranks' step-0 batches differ")
+        check(all(r["rows_bitwise"] for r in rs),
+              f"{impl}: decoded rows differ from the 1-shard frontier's")
+        check(d0 == 0.0 or abs(d0) <= 1e-5, f"{impl}: step-0 loss {d0} from the 1-shard run's")
+        check(drift1 <= 1e-3, f"{impl}: {SHARD_STEPS} steps at Adam's eps 1 part by {drift1} "
+                              f"from the 1-shard run")
+        check(len({r["digest"] for r in rs}) == 1 and len({r["resumed_digest"] for r in rs}) == 1,
+              f"{impl}: the ranks' params differ")
+        check(all(r["resumed_bitwise"] for r in rs),
+              f"{impl}: the {SHARD_MORE} steps after resume are not the straight run's bit "
+              f"for bit: losses {a['resumed_losses']} against {a['losses'][-SHARD_MORE:]}")
+        check(all(r["losses"] == a["losses"] for r in rs), f"{impl}: the ranks' losses differ")
+        if "owner_check" in a:
+            planned, exact, overflows, last = a["owner_check"]
+            print(f"[sharded] {impl}: owner plans at {planned} of "
+                  f"{SHARD_STEPS + 2 * SHARD_MORE} steps, sum of n_owned equal to the distinct "
+                  f"ids at {exact}; plan overflows {overflows} (in the run "
+                  f"{[r['overflows'] for r in rs]}); last step decodes {last} ids once each",
+                  flush=True)
+            check(exact == planned, f"{impl}: owners did not decode each distinct id once")
+        print(f"[sharded] {impl}: rows bitwise the 1-shard frontier's at step 0 "
+              f"({a['rows_checked']} valid rows); losses and params equal on all ranks; "
+              f"{SHARD_MORE} steps from a resume at step {SHARD_STEPS + SHARD_MORE} bitwise the "
+              f"straight run's", flush=True)
+        path = {"sharded:pallas": "sharded", "owner:pallas": "owner"}.get(impl, "sharded_auto")
+        launches[path] = {k: sum(r["launches"][k] for r in rs) if k != "hash_decode_backward_by_kernel"
+                          else {kk: sum(r["launches"][k][kk] for r in rs)
+                                for kk in a["launches"][k]} for k in a["launches"]}
+        check(launches[path]["hash_decode"] > 0 and launches[path]["hash_decode_backward"] > 0,
+              f"{impl}: the path launched no hash_decode kernel")
+        sizes[path] = a["rows_per_rank"]
+    decoded = sorted(set().union(*(r["decoded_sizes"] for r in results)))
+    if torch.cuda.device_count() >= SHARDS:
+        try:
+            nccl = spawn(_sharded_rank, SHARDS, backend="nccl",
+                         args=(dict(payload, impls=("owner:pallas",)),), timeout_s=900)
+        except RuntimeError as e:
+            fail(f"phase sharded over NCCL: {e}")
+        b = nccl[0]["impls"]["owner:pallas"]
+        print(f"[sharded] owner:pallas over {nccl[0]['transport']}, one card a rank: period "
+              f"{b['period_ms']:.3f} ms; losses bitwise the gloo run's "
+              f"{b['losses'] == results[0]['impls']['owner:pallas']['losses']}", flush=True)
+        check(len({r["impls"]["owner:pallas"]["digest"] for r in nccl}) == 1,
+              "NCCL ranks' params differ")
+    else:
+        print(f"[sharded] NCCL run skipped: {torch.cuda.device_count()} card(s), "
+              f"it needs {SHARDS}", flush=True)
+    check(set(decoded) == {sizes["sharded"], sizes["owner"]},
+          f"phase sharded's runs decoded at {decoded}, not the block and owner sizes {sizes}")
+    err = max(check_gnn_frontiers([sizes["sharded"]], "sharded block sizes"),
+              check_gnn_frontiers([sizes["owner"]], "owner decode sizes"))
+    return launches, {"sharded_sizes": [sizes["sharded"]], "owner_sizes": [sizes["owner"]]}, err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3239,6 +3554,7 @@ def main() -> None:
     family_launches, family_sizes, family_err, family_times = phase_families(graph)
     phase_families_reference()
     host_launches, host_sizes, host_err = phase_codes_host(graph)
+    shard_launches, shard_sizes, shard_err = phase_sharded(graph)
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
@@ -3246,7 +3562,7 @@ def main() -> None:
                                                     "decode sizes of the planned cached run"),
                                 check_gnn_frontiers(merchant_sizes,
                                                     "decode sizes of the merchant path"),
-                                family_err, host_err)
+                                family_err, host_err, shard_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -3266,7 +3582,8 @@ def main() -> None:
              "reconstruct": rec_launches, "gnn_train": gnn_launches,
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
-             "merchant": merchant_launches, **family_launches, **host_launches}
+             "merchant": merchant_launches, **family_launches, **host_launches,
+             **shard_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -3286,7 +3603,7 @@ def main() -> None:
              batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
              hashemb_sizes=family_sizes["hashemb"], int8_sizes=family_sizes["int8"],
              codes_host_sizes=host_sizes["float32"],
-             codes_host_int8_sizes=host_sizes["int8"],
+             codes_host_int8_sizes=host_sizes["int8"], **shard_sizes,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

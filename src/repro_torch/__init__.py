@@ -4,8 +4,9 @@ KDD 2022) for NVIDIA Hopper.
 The JAX package ``repro`` is the reference; this package mirrors its layout
 and names so each module has an obvious counterpart, and it imports neither
 JAX nor anything of ``repro``.  What is ported so far is the paper's
-hash-compressed GraphSAGE (training, serving, the hot-node cache and the
-batching tier), its full-graph GCN, SGC and GIN (training, evaluation,
+hash-compressed GraphSAGE (training, on one device or across N ranks,
+serving, the hot-node cache and the batching tier), its full-graph GCN,
+SGC and GIN (training, evaluation,
 link prediction), the consumer × merchant graph, the embedding
 reconstruction, and LM training of the dense family (``qwen1.5-0.5b``,
 its vocabulary hash-compressed):
@@ -15,7 +16,10 @@ core      LSH coding (Algorithm 1), packed codes, decode backends, the
 kernels   hand-written CUDA kernels for Hopper (``hash_decode`` with its
           autograd backward, ``flash_attention``, ``lsh_encode``)
 graph     CSR graphs (and their device-resident product), generators,
-          neighbour sampling, model entry point, ``GraphRuntime``
+          neighbour sampling, the sharded batch source and owner plan,
+          model entry point, ``GraphRuntime``
+parallel  N ranks over ``torch.distributed`` (``DataMesh``, ``spawn``)
+          and a stacked frontier's placement on them
 models    the GraphSAGE and full-graph GCN / SGC / GIN forwards,
           node-classification heads, link scores and losses, hits@K and
           hit@k; the dense decoder LM (``models.lm``)

@@ -28,8 +28,23 @@ parameterised) rather than another way to run the decode:
            forming the table (plain tensor code, as the JAX package's is
            XLA).
 
+Two more wrap a base backend (``"sharded:pallas"``, ``"owner:gather"``;
+none: ``auto``'s single-device choice) to decode across the ranks of the
+active mesh (``parallel.sharding.use_sharding``), and degrade to the base
+bit for bit without one:
+
+  sharded  each rank decodes its block of the frontier rows and the rows
+           are all-gathered; the codebook and ``w0`` gradients are the
+           ranks' partials summed in rank order.
+  owner    rows go to the rank that owns their id (``id % n``) by an
+           all-to-all, each distinct id is decoded once, and a second
+           all-to-all returns the rows; the routing is the batch's
+           host-built ``OwnerPlan``.
+
 ``auto`` resolves to ``pallas`` on a CUDA device and to ``onehot`` on the
-CPU, as the JAX package picks its kernel only on its accelerator.
+CPU, as the JAX package picks its kernel only on its accelerator; under a
+mesh of several ranks to ``owner`` when the measured frontier duplication
+beats ``OWNER_DUP_THRESHOLD``, else to ``sharded``.
 
 Every backend carries a ``MixedPrecisionPolicy`` and states it in
 ``dtype_contract()``: codebooks may be stored bf16 or absmax-int8 (int8 is
@@ -37,9 +52,6 @@ fused into the kernel; gather, onehot and tt decode the dequantized values
 through ``quantize_dequantize``, which are the same f32 products), the
 gradient goes straight through to the float masters, and the sum is
 always f32.
-
-The collective backends (``sharded``, ``owner``) belong to a later slice of
-the port and raise ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,14 +63,20 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.hash_decode import ops as hd_ops
-from repro_torch.kernels.hash_decode.ref import hash_decode_ref
+from repro_torch.parallel import sharding
 from repro_torch.stages import stage
 
-# Later slices of the port (ROADMAP.md queue A).
-NOT_PORTED = {
-    "sharded": "the multi-GPU slice (ROADMAP A.14)",
-    "owner": "the multi-GPU slice (ROADMAP A.14)",
-}
+# Decode backends of later slices of the port (ROADMAP.md queue A): none.
+NOT_PORTED: Dict[str, str] = {}
+
+COLLECTIVE_BACKENDS = ("sharded", "owner")
+
+# ``auto`` picks the owner-computes decode over the sharded one past this
+# measured duplication (frontier_rows / unique_rows): beyond 2x the owner
+# exchange reclaims more decode rows than its two all-to-alls cost, and
+# ``graph.sampler.default_owner_caps``' owner_unique_cap = cap / 2 is
+# adequate by the same inequality.
+OWNER_DUP_THRESHOLD = 2.0
 
 # Documented decode drift bounds vs the all-f32 path: max-abs output error
 # <= bound * max-abs(f32 output) per decode.
@@ -150,6 +168,17 @@ class DecodeBackend:
             codebooks = hd_ops.quantize_dequantize(codebooks)
         return codebooks, w0
 
+    def decode_frontier(self, codes: torch.Tensor, codebooks, w0=None, *, plan=None):
+        """The frontier decode: ``decode``, except that under a mesh of
+        several ranks ``codes`` is this rank's block of a placed frontier
+        (``parallel.policy``) and every rank's rows come back, decoded the
+        ``sharded`` way whatever the backend; ``plan`` is the frontier's
+        ``graph.sampler.OwnerPlan`` slice, which only ``owner`` reads."""
+        mesh = sharding.current_mesh()
+        if sharding.data_axis_size(mesh) <= 1:
+            return self.decode(codes, codebooks, w0)
+        return _sharded_decode(self, mesh, codes, codebooks, w0)
+
     def dtype_contract(self) -> Dict[str, str]:
         """The backend's stated dtype contract (the JAX package's keys)."""
         p = self.policy
@@ -162,13 +191,24 @@ class DecodeBackend:
 
 class GatherBackend(DecodeBackend):
     """Oracle: m sequential gathers, f32 accumulation in codebook order —
-    the kernel's plain version run on the decode-visible values."""
+    the bits of the kernel's plain version (``ref.hash_decode_ref``) on the
+    decode-visible values.  Each term is a ``_RowGather``, whose backward
+    sums a codebook row's cotangents in ascending row order, so the
+    gradient has the same bits on every run and thread count (an indexed
+    read's backward, an accumulating ``index_put_``, adds them in a varying
+    order on several CPU threads)."""
 
     name = "gather"
 
     def decode(self, codes, codebooks, w0=None):
         codebooks, w0 = self._prep_values(codebooks, w0)
-        return hash_decode_ref(codes, codebooks, w0)
+        idx = codes.to(torch.int64)
+        acc = _RowGather.apply(codebooks[0], idx[:, 0])
+        for j in range(1, codebooks.shape[0]):
+            acc = acc + _RowGather.apply(codebooks[j], idx[:, j])
+        if w0 is not None:
+            acc = acc * w0.float()[None, :]
+        return acc
 
 
 class OnehotBackend(DecodeBackend):
@@ -216,6 +256,246 @@ class KernelBackend(DecodeBackend):
 
 
 # ---------------------------------------------------------------------------
+# collective decode (several ranks, parallel.sharding)
+# ---------------------------------------------------------------------------
+
+class _RankSum(torch.autograd.Function):
+    """Identity forward; the backward sums each gradient over the mesh's
+    ranks: the ranks' partials are all-gathered and added in f32 in
+    ascending rank order, then rounded once to the gradient's dtype, so
+    every rank gets the same bits on any backend (an ``all_reduce``'s order
+    depends on the backend and its algorithm).  The JAX package's ``psum``
+    of the disjoint f32 partials."""
+
+    @staticmethod
+    def forward(ctx, mesh, *params):
+        ctx.mesh = mesh
+        return tuple(p.view_as(p) for p in params)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for g, need in zip(grads, ctx.needs_input_grad[1:]):
+            if not need:            # a frozen table: the same on every rank
+                out.append(None)
+                continue
+            parts = ctx.mesh.all_gather(g.float())
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = acc + p
+            out.append(acc.to(g.dtype))
+        return (None, *out)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's (equal-sized) block of rows, stacked in rank order; the
+    backward keeps this rank's block of the cotangent (every rank computes
+    the same full cotangent, since all work after the decode runs on the
+    whole batch on every rank)."""
+
+    @staticmethod
+    def forward(ctx, mesh, rows):
+        ctx.mesh, ctx.n = mesh, rows.shape[0]
+        return torch.cat(mesh.all_gather(rows))
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.rank
+        return None, g[r * ctx.n:(r + 1) * ctx.n]
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all along dim 0; its own transpose, so the backward
+    sends each cotangent block back the way its row came."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        return mesh.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh.all_to_all(g)
+
+
+def _summed_over_ranks(mesh, codebooks, w0):
+    """``codebooks`` (a tensor or ``tt``'s pair) and ``w0`` behind one
+    ``_RankSum``, so each rank's decode gives its partial gradients and the
+    backward sums them."""
+    leaves = list(codebooks) if isinstance(codebooks, tuple) else [codebooks]
+    if w0 is not None:
+        leaves.append(w0)
+    summed = list(_RankSum.apply(mesh, *leaves))
+    w0 = summed.pop() if w0 is not None else None
+    return (tuple(summed) if isinstance(codebooks, tuple) else summed[0]), w0
+
+
+def _sharded_decode(base: DecodeBackend, mesh, codes_l, codebooks, w0):
+    """This rank's block of rows decoded by ``base``, every rank's blocks
+    all-gathered; the parameters' gradients are summed over the ranks."""
+    cb, w0 = _summed_over_ranks(mesh, codebooks, w0)
+    return _GatherRows.apply(mesh, base.decode(codes_l, cb, w0))
+
+
+def frontier_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """A dense table's rows of a frontier: under a mesh of several ranks
+    ``ids`` is this rank's block, and every rank's rows come back (the
+    table's gradient summed over the ranks), as the decode backends' do."""
+    mesh = sharding.current_mesh()
+    if sharding.data_axis_size(mesh) <= 1:
+        return table[ids]
+    table, = _RankSum.apply(mesh, table)
+    return _GatherRows.apply(mesh, table[ids])
+
+
+def _check_collective_base(name: str, base: Optional[str]) -> None:
+    if base is not None and base.split(":")[0] in COLLECTIVE_BACKENDS:
+        raise ValueError(f"{name} backend cannot wrap itself or another collective "
+                         f"backend (got base={base!r})")
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        import warnings
+        warnings.warn(msg, stacklevel=3)
+
+
+_WARNED: set = set()
+
+
+class ShardedBackend(DecodeBackend):
+    """Data-parallel decode: the frontier rows are partitioned over the
+    active mesh's ranks and decoded there by the wrapped base backend
+    against the replicated codebooks, then all-gathered, so every rank
+    holds the whole batch's rows; the codebook and ``w0`` gradients are the
+    ranks' partials summed in rank order.  A row's decode does not depend
+    on where it runs, so an N-rank run decodes the 1-rank run's bits.
+
+    ``decode`` takes the whole batch on every rank, pads its rows to a
+    multiple of the rank count (warning once) and decodes this rank's
+    slice; ``decode_frontier`` takes this rank's block of a placed
+    frontier (as every backend's does).  Without a mesh (or with one rank)
+    both are the base's decode."""
+
+    name = "sharded"
+    capabilities = BackendCapabilities(grad=True, fused=False)
+
+    def __init__(self, base: Optional[str] = None,
+                 policy: Optional[MixedPrecisionPolicy] = None, *, device: torch.device):
+        _check_collective_base(self.name, base)
+        self.base = get_backend(base or _single_device_auto(device), device=device,
+                                policy=policy)
+        self.policy = self.base.policy
+
+    def dtype_contract(self) -> Dict[str, str]:
+        return dict(self.base.dtype_contract(), backend=self.name,
+                    collective_reduce="float32 (rank-ordered sum of codebook/w0 grads)")
+
+    def feature_dim(self, codebooks) -> int:
+        return self.base.feature_dim(codebooks)
+
+    def decode(self, codes, codebooks, w0=None):
+        mesh = sharding.current_mesh()
+        k = sharding.data_axis_size(mesh)
+        if k <= 1:
+            return self.base.decode(codes, codebooks, w0)
+        B = codes.shape[0]
+        B_pad = -(-B // k) * k
+        if B_pad != B:
+            _warn_once(f"sharded-pad-b-{B}-{k}",
+                       f"sharded decode: padding batch {B} -> {B_pad} to split over {k} "
+                       f"shards; pad frontiers to a multiple of the shard count (e.g. "
+                       f"frontier_cap) to avoid the copy")
+            codes = torch.cat([codes, codes.new_zeros((B_pad - B, codes.shape[1]))])
+        n = B_pad // k
+        out = _sharded_decode(self.base, mesh, codes[mesh.rank * n:(mesh.rank + 1) * n],
+                              codebooks, w0)
+        return out[:B]
+
+    def decode_frontier(self, codes, codebooks, w0=None, *, plan=None):
+        return self.base.decode_frontier(codes, codebooks, w0)
+
+
+def _owner_decode(base: DecodeBackend, mesh, codes_l, codebooks, w0, plan):
+    """Owner-computes decode of this rank's ``cap``-row frontier block with
+    its ``OwnerPlan`` slice (leading dim 1):
+
+        requester: send[o, k] = codes[req_rows[o, k]]       -- all-to-all -->
+        owner:     owned[j]   = recv[owned_src[j]]          (each id once)
+                   dec        = base.decode(owned)
+                   ret[s, k]  = dec[ret_idx[s, k]]           -- all-to-all -->
+        requester: out[req_rows[o, k]] = back[o, k]         (sentinel cap masked)
+
+    then the blocks are all-gathered as in the sharded decode.  Autograd
+    runs the same route backwards: each requester's cotangent rows go back
+    to their owner, which adds them onto its owned rows in ascending slot
+    order (``_RowGather``'s sorted segment sum, no atomics) before one base
+    backward, and the disjoint partials are summed over the ranks in rank
+    order.  Padding rows decode to zeros."""
+    rr, os_, ri = (t[0].to(torch.int64) for t in plan.leaves()[:3])
+    n, oc = rr.shape
+    cap = codes_l.shape[0]
+    rows = rr.reshape(-1)
+    keep = rows < cap                                   # the sentinel cap is no row
+    send = codes_l.index_select(0, torch.where(keep, rows, torch.zeros_like(rows)))
+    owned = mesh.all_to_all(send).index_select(0, os_)  # (ou, m)
+    cb, w0 = _summed_over_ranks(mesh, codebooks, w0)
+    dec = base.decode(owned, cb, w0)                    # each owned id once
+    back = _AllToAll.apply(mesh, _RowGather.apply(dec, ri.reshape(-1)))   # (n*oc, d)
+    out_l = dec.new_zeros((cap, dec.shape[1])).index_copy(0, rows[keep], back[keep])
+    return _GatherRows.apply(mesh, out_l)
+
+
+class OwnerBackend(DecodeBackend):
+    """Owner-computes cross-shard frontier decode: the ``sharded`` backend
+    decodes a node in k shards' frontiers k times; this one sends each
+    row's request to the rank owning its id (``id % n``), which decodes
+    every distinct id it owns exactly once, and sends the rows back
+    (``_owner_decode``).  The routing is the batch's ``OwnerPlan``, built on
+    the host in the prefetch producer with static shapes.
+
+    Without a plan, without a mesh of several ranks, or with a plan for
+    another rank count (warned once), it decodes as the ``sharded`` backend
+    of the same base: the same values, without the dedup.  ``decode`` (the
+    whole batch on every rank) is always that."""
+
+    name = "owner"
+    capabilities = BackendCapabilities(grad=True, fused=False)
+
+    def __init__(self, base: Optional[str] = None,
+                 policy: Optional[MixedPrecisionPolicy] = None, *, device: torch.device):
+        _check_collective_base(self.name, base)
+        self._fallback = ShardedBackend(base, policy, device=device)
+        self.base = self._fallback.base
+        self.policy = self.base.policy
+
+    def dtype_contract(self) -> Dict[str, str]:
+        return dict(self.base.dtype_contract(), backend=self.name,
+                    collective_reduce="float32 (cotangent segment sum on owned rows + "
+                                      "rank-ordered sum of grads)")
+
+    def feature_dim(self, codebooks) -> int:
+        return self.base.feature_dim(codebooks)
+
+    def decode(self, codes, codebooks, w0=None):
+        return self._fallback.decode(codes, codebooks, w0)
+
+    def decode_frontier(self, codes, codebooks, w0=None, *, plan=None):
+        mesh = sharding.current_mesh()
+        k = sharding.data_axis_size(mesh)
+        if plan is None or k <= 1:
+            return self._fallback.decode_frontier(codes, codebooks, w0)
+        if plan.n_shards != k or plan.req_rows.shape[0] != 1:
+            _warn_once(f"owner-plan-mismatch-{plan.n_shards}-{k}",
+                       f"owner decode: a plan for {plan.n_shards} shards (leading dim "
+                       f"{plan.req_rows.shape[0]}) does not match this rank's slice of the "
+                       f"{k}-rank mesh; falling back to the row-partitioned sharded decode")
+            return self._fallback.decode_frontier(codes, codebooks, w0)
+        return _owner_decode(self.base, mesh, codes, codebooks, w0, plan)
+
+
+# ---------------------------------------------------------------------------
 # compression families
 # ---------------------------------------------------------------------------
 
@@ -245,8 +525,8 @@ class HashEmbBackend(DecodeBackend):
     def __init__(self, base: Optional[str] = None,
                  policy: Optional[MixedPrecisionPolicy] = None, *,
                  device: torch.device):
-        base = base or resolve_auto(device)
-        if base.split(":")[0] in FAMILY_BACKENDS + tuple(NOT_PORTED):
+        base = base or _single_device_auto(device)
+        if base.split(":")[0] in FAMILY_BACKENDS + COLLECTIVE_BACKENDS:
             raise ValueError(f"hashemb decodes through a plain backend, not {base!r}")
         self.base = get_backend(base, device=device, policy=policy)
         self.policy = self.base.policy
@@ -370,29 +650,43 @@ register_backend("onehot", OnehotBackend)
 register_backend("pallas", KernelBackend)
 register_backend("hashemb", HashEmbBackend)
 register_backend("tt", TTBackend)
+register_backend("sharded", ShardedBackend)
+register_backend("owner", OwnerBackend)
 
 
 def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def resolve_auto(device: torch.device) -> str:
-    """``auto``: the hand-written kernel on a CUDA device, the one-hot
-    matmul on the CPU."""
+def _single_device_auto(device: torch.device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "onehot"
 
 
+def resolve_auto(device: torch.device, duplication: Optional[float] = None) -> str:
+    """``auto``: under an active mesh of several ranks, ``owner`` when the
+    measured frontier ``duplication`` beats ``OWNER_DUP_THRESHOLD`` and
+    ``sharded`` otherwise; on one device the hand-written kernel on a CUDA
+    device and the one-hot matmul on the CPU."""
+    if sharding.data_axis_size() > 1:
+        if duplication is not None and duplication > OWNER_DUP_THRESHOLD:
+            return "owner"
+        return "sharded"
+    return _single_device_auto(device)
+
+
 def get_backend(spec, *, device: torch.device,
-                policy: Optional[MixedPrecisionPolicy] = None) -> DecodeBackend:
+                policy: Optional[MixedPrecisionPolicy] = None,
+                duplication: Optional[float] = None) -> DecodeBackend:
     """Resolve a backend from a config string (or pass an instance through).
     ``device`` is where the decode will run (it decides ``auto``, also as
-    ``hashemb``'s base).  Only ``hashemb`` takes an option, its base:
-    ``"hashemb:gather"``."""
+    a wrapper's base); ``duplication`` is the measured frontier duplication
+    ``auto`` reads under a mesh.  ``sharded``, ``owner`` and ``hashemb``
+    take an option, their base: ``"owner:gather"``, ``"hashemb:gather"``."""
     if isinstance(spec, DecodeBackend):
         return spec
     name = spec or "auto"
     if name == "auto":
-        name = resolve_auto(device)
+        name = resolve_auto(device, duplication)
     base, _, option = name.partition(":")
     if base in NOT_PORTED:
         raise NotImplementedError(
@@ -401,7 +695,7 @@ def get_backend(spec, *, device: torch.device,
     if base not in _REGISTRY:
         raise ValueError(
             f"unknown decode backend {name!r}; known: {available_backends()}")
-    if base == "hashemb":
+    if base in ("hashemb",) + COLLECTIVE_BACKENDS:
         return _REGISTRY[base](base=option or None, policy=policy, device=device)
     if option:
         raise ValueError(f"decode backend {base!r} takes no ':{option}' option")

@@ -159,20 +159,33 @@ def _decode_stage_operands(params: Params, cfg: DecoderConfig, pdtype: torch.dty
 
 
 def decode_stage(params: Params, codes2d: torch.Tensor, cfg: DecoderConfig,
-                 backend: Optional[DecodeBackend] = None) -> torch.Tensor:
-    """The codebook sum (and W0 rescale): codes (B, m) -> (B, d_c) f32."""
+                 backend: Optional[DecodeBackend] = None, *, frontier: bool = False,
+                 plan=None) -> torch.Tensor:
+    """The codebook sum (and W0 rescale): codes (B, m) -> (B, d_c) f32.
+    ``frontier``: the rows are a frontier's (``DecodeBackend.decode_frontier``:
+    under a mesh, this rank's block, and every rank's rows come back);
+    ``plan`` its ``OwnerPlan``."""
     policy = cfg.precision_policy()
     cb, w0 = _decode_stage_operands(params, cfg, torch_dtype(policy.param_dtype))
     be = backend if backend is not None else get_backend(
         cfg.lookup_impl, device=codes2d.device, policy=policy)
     with stage("decode"):
+        if frontier:
+            return be.decode_frontier(codes2d, cb, w0, plan=plan)
         return be.decode(codes2d, cb, w0)
 
 
 def apply_decoder(params: Params, codes: torch.Tensor, cfg: DecoderConfig, *,
-                  backend: Optional[DecodeBackend] = None) -> torch.Tensor:
+                  backend: Optional[DecodeBackend] = None, frontier: bool = False,
+                  plan=None) -> torch.Tensor:
     """codes (..., m) int32 -> embeddings (..., d_e).  ``backend``
-    overrides the config's ``lookup_impl``."""
+    overrides the config's ``lookup_impl``.  ``frontier`` and ``plan``
+    (a frontier's flat (U, m) codes and its ``graph.sampler.OwnerPlan``)
+    go to ``decode_stage``; under a mesh the MLP then runs on every rank's
+    rows."""
+    if frontier:
+        h = decode_stage(params, codes, cfg, backend, frontier=True, plan=plan)
+        return apply_mlp(params, h, cfg)
     lead = codes.shape[:-1]
     h = apply_mlp(params, decode_stage(params, codes.reshape(-1, cfg.m), cfg, backend), cfg)
     return h.reshape(*lead, cfg.d_e)

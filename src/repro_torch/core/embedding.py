@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core import codes as codes_lib
 from repro_torch.core import lsh
-from repro_torch.core.backend import DecodeBackend, family_of, torch_dtype
+from repro_torch.core.backend import DecodeBackend, family_of, frontier_rows, torch_dtype
 from repro_torch.core.decoder import (DecoderConfig, Params, apply_decoder,
                                       init_decoder)
 from repro_torch.stages import stage
@@ -160,14 +160,21 @@ def lookup_codes(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig,
 
 
 def embed_lookup(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig, *,
-                 backend: Optional[DecodeBackend] = None, codes=None) -> torch.Tensor:
+                 backend: Optional[DecodeBackend] = None, codes=None,
+                 frontier: bool = False, plan=None) -> torch.Tensor:
     """ids (...,) -> embeddings (..., d_e).  ``backend`` is an optional
     resolved ``DecodeBackend`` overriding ``cfg.lookup_impl``; ``codes`` the
-    batch's packed rows (``lookup_codes``)."""
+    batch's packed rows (``lookup_codes``).  ``frontier``: ``ids`` are a
+    frontier's flat ids (under a mesh, this rank's block of a placed
+    frontier, and the result holds every rank's rows), ``plan`` its
+    ``graph.sampler.OwnerPlan`` for the owner-computes decode."""
     if cfg.kind == "dense":
-        return params["table"].to(torch_dtype(cfg.compute_dtype))[ids.to(torch.int64)]
+        table = params["table"].to(torch_dtype(cfg.compute_dtype))
+        if frontier:
+            return frontier_rows(table, ids.to(torch.int64))
+        return table[ids.to(torch.int64)]
     return apply_decoder(params["decoder"], lookup_codes(params, ids, cfg, codes),
-                         cfg.decoder_config(), backend=backend)
+                         cfg.decoder_config(), backend=backend, frontier=frontier, plan=plan)
 
 
 def decode_all(params: Params, cfg: EmbeddingConfig, block: int = 8192,

@@ -1,5 +1,5 @@
 """Streaming graph-training engine (sample -> lookup -> decode -> train);
-counterpart of the single-device part of ``repro/graph/engine.py``.
+counterpart of ``repro/graph/engine.py``.
 
 * ``GNNModel.apply(params, batch)`` accepts a ``FrontierBatch`` (dedup-decode
   GraphSAGE), a naive level list, a ``FullGraphBatch`` (or a
@@ -11,6 +11,9 @@ counterpart of the single-device part of ``repro/graph/engine.py``.
   ``(seed, shard, step)``: the targets from a generator seeded by the step,
   the neighbours counter-based (``NeighborSampler.sample_hashed``), so
   prefetching and resuming replay the same sequence bit for bit.
+  ``ShardedSageBatchSource`` stacks N shards' frontiers into one batch
+  (and plans the owner-computes exchange), so an N-shard run is a spec
+  change (``n_shards``, ``lookup_impl``), not new code.
 * ``MissPlanningSource`` wraps a source for cached training: it permutes
   each frontier miss-first against a host replica of the cache's
   bookkeeping, so the step decodes only the planned misses.
@@ -38,7 +41,8 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import CachedDecodeBackend, HostCacheShadow, get_backend
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.csr import CSRMatrix, DeviceCSR
-from repro_torch.graph.sampler import FrontierBatch, NeighborSampler, as_int64, stream_key
+from repro_torch.graph.sampler import (FrontierBatch, NeighborSampler, OwnerPlan, as_int64,
+                                      build_owner_plan, default_owner_caps, stream_key)
 from repro_torch.models import gnn
 from repro_torch.stages import stage
 
@@ -61,15 +65,19 @@ class GNNModel:
     ``apply`` moves host batches to the model's device: a ``FrontierBatch``
     runs the dedup-decode forward, a list of levels the naive one, a
     ``FullGraphBatch`` the full-graph GCN / SGC / GIN (a ``CSRMatrix`` is
-    uploaded for the call)."""
+    uploaded for the call).  ``duplication`` is the measured frontier
+    duplication ``auto`` reads under a mesh (``core.backend.resolve_auto``);
+    the backend is resolved, under the mesh active then, when the model is
+    built."""
 
     def __init__(self, cfg: GNNConfig, device: DeviceLike = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, duplication: Optional[float] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         policy = cfg.embedding_config().decoder_config().precision_policy()
         self.backend = get_backend(backend or cfg.embedding.lookup_impl,
-                                   device=self.device, policy=policy)
+                                   device=self.device, policy=policy,
+                                   duplication=duplication)
 
     def init(self, generator: torch.Generator, codes=None, aux=None):
         return gnn.init_gnn(generator, self.cfg, codes=codes, aux=aux)
@@ -128,7 +136,8 @@ def batch_view(batch: Dict[str, Any]) -> Batch:
 def map_arrays(batch, fn: Callable):
     """``fn`` over every array of a batch (dicts, tuples, lists and
     ``FrontierBatch``es keep their structure; a frontier's ``valid`` mask
-    is an array too, its ``n_unique`` and ``n_decode`` stay plain ints; a
+    is an array too, and so is each ``OwnerPlan`` leaf; its ``n_unique`` and
+    ``n_decode`` stay plain ints; a
     ``FullGraphBatch`` is already on its device and passes as it is)."""
     if isinstance(batch, FullGraphBatch):
         return batch
@@ -137,7 +146,9 @@ def map_arrays(batch, fn: Callable):
                              batch.n_unique,
                              valid=None if batch.valid is None else fn(batch.valid),
                              n_decode=batch.n_decode,
-                             codes=None if batch.codes is None else fn(batch.codes))
+                             codes=None if batch.codes is None else fn(batch.codes),
+                             plan=None if batch.plan is None else OwnerPlan(
+                                 *(fn(a) for a in batch.plan.leaves())))
     if isinstance(batch, dict):
         return {k: map_arrays(v, fn) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
@@ -240,6 +251,134 @@ class SageBatchSource:
             raise ValueError("restoring a sage batch source onto a different "
                              "shard layout")
         self.step = int(state["step"])
+
+
+class ShardedSageBatchSource:
+    """All shards of the sharded stream: N per-shard ``SageBatchSource``s
+    advanced in lockstep, their frontiers stacked into one global batch
+    (the JAX package's, bit for bit).
+
+    Row block ``s`` is shard ``s``'s frontier, padded to exactly
+    ``frontier_cap`` rows, so the placement (``parallel.policy``) hands
+    each rank its own block and the ``sharded`` decode backend decodes it
+    there.  Index maps are offset into the owning shard's block; a node in
+    several shards' frontiers decodes once per shard.  ``valid`` marks each
+    block's genuine prefix.  Every rank runs this source whole (the
+    single-process stand-in of the JAX package, where each host would run
+    only its own shard), so each holds every block's index maps, which the
+    combine after the decode's ``all_gather`` reads.
+
+    ``owner_plan`` attaches a host-built ``OwnerPlan`` to every batch (in
+    the prefetch producer, beside the sampling) for the ``owner`` decode
+    backend: ``True`` always, ``"auto"`` when the duplication measured at
+    the first step (``measure_duplication``) beats
+    ``core.backend.OWNER_DUP_THRESHOLD``, the rule ``auto`` backend
+    selection applies.  A batch whose buckets overflow ``owner_cap`` or
+    ``owner_unique_cap`` is emitted without a plan after a warning (the
+    owner backend then decodes the sharded way), and ``plan_overflows``
+    counts them: rows are never truncated.
+    """
+
+    def __init__(self, sampler: NeighborSampler, nodes, labels,
+                 batch_size: int, n_shards: int, seed: int = 0,
+                 pad_to: int = 256, frontier_cap: Optional[int] = None,
+                 owner_plan: Union[bool, str] = False,
+                 owner_cap: Optional[int] = None,
+                 owner_unique_cap: Optional[int] = None):
+        if frontier_cap is None:
+            frontier_cap = default_frontier_cap(
+                batch_size, sampler.fanouts, pad_to, sampler.table.shape[0])
+        self.n_shards = int(n_shards)
+        self.frontier_cap = int(frontier_cap)
+        self.seed = int(seed)
+        self.shards = [
+            SageBatchSource(sampler, nodes, labels, batch_size, seed=seed,
+                            pad_to=pad_to, shard=s, n_shards=n_shards,
+                            frontier_cap=self.frontier_cap)
+            for s in range(self.n_shards)]
+        self._peek = None   # (step, parts): a measured step is not sampled again
+        self.plan_overflows = 0
+        self.duplication_measured: Optional[float] = None
+        if owner_plan == "auto":
+            from repro_torch.core.backend import OWNER_DUP_THRESHOLD
+            self.duplication_measured = self.measure_duplication()
+            owner_plan = self.duplication_measured > OWNER_DUP_THRESHOLD
+        self.owner_plan = bool(owner_plan)
+        oc, ou = default_owner_caps(self.frontier_cap, self.n_shards)
+        for name, cap_ in (("owner_cap", owner_cap), ("owner_unique_cap", owner_unique_cap)):
+            if cap_ is not None and int(cap_) <= 0:
+                raise ValueError(f"{name} must be positive, got {cap_} "
+                                 f"(None = sized from frontier_cap)")
+        self.owner_cap = oc if owner_cap is None else int(owner_cap)
+        self.owner_unique_cap = ou if owner_unique_cap is None else int(owner_unique_cap)
+
+    def measure_duplication(self) -> float:
+        """Decode duplication of the next batch, ``frontier_rows /
+        unique_rows``: the rows a rank decodes (``frontier_cap``, padding
+        included) over the mean unique count of a shard.  It peeks without
+        consuming: the shards' steps are restored and the sampled parts
+        kept for the next ``next_batch``."""
+        step0 = self.shards[0].step
+        parts = [s.next_batch() for s in self.shards]
+        for s in self.shards:
+            s.step = step0
+        self._peek = (step0, parts)
+        total_unique = sum(int(p["frontier"].n_unique) for p in parts)
+        return self.frontier_cap * self.n_shards / max(total_unique, 1)
+
+    def next_batch(self) -> Dict[str, Any]:
+        if self._peek is not None and self._peek[0] == self.shards[0].step:
+            parts = self._peek[1]
+            for s in self.shards:
+                s.step += 1
+        else:
+            parts = [s.next_batch() for s in self.shards]
+        self._peek = None
+        cap = self.frontier_cap
+        fbs = [p["frontier"] for p in parts]
+        with stage("stack"):
+            unique = np.concatenate([np.asarray(fb.unique) for fb in fbs])
+            maps = tuple(
+                np.concatenate([np.asarray(fb.index_maps[i]) + s * cap
+                                for s, fb in enumerate(fbs)], axis=0)
+                for i in range(len(fbs[0].index_maps)))
+            valid = np.concatenate([np.arange(cap, dtype=np.int32) < int(fb.n_unique)
+                                    for fb in fbs])
+            n_unique = sum(int(fb.n_unique) for fb in fbs)
+            labels = np.concatenate([p["labels"] for p in parts])
+        plan = None
+        if self.owner_plan:
+            with stage("owner_plan"):
+                plan = build_owner_plan([np.asarray(fb.unique) for fb in fbs],
+                                        [int(fb.n_unique) for fb in fbs],
+                                        self.n_shards, self.owner_cap, self.owner_unique_cap)
+            if plan is None:
+                import warnings
+                self.plan_overflows += 1
+                warnings.warn(
+                    f"owner plan overflow: a (requester, owner) bucket exceeded "
+                    f"owner_cap={self.owner_cap} or an owner's unique set exceeded "
+                    f"owner_unique_cap={self.owner_unique_cap}; emitting the batch "
+                    f"without a plan (decode falls back to the sharded row partition "
+                    f"— correct, but no cross-shard dedup).  Raise the caps "
+                    f"(RuntimeSpec.owner_cap / owner_unique_cap) if this recurs.",
+                    stacklevel=2)
+        return {"frontier": FrontierBatch(unique, maps, n_unique, valid=valid, plan=plan),
+                "labels": labels}
+
+    # -- checkpointable state -------------------------------------------
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self.shards[0].step, "seed": self.seed, "n_shards": self.n_shards}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        if int(state["seed"]) != self.seed:
+            raise ValueError("restoring a sharded sage batch source from a different run")
+        if int(state.get("n_shards", 1)) != self.n_shards:
+            raise ValueError("restoring a sharded sage batch source onto a different "
+                             "shard count")
+        for sh in self.shards:
+            sh.step = int(state["step"])
+        self._peek = None
 
 
 class MissPlanningSource:
@@ -353,6 +492,11 @@ class PrefetchIterator:
     are gathered and copied while the card runs the previous step, in the
     batch's one pinned buffer.  ``stats()`` accounts its time and the code
     bytes it adds.
+
+    ``device`` may be a frontier placement (``parallel.policy``) in place of
+    a device: the producer then keeps only this rank's blocks of each
+    stacked batch (before the code gather, so only the block's code rows
+    are gathered) and copies them to the placement's device.
     """
 
     def __init__(self, source, depth: int = 2, device: DeviceLike = None,
@@ -360,6 +504,11 @@ class PrefetchIterator:
         self.source = source
         self._code_gather = code_gather
         self.depth = max(1, int(depth))
+        # a frontier placement (parallel.policy) cuts the rank's blocks out
+        # of each batch before the copy to its device
+        self._select = getattr(device, "select", None)
+        if self._select is not None:
+            device = device.device
         self.device = None if device is None else torch.device(device)
         self._stream = None
         if self.device is not None and self.device.type == "cuda":
@@ -431,6 +580,8 @@ class PrefetchIterator:
                     batch = self.source.next_batch()
                     state = self._snapshot()
                 t1 = time.perf_counter()
+                if self._select is not None:
+                    batch = self._select(batch)
                 if self._code_gather is not None:
                     batch = self._code_gather(batch)
                 words = _code_words(batch)

@@ -22,9 +22,14 @@ adjacency uploaded once (``FullGraphSource``; no sampler, no prefetch,
 no serving).  ``codes_placement="host"`` keeps the packed codes in host
 RAM as the JAX package does: the params carry no ``codes_buf``, and every
 frontier of training, evaluation and serving takes its code rows from the
-runtime's numpy buffer (``codes``) on the host.  Sharding and elastic
-training are later slices, and a spec that asks for them raises
-``NotImplementedError`` naming the slice.
+runtime's numpy buffer (``codes``) on the host.  ``n_shards=N`` trains
+GraphSAGE as one of N ranks of a ``torch.distributed`` group (the same
+program on every rank, as ``parallel.sharding`` describes): the mesh, the
+frontier placement, a ``ShardedSageBatchSource`` and, for ``owner`` or a
+measured ``auto``, the owner plan; evaluation, embedding and serving run
+whole on every rank, and rank 0 writes the checkpoints every rank
+restores.  Elastic training is a later slice, and a spec that asks for it
+raises ``NotImplementedError`` naming the slice.
 
 Graph, splits and batches are pure functions of the spec's seeds (numpy,
 identical to the JAX package's); the LSH projections and weights come from
@@ -46,7 +51,8 @@ import torch
 from repro_torch.configs.base import EmbeddingSpec, GNNConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
 from repro_torch.graph.engine import (FullGraphBatch, GNNModel, MissPlanningSource,
-                                      PrefetchIterator, SageBatchSource, _step_rng)
+                                      PrefetchIterator, SageBatchSource,
+                                      ShardedSageBatchSource, _step_rng)
 from repro_torch.graph.generate import train_val_test_split
 from repro_torch.graph.sampler import NeighborSampler, attach_codes
 from repro_torch.nn.module import map_tree
@@ -192,12 +198,16 @@ class RuntimeSpec:
 def _check_ported(spec: RuntimeSpec) -> None:
     """Raise for every spec knob whose slice is not ported yet."""
     later = []
-    if spec.n_shards > 1:
-        later.append(f"n_shards={spec.n_shards}: the multi-GPU slice (ROADMAP A.14)")
     if spec.elastic is not None:
         later.append("elastic: the elastic-training slice (ROADMAP A.16)")
     if later:
         raise NotImplementedError("not ported yet — " + "; ".join(later))
+
+
+def _chain(fns, batch):
+    for fn in fns:
+        batch = fn(batch)
+    return batch
 
 
 class FullGraphSource:
@@ -262,6 +272,14 @@ class GraphRuntime:
         self.adj = adj
         self.labels = np.asarray(labels)
         self.cfg = cfg
+        # -- mesh / placement (n_shards is the whole N-shard switch) -------
+        self.mesh = self.place = None
+        if spec.n_shards > 1:
+            from repro_torch.parallel.policy import make_frontier_placement
+            from repro_torch.parallel.sharding import data_mesh
+            self.mesh = data_mesh(spec.n_shards, device=device)
+            device = self.mesh.device
+            self.place = make_frontier_placement(self.mesh)
         self.device = device
         self.model = GNNModel(cfg, device)
         if codes is not None and not self.codes_on_host:
@@ -292,12 +310,12 @@ class GraphRuntime:
 
         tr, va, te = train_val_test_split(spec.split_seed, cfg.n_nodes, spec.split_frac)
         self.splits = {"train": tr, "val": va, "test": te}
-        self.train_step = make_gnn_train_step(cfg, spec.optimizer, device)
         self.ckpt = None
         if spec.ckpt_dir:
             from repro_torch.train.checkpoint import CheckpointManager
-            self.ckpt = CheckpointManager(spec.ckpt_dir, keep=2)
+            self.ckpt = CheckpointManager(spec.ckpt_dir, keep=2, mesh=self.mesh)
         if self.fullgraph:
+            self.train_step = make_gnn_train_step(cfg, spec.optimizer, device, mesh=self.mesh)
             # no neighbour table (full-graph models never sample) and no
             # prefetch (the one batch is on the device already)
             self.sampler = None
@@ -308,9 +326,27 @@ class GraphRuntime:
         self.adj_norm = self.full = None
         self.sampler = NeighborSampler(adj, cfg.fanouts, max_deg=spec.max_deg,
                                        seed=spec.data_seed)
-        self.source = SageBatchSource(self.sampler, tr, self.labels, spec.batch_size,
-                                      seed=spec.data_seed, dedup=spec.dedup,
-                                      pad_to=spec.pad_to, frontier_cap=spec.frontier_cap)
+        if spec.n_shards > 1:
+            if spec.batch_size % spec.n_shards:
+                raise ValueError(f"batch_size {spec.batch_size} not divisible by "
+                                 f"n_shards {spec.n_shards}")
+            # the owner-computes decode: the source plans the exchange
+            # whenever the backend can use it, always for "owner[:base]",
+            # past the measured duplication threshold for "auto"
+            impl = (cfg.embedding.lookup_impl or "auto").split(":")[0]
+            self.source = ShardedSageBatchSource(
+                self.sampler, tr, self.labels, spec.batch_size // spec.n_shards,
+                n_shards=spec.n_shards, seed=spec.data_seed, pad_to=spec.pad_to,
+                frontier_cap=spec.frontier_cap,
+                owner_plan={"owner": True, "auto": "auto"}.get(impl, False),
+                owner_cap=spec.owner_cap, owner_unique_cap=spec.owner_unique_cap)
+        else:
+            self.source = SageBatchSource(self.sampler, tr, self.labels, spec.batch_size,
+                                          seed=spec.data_seed, dedup=spec.dedup,
+                                          pad_to=spec.pad_to, frontier_cap=spec.frontier_cap)
+        self.train_step = make_gnn_train_step(
+            cfg, spec.optimizer, device, mesh=self.mesh,
+            duplication=getattr(self.source, "duplication_measured", None))
         emb = cfg.embedding
         if emb.cache_plan_misses:
             # plan-ahead miss partition: the producer permutes the next
@@ -329,10 +365,13 @@ class GraphRuntime:
         # rows, or without prefetch the loop does before each step
         gather = self._attach if self.codes_on_host else None
         self.data_iter = (PrefetchIterator(self.source, depth=spec.prefetch_depth,
-                                           device=device, code_gather=gather)
+                                           device=self.place or device, code_gather=gather)
                           if spec.prefetch_depth > 0 else self.source)
-        if gather is not None and spec.prefetch_depth <= 0:
-            self._to_device = gather
+        if spec.prefetch_depth <= 0:
+            # without prefetch the loop places (and gathers codes) itself
+            steps = [f for f in (getattr(self.place, "select", None), gather) if f]
+            if steps:
+                self._to_device = lambda b: _chain(steps, b)
 
     def _attach(self, batch):
         """A batch with its frontier's packed code rows from the host buffer."""

@@ -14,7 +14,8 @@ frontier plus int64 index maps per level, so the embedding decoder runs
 once per unique node (``unique[index_maps[i]] == levels[i]``); ``to``
 moves it to the device as tensors.  ``attach_codes`` gathers a frontier's
 packed code rows on the host (codes kept on the host, the batch's
-``codes``).
+``codes``).  ``OwnerPlan`` and ``build_owner_plan`` route a stacked
+N-shard frontier's rows to their owners for the owner-computes decode.
 """
 
 from __future__ import annotations
@@ -50,6 +51,118 @@ def stream_key(seed: int, step: int) -> np.uint64:
     return np.uint64(_mix64(k))
 
 
+@dataclasses.dataclass(frozen=True)
+class OwnerPlan:
+    """Host-built routing plan for the owner-computes cross-shard decode
+    (``lookup_impl="owner"``, ``core.backend.OwnerBackend``); the JAX
+    package's leaves, int32, bit for bit.
+
+    Frontier rows are hash-partitioned by ``owner = node_id % n_shards``.
+    Every array is stacked along the shard axis (leading dim ``n_shards``),
+    so the placement that gives a rank its block of the frontier rows gives
+    it its slice of the plan too (leading dim 1).  Shapes are static:
+    ``owner_cap`` request slots per (requester, owner) pair,
+    ``owner_unique_cap`` decode rows per owner.
+
+    ``req_rows``   (n, n, owner_cap) — [requester s][owner o][slot] = row of
+                   s's ``cap``-row frontier block, or the sentinel ``cap``
+                   for an unused slot.
+    ``owned_src``  (n, owner_unique_cap) — [owner o][j] = position in o's
+                   received (n·owner_cap,) request buffer of the first
+                   occurrence of its j-th owned id (0 past ``n_owned[o]``).
+    ``ret_idx``    (n, n, owner_cap) — [owner o][requester s][slot] = row of
+                   o's decoded (owner_unique_cap,) rows answering that slot
+                   (0 for an unused slot).
+    ``n_owned``    (n,) — distinct ids each owner decodes.
+    """
+
+    req_rows: Array
+    owned_src: Array
+    ret_idx: Array
+    n_owned: Array
+
+    def leaves(self) -> Tuple[Array, Array, Array, Array]:
+        return (self.req_rows, self.owned_src, self.ret_idx, self.n_owned)
+
+    @property
+    def n_shards(self) -> int:
+        """The shard count (also of one rank's slice, leading dim 1)."""
+        return int(self.req_rows.shape[1])
+
+    @property
+    def owner_cap(self) -> int:
+        return int(self.req_rows.shape[2])
+
+    @property
+    def owner_unique_cap(self) -> int:
+        return int(self.owned_src.shape[1])
+
+
+# Headroom of the per-(requester, owner) request buckets over their
+# expected fill ``cap / n_shards``: absorbs hash skew across the residue
+# classes.
+OWNER_SAFETY = 1.25
+
+
+def default_owner_caps(cap: int, n_shards: int,
+                       safety: float = OWNER_SAFETY) -> Tuple[int, int]:
+    """``(owner_cap, owner_unique_cap)`` sized from the per-shard frontier
+    ``cap``: the expected bucket fill ``cap / n_shards`` times ``safety``,
+    and ``cap / 2`` decode rows an owner (the owner decode is chosen only
+    past a duplication of 2, which bounds an owner's distinct ids by
+    ``cap / 2``); both rounded up to a multiple of 8 and clipped to the
+    trivially safe ``cap`` and ``n_shards * owner_cap``."""
+    def up8(x: int) -> int:
+        return -(-int(x) // 8) * 8
+    oc = min(up8(-(-cap * safety // n_shards)), cap)
+    ou = min(up8(-(-cap // 2)), n_shards * oc)
+    return int(oc), int(ou)
+
+
+def build_owner_plan(uniques: Sequence[np.ndarray], n_uniques: Sequence[int],
+                     n_shards: int, owner_cap: int,
+                     owner_unique_cap: int) -> Optional[OwnerPlan]:
+    """The owner-computes exchange plan of one stacked frontier:
+    ``uniques`` are the n per-shard blocks (each (cap,), valid prefix of
+    ``n_uniques[s]`` rows).  Rows go to owner ``id % n``, and each owner
+    dedups the requests it receives from every requester, so each distinct
+    id is decoded exactly once.  ``None`` when a (requester, owner) bucket
+    exceeds ``owner_cap`` or an owner's distinct ids exceed
+    ``owner_unique_cap``: the caller falls back loudly, never truncates."""
+    n = int(n_shards)
+    cap = int(np.asarray(uniques[0]).shape[0])
+    req_rows = np.full((n, n, owner_cap), cap, np.int32)
+    requests = [[None] * n for _ in range(n)]
+    for s in range(n):
+        ids = np.asarray(uniques[s])[:int(n_uniques[s])]
+        own = ids % n
+        for o in range(n):
+            rows = np.nonzero(own == o)[0]
+            if rows.shape[0] > owner_cap:
+                return None
+            req_rows[s, o, :rows.shape[0]] = rows
+            requests[s][o] = ids[rows]
+    owned_src = np.zeros((n, owner_unique_cap), np.int32)
+    ret_idx = np.zeros((n, n, owner_cap), np.int32)
+    n_owned = np.zeros((n,), np.int32)
+    for o in range(n):
+        # owner o's received buffer: requester s's segment at s*owner_cap
+        flat = np.full((n * owner_cap,), -1, np.int64)
+        for s in range(n):
+            k = requests[s][o].shape[0]
+            flat[s * owner_cap:s * owner_cap + k] = requests[s][o]
+        pos = np.nonzero(flat >= 0)[0]
+        uniq, first, inv = np.unique(flat[pos], return_index=True, return_inverse=True)
+        if uniq.shape[0] > owner_unique_cap:
+            return None
+        owned_src[o, :uniq.shape[0]] = pos[first]
+        n_owned[o] = uniq.shape[0]
+        ridx = np.zeros((n * owner_cap,), np.int32)
+        ridx[pos] = inv.astype(np.int32)
+        ret_idx[o] = ridx.reshape(n, owner_cap)
+    return OwnerPlan(req_rows, owned_src, ret_idx, n_owned)
+
+
 def as_int64(a, device) -> torch.Tensor:
     """An array as an int64 tensor on ``device``.  A numpy array widens on
     the host, so a uint32 code word at or above 2**31 keeps its bit
@@ -81,6 +194,10 @@ class FrontierBatch:
     ``codes``      optional (U_pad, n_words) packed code rows of the
                    frontier, row-aligned with ``unique`` (``attach_codes``;
                    uint32 on the host, int64 bit patterns after ``to``).
+    ``plan``       optional ``OwnerPlan``: the owner-computes routing of a
+                   stacked sharded frontier whose source plans it.  Its
+                   padding rows decode to zeros (no index map points at
+                   them).
     """
 
     unique: Array
@@ -89,6 +206,7 @@ class FrontierBatch:
     valid: Optional[Array] = None
     n_decode: Optional[int] = None
     codes: Optional[Array] = None
+    plan: Optional[OwnerPlan] = None
 
     @classmethod
     def from_levels(cls, levels: Sequence[np.ndarray], pad_to: int = 256,
@@ -116,9 +234,9 @@ class FrontierBatch:
         return cls(uniq.astype(np.int32), tuple(maps), int(n_unique))
 
     def to(self, device) -> "FrontierBatch":
-        """Tensors on ``device`` (ids, maps and code words as int64,
-        ``valid`` as bool, ``n_decode`` a plain int); a batch already there
-        is returned as it is."""
+        """Tensors on ``device`` (ids, maps, code words and plan leaves as
+        int64, ``valid`` as bool, ``n_decode`` a plain int); a batch already
+        there is returned as it is."""
         def t(a):
             return as_int64(a, device)
         return FrontierBatch(
@@ -126,7 +244,8 @@ class FrontierBatch:
             valid=(None if self.valid is None
                    else torch.as_tensor(self.valid).to(device, torch.bool)),
             n_decode=self.n_decode,
-            codes=None if self.codes is None else t(self.codes))
+            codes=None if self.codes is None else t(self.codes),
+            plan=None if self.plan is None else OwnerPlan(*(t(a) for a in self.plan.leaves())))
 
     def valid_mask(self):
         """(U_pad,) bool: True on the genuine (non-padding) frontier rows; a

@@ -29,6 +29,7 @@ from repro_torch.core.backend import CachedDecodeBackend
 from repro_torch.core.decoder import Params
 from repro_torch.graph.sampler import FrontierBatch
 from repro_torch.nn.module import dense_init
+from repro_torch.parallel import sharding
 from repro_torch.stages import stage
 
 def init_gnn(generator: torch.Generator, cfg: GNNConfig,
@@ -94,10 +95,27 @@ def sage_forward_frontier(params, fb: FrontierBatch, cfg: GNNConfig,
     accumulating ``index_put_``, adds them with atomics on the CPU), so a
     step's gradients are the same bits on every run.  A batch that carries
     its packed code rows (``fb.codes``, codes kept on the host) decodes
-    them in place of the ``codes_buf`` gather."""
+    them in place of the ``codes_buf`` gather.
+
+    Under a mesh of several ranks ``fb`` is this rank's placed block of a
+    stacked sharded frontier (``parallel.policy``): the decode backend
+    returns every rank's rows (the ``OwnerPlan`` ``fb.plan`` routes the
+    owner-computes decode), and the rest runs on the whole batch."""
     hu = emb_lib.embed_lookup(params["embed"], fb.unique, cfg.embedding_config(),
-                              backend=backend, codes=fb.codes)      # (U, de)
+                              backend=backend, codes=fb.codes, frontier=True,
+                              plan=fb.plan)                         # (U, de)
     return _levels(params, hu, fb)
+
+
+def _whole_frontier(fb: FrontierBatch):
+    """``(ids, valid)`` of the whole frontier: under a mesh of several
+    ranks every rank's placed blocks, all-gathered in rank order."""
+    ids, valid = fb.unique, fb.valid_mask()
+    mesh = sharding.current_mesh()
+    if sharding.data_axis_size(mesh) > 1:
+        ids = torch.cat(mesh.all_gather(ids))
+        valid = torch.cat(mesh.all_gather(valid.to(torch.uint8))).bool()
+    return ids, valid
 
 
 def _levels(params, hu: torch.Tensor, fb: FrontierBatch) -> torch.Tensor:
@@ -116,11 +134,14 @@ def sage_forward_frontier_cached(params, fb: FrontierBatch, cfg: GNNConfig,
     rows go with it as they are.  Returns ``(hidden, new_cache_state)``."""
     ecfg = cfg.embedding_config()
     cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
+    # the cache (whole on every rank) keys the whole frontier; the decode
+    # it wraps is the frontier's, plan included
+    ids, valid = _whole_frontier(fb)
     hu, new_state = cache.lookup(
-        cache_state, fb.unique,
-        lambda i: emb_lib.embed_lookup(params["embed"], i, ecfg, backend=backend,
-                                       codes=fb.codes),
-        valid=fb.valid_mask())
+        cache_state, ids,
+        lambda _: emb_lib.embed_lookup(params["embed"], fb.unique, ecfg, backend=backend,
+                                       codes=fb.codes, frontier=True, plan=fb.plan),
+        valid=valid)
     return _levels(params, hu, fb), new_state
 
 
@@ -134,6 +155,9 @@ def sage_forward_frontier_missonly(params, fb: FrontierBatch, cfg: GNNConfig,
     with the permuted frontier, are cut to the same prefix.  Returns
     ``(hidden, new_cache_state)``; with ``buffers`` the cache is updated in
     place (``CachedDecodeBackend.lookup_missonly``)."""
+    if sharding.data_axis_size() > 1:
+        raise ValueError("a miss-first permuted frontier is single-shard only: the "
+                         "permutation breaks the stacked per-shard row blocks")
     ecfg = cfg.embedding_config()
     cache = CachedDecodeBackend(staleness=ecfg.cache_staleness)
     hu, new_state = cache.lookup_missonly(

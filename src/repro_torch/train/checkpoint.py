@@ -18,7 +18,11 @@ runtime spec), ``topology`` and the leaves' shapes and dtypes.
   * retention: the newest ``keep`` checkpoints;
   * ``restore(expect_topology=...)`` raises ``TopologyMismatch`` before it
     touches an array when the checkpoint was written under another shard
-    topology.
+    topology;
+  * several ranks (``mesh=``, a ``parallel.sharding.DataMesh``): rank 0
+    writes, since every rank holds the same state, and ``wait()`` returns
+    on every rank only once rank 0's write is published, so every rank can
+    restore it.
 """
 
 from __future__ import annotations
@@ -106,14 +110,16 @@ class TopologyMismatch(ValueError):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self._writes = mesh is None or mesh.rank == 0
         self._thread: Optional[threading.Thread] = None
         os.makedirs(directory, exist_ok=True)
         # a write cut short leaves a step_*.tmp behind: never listed, never
         # restored, and in the way of a later write of the same step
-        for name in os.listdir(directory):
+        for name in os.listdir(directory) if self._writes else ():
             if name.startswith("step_") and name.endswith(".tmp"):
                 shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
 
@@ -123,19 +129,29 @@ class CheckpointManager:
         """``state``: nested dicts of tensors and ints; ``extra``: JSON-able
         (data-pipeline state, the runtime spec); ``topology``: JSON-able
         shard layout that ``restore(expect_topology=...)`` checks.  The
-        write runs on a background thread: ``wait()`` before reading it."""
+        write runs on a background thread: ``wait()`` before reading it.
+        Under a mesh only rank 0 writes."""
+        if not self._writes:
+            return self._path(step)
         flat = _flatten(state)   # the device-to-host copy, on this thread
-        self.wait()              # at most one outstanding write
+        self._join()             # at most one outstanding write
         self._thread = threading.Thread(
             target=self._write, args=(step, flat, extra or {}, topology),
             daemon=True)
         self._thread.start()
         return self._path(step)
 
-    def wait(self):
+    def _join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self):
+        """Until the last write is published (under a mesh, on every rank:
+        every rank must call it)."""
+        self._join()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _path(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")

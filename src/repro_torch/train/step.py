@@ -7,8 +7,8 @@ counter, and gradient accumulation over ``hyper.microbatches``.
 ``make_gnn_train_step(cfg, opt)`` is the node-classification step over
 ``GNNModel`` on a batch dict from an engine source (or the runtime's
 full-graph source); with a ``"cache"`` in
-the state it decodes through the hot-node cache (a mesh comes with a later
-slice, ROADMAP A.14).
+the state it decodes through the hot-node cache, and with a ``mesh`` it
+runs as one rank of an N-shard step.
 
 The stored params never require grad.  Each step differentiates detached
 views of the trainable leaves (``torch.autograd.grad``, which raises if a
@@ -124,7 +124,8 @@ def gnn_loss(model, params, batch, hidden: Optional[torch.Tensor] = None) -> tor
 
 
 def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
-                        device: DeviceLike = None) -> Callable:
+                        device: DeviceLike = None, mesh=None,
+                        duplication: Optional[float] = None) -> Callable:
     """Node-classification step on ``device``: the batch is
     {"frontier": FrontierBatch, "labels": y} (dedup decode),
     {"levels": tuple, "labels": y} (naive), on the host or already on the
@@ -143,14 +144,29 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
     planned-miss prefix when the batch carries ``n_decode``), the new cache
     replaces the old one, its version is bumped after the optimizer step
     (which is what ages cached rows past the staleness budget), and the
-    metrics carry its cumulative ``cache_hits`` and ``cache_misses``."""
+    metrics carry its cumulative ``cache_hits`` and ``cache_misses``.
+
+    ``mesh`` (a ``parallel.sharding.DataMesh``) makes the model and each
+    step run under that mesh: with ``lookup_impl="sharded"``, ``"owner"``
+    or ``"auto"`` a placed ``ShardedSageBatchSource`` batch decodes its
+    rank's block, and the rest of the step runs on the whole batch on every
+    rank, so the ranks' params stay equal bit for bit.  ``duplication``
+    (``ShardedSageBatchSource.measure_duplication``) lets ``auto`` prefer
+    the owner-computes decode past ``OWNER_DUP_THRESHOLD``."""
     from repro_torch.core.backend import CachedDecodeBackend
     from repro_torch.graph.engine import GNNModel, batch_to, batch_view
+    from repro_torch.parallel.sharding import use_sharding
     dev = resolve_device(device)
-    model = GNNModel(cfg, dev)
+    with use_sharding(mesh):
+        model = GNNModel(cfg, dev, duplication=duplication)
     ocfg = opt or AdamWConfig(lr=1e-2, weight_decay=0.0)
 
     def train_step(state, batch):
+        with use_sharding(mesh):
+            return _train_step(state, batch)
+    train_step.model = model        # the decode backend it resolved, for callers to read
+
+    def _train_step(state, batch):
         with stage("h2d"):
             batch = batch_to(batch, dev)
         view = batch_view(batch)

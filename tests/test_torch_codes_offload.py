@@ -6,8 +6,8 @@ power-law graph (identical in both packages), the paper's GraphSAGE
 narrowed to c=16, m=8, d_c=d_m=64, fanout 5, batch 64, AdamW lr 1e-2.  The
 JAX runtime decodes with ``gather``; the port with its kernel backend
 (``pallas``: on CPU tensors the kernel's plain version, whose backward sums
-in a fixed order; the port's ``gather`` backend adds a codebook row's
-repeats with threads in a varying order on the CPU, ROADMAP §C).
+in a fixed order, as the port's ``gather`` backend's does since its ROADMAP
+§C repair, ``tests/test_torch_decode.py``).
 
 Tolerances: frontiers, code rows and producer byte counts are numpy, so
 bitwise against JAX.  Host placement against the port's device placement
@@ -15,7 +15,8 @@ is bitwise everywhere: losses, params, ``evaluate``, ``embed``, served
 rows, resume.  The port's host run against JAX's host run, each step from
 JAX's state: losses within 1e-5, params within 1e-4 (the bounds of the
 port's other runtime tests: f32 matmuls summed in other orders).  The
-4-shard case of the JAX file waits for the multi-GPU slice (ROADMAP A.14).
+4-shard case of the JAX file is ``tests/test_torch_sharded.py``'s
+``test_variants_are_the_plain_run_bitwise[...-host]``.
 """
 
 import dataclasses

@@ -82,9 +82,16 @@ def test_backend_registry():
     assert tbackend.resolve_auto(cpu) == "onehot" == jbackend.resolve_auto()
     assert tbackend.resolve_auto(cuda) == "pallas"
     assert isinstance(tbackend.get_backend("auto", device=cpu), tbackend.OnehotBackend)
-    assert tbackend.available_backends() == ("gather", "hashemb", "onehot", "pallas", "tt")
-    for name in ("sharded", "owner:gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert tbackend.available_backends() == ("gather", "hashemb", "onehot", "owner",
+                                             "pallas", "sharded", "tt")
+    # the collective backends are ported (tests/test_torch_sharded.py):
+    # no decode backend raises NotImplementedError, a collective wrapping a
+    # collective raises as in the JAX package
+    assert tbackend.NOT_PORTED == {}
+    assert tbackend.get_backend("sharded", device=cpu).base.name == "onehot"
+    assert tbackend.get_backend("owner:gather", device=cpu).base.name == "gather"
+    for name in ("sharded:owner", "owner:owner"):
+        with pytest.raises(ValueError, match="wrap itself"):
             tbackend.get_backend(name, device=cpu)
     with pytest.raises(ValueError):
         tbackend.get_backend("nope", device=cpu)
@@ -207,3 +214,36 @@ def test_embedding_kinds_and_not_ported_placement():
         temb.init_embedding(g, dataclasses.replace(cfg, codes_placement="hbm"), aux=tadj)
     hashemb = dataclasses.replace(cfg, lookup_impl="hashemb")      # ported: no codes
     assert set(temb.init_embedding(g, hashemb, aux=tadj)) == {"decoder"}
+
+
+def test_gather_gradient_is_the_same_bits_on_threads():
+    """ROADMAP §C (PR 21): the ``gather`` backend's codebook gradient added a
+    codebook row's repeats (about 1,250 each here) in a varying order on
+    several CPU threads (an indexed read's backward, an accumulating
+    ``index_put_``).  Under 8 threads three gradients of one loss are now
+    the same bits, and JAX's ``gather`` gradient's."""
+    rng = np.random.default_rng(3)
+    B, m, c, d_c = 20_000, 8, 16, 64
+    codes = rng.integers(0, c, (B, m)).astype(np.int32)
+    cb = rng.standard_normal((m, c, d_c)).astype(np.float32)
+    w0 = rng.standard_normal(d_c).astype(np.float32)
+    r = rng.standard_normal((B, d_c)).astype(np.float32)
+    be = tbackend.get_backend("gather", device=torch.device("cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        grads = []
+        for _ in range(3):
+            tcb, tw0 = (torch.from_numpy(a).requires_grad_() for a in (cb, w0))
+            loss = (be.decode(torch.from_numpy(codes), tcb, tw0) * torch.from_numpy(r)).sum()
+            grads.append([g.numpy() for g in torch.autograd.grad(loss, (tcb, tw0))])
+    finally:
+        torch.set_num_threads(threads)
+    for other in grads[1:]:
+        for a, b in zip(grads[0], other):
+            np.testing.assert_array_equal(a, b)
+    jgrad = jax.grad(lambda c_, s_: (jbackend.GatherBackend().decode(jnp.asarray(codes), c_, s_)
+                                     * jnp.asarray(r)).sum(), argnums=(0, 1))
+    jcb, jw0 = jgrad(jnp.asarray(cb), jnp.asarray(w0))
+    np.testing.assert_array_equal(grads[0][0], np.asarray(jcb))
+    np.testing.assert_allclose(grads[0][1], np.asarray(jw0), rtol=1e-5, atol=1e-5)

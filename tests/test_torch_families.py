@@ -78,14 +78,16 @@ def _jax_init(impl, kind="random_full", seed=0, **kw):
 # ---------------- registry and the TT algebra ----------------
 
 def test_registry_takes_the_families():
-    assert tbackend.available_backends() == ("gather", "hashemb", "onehot", "pallas", "tt")
+    assert tbackend.available_backends() == ("gather", "hashemb", "onehot", "owner",
+                                             "pallas", "sharded", "tt")
     assert tbackend.get_backend("hashemb:gather", device=CPU).base.name == "gather"
     assert tbackend.get_backend("hashemb", device=CPU).base.name == "onehot"
     assert tbackend.get_backend("hashemb", device=torch.device("cuda")).base.name == "pallas"
     for bad in ("hashemb:tt", "hashemb:hashemb", "hashemb:sharded", "tt:gather"):
         with pytest.raises(ValueError):
             tbackend.get_backend(bad, device=CPU)
-    assert set(tbackend.NOT_PORTED) == {"sharded", "owner"}
+    assert tbackend.NOT_PORTED == {}
+    assert tbackend.get_backend("owner:tt", device=CPU).base.name == "tt"
 
 
 def test_tt_factor_pair_matches_jax():

@@ -10,7 +10,9 @@ against its plain version, a GNN step on the card against the CPU, a
 resumed run against a straight one, and ``PrefetchIterator`` on CUDA; and
 the full-graph slice: both kernels at every node of the serve graph, the
 device-resident sparse product, full-graph GCN / SGC / GIN steps against
-the CPU and a resumed GCN run.
+the CPU and a resumed GCN run; and several ranks (``parallel``): four gloo
+ranks sharing the card, and NCCL ranks one card each where there are
+enough cards (``cuda_cards``).
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1122,3 +1124,122 @@ def test_host_codes_resume_on_card_is_bitwise(cuda, tmp_path):
     tail = back.train(6)
     back.close()
     assert back.codes_on_host and tail.resumed_from == 3 and head + tail.losses == want
+
+
+# ---------------------------------------------------------------------------
+# several ranks (parallel.sharding): gloo on one card, NCCL one card a rank
+# ---------------------------------------------------------------------------
+
+def cuda_cards(n: int) -> torch.device:
+    """The ``cuda`` fixture for ``n`` cards: skips, never errors, on fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        pytest.skip(f"needs {n} CUDA cards, have {have}")
+    disable_tf32()
+    return torch.device("cuda")
+
+
+def _ranks_program(rank, n, case):
+    """One rank: the collective backends' frontier decode of its block on
+    its card against the gather oracle, then a few training steps per
+    backend; returns what the parent compares across ranks."""
+    from repro_torch.graph.sampler import OwnerPlan
+    from repro_torch.parallel import sharding
+    disable_tf32()
+    mesh = sharding.data_mesh(n)
+    dev = mesh.device
+    cap, fb = case["cap"], case["frontier"]
+    codes = torch.from_numpy(case["codes"]).to(dev)
+    cb0 = torch.from_numpy(case["cb"]).to(dev)
+    w00 = torch.from_numpy(case["w0"]).to(dev)
+    vm = torch.from_numpy(fb.valid).to(dev)[:, None]
+    plan = OwnerPlan(*(torch.from_numpy(a[rank:rank + 1].astype(np.int64)).to(dev)
+                       for a in fb.plan.leaves()))
+    oracle = backend_mod.get_backend("gather", device=dev)
+    ref = oracle.decode(codes, cb0, w00)
+    cb, w0 = cb0.clone().requires_grad_(), w00.clone().requires_grad_()
+    gref = torch.autograd.grad(((oracle.decode(codes, cb, w0) * vm) ** 2).sum(), (cb, w0))
+    out = {"transport": mesh.backend, "decode": {}, "runs": {}}
+    with sharding.use_sharding(mesh):
+        for name in ("sharded:pallas", "owner:pallas"):
+            be = backend_mod.get_backend(name, device=dev)
+            block = codes[rank * cap:(rank + 1) * cap]
+            got = be.decode_frontier(block, cb0, w00, plan=plan)
+            cb, w0 = cb0.clone().requires_grad_(), w00.clone().requires_grad_()
+            g = torch.autograd.grad(((be.decode_frontier(block, cb, w0, plan=plan) * vm) ** 2)
+                                    .sum(), (cb, w0))
+            out["decode"][name] = (
+                bool(torch.equal(got[vm[:, 0]], ref[vm[:, 0]])),
+                max(float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max()) for a, b in zip(g, gref)),
+                [t.cpu().numpy() for t in g])
+    for impl in ("sharded:pallas", "owner:pallas"):
+        rt = GraphRuntime.from_spec(
+            _gnn_spec(n_shards=n, prefetch_depth=2).with_updates(lookup_impl=impl))
+        try:
+            losses = rt.train(3).losses
+            out["runs"][impl] = (losses, {k: v.cpu().numpy() for k, v in
+                                          rt.params["embed"]["decoder"]["mlp"].items()},
+                                 rt.params["embed"]["decoder"]["codebooks"].cpu().numpy())
+        finally:
+            rt.close()
+    return out
+
+
+def _ranks_case(n):
+    from repro_torch.graph.engine import ShardedSageBatchSource
+    from repro_torch.graph.sampler import NeighborSampler
+    adj, labels = powerlaw_graph(0, 1200, avg_degree=8, n_classes=8, homophily=0.9)
+    src = ShardedSageBatchSource(NeighborSampler(adj, (5, 5), max_deg=32, seed=0),
+                                 np.arange(1200), labels, 64 // n, n_shards=n, seed=7,
+                                 pad_to=64, owner_plan=True)
+    fb = src.next_batch()["frontier"]
+    assert fb.plan is not None
+    rng = np.random.default_rng(0)
+    return dict(frontier=fb, cap=src.frontier_cap,
+                codes=rng.integers(0, 256, (1200, 16)).astype(np.int32)[fb.unique],
+                cb=rng.standard_normal((16, 256, 512)).astype(np.float32),
+                w0=rng.standard_normal(512).astype(np.float32))
+
+
+def _check_ranks(results, one_shard):
+    for name, (bitwise, rel, grads) in results[0]["decode"].items():
+        assert bitwise, f"{name}: decoded rows differ from the gather oracle"
+        assert rel <= 1.0, f"{name}: gradient beyond rtol 1e-4 / atol 1e-5 of the oracle's"
+        for other in results[1:]:
+            assert all(np.array_equal(a, b) for a, b in zip(grads, other["decode"][name][2]))
+    for impl, (losses, mlp, cbs) in results[0]["runs"].items():
+        assert losses[0] == one_shard[0], (impl, losses[0], one_shard[0])
+        assert max(abs(a - b) for a, b in zip(losses, one_shard)) < 1e-3
+        for other in results[1:]:
+            o_losses, o_mlp, o_cbs = other["runs"][impl]
+            assert o_losses == losses and np.array_equal(o_cbs, cbs)
+            assert all(np.array_equal(mlp[k], o_mlp[k]) for k in mlp)
+
+
+def _one_shard_losses():
+    rt = GraphRuntime.from_spec(_gnn_spec(prefetch_depth=2))
+    try:
+        return rt.train(3).losses
+    finally:
+        rt.close()
+
+
+def test_four_gloo_ranks_on_one_card(cuda):
+    """Four ranks share the card over gloo (CUDA tensors in its
+    collectives): decoded rows bitwise the oracle, gradients within rtol 1e-4 /
+    atol 1e-5 of it (partials summed over the ranks), every rank's params
+    equal, and the step-0 loss the 1-shard run's."""
+    from repro_torch.parallel.sharding import spawn
+    results = spawn(_ranks_program, 4, backend="gloo", args=(4, _ranks_case(4)))
+    assert results[0]["transport"] == "gloo"
+    _check_ranks(results, _one_shard_losses())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_nccl_ranks_one_card_each(n):
+    """The same over NCCL, one card a rank (skips on fewer cards)."""
+    cuda_cards(n)
+    from repro_torch.parallel.sharding import spawn
+    results = spawn(_ranks_program, n, backend="nccl", args=(n, _ranks_case(n)))
+    assert results[0]["transport"] == "nccl"
+    _check_ranks(results, _one_shard_losses())

@@ -189,16 +189,18 @@ def test_from_spec_without_device_needs_cuda(slice_pair):
 def test_later_slices_raise(slice_pair):
     _, _, trt, _, _ = slice_pair
     spec = trt.spec
-    # full-graph models and codes on the host are ported
-    # (tests/test_torch_fullgraph.py, tests/test_torch_codes_offload.py);
-    # shards and an elastic spec wait for their slices
-    for bad, item in ((dataclasses.replace(spec, n_shards=2), "A.14"),
-                      (dataclasses.replace(spec, elastic=ElasticSpec()), "A.16")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            GraphRuntime.from_spec(bad, graph=(trt.adj, trt.labels), device="cpu",
-                                   params=trt.params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.serve(decode_backend="sharded")
+    # full-graph models, codes on the host and shards are ported
+    # (tests/test_torch_fullgraph.py, tests/test_torch_codes_offload.py,
+    # tests/test_torch_sharded.py): an elastic spec waits for its slice, and
+    # shards without a process group of that many ranks raise
+    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
+        GraphRuntime.from_spec(dataclasses.replace(spec, elastic=ElasticSpec()),
+                               graph=(trt.adj, trt.labels), device="cpu", params=trt.params)
+    with pytest.raises(ValueError, match="process group"):
+        GraphRuntime.from_spec(dataclasses.replace(spec, n_shards=2),
+                               graph=(trt.adj, trt.labels), device="cpu", params=trt.params)
+    with pytest.raises(ValueError, match="wrap itself"):
+        trt.serve(decode_backend="sharded:owner")
     with pytest.raises(ValueError, match="family"):
         trt.serve(decode_backend="tt")
     with pytest.raises(ValueError, match="serve_batch"):
