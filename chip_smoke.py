@@ -98,6 +98,23 @@ weights and data from a seed:
          the period, bytes exchanged, rows decoded and peak memory a rank;
          launches summed over the ranks; NCCL one card a rank where there
          are 4 cards;
+  elastic, elastic_ckpt, elastic_grow  gnn_train's spec with
+         ``n_shards=4`` and a global batch of 192 (48 a rank at 4, 64 at
+         3), 4 ranks sharing the card over gloo: (a) ``ElasticManager``
+         under ``sharded:pallas`` kills rank 2 at step 10 (lease 1, chunk 1
+         of the 64 KiB wire corrupted once), recovers from the peers and
+         goes on at 3 ranks, bitwise a never-failed run taken to 3 ranks by
+         ``rescale(3)`` after 12 steps; (b) a 4-rank ``owner:pallas`` run
+         (caps pinned) writes its step-0 checkpoint, which
+         ``GraphRuntime.rescale_checkpoint`` takes to 2 ranks for one step,
+         bitwise a native 2-rank run; (c) a native 2-rank ``sharded:pallas``
+         runtime grown to 4 by ``rescale(4)`` at step 0 takes one step,
+         bitwise a native 4-rank run; the refusals (a 2-rank spec on the
+         4-rank checkpoint, ``rescale(5)``); the periods before and after
+         the rescale, the recovery's wall time and bytes, peak memory a
+         rank; the kernels held bitwise at every row count the phase
+         decoded; (a) again over NCCL one card a rank where there are 4
+         cards;
   train  full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16 heads,
          vocab 151,936, ``hash_full`` embedding, bf16 activations) with
          ``attn_impl="flash"`` and ``lookup_impl="auto"``, through the
@@ -134,7 +151,7 @@ CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
 line and then, as its last line, ``{"ok": true, "device": {...}}`` only
 when every phase passed.  It needs one card and imports nothing of JAX;
-phase ``sharded`` starts 4 processes on it and stops them.
+phases ``sharded`` and ``elastic`` start 4 processes on it and stop them.
 """
 
 from __future__ import annotations
@@ -3518,6 +3535,304 @@ def phase_sharded(graph) -> tuple:
     return launches, {"sharded_sizes": [sizes["sharded"]], "owner_sizes": [sizes["owner"]]}, err
 
 
+ELASTIC_BATCH = 192        # divides by 4, 3 and 2 (256 cannot go to 3 ranks)
+ELASTIC_STEPS = 14         # benchmarks/elastic_failover.py's schedule
+ELASTIC_KILL = (2, 10)     # rank 2 stops renewing its lease at step 10
+ELASTIC_MORE = 6           # timed steps at 3 ranks after the schedule
+ELASTIC_CKPT = ROOT / "build" / "elastic_ckpt"
+SHARED_CARD = "ranks share one card over gloo: not a multi-GPU time"
+
+
+def _elastic_spec(impl: str, n_shards: int = SHARDS, **overrides):
+    return _gnn_spec(n_shards=n_shards, batch_size=ELASTIC_BATCH, prefetch_depth=2,
+                     **overrides).with_updates(lookup_impl=impl)
+
+
+def _elastic_rank(rank: int, payload: dict) -> dict:
+    """One of the 4 ranks of phase ``elastic``: (a) the kill schedule and
+    its never-failed reference, (b) a 4-rank checkpoint rescaled to 2 and
+    (c) a 2-rank runtime grown to 4, each beside its native run; the
+    refusals; what the parent prints."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import disable_tf32
+    from repro_torch.elastic import (ElasticManager, ElasticSpec, FailurePlan,
+                                     rescale_runtime)
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.parallel.sharding import group_mesh, rank_device
+    from repro_torch.train.checkpoint import TopologyMismatch
+    disable_tf32()
+    graph, init = payload["graph"], payload["init"]
+    dev = rank_device(dist.get_rank())
+    decoded, forward = set(), hd_ops._forward
+
+    def recording_forward(codes, *args, **kw):
+        decoded.add(int(codes.shape[0]))
+        return forward(codes, *args, **kw)
+    hd_ops._forward = recording_forward
+
+    def params(dev):
+        to = lambda v: ({k: to(x) for k, x in v.items()} if isinstance(v, dict)
+                        else torch.from_numpy(v).to(dev, copy=True))
+        return to(init)
+
+    out = {"launches": {}}
+    # (a) the kill schedule: shard 2 dies at step 10, recovery from the peers
+    spec_a = _elastic_spec("sharded:pallas", elastic=ElasticSpec(lease_steps=1,
+                                                                 chunk_bytes=1 << 16))
+    rt = GraphRuntime.from_spec(spec_a, graph=graph, params=params(dev))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    mgr = ElasticManager(rt, plan=FailurePlan(kill=(ELASTIC_KILL,), corrupt_chunks=(1,)))
+    stamps = []
+    zero_counts()
+    res = mgr.run(ELASTIC_STEPS, on_metrics=lambda s, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize(dev)
+    out["launches"]["elastic"] = read_counts("elastic")
+    gaps = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    out.update(history=res.history, losses=res.losses, steps=res.steps,
+               alive=res.runtime is not None, device=str(dev),
+               reports=[dataclasses.asdict(r) for r in res.reports],
+               recovery_s=mgr.recovery_seconds,
+               period_before_ms=float(np.median(gaps[1:ELASTIC_KILL[1] + 1])))
+    if res.runtime is not None:
+        more, periods = _train_timed(res.runtime, ELASTIC_MORE)
+        out.update(more=more.losses, period_after_ms=float(np.median(periods)),
+                   n_shards=res.runtime.spec.n_shards, ckpt_dir=res.runtime.spec.ckpt_dir,
+                   digest=_digest(res.runtime.params))
+        res.runtime.close()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    del rt, res, mgr
+    # its reference: never failed, 12 steps, rescale(3), the same steps on
+    ref = GraphRuntime.from_spec(spec_a, graph=graph, params=params(dev))
+    head = ref.train(ELASTIC_KILL[1] + 2).losses
+    rt3 = ref.rescale(3)
+    ref.close()
+    out["ref"] = None
+    if rt3 is not None:
+        tail = rt3.train(ELASTIC_STEPS - ELASTIC_KILL[1] - 2).losses
+        out["ref"] = (head + tail, rt3.train(ELASTIC_MORE).losses, _digest(rt3.params))
+        rt3.close()
+    del ref, rt3
+    torch.cuda.empty_cache()
+    if payload.get("kill_only"):
+        hd_ops._forward = forward
+        return out
+    # (b) a 4-rank owner run with pinned caps writes its step-0 checkpoint
+    # (and goes on one step in memory); rescale_checkpoint takes it to 2
+    ckpt = str(ELASTIC_CKPT)
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    spec_b = _elastic_spec("owner:pallas", owner_cap=payload["caps"][0],
+                           owner_unique_cap=payload["caps"][1])
+    rt = GraphRuntime.from_spec(dataclasses.replace(spec_b, ckpt_dir=ckpt, ckpt_every=1000),
+                                graph=graph, params=params(dev))
+    rt.train(0)
+    rt.ckpt = None                  # the in-memory run writes no more
+    out["owner4"] = rt.train(1).losses
+    rt.close()
+    zero_counts()
+    rt2 = GraphRuntime.rescale_checkpoint(ckpt, 2, graph=graph)
+    out["from_ckpt"] = None
+    if rt2 is not None:
+        out["from_ckpt"] = (rt2.train(1).losses, (rt2.spec.owner_cap, rt2.spec.owner_unique_cap),
+                            rt2.spec.n_shards)
+        rt2.close()
+    torch.cuda.synchronize(dev)
+    out["launches"]["elastic_ckpt"] = read_counts("elastic_ckpt")
+    mesh2 = group_mesh([0, 1])
+    out["native2"] = out["mismatch"] = None
+    if mesh2 is not None:
+        native = GraphRuntime.from_spec(
+            _elastic_spec("owner:pallas", n_shards=2, owner_cap=out["from_ckpt"][1][0],
+                          owner_unique_cap=out["from_ckpt"][1][1]),
+            graph=graph, params=params(dev), group=mesh2.group)
+        out["native2"] = native.train(1).losses
+        native.close()
+        bad = GraphRuntime.from_spec(dataclasses.replace(spec_b, n_shards=2, ckpt_dir=ckpt),
+                                     graph=graph, params=params(dev), group=mesh2.group)
+        try:
+            bad.train(4)
+        except TopologyMismatch as e:
+            out["mismatch"] = str(e)
+        finally:
+            bad.close()
+    # (c) a native 2-rank runtime grown to 4 at step 0, one step; the 2-rank
+    # runtime itself then steps (23,296 rows a block)
+    zero_counts()
+    rt2 = None
+    if mesh2 is not None:
+        rt2 = GraphRuntime.from_spec(_elastic_spec("sharded:pallas", n_shards=2), graph=graph,
+                                     params=params(dev), group=mesh2.group)
+        grown = rt2.rescale(4)
+    else:
+        grown = rescale_runtime(None, SHARDS, graph=graph)
+    out["grown"] = (grown.train(1).losses, grown.spec.n_shards, grown.mesh.size)
+    torch.cuda.synchronize(dev)
+    out["launches"]["elastic_grow"] = read_counts("elastic_grow")
+    try:
+        grown.rescale(5)
+        out["five"] = None
+    except ValueError as e:
+        out["five"] = str(e)
+    grown.close()
+    if rt2 is not None:
+        out["two"] = rt2.train(1).losses
+        rt2.close()
+    native = GraphRuntime.from_spec(_elastic_spec("sharded:pallas"), graph=graph,
+                                    params=params(dev))
+    out["native4"] = native.train(1).losses
+    native.close()
+    hd_ops._forward = forward
+    out["decoded_sizes"] = sorted(decoded)
+    return out
+
+
+def phase_elastic(graph) -> tuple:
+    """gnn_train's GraphSAGE at full width, ``n_shards=4`` and a global
+    batch of 192, on 4 ranks sharing this card over gloo: a rank killed
+    and the run continued on 3 from its peers, a 4-rank checkpoint rescaled
+    to 2, a 2-rank run grown to 4, each bitwise its reference; (a) again
+    over NCCL where there are 4 cards.  Returns the launches by path, the
+    row counts decoded and the kernels' largest error at them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import rederive_owner_caps
+    from repro_torch.graph.engine import default_frontier_cap
+    from repro_torch.graph.runtime import GraphRuntime
+    from repro_torch.graph.sampler import default_owner_caps
+    from repro_torch.parallel.sharding import spawn
+    t0 = time.perf_counter()
+    rt1 = GraphRuntime.from_spec(_gnn_spec(), graph=graph)
+    to_np = lambda t: ({k: to_np(v) for k, v in t.items()} if isinstance(t, dict)
+                       else t.cpu().numpy())
+    init = to_np(rt1.params)
+    rt1.close()
+    del rt1
+    torch.cuda.empty_cache()
+    block4 = default_frontier_cap(ELASTIC_BATCH // SHARDS, (15, 15), 256, N_NODES)
+    caps = default_owner_caps(block4, SHARDS)
+    payload = {"graph": graph, "init": init, "caps": caps}
+    try:
+        results = spawn(_elastic_rank, SHARDS, backend="gloo", args=(payload,), timeout_s=900)
+    except RuntimeError as e:
+        fail(f"phase elastic: {e}")
+    secs = time.perf_counter() - t0
+    r0 = results[0]
+    survivors = [r for r in results if r["alive"]]
+    (rep,) = r0["reports"]
+    print(f"[elastic] {SHARDS} ranks share {torch.cuda.get_device_name(0)} over gloo (ranks on "
+          f"{sorted({r['device'] for r in results})}); global batch {ELASTIC_BATCH}; "
+          f"{secs:.1f} s for the phase", flush=True)
+    print(f"[elastic] (a) kill rank {ELASTIC_KILL[0]} at step {ELASTIC_KILL[1]}: history "
+          f"{r0['history']}; report {rep}; rank 2 left with runtime None "
+          f"{not results[2]['alive']} after {results[2]['steps']} steps", flush=True)
+    print(f"[elastic] (a) payload {rep['payload_bytes']} B, wire {rep['bytes_transferred']} B, "
+          f"{rep['chunks']} chunks of 65,536 B, {rep['retransmits']} retransmit; recovery wall "
+          f"time (interrupt to the rescaled runtime's first step) "
+          f"{[round(r['recovery_s'][0], 3) for r in survivors]} s on the survivors ({SHARED_CARD})",
+          flush=True)
+    print(f"[elastic] (a) period before the rescale (4 ranks, median of steps 2-"
+          f"{ELASTIC_KILL[1] + 1}) {[round(r['period_before_ms'], 3) for r in results]} ms; after "
+          f"(3 ranks, {ELASTIC_MORE} more steps) "
+          f"{[round(r['period_after_ms'], 3) for r in survivors]} ms ({SHARED_CARD}); peak "
+          f"memory a rank {[round(r['peak_bytes'] / 2**20, 1) for r in results]} MiB", flush=True)
+    ref_losses, ref_more, ref_digest = r0["ref"]
+    print(f"[elastic] (a) losses {r0['losses'][:2]} ... {r0['losses'][-2:]}; the reference's "
+          f"{ref_losses[:2]} ... {ref_losses[-2:]}; bitwise on every survivor "
+          f"{all(r['losses'] == ref_losses and r['more'] == ref_more for r in survivors)}",
+          flush=True)
+    check(r0["history"] == ["HEALTHY", "DEGRADED", "RESCALING", "HEALTHY"],
+          f"elastic: history {r0['history']}")
+    check(tuple(rep["failed_shards"]) == (2,) and rep["detected_at_step"] == 11
+          and rep["steps_lost"] == 1 and (rep["n_before"], rep["n_after"]) == (4, 3)
+          and rep["retransmits"] == 1 and rep["bytes_transferred"] > rep["payload_bytes"],
+          f"elastic: report {rep}")
+    check([r["alive"] for r in results] == [True, True, False, True],
+          "elastic: only rank 2 should leave the run")
+    check(all(r["reports"] == [rep] and r["history"] == r0["history"] for r in survivors),
+          "elastic: the survivors' reports differ")
+    check(all(r["losses"] == ref_losses and r["more"] == ref_more for r in survivors),
+          f"elastic: the continued run is not its reference's bit for bit: "
+          f"{r0['losses']} against {ref_losses}")
+    check(results[2]["losses"] == ref_losses[:ELASTIC_KILL[1] + 2],
+          "elastic: the killed rank's losses differ")
+    check(all(r["digest"] == ref_digest and r["n_shards"] == 3 and r["ckpt_dir"] is None
+              for r in survivors), "elastic: the survivors' params differ from the reference's")
+    # (b)
+    got, caps2, n2 = r0["from_ckpt"]
+    want_caps = rederive_owner_caps(default_frontier_cap(ELASTIC_BATCH // 2, (15, 15), 256,
+                                                         N_NODES), 2, explicit=caps)
+    print(f"[elastic] (b) 4-rank owner:pallas checkpoint (caps {caps}) rescaled to {n2} ranks: "
+          f"step loss {got} against a native 2-rank run's {r0['native2']}; caps {caps2} "
+          f"(rederive_owner_caps: {want_caps}); the 4-rank run's own step {r0['owner4']}",
+          flush=True)
+    check(all(r["from_ckpt"] is None for r in results[2:]), "elastic: ranks 2-3 kept a runtime")
+    check(all(r["from_ckpt"][0] == r["native2"] for r in results[:2]),
+          "elastic: the checkpoint rescaled to 2 ranks is not a native run bit for bit")
+    check(caps2 == want_caps == (14_560, 11_648), f"elastic: rescaled caps {caps2}")
+    check(all("GraphRuntime.rescale" in (r["mismatch"] or "") for r in results[:2]),
+          f"elastic: the 2-rank spec on the 4-rank checkpoint: {r0['mismatch']}")
+    # (c)
+    print(f"[elastic] (c) 2 ranks grown to 4 at step 0: step loss {r0['grown'][0]} against a "
+          f"native 4-rank run's {r0['native4']}; the 2-rank runtime's own step {r0['two']}; "
+          f"rescale(5): {r0['five']!r}", flush=True)
+    check(all(r["grown"][0] == r["native4"] and r["grown"][1:] == (4, 4) for r in results),
+          "elastic: the grown run is not a native 4-rank run bit for bit")
+    check(abs(r0["two"][0] - r0["native4"][0]) <= 1e-5,
+          f"elastic: the 2-rank step {r0['two']} against the 4-rank one {r0['native4']}")
+    check(all("not divisible" in (r["five"] or "") for r in results),
+          "elastic: rescale(5) of a batch of 192 did not raise")
+    launches = {}
+    for path in ("elastic", "elastic_ckpt", "elastic_grow"):
+        rs = [r["launches"][path] for r in results]
+        launches[path] = {k: sum(x[k] for x in rs) if k != "hash_decode_backward_by_kernel"
+                          else {kk: sum(x[k][kk] for x in rs) for kk in rs[0][k]}
+                          for k in rs[0]}
+        check(launches[path]["hash_decode"] > 0 and launches[path]["hash_decode_backward"] > 0,
+              f"{path}: the path launched no hash_decode kernel")
+    print(f"[elastic] launches summed over the ranks: "
+          f"{ {p: (v['hash_decode'], v['hash_decode_backward']) for p, v in launches.items()} }",
+          flush=True)
+    # the blocks at 4, 3 and 2 ranks and the owners' rows at 4 and 2 (a
+    # batch whose owner plan overflows decodes its block instead)
+    decoded = sorted(set().union(*(r["decoded_sizes"] for r in results)))
+    block3 = default_frontier_cap(ELASTIC_BATCH // 3, (15, 15), 256, N_NODES)
+    want_sizes = {block4, block3, default_frontier_cap(ELASTIC_BATCH // 2, (15, 15), 256,
+                                                       N_NODES), caps[1], caps2[1]}
+    print(f"[elastic] row counts decoded {decoded} (blocks {block4}, {block3} at 4 and 3 ranks; "
+          f"owners' rows {caps[1]} at 4, {caps2[1]} at 2)", flush=True)
+    check(set(decoded) <= want_sizes and {block4, block3} <= set(decoded),
+          f"elastic decoded at {decoded}, not within {sorted(want_sizes)}")
+    if torch.cuda.device_count() >= SHARDS:
+        try:
+            nccl = spawn(_elastic_rank, SHARDS, backend="nccl",
+                         args=(dict(payload, kill_only=True),), timeout_s=900)
+        except RuntimeError as e:
+            fail(f"phase elastic over NCCL: {e}")
+        alive = [r for r in nccl if r["alive"]]
+        print(f"[elastic] (a) over NCCL, one card a rank: survivors on "
+              f"{[r['device'] for r in alive]}; period before / after "
+              f"{nccl[0]['period_before_ms']:.3f} / {nccl[0]['period_after_ms']:.3f} ms; recovery "
+              f"{nccl[0]['recovery_s'][0]:.3f} s; losses bitwise the gloo run's "
+              f"{nccl[0]['losses'] == r0['losses']}", flush=True)
+        check(all(r["losses"] == nccl[0]["ref"][0] and r["digest"] == nccl[0]["ref"][2]
+                  for r in alive), "elastic over NCCL: the continued run is not its reference's")
+        check([r["device"] for r in alive] == ["cuda:0", "cuda:1", "cuda:3"],
+              "elastic over NCCL: a survivor moved to another card")
+    else:
+        print(f"[elastic] NCCL run skipped: {torch.cuda.device_count()} card(s), it needs "
+              f"{SHARDS}", flush=True)
+    err = check_gnn_frontiers(decoded, "elastic decode sizes")
+    return launches, {"elastic_sizes": decoded}, err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3555,6 +3870,7 @@ def main() -> None:
     phase_families_reference()
     host_launches, host_sizes, host_err = phase_codes_host(graph)
     shard_launches, shard_sizes, shard_err = phase_sharded(graph)
+    elastic_launches, elastic_sizes, elastic_err = phase_elastic(graph)
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
@@ -3562,7 +3878,7 @@ def main() -> None:
                                                     "decode sizes of the planned cached run"),
                                 check_gnn_frontiers(merchant_sizes,
                                                     "decode sizes of the merchant path"),
-                                family_err, host_err, shard_err)
+                                family_err, host_err, shard_err, elastic_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
     lsh = phase_lsh_check()
     vocab_flips = phase_lsh_packed_check()
@@ -3583,7 +3899,7 @@ def main() -> None:
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
              "merchant": merchant_launches, **family_launches, **host_launches,
-             **shard_launches}
+             **shard_launches, **elastic_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -3603,7 +3919,7 @@ def main() -> None:
              batched_serve_sizes=batched_sizes, merchant_sizes=merchant_sizes,
              hashemb_sizes=family_sizes["hashemb"], int8_sizes=family_sizes["int8"],
              codes_host_sizes=host_sizes["float32"],
-             codes_host_int8_sizes=host_sizes["int8"], **shard_sizes,
+             codes_host_int8_sizes=host_sizes["int8"], **shard_sizes, **elastic_sizes,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

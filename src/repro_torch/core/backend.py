@@ -658,6 +658,21 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def rederive_owner_caps(frontier_cap: int, n_shards: int,
+                        explicit: Tuple[Optional[int], Optional[int]] = (None, None),
+                        ) -> Tuple[Optional[int], Optional[int]]:
+    """``(owner_cap, owner_unique_cap)`` for a (rescaled) shard count.  The
+    caps depend on the count (request buckets shrink as shards multiply),
+    so a rescale never carries them over: caps never pinned (both ``None``)
+    stay derived, ``(None, None)``; pinned ones are derived again by
+    ``default_owner_caps`` at the new count, which keeps its cap / 2
+    adequacy argument."""
+    if explicit[0] is None and explicit[1] is None:
+        return (None, None)
+    from repro_torch.graph.sampler import default_owner_caps
+    return default_owner_caps(int(frontier_cap), int(n_shards))
+
+
 def _single_device_auto(device: torch.device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "onehot"
 

@@ -28,8 +28,9 @@ program on every rank, as ``parallel.sharding`` describes): the mesh, the
 frontier placement, a ``ShardedSageBatchSource`` and, for ``owner`` or a
 measured ``auto``, the owner plan; evaluation, embedding and serving run
 whole on every rank, and rank 0 writes the checkpoints every rank
-restores.  Elastic training is a later slice, and a spec that asks for it
-raises ``NotImplementedError`` naming the slice.
+restores.  ``rescale`` and ``rescale_checkpoint`` continue a run at another
+shard count bit for bit (``repro_torch.elastic``), and
+``elastic.ElasticManager`` recovers a run from a dead rank's peers.
 
 Graph, splits and batches are pure functions of the spec's seeds (numpy,
 identical to the JAX package's); the LSH projections and weights come from
@@ -50,6 +51,7 @@ import torch
 
 from repro_torch.configs.base import EmbeddingSpec, GNNConfig
 from repro_torch.device import DeviceLike, make_generator, resolve_device
+from repro_torch.elastic.manager import ElasticSpec
 from repro_torch.graph.engine import (FullGraphBatch, GNNModel, MissPlanningSource,
                                       PrefetchIterator, SageBatchSource,
                                       ShardedSageBatchSource, _step_rng)
@@ -60,18 +62,6 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.serving.batcher import BatchingSpec
 
 FULLGRAPH_MODELS = ("gcn", "sgc", "gin")
-
-
-# -- field-only copy of the JAX package's elastic spec ----------------------
-
-@dataclasses.dataclass(frozen=True)
-class ElasticSpec:
-    """Elastic-training knobs (``repro/elastic/manager.py``)."""
-    lease_steps: int = 2
-    min_shards: int = 1
-    chunk_bytes: int = 1 << 20
-    max_transfer_retries: int = 2
-    heartbeat_timeout_s: float = 30.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +98,7 @@ class GraphSource:
 @dataclasses.dataclass(frozen=True)
 class RuntimeSpec:
     """Everything needed to build the pipeline; the JAX package's fields,
-    names and defaults.  Fields of later slices (shards, elastic) are
-    carried for the round trip."""
+    names and defaults."""
 
     graph: GraphSource
     model: GNNConfig
@@ -195,15 +184,6 @@ class RuntimeSpec:
         return cls.from_dict(json.loads(s))
 
 
-def _check_ported(spec: RuntimeSpec) -> None:
-    """Raise for every spec knob whose slice is not ported yet."""
-    later = []
-    if spec.elastic is not None:
-        later.append("elastic: the elastic-training slice (ROADMAP A.16)")
-    if later:
-        raise NotImplementedError("not ported yet — " + "; ".join(later))
-
-
 def _chain(fns, batch):
     for fn in fns:
         batch = fn(batch)
@@ -252,7 +232,7 @@ class GraphRuntime:
     without prefetch."""
 
     def __init__(self, spec: RuntimeSpec, *, adj, labels, device: torch.device,
-                 params=None, codes=None):
+                 params=None, codes=None, group=None):
         cfg = spec.model
         ecfg = cfg.embedding_config()
         self.fullgraph = cfg.model in FULLGRAPH_MODELS
@@ -262,7 +242,6 @@ class GraphRuntime:
                 "codes_placement='host' needs the sampled (frontier) model "
                 "family — full-graph models decode every node per step, so "
                 "there is no O(frontier) working set to stream")
-        _check_ported(spec)
         self.spec = spec
         if spec.graph.kind != "external" and cfg.n_nodes != spec.graph.n_nodes:
             raise ValueError(f"model.n_nodes {cfg.n_nodes} != graph.n_nodes "
@@ -277,7 +256,7 @@ class GraphRuntime:
         if spec.n_shards > 1:
             from repro_torch.parallel.policy import make_frontier_placement
             from repro_torch.parallel.sharding import data_mesh
-            self.mesh = data_mesh(spec.n_shards, device=device)
+            self.mesh = data_mesh(spec.n_shards, device=device, group=group)
             device = self.mesh.device
             self.place = make_frontier_placement(self.mesh)
         self.device = device
@@ -389,7 +368,8 @@ class GraphRuntime:
     @classmethod
     def from_spec(cls, spec: RuntimeSpec,
                   graph: Optional[Tuple[Any, np.ndarray]] = None,
-                  device: DeviceLike = None, params=None, codes=None) -> "GraphRuntime":
+                  device: DeviceLike = None, params=None, codes=None,
+                  group=None) -> "GraphRuntime":
         """Build the pipeline from a spec on ``device`` (default: the CUDA
         card; raises without one unless ``device="cpu"``).  ``graph``
         overrides the spec's generator with a pre-built ``(adj, labels)``;
@@ -397,14 +377,17 @@ class GraphRuntime:
         ``interop.params_from_jax``).  ``codes`` (``codes_placement="host"``
         only) is the packed uint32 buffer, (n_nodes, n_words), in place of
         encoding the graph: JAX's host-placed params carry no codes, and
-        its buffer is ``GraphRuntime.codes`` there."""
+        its buffer is ``GraphRuntime.codes`` there.  ``group``: the process
+        group of an ``n_shards`` run (default: the whole world; a subgroup
+        from ``parallel.sharding.group_mesh``)."""
         device = resolve_device(device)
         adj, labels = spec.graph.build() if graph is None else graph
-        return cls(spec, adj=adj, labels=labels, device=device, params=params, codes=codes)
+        return cls(spec, adj=adj, labels=labels, device=device, params=params, codes=codes,
+                   group=group)
 
     @classmethod
     def resume(cls, ckpt_dir: str, graph: Optional[Tuple[Any, np.ndarray]] = None,
-               device: DeviceLike = None) -> "GraphRuntime":
+               device: DeviceLike = None, group=None) -> "GraphRuntime":
         """Rebuild a runtime from the spec in ``ckpt_dir``'s newest
         checkpoint and restore its params, optimizer and data state, so
         ``evaluate`` / ``embed`` / ``serve`` see the trained model and a
@@ -415,7 +398,7 @@ class GraphRuntime:
         if extra is None or "spec" not in extra:
             raise FileNotFoundError(f"no checkpoint with a runtime spec under {ckpt_dir!r}")
         spec = dataclasses.replace(RuntimeSpec.from_dict(extra["spec"]), ckpt_dir=ckpt_dir)
-        rt = cls.from_spec(spec, graph=graph, device=device)
+        rt = cls.from_spec(spec, graph=graph, device=device, group=group)
         restored = rt.ckpt.restore_latest(rt.state)
         if restored is not None:
             _step, rt.state, rextra = restored
@@ -463,6 +446,50 @@ class GraphRuntime:
             topology={"n_shards": spec.n_shards, "batch_size": spec.batch_size})
         self.state = res.state
         return res
+
+    # -- elastic rescale -------------------------------------------------
+    def rescale(self, n_shards: int, ckpt_dir: Optional[str] = None
+                ) -> Optional["GraphRuntime"]:
+        """Exact in-process rescale: a new runtime at ``n_shards`` that
+        continues this run's state and batch stream bit for bit as a native
+        ``n_shards`` run would (``repro_torch.elastic.rescale``; the global
+        ``batch_size`` must divide by it).  Every rank of the world calls
+        it; a rank outside the new group gets ``None``.  This runtime stays
+        usable: close it when done.  ``ckpt_dir`` names a new checkpoint
+        directory for the rescaled run (the old one carries the old
+        topology)."""
+        from repro_torch.elastic.rescale import rescale_runtime
+        return rescale_runtime(self, n_shards, ckpt_dir=ckpt_dir)
+
+    @classmethod
+    def rescale_checkpoint(cls, ckpt_dir: str, n_shards: int,
+                           graph: Optional[Tuple[Any, np.ndarray]] = None,
+                           new_ckpt_dir: Optional[str] = None,
+                           device: DeviceLike = None) -> Optional["GraphRuntime"]:
+        """Resume across topologies, the path ``TopologyMismatch`` names:
+        resume the checkpoint at its own shard count on the world's first
+        that many ranks (the topology check passes by construction), then
+        rescale exactly to ``n_shards``.  Every rank of the world calls it
+        (ranks outside the checkpoint's group join a grow); a rank outside
+        the new group gets ``None``."""
+        from repro_torch.elastic.rescale import rescale_runtime
+        from repro_torch.parallel.sharding import distributed, group_mesh
+        from repro_torch.train.checkpoint import CheckpointManager
+        extra = CheckpointManager(ckpt_dir).read_extra()
+        if extra is None or "spec" not in extra:
+            raise FileNotFoundError(f"no checkpoint with a runtime spec under {ckpt_dir!r}")
+        group = None
+        if distributed():
+            mesh = group_mesh(range(int(extra["spec"]["n_shards"])), device=device)
+            if mesh is None:
+                return rescale_runtime(None, n_shards, ckpt_dir=new_ckpt_dir, graph=graph,
+                                       device=device)
+            group = mesh.group
+        rt = cls.resume(ckpt_dir, graph=graph, device=device, group=group)
+        try:
+            return rescale_runtime(rt, n_shards, ckpt_dir=new_ckpt_dir)
+        finally:
+            rt.close()
 
     # -- evaluation ------------------------------------------------------
     @torch.no_grad()

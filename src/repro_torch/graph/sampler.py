@@ -15,7 +15,9 @@ once per unique node (``unique[index_maps[i]] == levels[i]``); ``to``
 moves it to the device as tensors.  ``attach_codes`` gathers a frontier's
 packed code rows on the host (codes kept on the host, the batch's
 ``codes``).  ``OwnerPlan`` and ``build_owner_plan`` route a stacked
-N-shard frontier's rows to their owners for the owner-computes decode.
+N-shard frontier's rows to their owners for the owner-computes decode;
+``remap_shard_state`` carries a batch source's state to another shard
+count.
 """
 
 from __future__ import annotations
@@ -117,6 +119,21 @@ def default_owner_caps(cap: int, n_shards: int,
     oc = min(up8(-(-cap * safety // n_shards)), cap)
     ou = min(up8(-(-cap // 2)), n_shards * oc)
     return int(oc), int(ou)
+
+
+def remap_shard_state(state: dict, n_shards: int, shard: int = 0) -> dict:
+    """A batch source's ``state_dict`` on another shard count, the sampler's
+    half of an exact rescale (``elastic.rescale``).  Exact because every
+    draw is a pure function of ``(seed, step, global position, path)``: the
+    global batch at ``(seed, step)`` does not depend on the shard count,
+    which only slices it, so carrying ``(seed, step)`` over and stamping the
+    new layout gives, bit for bit, the stream a run at ``n_shards`` draws
+    from the start (the global batch size must stay and divide by the new
+    count, which ``rescale_spec`` checks).  ``miss_shadow``, the
+    single-shard cache-miss replay, depends on the layout and is dropped:
+    the rescaled run plans its misses against its own cache."""
+    return {"step": int(state["step"]), "seed": int(state["seed"]),
+            "shard": int(shard), "n_shards": int(n_shards)}
 
 
 def build_owner_plan(uniques: Sequence[np.ndarray], n_uniques: Sequence[int],

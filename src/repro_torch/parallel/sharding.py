@@ -18,6 +18,11 @@ through an ``all_reduce`` whose order depends on the backend), and
 card (NCCL refuses two ranks on one device) run over ``gloo``, which
 takes CUDA tensors in both collectives itself.
 
+``group_mesh`` builds the mesh of a subset of the world's ranks (the
+survivors of an elastic recovery, the ranks of a rescaled run), and
+``broadcast_bytes`` moves one payload from a rank to the rest of its group
+in CRC-checked chunks (``elastic``'s state handed to ranks that join).
+
 ``spawn`` starts N ranks of a function in fresh processes (``spawn`` start
 method, ``file://`` rendezvous: no TCP port to collide on) and returns their
 results in rank order; ``init_from_env`` joins the group ``torchrun``
@@ -148,6 +153,11 @@ def rank_device(rank: int, device=None) -> torch.device:
     return dev
 
 
+def distributed() -> bool:
+    """Whether this process is a rank of an initialised process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
 def data_mesh(n_shards: int, device=None, group=None) -> Optional[DataMesh]:
     """The mesh an N-shard run trains under: ``None`` for ``n_shards <= 1``
     (the single-device paths); this process's rank of the initialised
@@ -156,7 +166,7 @@ def data_mesh(n_shards: int, device=None, group=None) -> Optional[DataMesh]:
     the spec says)."""
     if n_shards <= 1:
         return None
-    if not (dist.is_available() and dist.is_initialized()):
+    if not distributed():
         raise ValueError(
             f"n_shards={n_shards} but no torch.distributed process group is "
             f"initialised: start {n_shards} ranks (torchrun --nproc_per_node="
@@ -164,8 +174,92 @@ def data_mesh(n_shards: int, device=None, group=None) -> Optional[DataMesh]:
     size = dist.get_world_size(group)
     if size != n_shards:
         raise ValueError(f"n_shards={n_shards} but the process group has {size} ranks")
-    rank = dist.get_rank(group)
-    return DataMesh(rank=rank, size=size, device=rank_device(rank, device), group=group)
+    # the device follows the world rank, so a rank of a subgroup keeps its card
+    return DataMesh(rank=dist.get_rank(group), size=size,
+                    device=rank_device(dist.get_rank(), device), group=group)
+
+
+def group_ranks(group=None) -> List[int]:
+    """The world ranks of ``group`` (None: the default group), in group
+    rank order."""
+    if group is None:
+        return list(range(dist.get_world_size()))
+    return list(dist.get_process_group_ranks(group))
+
+
+def group_mesh(ranks: Sequence[int], device=None) -> Optional[DataMesh]:
+    """A ``DataMesh`` over the world ranks ``ranks``, group ranks in world
+    rank order; ``None`` on a rank outside them.  Every world rank calls it,
+    with the same ranks and in the same order as the others (the group is a
+    ``dist.new_group`` with its default global synchronisation; all the
+    world's ranks is the default group itself).  A rank keeps its device,
+    ``rank_device(world rank, device)``."""
+    ranks = sorted(int(r) for r in ranks)
+    group = None if ranks == group_ranks() else dist.new_group(ranks)
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    return DataMesh(rank=ranks.index(me), size=len(ranks), device=rank_device(me, device),
+                    group=group)
+
+
+def broadcast_bytes(data: Optional[bytes], mesh: DataMesh, src: int = 0,
+                    chunk_bytes: int = 1 << 20,
+                    tamper: Optional[Callable[[int, int], bool]] = None,
+                    max_retries: int = 2):
+    """One ``bytes`` payload from group rank ``src`` (which passes it; the
+    others pass None) to every rank of ``mesh``, as uint8 tensors, in the
+    chunks of ``elastic.transfer.chunk_payload``: each receiver checks a
+    chunk against the sender's CRC, and a chunk that fails on any receiver
+    is sent again, at most ``max_retries`` times more, else every rank
+    raises ``ChunkCorruption``.  ``tamper(seq, attempt)`` corrupts that
+    transmission at the receivers (``FailurePlan.tamper``).  Returns the
+    payload and the ``TransferStats``, the same on every rank (wire bytes
+    count each transmission once, as ``transfer_state``'s); the sender's
+    ``chunk_bytes`` holds."""
+    import numpy as np
+    from repro_torch.elastic.transfer import (Chunk, ChunkCorruption, TransferStats,
+                                              abort_message, chunk_payload, corrupt)
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    src_world = group_ranks(mesh.group)[src]
+    sender = mesh.rank == src
+
+    def bcast(t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(t, src=src_world, group=mesh.group)
+        return t
+
+    chunks = chunk_payload(data, chunk_bytes) if sender else None
+    head = bcast(torch.tensor([len(data), len(chunks), chunk_bytes] if sender else [0, 0, 0],
+                              dtype=torch.int64, device=dev)).tolist()
+    size, total, chunk_bytes = (int(v) for v in head)
+    crcs = bcast(torch.tensor([c.crc for c in chunks] if sender else [0] * total,
+                              dtype=torch.int64, device=dev)).tolist()
+    received, wire_bytes, retransmits = [], 0, 0
+    for seq in range(total):
+        n = min(chunk_bytes, size - seq * chunk_bytes)
+        for attempt in range(max_retries + 1):
+            if sender:
+                buf = torch.from_numpy(np.frombuffer(chunks[seq].payload, np.uint8).copy()).to(dev)
+            else:
+                buf = torch.empty(n, dtype=torch.uint8, device=dev)
+            if n:
+                bcast(buf)
+            got = Chunk(seq=seq, total=total, payload=buf.cpu().numpy().tobytes(),
+                        crc=int(crcs[seq]))
+            if not sender and tamper is not None and tamper(seq, attempt):
+                got = corrupt(got)
+            flags = [torch.empty(1, dtype=torch.int64, device=dev) for _ in range(mesh.size)]
+            dist.all_gather(flags, torch.tensor([int(got.verify())], device=dev),
+                            group=mesh.group)
+            wire_bytes += n
+            retransmits += attempt > 0
+            if all(int(f) for f in flags):
+                received.append(got.payload)
+                break
+        else:
+            raise ChunkCorruption(abort_message(got, max_retries))
+    return b"".join(received), TransferStats(payload_bytes=size, bytes_transferred=wire_bytes,
+                                             chunks=total, retransmits=retransmits)
 
 
 # ---------------------------------------------------------------------------

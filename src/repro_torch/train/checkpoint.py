@@ -213,9 +213,10 @@ class CheckpointManager:
         if expect_topology is not None and saved is not None and saved != expect_topology:
             raise TopologyMismatch(
                 f"checkpoint at step {step} was written under topology {saved} "
-                f"but the current run expects {expect_topology}; resuming across "
-                f"shard topologies needs the exact-rescale path, which comes "
-                f"with the elastic-training slice (ROADMAP A.16)")
+                f"but the current run expects {expect_topology}.  Resuming across "
+                f"shard topologies silently is never correct — use the exact-rescale "
+                f"path (GraphRuntime.rescale / GraphRuntime.rescale_checkpoint) to "
+                f"remap the owner partition and sampler state first.")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
         return _unflatten_into(state_template, flat), manifest["extra"]

@@ -117,7 +117,7 @@ def test_topology_mismatch_raises_before_reading_arrays(tmp_path):
     ck.save(3, _state(), topology={"n_shards": 1, "batch_size": 64})
     ck.wait()
     os.remove(tmp_path / "step_0000000003" / "arrays.npz")
-    with pytest.raises(TopologyMismatch, match="A.16"):
+    with pytest.raises(TopologyMismatch, match="GraphRuntime.rescale"):
         ck.restore(3, _state(), expect_topology={"n_shards": 2, "batch_size": 32})
 
 

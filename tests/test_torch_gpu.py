@@ -12,7 +12,8 @@ the full-graph slice: both kernels at every node of the serve graph, the
 device-resident sparse product, full-graph GCN / SGC / GIN steps against
 the CPU and a resumed GCN run; and several ranks (``parallel``): four gloo
 ranks sharing the card, and NCCL ranks one card each where there are
-enough cards (``cuda_cards``).
+enough cards (``cuda_cards``); and elastic training: a rank killed and the
+run continued on 3 ranks bitwise its reference, on gloo and over NCCL.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1243,3 +1244,72 @@ def test_nccl_ranks_one_card_each(n):
     results = spawn(_ranks_program, n, backend="nccl", args=(n, _ranks_case(n)))
     assert results[0]["transport"] == "nccl"
     _check_ranks(results, _one_shard_losses())
+
+
+# ---------------------------------------------------------------------------
+# elastic training (repro_torch.elastic): kill a rank, recover from its peers
+# ---------------------------------------------------------------------------
+
+def _elastic_program(rank, impl):
+    """One rank of the kill schedule (shard 2 dies at step 10, one chunk
+    corrupted, lease 1), then its reference: a never-failed run to the
+    interrupt, ``rescale(3)``, 2 more steps."""
+    from repro_torch.elastic import ElasticManager, ElasticSpec, FailurePlan
+    disable_tf32()
+    spec = _gnn_spec(n_shards=4, prefetch_depth=2,
+                     elastic=ElasticSpec(lease_steps=1, chunk_bytes=1 << 16)
+                     ).with_updates(lookup_impl=impl, batch_size=48)
+    res = ElasticManager(GraphRuntime.from_spec(spec),
+                         plan=FailurePlan(kill=((2, 10),), corrupt_chunks=(1,))).run(14)
+    out = {"history": res.history, "losses": res.losses, "alive": res.runtime is not None,
+           "device": None, "reports": res.reports}
+    if res.runtime is not None:
+        out.update(device=str(res.runtime.device), n_shards=res.runtime.spec.n_shards,
+                   params={k: v.cpu().numpy() for k, v in
+                           res.runtime.params["embed"]["decoder"]["mlp"].items()},
+                   codebooks=res.runtime.params["embed"]["decoder"]["codebooks"].cpu().numpy())
+        res.runtime.close()
+    ref = GraphRuntime.from_spec(spec)
+    head = ref.train(12).losses
+    rt3 = ref.rescale(3)
+    ref.close()
+    out["ref"] = None
+    if rt3 is not None:
+        out["ref"] = head + rt3.train(2).losses
+        rt3.close()
+    return out
+
+
+def _check_elastic(results):
+    from repro_torch.elastic import DEGRADED, HEALTHY, RESCALING
+    survivors = [r for r in results if r["alive"]]
+    assert [r["alive"] for r in results] == [True, True, False, True]
+    ref = results[0]["ref"]
+    for r in survivors:
+        assert r["history"] == [HEALTHY, DEGRADED, RESCALING, HEALTHY]
+        assert r["losses"] == ref and r["n_shards"] == 3
+        assert np.array_equal(r["codebooks"], survivors[0]["codebooks"])
+        assert all(np.array_equal(r["params"][k], survivors[0]["params"][k])
+                   for k in r["params"])
+        (rep,) = r["reports"]
+        assert (rep.failed_shards, rep.detected_at_step, rep.retransmits) == ((2,), 11, 1)
+    assert results[2]["losses"] == ref[:12]
+    return survivors
+
+
+@pytest.mark.parametrize("impl", ["sharded:pallas", "owner:pallas"])
+def test_elastic_kill_on_four_gloo_ranks_of_one_card(cuda, impl):
+    """Four ranks share the card over gloo: the run continued on 3 after
+    the kill is bitwise its reference, and the survivors' params agree."""
+    from repro_torch.parallel.sharding import spawn
+    _check_elastic(spawn(_elastic_program, 4, backend="gloo", args=(impl,)))
+
+
+def test_elastic_kill_over_nccl_keeps_each_rank_on_its_card():
+    """The same over NCCL, one card a rank (skips below 4 cards): each
+    survivor stays on its own card."""
+    cuda_cards(4)
+    from repro_torch.parallel.sharding import spawn
+    results = spawn(_elastic_program, 4, backend="nccl", args=("sharded:pallas",))
+    survivors = _check_elastic(results)
+    assert [r["device"] for r in survivors] == ["cuda:0", "cuda:1", "cuda:3"]

@@ -189,13 +189,14 @@ def test_from_spec_without_device_needs_cuda(slice_pair):
 def test_later_slices_raise(slice_pair):
     _, _, trt, _, _ = slice_pair
     spec = trt.spec
-    # full-graph models, codes on the host and shards are ported
-    # (tests/test_torch_fullgraph.py, tests/test_torch_codes_offload.py,
-    # tests/test_torch_sharded.py): an elastic spec waits for its slice, and
-    # shards without a process group of that many ranks raise
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        GraphRuntime.from_spec(dataclasses.replace(spec, elastic=ElasticSpec()),
-                               graph=(trt.adj, trt.labels), device="cpu", params=trt.params)
+    # full-graph models, codes on the host, shards and elastic training are
+    # ported (tests/test_torch_fullgraph.py, tests/test_torch_codes_offload.py,
+    # tests/test_torch_sharded.py, tests/test_torch_elastic.py): an elastic
+    # spec builds, and shards without a process group of that many ranks raise
+    rt = GraphRuntime.from_spec(dataclasses.replace(spec, elastic=ElasticSpec()),
+                                graph=(trt.adj, trt.labels), device="cpu", params=trt.params)
+    assert rt.spec.elastic == ElasticSpec()
+    rt.close()
     with pytest.raises(ValueError, match="process group"):
         GraphRuntime.from_spec(dataclasses.replace(spec, n_shards=2),
                                graph=(trt.adj, trt.labels), device="cpu", params=trt.params)
