@@ -124,6 +124,26 @@ weights and data from a seed:
          (Algorithm 1 over a dense 152,064 x 512 co-occurrence matrix, all
          128 bits in one projection and one pack) runs through
          ``lsh_encode``;
+  serve_lm, serve_lm_chatglm3  full-width ``qwen1.5-0.5b`` (bf16
+         activations, ``lookup_impl="auto"``) served through
+         ``repro_torch.serving.DecodeEngine`` at ``s_max=1024``: 8 prompts
+         of 512 tokens, 64 new tokens greedily (one prefill and 64 decode
+         steps against the per-layer KV caches, each decoding its token
+         embeddings through ``hash_decode``); the same engine on ``gather``
+         from the same params, every step's logits and the tokens bitwise;
+         ``lm_forward`` without a cache over the final sequences within a
+         stated bound of the cached logits, in bf16 and in f32, where a
+         cache off by one position must miss the bound; prefill and
+         per-token times read from the engine's own ``generate``,
+         the KV cache's bytes, peak memory, one decode step's stages and
+         profile; then full-width ``chatglm3-6b`` (28 layers, d_model 4096,
+         2 KV heads, half RoPE, QKV bias, ~6 B f32 parameters): 4 prompts
+         of 256, 16 new tokens, the same bitwise check; and reduced qwen and
+         chatglm3 served on the card and on the CPU.  Phase ``train`` also
+         takes one loss and gradient with the chunked cross-entropy
+         (``loss_vocab_chunk=19008``) against the plain one, and the
+         chunked loss with its pad columns unmasked, which must miss the
+         loss bound;
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -145,7 +165,7 @@ backward.
 Each path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  A small version of each path (a 3,000-node
 graph served, and trained by GCN, SGC and GIN and under each family and
-int8; the reduced LM config, the
+int8; the reduced LM config, trained and served, the
 reconstruction at the JAX benchmark's size) runs on the card and on the
 CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
@@ -381,10 +401,12 @@ def smem_ceiling_ms(B: int, m: int, d_c: int, elem: int = 4) -> tuple:
 def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") -> dict:
     """Kernel, plain and ``embedding_bag`` times of the decode without w0
     at one shape from ``storage`` codebooks (f32, or int8 with its
-    per-(codebook, code) scales), and the bound computed from that shape:
-    bytes (codes, codebooks and scales read once, f32 rows written) or
-    operations (the adds, and under int8 a dequantising multiply a term).
-    int8 has no library call: none takes per-row scales."""
+    per-(codebook, code) scales), and the bound computed from this run's
+    codes: bytes (the codes read, each codebook row and scale that they
+    name read once, f32 rows written: a decode step's 8 rows name at most
+    128 of the 4,096 rows) or operations (the adds, and under int8 a
+    dequantising multiply a term).  int8 has no library call: none takes
+    per-row scales."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.hash_decode import ops
@@ -401,8 +423,9 @@ def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") ->
         library_ms, _ = time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), 50)
         library = f"embedding_bag {library_ms:.4f} ms (max diff to kernel {lib_err})"
     quantized = scales is not None
-    bytes_moved = (B * m * 4 + cb.numel() * cb.element_size() + B * d_c * 4
-                   + (scales.numel() * 4 if quantized else 0))
+    named = int(torch.unique(codes.long() + torch.arange(m, device="cuda") * c).numel())
+    bytes_moved = (B * m * 4 + named * d_c * cb.element_size() + B * d_c * 4
+                   + (named * 4 if quantized else 0))
     operations = B * (m - 1) * d_c + (B * m * d_c if quantized else 0)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = operations / F32_ADDS_PER_S * 1e3
@@ -414,7 +437,8 @@ def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") ->
     print(f"[kernel] shape ({B}, {m}, {c}, {d_c}) {storage}, {variant} variant: kernel "
           f"{kernel_ms:.4f} ms (host enqueues a launch in {enqueue_ms:.4f} "
           f"ms), plain {plain_ms:.4f} ms, {library}, bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({bytes_moved} B in "
+          f"{bound_ms:.6f} ms by {bound_by} ({bytes_moved} B, {named} of {m * c} "
+          f"codebook rows named, in "
           f"{bytes_ms:.4f} ms, {operations} {'multiplies and ' if quantized else ''}adds in "
           f"{ops_ms:.4f} ms), shared-memory ceiling {smem_ms:.4f} ms "
           f"({B * m * d_c * cb.element_size()} B at 128 B/clock/SM, {mhz:.0f} MHz); "
@@ -837,12 +861,19 @@ def phase_train():
                                            batch_size=LM_BATCH, seed=0))
     batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
     params = res.state["params"]
-    _, grads = loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = loss_and_grads(params, batch, cfg)
+    loss = float(loss)
+    plain_peak = torch.cuda.max_memory_allocated()
     cb_norm = float(grads["embed"]["decoder"]["codebooks"].float().norm())
     n_cb = params["embed"]["decoder"]["codebooks"].numel()
     print(f"[train] codebook gradient norm {cb_norm} over {n_cb} entries", flush=True)
     check(cb_norm > 0 and math.isfinite(cb_norm), f"codebook gradient norm {cb_norm}")
+    head_grad = grads["head"]
     del grads
+    phase_chunked_loss(cfg, params, batch, loss, head_grad, plain_peak)
+    del head_grad
 
     # where one step's time goes: the stage marks, each synchronised
     from repro_torch.train.step import TrainHyper, make_train_step
@@ -862,6 +893,53 @@ def phase_train():
     del res, state, params, batch
     torch.cuda.empty_cache()
     return launches, peak
+
+
+# the chunked cross-entropy against the plain one, bf16 head products in
+# both.  On the H100 the two losses came out equal bit for bit and the head
+# gradients 6.1e-5 apart, 1.5e-3 of the largest entry (a bf16 product may
+# round otherwise where cuBLAS tiles 19,008 columns otherwise than
+# 152,064): the loss within 1e-5 of its value, the head gradient within
+# 5e-3 of its largest entry.  Leaving the 128 pad columns unmasked moves
+# the loss by log(1 + 128/152,064), 7e-5 of it: the phase checks that this
+# lands outside the loss bound.
+CHUNK_LOSS_RTOL, CHUNK_GRAD_RTOL = 1e-5, 5e-3
+
+
+def phase_chunked_loss(cfg, params, batch, loss: float, head_grad, plain_peak: int) -> None:
+    """One loss-and-gradient from the trained state with
+    ``loss_vocab_chunk=19008`` (the JAX qwen profile's: 152,064 in 8
+    chunks) against the plain loss's, and both peaks; then the chunked
+    loss with the pad columns left unmasked, which must miss the bound."""
+    import dataclasses
+    import torch
+    from repro_torch.models.lm import _chunked_ce, lm_forward
+    from repro_torch.train.step import loss_and_grads
+    ccfg = dataclasses.replace(cfg, loss_vocab_chunk=19_008)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    closs, cgrads = loss_and_grads(params, batch, ccfg)
+    closs = float(closs)
+    peak = torch.cuda.max_memory_allocated()
+    gap = float((cgrads["head"] - head_grad).abs().max())
+    scale = float(head_grad.abs().max())
+    del cgrads
+    with torch.no_grad():
+        x, _ = lm_forward(params, batch["tokens"], ccfg, positions=batch.get("positions"),
+                          return_hidden=True)
+        unmasked = float(_chunked_ce(x, params["head"], batch["labels"],
+                                     dataclasses.replace(ccfg, vocab_size=ccfg.vocab_padded)))
+        del x
+    print(f"[train] chunked cross-entropy (8 chunks of 19,008): loss {closs} against plain "
+          f"{loss} (diff {abs(closs - loss)}, bound {CHUNK_LOSS_RTOL} x |loss|); head gradient "
+          f"max abs diff {gap} (bound {CHUNK_GRAD_RTOL} x its largest entry {scale}); the "
+          f"pad columns unmasked: loss {unmasked} (diff {abs(unmasked - loss)}); peak "
+          f"max_memory_allocated {peak} B chunked, {plain_peak} B plain; "
+          f"{smi_query('name,power.limit')}", flush=True)
+    check(abs(closs - loss) <= CHUNK_LOSS_RTOL * abs(loss), f"chunked loss {closs} vs {loss}")
+    check(gap <= CHUNK_GRAD_RTOL * scale, f"chunked head gradient differs by {gap}")
+    check(abs(unmasked - loss) > CHUNK_LOSS_RTOL * abs(loss),
+          f"the unmasked pad columns moved the loss by only {abs(unmasked - loss)}")
 
 
 def profile_step(step, state, batch) -> None:
@@ -941,6 +1019,361 @@ def phase_lm_reference():
     check(worst <= 1e-4, f"card and CPU losses differ by {worst}")
 
 
+# ---------------------------------------------------------------------------
+# slice 14: LM serving (KV cache, prefill and decode steps, DecodeEngine)
+# ---------------------------------------------------------------------------
+
+# (batch, prompt tokens, new tokens): qwen at the JAX engine's default
+# s_max; chatglm3-6b cut to fit its 23 GB of f32 masters in the phase's time
+SERVE_LM = (8, 512, 64)
+SERVE_GLM = (4, 256, 16)
+SERVE_S_MAX = 1024
+# cached (engine) against uncached logits.  In bf16 (the served model) 8
+# bf16 ulps at the [4, 8) magnitude of the largest logits (ulp 2**-5): it
+# catches a fault that moves logits by O(1), but at random weights the
+# rounding of 24 bf16 layers hides a cache off by one position (on the
+# H100: 0.094 against the healthy 0.070).  So the same engine also runs in
+# f32 from the same params: there the healthy gap is products summed in
+# another order (1.1e-5 on the H100) and a cache off by one position moved
+# the logits by 0.058-0.061; the bound sits near ten times the first, and
+# the phase checks that both faults land outside it.
+SERVE_BOUND = 0.25
+SERVE_F32_BOUND = 1e-4
+SERVE_REF_BOUND = 1e-4             # reduced configs in f32, card against CPU
+
+
+def _serve_cfg(arch: str, **fields):
+    import dataclasses
+    from repro_torch.configs import get_config
+    base = get_config(arch)
+    return get_config(arch, embedding=dataclasses.replace(base.embedding, lookup_impl="auto"),
+                      **fields)
+
+
+def _recorded_generate(eng, prompts, new: int, keep: bool = False,
+                       timed: bool = False) -> dict:
+    """``eng.generate(prompts, new)`` (greedy), the engine's own loop, with
+    its prefill and decode steps wrapped: ``keep`` stacks each step's
+    last-position logits, (B, 1 + new, Vpad); ``timed`` records a CUDA
+    event before the prefill and after it and each step, no
+    synchronisation between, so the device time of the prefill and of each
+    step (its sampling included) is read from the engine's run."""
+    import torch
+    prefill, serve = eng._prefill, eng._serve
+    kept, events, last = [], [], {}
+
+    def mark():
+        if timed:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    def wrap(step):
+        def recorded(*args):
+            logits, last["cache"] = out = step(*args)
+            mark()
+            if keep:
+                kept.append(logits)
+            return out
+        return recorded
+
+    eng._prefill, eng._serve = wrap(prefill), wrap(serve)
+    try:
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark()
+        res = eng.generate(prompts, new)
+        if timed:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng._prefill, eng._serve = prefill, serve
+    out = dict(res=res, cache_bytes=last["cache"].nbytes)
+    if keep:
+        out["logits"] = torch.stack(kept, dim=1)
+    if timed:
+        steps = [events[t + 1].elapsed_time(events[t + 2]) for t in range(new)]
+        out.update(prefill_ms=events[0].elapsed_time(events[1]), step_ms=steps,
+                   per_token_ms=float(sorted(steps[1:])[(len(steps) - 1) // 2]),
+                   wall_ms=wall_ms)
+    return out
+
+
+def _serve_pair(cfg, params, prompts, new: int, label: str) -> tuple:
+    """The engine on the kernel (``auto``) and on ``gather`` from the same
+    params: tokens and every step's logits bitwise; the kernel engine's
+    launches counted around its ``generate`` alone."""
+    import torch
+    from repro_torch.serving import DecodeEngine
+    eng = DecodeEngine(cfg, params, s_max=SERVE_S_MAX, decode_backend="auto")
+    check(eng.decode_backend == "pallas", f"auto resolved to {eng.decode_backend}")
+    eng.generate(prompts[:, :16], 2)                     # warm cuBLAS and the allocator
+    torch.cuda.synchronize()
+    zero_counts()
+    run = _recorded_generate(eng, prompts, new, keep=True)   # the path's run
+    torch.cuda.synchronize()
+    launches = read_counts(label)
+    check(launches["hash_decode"] == new + 1,
+          f"{label}: hash_decode launched {launches['hash_decode']} times, expected "
+          f"{new + 1} (one prefill and {new} decode steps)")
+    ref = _recorded_generate(DecodeEngine(cfg, params, s_max=SERVE_S_MAX,
+                                          decode_backend="gather"), prompts, new, keep=True)
+    same = ((run["res"].tokens == ref["res"].tokens).all()
+            and torch.equal(run["logits"], ref["logits"]))
+    print(f"[serve_lm] {label}: kernel engine against gather engine, {new + 1} last-logit "
+          f"tensors {tuple(run['logits'].shape)} and {run['res'].tokens.shape} tokens: "
+          f"bitwise={same}; launches {launches}", flush=True)
+    check(same, f"{label}: the kernel engine's logits or tokens differ from gather's")
+    return eng, run, launches
+
+
+def _faulted_gap(eng, tokens, s0: int, ref, shift: int) -> float:
+    """The engine's decode steps teacher-forced along ``tokens`` from a
+    cache whose ``pos`` is moved by ``shift`` after the prefill (+1: a slot
+    left empty and every later position one ahead; -1: the prompt's last
+    row overwritten and every later position one behind), against the
+    uncached logits ``ref``: how far a cache off by one position moves
+    them."""
+    import dataclasses
+    import torch
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.int32, device=eng.device)  # noqa: E731
+    _, cache = eng._prefill(eng.params, {"tokens": as_dev(tokens[:, :s0])})
+    cache = dataclasses.replace(cache, pos=cache.pos + shift)
+    gap = torch.zeros((), device=eng.device)
+    for t in range(tokens.shape[1] - s0):
+        logits, cache = eng._serve(eng.params, cache,
+                                   {"tokens": as_dev(tokens[:, s0 + t:s0 + t + 1])})
+        gap = torch.maximum(gap, (logits - ref[:, t + 1]).abs().amax())
+    return float(gap)
+
+
+def _check_cached_against_uncached(eng, run, s0: int, bound: float,
+                                   controls: bool = False) -> float:
+    """``lm_forward`` without a cache over the final sequences (the plain
+    attention path) against the engine's per-step logits at positions
+    s0-1 .. end, within ``bound``; with ``controls``, a cache off by one
+    position either way must land outside it.  The engine's tokens against
+    the uncached argmax wherever the uncached top-2 margin exceeds twice
+    the bound, or, where no margin does, twice the measured gap (there no
+    logit within the gap can change the argmax)."""
+    import torch
+    from repro_torch.models.lm import lm_forward
+    tokens, cfg = run["res"].tokens, eng.cfg
+    with torch.inference_mode():
+        full, _ = lm_forward(eng.params, torch.as_tensor(tokens, device="cuda"), cfg)
+        ref = full[:, s0 - 1:]
+        del full
+        gap = float((ref - run["logits"]).abs().max())
+        faulted = ({shift: _faulted_gap(eng, tokens, s0, ref, shift) for shift in (1, -1)}
+                   if controls else {})
+        top2 = ref[..., :cfg.vocab_size].topk(2, dim=-1)
+        margin = top2.values[..., 0] - top2.values[..., 1]
+        margin = margin[:, :-1].cpu().numpy()               # the steps that chose a token
+        agree = top2.indices[:, :-1, 0].cpu().numpy() == tokens[:, s0:]
+        scale = float(ref.abs().max())
+    print(f"[serve_lm] {cfg.compute_dtype}: cached against uncached ({tuple(ref.shape)} "
+          f"logits): max abs diff {gap} (bound {bound}; largest |logit| {scale})"
+          + "".join(f"; a cache off by {shift:+d} position: max abs diff {fgap}"
+                    for shift, fgap in faulted.items()), flush=True)
+    name, limit = "twice the bound", 2 * bound
+    if not (margin > limit).any():
+        name, limit = "twice the gap", 2 * gap
+    sure = margin > limit
+    print(f"[serve_lm] {cfg.compute_dtype}: tokens where the uncached top-2 margin > {name} "
+          f"({limit}): {int((agree & sure).sum())} of {int(sure.sum())} agree (of "
+          f"{agree.size} steps; {int(agree.sum())} agree in all)", flush=True)
+    check(gap <= bound, f"{cfg.compute_dtype}: cached and uncached logits differ by {gap}")
+    for shift, fgap in faulted.items():
+        check(fgap > bound, f"a cache off by {shift:+d} position stays within the bound "
+                            f"({fgap} <= {bound})")
+    check(bool(agree[sure].all()), f"{int((~agree & sure).sum())} tokens with a margin above "
+                                   f"{name} differ from uncached")
+    return gap
+
+
+def _serve_breakdown(eng, prompts) -> None:
+    """One decode step under the stage timer (each mark synchronised) and
+    under the profiler, from a fresh prefill."""
+    import torch
+    from repro_torch.device import make_generator
+    from repro_torch.stages import StageTimer
+    gen = make_generator(0, eng.device)
+    logits, cache = eng._prefill(eng.params, {"tokens": torch.as_tensor(
+        prompts, dtype=torch.int32, device=eng.device)})
+    nxt = eng._sample(logits, gen, 0.0)[:, None]
+    logits, cache = eng._serve(eng.params, cache, {"tokens": nxt})     # warm
+    torch.cuda.synchronize()
+    with StageTimer() as timer:
+        t0 = time.perf_counter()
+        nxt = eng._sample(logits, gen, 0.0)[:, None]
+        logits, cache = eng._serve(eng.params, cache, {"tokens": nxt})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    stages = {k: round(sum(v), 3) for k, v in timer.ms.items()}
+    print(f"[breakdown] one decode step ({eng.cfg.name}, B={prompts.shape[0]}, pos "
+          f"{cache.pos - 1}) under the stage timer: {step_ms:.3f} ms; stages (ms, nested: "
+          f"embed holds unpack/decode/mlp) {stages}; {smi_query('name,power.limit')}",
+          flush=True)
+    state = {"logits": logits, "cache": cache}
+
+    def one_step():
+        nxt = eng._sample(state["logits"], gen, 0.0)[:, None]
+        state["logits"], state["cache"] = eng._serve(eng.params, state["cache"],
+                                                     {"tokens": nxt})
+        int(nxt[0, 0])
+    profile_call(f"one {eng.cfg.name} decode step", one_step)
+
+
+def _serve_reference() -> float:
+    """Reduced qwen1.5-0.5b and chatglm3-6b (f32) served on the card (the
+    kernel) and on the CPU (plain versions) from one init: tokens equal and
+    logits within 1e-4, in each row up to the first step whose CPU top-2
+    margin is under the bound (after it the two may choose apart)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import DecodeEngine
+    worst = 0.0
+    for arch in (LM_ARCH, "chatglm3-6b"):
+        cfg = reduced(_serve_cfg(arch))
+        cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
+            cfg.embedding, lookup_impl="pallas"))
+        params = init_lm(torch.Generator().manual_seed(0), cfg)
+        prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32))
+        got = {dev: _recorded_generate(DecodeEngine(cfg, params, s_max=64, device=dev),
+                                       prompts, 16, keep=True) for dev in ("cuda", "cpu")}
+        (card, lc), (cpu, lp) = ((got[d]["res"], got[d]["logits"].cpu().numpy())
+                                 for d in ("cuda", "cpu"))
+        compared, arch_worst = 0, 0.0
+        for b in range(prompts.shape[0]):
+            for t in range(lp.shape[1]):
+                gap = float(np.abs(lc[b, t] - lp[b, t]).max())
+                arch_worst = max(arch_worst, gap)
+                compared += 1
+                check(gap <= SERVE_REF_BOUND, f"{arch} row {b} step {t}: card and CPU "
+                                              f"logits differ by {gap}")
+                if t == lp.shape[1] - 1:
+                    break
+                top2 = np.sort(lp[b, t, :cfg.vocab_size])[-2:]
+                if top2[1] - top2[0] <= SERVE_REF_BOUND:
+                    break
+                check(card.tokens[b, 32 + t] == cpu.tokens[b, 32 + t],
+                      f"{arch} row {b} step {t}: card and CPU chose other tokens")
+        print(f"[reference] serve_lm reduced {arch}: card (kernel) and CPU (plain) engines, "
+              f"{compared} of {lp.shape[0] * lp.shape[1]} steps compared, max abs logit "
+              f"diff {arch_worst} (bound {SERVE_REF_BOUND}); tokens equal "
+              f"{bool((card.tokens == cpu.tokens).all())}", flush=True)
+        worst = max(worst, arch_worst)
+    return worst
+
+
+def phase_serve_lm() -> tuple:
+    """Full-width qwen1.5-0.5b and chatglm3-6b served through
+    ``DecodeEngine``; returns the launches of each path and the decode's
+    row counts (each held bitwise)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import init_lm
+    from repro_torch.nn.module import param_count
+    from repro_torch.serving import DecodeEngine
+    t_phase = time.perf_counter()
+    card = smi_query("name,power.limit")
+    B, s0, new = SERVE_LM
+    cfg = _serve_cfg(LM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, s0))
+    eng, run, launches = _serve_pair(cfg, params, prompts, new, "serve_lm")
+    gap = _check_cached_against_uncached(eng, run, s0, SERVE_BOUND)
+    del run
+    f32 = DecodeEngine(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                       s_max=SERVE_S_MAX, decode_backend="auto")
+    gap_f32 = _check_cached_against_uncached(
+        f32, _recorded_generate(f32, prompts, new, keep=True), s0, SERVE_F32_BOUND,
+        controls=True)
+    del f32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = _recorded_generate(eng, prompts, new, timed=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_kv = 2 * cfg.n_layers * B * SERVE_S_MAX * cfg.n_kv_heads * cfg.head_dim * 2
+    check(timed["cache_bytes"] == expect_kv, f"KV cache {timed['cache_bytes']} B")
+    print(f"[serve_lm] {LM_ARCH} B={B}, prompt {s0}, {new} new tokens, s_max {SERVE_S_MAX}, "
+          f"bf16: prefill {timed['prefill_ms']:.3f} ms; per-token decode "
+          f"{timed['per_token_ms']:.3f} ms (median of steps 2-{new}; steps "
+          f"{[round(t, 3) for t in timed['step_ms']]}); {B / timed['per_token_ms'] * 1e3:.1f} "
+          f"tokens/s; generate wall {timed['wall_ms']:.3f} ms; KV cache "
+          f"{timed['cache_bytes']} B; params {_nbytes(params)} B; peak "
+          f"max_memory_allocated over that generate {peak} B above the {base} B held "
+          f"before the phase; {card}", flush=True)
+    _serve_breakdown(eng, prompts)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # the kernel at the path's row counts, and its time at one decode step's
+    sizes = [B * s0, B]
+    B_g, s0_g, new_g = SERVE_GLM
+    sizes += [B_g * s0_g, B_g]
+    err = max(check_decode_case((rows, 16, 256, 512), "float32", seed=40 + i)
+              for i, rows in enumerate(sizes))
+    at_step = time_at_shape(B, 16, 256, 512)
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    codes, cb, _, _ = _operands(B, 16, 256, 512, "float32", seed=0)
+    at_step["graph_ms"] = graph_time_ms(lambda: hd_ops._forward(codes, cb, None, None), 20)
+    print(f"[time] hash_decode B={B} (a decode step's rows): kernel {at_step['ms']:.4f} ms "
+          f"back to back, {at_step['graph_ms']:.4f} ms as a CUDA graph "
+          f"({at_step['graph_ms'] / at_step['bound_ms']:.1f}x its bound); bound "
+          f"{at_step['bound_ms']:.6f} ms by {at_step['bound_by']}; embedding_bag "
+          f"{at_step['library_ms']:.4f} ms; plain {at_step['plain_ms']:.4f} ms; {card}",
+          flush=True)
+    del codes, cb
+
+    # chatglm3-6b at full width
+    cfg_g = _serve_cfg("chatglm3-6b")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator("cuda").manual_seed(1), cfg_g)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = param_count(params, trainable_only=True)
+    prompts = np.random.default_rng(8).integers(0, cfg_g.vocab_size, (B_g, s0_g))
+    torch.cuda.reset_peak_memory_stats()
+    eng, run, glm_launches = _serve_pair(cfg_g, params, prompts, new_g, "serve_lm_chatglm3")
+    check(bool(run["logits"].isfinite().all()), "non-finite chatglm3 logits")
+    del run
+    timed_g = _recorded_generate(eng, prompts, new_g, timed=True)
+    peak_g = torch.cuda.max_memory_allocated() - base
+    print(f"[serve_lm] chatglm3-6b ({cfg_g.n_layers} layers, d_model {cfg_g.d_model}, "
+          f"{cfg_g.n_kv_heads} KV heads for {cfg_g.n_heads}, half RoPE, QKV bias; "
+          f"{n_params} f32 parameters) B={B_g}, prompt {s0_g}, {new_g} new tokens: prefill "
+          f"{timed_g['prefill_ms']:.3f} ms; per-token decode {timed_g['per_token_ms']:.3f} ms "
+          f"(median of steps 2-{new_g}); {B_g / timed_g['per_token_ms'] * 1e3:.1f} tokens/s; "
+          f"KV cache {timed_g['cache_bytes']} B; params {_nbytes(params)} B; peak "
+          f"max_memory_allocated serving {peak_g} B and in init_lm {init_peak} B, above "
+          f"the {base} B held before; {card}", flush=True)
+    _serve_breakdown(eng, prompts)
+    del eng, params
+    torch.cuda.empty_cache()
+
+    ref_err = _serve_reference()
+    print(f"[serve_lm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"serve_lm": launches, "serve_lm_chatglm3": glm_launches},
+            dict(serve_lm_sizes=sizes, max_abs_err=err, cached_gap=gap, cached_gap_f32=gap_f32,
+                 reference_gap=ref_err, at_decode_step=at_step,
+                 qwen={k: v for k, v in timed.items() if k not in ("step_ms", "res")},
+                 chatglm3={k: v for k, v in timed_g.items() if k not in ("step_ms", "res")},
+                 peak=peak, peak_chatglm3=peak_g, init_peak_chatglm3=init_peak))
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.nn.module import leaves_with_path
+    return sum(t.numel() * t.element_size() for _, t in leaves_with_path(tree))
+
+
 def time_lm_kernels() -> dict:
     """flash_attention at the path's shape: the bf16 tensor-core kernel
     (the path's) beside its plain version and
@@ -1011,7 +1444,7 @@ def time_lm_kernels() -> dict:
     cbg = cb.clone().requires_grad_(True)
     bwd_plain_ms, _ = time_ms(
         lambda: torch.autograd.grad((hash_decode_ref(codes, cbg) * g).sum(), cbg), 10)
-    fwd_bytes = rows * m * 4 + m * c * d_c * 2 + rows * d_c * 4
+    fwd_bytes = rows * m * 4 + int(torch.unique(idx).numel()) * d_c * 2 + rows * d_c * 4
     fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, rows * (m - 1) * d_c / F32_ADDS_PER_S) * 1e3
     bwd_bytes = rows * m * 4 + rows * d_c * 4 + m * c * d_c * 2
     bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
@@ -3884,6 +4317,8 @@ def main() -> None:
     vocab_flips = phase_lsh_packed_check()
     train_launches, _ = phase_train()
     phase_lm_reference()
+    serve_lm_launches, serve_lm = phase_serve_lm()
+    timing["max_abs_err"] = max(timing["max_abs_err"], serve_lm.pop("max_abs_err"))
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
@@ -3899,7 +4334,7 @@ def main() -> None:
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
              "merchant": merchant_launches, **family_launches, **host_launches,
-             **shard_launches, **elastic_launches}
+             **shard_launches, **elastic_launches, **serve_lm_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -3920,6 +4355,8 @@ def main() -> None:
              hashemb_sizes=family_sizes["hashemb"], int8_sizes=family_sizes["int8"],
              codes_host_sizes=host_sizes["float32"],
              codes_host_int8_sizes=host_sizes["int8"], **shard_sizes, **elastic_sizes,
+             serve_lm_sizes=serve_lm.pop("serve_lm_sizes"),
+             at_decode_step=serve_lm.pop("at_decode_step"), serve_lm=serve_lm,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

@@ -104,7 +104,7 @@ class LMConfig:
     embedding: EmbeddingSpec = dataclasses.field(default_factory=EmbeddingSpec)
     compute_dtype: str = "bfloat16"
     vocab_round: int = 256           # pad vocab for TP divisibility
-    loss_vocab_chunk: int = 0        # >0: chunked CE (not ported, raises)
+    loss_vocab_chunk: int = 0        # >0: chunked CE over vocab chunks
     remat: bool = True               # per-layer activation checkpointing
     unroll_scan: bool = False        # JAX dry-run knob; no effect here
     subquadratic: bool = False

@@ -15,6 +15,10 @@ moments of a ``*_buf`` buffer) stay ``None``.
 with its eight fields, as numpy arrays) and returns the port's, so both
 packages can start from one cache state; ``params_from_jax`` converts a
 train state's ``"cache"`` entry the same way.
+
+``lm_cache_from_jax`` takes a JAX ``LMCache`` (``pos``, ``kv_k``, ``kv_v``
+as numpy; the same stacked (sites, B, S_max, K, Dh) layout) and returns the
+port's, so a decode step can start from JAX's own state.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from repro_torch.core.backend import CacheState
 from repro_torch.core.codes import from_uint32
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.lm import LMCache
 
 
 def cache_state_from_jax(state, device: DeviceLike = None) -> CacheState:
@@ -35,6 +40,17 @@ def cache_state_from_jax(state, device: DeviceLike = None) -> CacheState:
     get = state.get if isinstance(state, dict) else lambda f: getattr(state, f)
     return CacheState(*(torch.from_numpy(np.array(get(f.name))).to(dev)
                         for f in dataclasses.fields(CacheState)))
+
+
+def lm_cache_from_jax(cache, device: DeviceLike = None) -> LMCache:
+    dev = resolve_device(device)
+    get = cache.get if isinstance(cache, dict) else lambda f: getattr(cache, f, None)
+    if get("ssm_state") is not None or get("conv") is not None:
+        raise NotImplementedError("an LMCache with ssm state comes with the ssm family "
+                                  "(ROADMAP A.18)")
+    return LMCache(pos=int(np.asarray(get("pos"))),
+                   kv_k=torch.from_numpy(np.array(get("kv_k"))).to(dev),
+                   kv_v=torch.from_numpy(np.array(get("kv_v"))).to(dev))
 
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:

@@ -10,16 +10,22 @@ in the JAX package, so ``interop.params_from_jax`` carries a JAX init across
 unchanged; the forward unbinds the stack once, so the backward stacks the
 layer gradients once.  ``remat=True`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant) as the JAX scan body is
-checkpointed.
+checkpointed; it applies only without a cache, as in JAX.
+
+``lm_forward(cache=)`` decodes (or prefills) at ``cache.pos`` against an
+``LMCache``, whose (sites, B, S_max, K, Dh) buffers have the JAX package's
+stacked layout and are written in place, one site a layer.
+``loss_vocab_chunk`` streams the head in vocabulary chunks
+(``_chunked_ce``), so the (tokens, vocab) logits are never held.
 
 The forward marks its stages (embed, blocks, head, loss) for
-``stages.StageTimer``.  Only the path without a cache (training, prefill from zero) is ported; the
-moe, ssm, hybrid, audio and vlm families, the KV cache and the chunked
-cross-entropy raise, naming their ROADMAP item.
+``stages.StageTimer``.  The moe, ssm, hybrid, audio and vlm families raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -30,7 +36,9 @@ from repro_torch.configs.base import LM_SLICE, LMConfig
 from repro_torch.core import embedding as emb_lib
 from repro_torch.core import lsh
 from repro_torch.core.backend import torch_dtype
-from repro_torch.nn.attention import SERVING_SLICE, AttentionConfig, attention, init_attention
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.attention import AttentionConfig, attention, init_attention
+from repro_torch.nn.kvcache import KVCache
 from repro_torch.nn.layers import init_mlp, init_norm, mlp, norm
 from repro_torch.nn.module import Params, dense_init
 from repro_torch.nn.rope import default_positions, rope_cos_sin
@@ -52,6 +60,30 @@ def check_ported(cfg: LMConfig) -> None:
             f"yet; it comes with {LM_SLICE}")
 
 
+@dataclasses.dataclass
+class LMCache:
+    """Every attention site's KV buffers, stacked as in the JAX package:
+    ``kv_k`` / ``kv_v`` (sites, B, S_max, K, Dh); ``pos`` the next write
+    index, a Python int.  The ssm fields come with the ssm family."""
+    pos: int
+    kv_k: Optional[torch.Tensor] = None
+    kv_v: Optional[torch.Tensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.kv_k, self.kv_v)
+                   if t is not None)
+
+
+def init_cache(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None) -> LMCache:
+    check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return LMCache(pos=0, kv_k=torch.zeros(shape, dtype=dtype, device=dev),
+                   kv_v=torch.zeros(shape, dtype=dtype, device=dev))
+
+
 def init_attn_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     return {
         "norm1": init_norm(generator, cfg.d_model, cfg.norm),
@@ -61,11 +93,12 @@ def init_attn_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     }
 
 
-def attn_block(p: Params, x: torch.Tensor, cfg: LMConfig, cos, sin) -> torch.Tensor:
-    h, _ = attention(p["attn"], norm(p["norm1"], x, cfg.norm), attn_config(cfg),
-                     cos=cos, sin=sin)
+def attn_block(p: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
+               kv: Optional[KVCache] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    h, kv = attention(p["attn"], norm(p["norm1"], x, cfg.norm), attn_config(cfg),
+                      cos=cos, sin=sin, cache=kv)
     x = x + h
-    return x + mlp(p["mlp"], norm(p["norm2"], x, cfg.norm), cfg.act)
+    return x + mlp(p["mlp"], norm(p["norm2"], x, cfg.norm), cfg.act), kv
 
 
 def _stack(trees):
@@ -132,37 +165,97 @@ def _rope(cfg: LMConfig, positions: torch.Tensor):
                         fraction=frac, mrope_sections=sections)
 
 
-def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig, cache=None,
-               positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, None]:
-    """tokens (B, S) int -> (logits (B, S, Vpad) f32, None), causal over S."""
+def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
+               cache: Optional[LMCache] = None, positions: Optional[torch.Tensor] = None,
+               return_hidden: bool = False) -> Tuple[torch.Tensor, Optional[LMCache]]:
+    """tokens (B, S) int -> (logits (B, S, Vpad) f32, cache).
+
+    ``cache=None``: train / prefill from zero, causal over S.  With a
+    cache: decode or chunked prefill at ``cache.pos``; the cache's buffers
+    are written in place and the returned cache has ``pos`` advanced by S.
+    ``return_hidden``: the final-norm hidden states (B, S, D) in place of
+    the logits."""
     check_ported(cfg)
-    if cache is not None:
-        raise NotImplementedError(f"lm_forward with a cache is not ported yet; "
-                                  f"it comes with {SERVING_SLICE}")
     B, S = tokens.shape[:2]
+    offset = cache.pos if cache is not None else 0
     if positions is None:
-        positions = default_positions(B, S, cfg.rope_variant, tokens.device)
+        positions = default_positions(B, S, cfg.rope_variant, tokens.device) + offset
     cos, sin = _rope(cfg, positions)
     with stage("embed"):
         x = _embed_tokens(params, tokens, cfg, positions)
+    new_cache = None
     with stage("blocks"):
-        for lp in _unstack(params["blocks"], cfg.n_layers):
-            if cfg.remat:
-                x = checkpoint(attn_block, lp, x, cfg, cos, sin, use_reentrant=False)
-            else:
-                x = attn_block(lp, x, cfg, cos, sin)
+        layers = _unstack(params["blocks"], cfg.n_layers)
+        if cache is None:
+            for lp in layers:
+                if cfg.remat:
+                    x, _ = checkpoint(attn_block, lp, x, cfg, cos, sin, use_reentrant=False)
+                else:
+                    x, _ = attn_block(lp, x, cfg, cos, sin)
+        else:
+            for i, lp in enumerate(layers):
+                x, _ = attn_block(lp, x, cfg, cos, sin,
+                                  kv=KVCache(cache.kv_k[i], cache.kv_v[i], cache.pos))
+            new_cache = LMCache(pos=cache.pos + S, kv_k=cache.kv_k, kv_v=cache.kv_v)
     with stage("head"):
         x = norm(params["final_norm"], x, cfg.norm)
+        if return_hidden:
+            return x, new_cache
         logits = (x @ params["head"].to(x.dtype)).float()
-    return logits, None
+    return logits, new_cache
+
+
+def _ce_chunk(xf: torch.Tensor, head_c: torch.Tensor, lab: torch.Tensor,
+              m_prev: torch.Tensor, s_prev: torch.Tensor, gold_prev: torch.Tensor,
+              lo: int, vocab_size: int):
+    """One vocabulary chunk [lo, lo + chunk) of ``_chunked_ce``: its logits,
+    the pad columns masked, folded into the running max, sum of
+    exponentials and gold logit."""
+    chunk = head_c.shape[1]
+    logits = (xf @ head_c.to(xf.dtype)).float()                    # (T, chunk)
+    if lo + chunk > vocab_size:
+        col = torch.arange(lo, lo + chunk, device=logits.device)
+        logits = logits.masked_fill(col >= vocab_size, NEG_INF)
+    m_new = torch.maximum(m_prev, torch.amax(logits, dim=-1))
+    s_new = (s_prev * torch.exp(m_prev - m_new)
+             + torch.exp(logits - m_new[:, None]).sum(dim=-1))
+    in_chunk = (lab >= lo) & (lab < lo + chunk)
+    local = (lab - lo).clamp(0, chunk - 1)
+    gold_c = torch.gather(logits, 1, local[:, None])[:, 0]
+    return m_new, s_new, torch.where(in_chunk, gold_c, gold_prev)
+
+
+def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                cfg: LMConfig) -> torch.Tensor:
+    """Cross-entropy without the (B, S, Vpad) logits: the head product in
+    ``loss_vocab_chunk`` columns, carrying the running (max, sum of
+    exponentials, gold logit), as the JAX package's scan does.  Each chunk
+    is checkpointed (non-reentrant), so its (T, chunk) logits are
+    recomputed in the backward, not kept.  The pad columns fall in the
+    final chunk and are masked there."""
+    chunk = cfg.loss_vocab_chunk
+    assert cfg.vocab_padded % chunk == 0
+    B, S, D = x.shape
+    xf = x.reshape(B * S, D)
+    lab = labels.reshape(B * S).to(torch.int64)
+    m = torch.full((B * S,), NEG_INF, dtype=torch.float32, device=x.device)
+    s_sum = torch.zeros(B * S, dtype=torch.float32, device=x.device)
+    gold = torch.zeros(B * S, dtype=torch.float32, device=x.device)
+    for i, head_c in enumerate(head.split(chunk, dim=1)):
+        m, s_sum, gold = checkpoint(_ce_chunk, xf, head_c, lab, m, s_sum, gold,
+                                    i * chunk, cfg.vocab_size, use_reentrant=False)
+    return (m + torch.log(s_sum) - gold).mean()
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig) -> torch.Tensor:
-    """Next-token cross-entropy on the full logits; the vocabulary padding
-    is masked out of the softmax at -1e30."""
+    """Next-token cross-entropy; the vocabulary padding is masked out of the
+    softmax at -1e30.  With ``loss_vocab_chunk`` dividing the padded
+    vocabulary, the chunked form (``_chunked_ce``)."""
     if cfg.loss_vocab_chunk and cfg.vocab_padded % cfg.loss_vocab_chunk == 0:
-        raise NotImplementedError(f"the chunked cross-entropy is not ported "
-                                  f"yet; it comes with {LM_SLICE}")
+        x, _ = lm_forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
+                          return_hidden=True)
+        with stage("loss"):
+            return _chunked_ce(x, params["head"], batch["labels"], cfg)
     logits, _ = lm_forward(params, batch["tokens"], cfg,
                            positions=batch.get("positions"))
     with stage("loss"):

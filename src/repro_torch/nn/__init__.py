@@ -1,2 +1,2 @@
-"""Counterpart of ``repro.nn``: parameter conventions, layers, RoPE and
-attention (the path without a KV cache)."""
+"""Counterpart of ``repro.nn``: parameter conventions, layers, RoPE,
+attention and its KV cache."""

@@ -9,6 +9,10 @@ counter, and gradient accumulation over ``hyper.microbatches``.
 full-graph source); with a ``"cache"`` in
 the state it decodes through the hot-node cache, and with a ``mesh`` it
 runs as one rank of an N-shard step.
+``make_prefill_step(cfg, s_max)`` and ``make_serve_step(cfg)`` are the LM
+serving steps: a prefill that fills a fresh ``LMCache`` and one decode step
+against it, each returning the last position's logits, under
+``torch.inference_mode()``.
 
 The stored params never require grad.  Each step differentiates detached
 views of the trainable leaves (``torch.autograd.grad``, which raises if a
@@ -25,8 +29,9 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import GNNConfig, LMConfig
+from repro_torch.core.backend import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import init_lm, lm_loss
+from repro_torch.models.lm import LMCache, init_cache, init_lm, lm_forward, lm_loss
 from repro_torch.nn.module import map_tree, value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
@@ -91,7 +96,7 @@ def init_gnn_train_state(generator: torch.Generator, cfg: GNNConfig, codes=None,
     config enables the hot-node cache (``cache_capacity > 0`` on a
     compressed kind) the state carries a ``"cache"`` ``CacheState`` on the
     params' device, in the compute dtype."""
-    from repro_torch.core.backend import CacheState, torch_dtype
+    from repro_torch.core.backend import CacheState
     from repro_torch.models.gnn import init_gnn
     if params is None:
         params = init_gnn(generator, cfg, codes=codes, aux=aux)
@@ -191,3 +196,29 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
         return state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: LMConfig, s_max: int) -> Callable:
+    """(params, {"tokens": (B, S0)[, "positions"]}) -> (last logits (B, Vpad),
+    cache): a fresh cache of ``s_max`` slots in the compute dtype, on the
+    tokens' device, filled with the prompt."""
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        with torch.inference_mode():
+            cache = init_cache(cfg, tokens.shape[0], s_max, torch_dtype(cfg.compute_dtype),
+                               device=tokens.device)
+            logits, cache = lm_forward(params, tokens, cfg, cache=cache,
+                                       positions=batch.get("positions"))
+            return logits[:, -1], cache
+    return prefill_step
+
+
+def make_serve_step(cfg: LMConfig) -> Callable:
+    """(params, cache, {"tokens": (B, 1)[, "positions"]}) -> (logits (B, Vpad),
+    cache): one decode step; the cache's buffers are written in place."""
+    def serve_step(params, cache: LMCache, batch):
+        with torch.inference_mode():
+            logits, cache = lm_forward(params, batch["tokens"], cfg, cache=cache,
+                                       positions=batch.get("positions"))
+            return logits[:, -1], cache
+    return serve_step

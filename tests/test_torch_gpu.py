@@ -13,7 +13,11 @@ device-resident sparse product, full-graph GCN / SGC / GIN steps against
 the CPU and a resumed GCN run; and several ranks (``parallel``): four gloo
 ranks sharing the card, and NCCL ranks one card each where there are
 enough cards (``cuda_cards``); and elastic training: a rank killed and the
-run continued on 3 ranks bitwise its reference, on gloo and over NCCL.
+run continued on 3 ranks bitwise its reference, on gloo and over NCCL;
+and LM serving: the engine on the kernel bitwise the engine on the gather
+backend, the KV cache's writes on the card bitwise the CPU's, and the
+chunked cross-entropy on the card within 1e-4 of the CPU's (f32 cuBLAS
+and CPU matmuls sum in other orders).
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -39,6 +43,7 @@ tolerances).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1313,3 +1318,72 @@ def test_elastic_kill_over_nccl_keeps_each_rank_on_its_card():
     results = spawn(_elastic_program, 4, backend="nccl", args=("sharded:pallas",))
     survivors = _check_elastic(results)
     assert [r["device"] for r in survivors] == ["cuda:0", "cuda:1", "cuda:3"]
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "chatglm3-6b"])
+def test_lm_engine_on_kernel_is_the_gather_engine(cuda, arch):
+    """Reduced configs: greedy tokens and every step's last logits through
+    the ``hash_decode`` kernel (``auto``) bitwise the gather backend's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import DecodeEngine
+    cfg = reduced(get_config(arch))
+    params = init_lm(torch.Generator(cuda).manual_seed(0), cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 16))
+    before = ops.hash_decode.launches
+    res = []
+    for impl in ("auto", "gather"):
+        eng, kept = DecodeEngine(cfg, params, s_max=64, decode_backend=impl), []
+
+        def recorded(*args, step):                   # keep the prefill's and each step's logits
+            out = step(*args)
+            kept.append(out[0])
+            return out
+
+        eng._prefill = functools.partial(recorded, step=eng._prefill)
+        eng._serve = functools.partial(recorded, step=eng._serve)
+        res.append((eng.generate(prompts, 8).tokens, torch.stack(kept)))
+    assert ops.hash_decode.launches == before + 9          # prefill + 8 steps, auto only
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])
+
+
+@pytest.mark.parametrize("s_new", [1, 5, 32])
+def test_kv_cache_update_on_card_is_the_cpus(cuda, s_new):
+    from repro_torch.nn.kvcache import KVCache
+    rng = np.random.default_rng(s_new)
+    first = torch.from_numpy(rng.standard_normal((3, 7, 2, 16)).astype(np.float32))
+    new = torch.from_numpy(rng.standard_normal((3, s_new, 2, 16)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        c = KVCache.zeros(3, 32, 2, 16, torch.bfloat16, device=dev)
+        if s_new != 32:
+            c = c.update(first.to(dev), first.to(dev))
+        c = c.update(new.to(dev), (2 * new).to(dev))
+        out[str(dev)] = (c.pos, c.k.cpu(), c.v.cpu(), c.valid_mask().cpu())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert cpu[0] == card[0] and all(torch.equal(a, b) for a, b in zip(cpu[1:], card[1:]))
+
+
+def test_chunked_loss_on_card_matches_cpu(cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import init_lm
+    from repro_torch.nn.module import value_and_grad
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), vocab_size=500,
+                              loss_vocab_chunk=64)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 500, (4, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    got = {}
+    for dev in ("cpu", cuda):
+        got[str(dev)] = value_and_grad(lambda p: lm.lm_loss(p, _to(batch, dev), cfg),
+                                       _to(params, dev))
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got[str(cuda)]
+    assert abs(float(l_cpu) - float(l_card)) <= 1e-4
+    assert float((g_cpu["head"] - g_card["head"].cpu()).abs().max()) <= 1e-4
+
