@@ -144,6 +144,29 @@ weights and data from a seed:
          (``loss_vocab_chunk=19008``) against the plain one, and the
          chunked loss with its pad columns unmasked, which must miss the
          loss bound;
+  moe_train, moe_sorted, moe_serve  full-width ``granite-moe-3b-a800m``
+         (32 layers, d_model 1536, 24 heads on 8 KV heads, 40 experts of
+         512 padded to 48, top-8, vocab 49,155, ``hash_full``): 5 steps of
+         4 x 2048 tokens from the launcher's parts on the JAX package's
+         profile for it (every expert on every token, ``moe_impl="dense"``;
+         bf16 Adam moments; ``attn_impl="flash"``), two gradients of one
+         step bit for bit, one step of the sorted dispatch from the same
+         state against the dense loss, then the trained params served
+         through ``DecodeEngine`` as ``serve_lm`` is (8 prompts of 512, 32
+         greedy tokens, cut from 64 for the script's time; kernel engine bitwise the ``gather`` engine; an f32
+         engine against ``lm_forward`` without a cache, each row up to its
+         first position whose expert routing differs between the two);
+  ssm_train, ssm_serve  full-width ``mamba2-2.7b`` (64 Mamba2 layers,
+         d_model 2560, 80 SSD heads, state 128): the SSD mask control (the
+         JAX order's NaN dt gradient at these heads), 5 steps on its JAX
+         profile (bf16 moments, ``loss_vocab_chunk=6304``), then served
+         the same way (the single-step recurrence against the chunked scan
+         in f32);
+  hybrid_serve  full-width ``zamba2-7b`` (81 Mamba2 layers in 13 groups of
+         6 and a tail of 3, one shared attention block called at 13
+         sites): ``init_lm``'s peak against its masters, then served the
+         same way; and the three families' reduced configs trained and
+         served on the card and on the CPU;
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -176,6 +199,7 @@ phases ``sharded`` and ``elastic`` start 4 processes on it and stop them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -810,7 +834,6 @@ def phase_train():
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
     from repro_torch.launch.train import train
-    from repro_torch.stages import StageTimer
     from repro_torch.train.step import loss_and_grads
     cfg = _lm_config()
     torch.cuda.empty_cache()
@@ -880,16 +903,7 @@ def phase_train():
     step = make_train_step(cfg, TrainHyper(total_steps=LM_STEPS + 2))
     state = res.state
     state, _ = step(state, batch)               # warm, outside the timer
-    torch.cuda.synchronize()
-    with StageTimer() as timer:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
-        step_ms = (time.perf_counter() - t0) * 1e3
-    med = {k: round(sum(v), 3) for k, v in timer.ms.items()}
-    print(f"[breakdown] one training step under the stage timer: {step_ms:.3f} ms; "
-          f"stages (ms, nested: embed holds unpack/decode/mlp) {med}", flush=True)
-    profile_step(step, state, batch)
+    train_breakdown(step, state, batch)
     del res, state, params, batch
     torch.cuda.empty_cache()
     return launches, peak
@@ -940,6 +954,24 @@ def phase_chunked_loss(cfg, params, batch, loss: float, head_grad, plain_peak: i
     check(gap <= CHUNK_GRAD_RTOL * scale, f"chunked head gradient differs by {gap}")
     check(abs(unmasked - loss) > CHUNK_LOSS_RTOL * abs(loss),
           f"the unmasked pad columns moved the loss by only {abs(unmasked - loss)}")
+
+
+def train_breakdown(step, state, batch, label: str = "") -> None:
+    """One (warm) training step under the stage timer, each mark
+    synchronised, then one under the profiler."""
+    import torch
+    from repro_torch.stages import StageTimer
+    torch.cuda.synchronize()
+    with StageTimer() as timer:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+    med = {k: round(sum(v), 3) for k, v in timer.ms.items()}
+    print(f"[breakdown] one {label + ' ' if label else ''}training step under the stage "
+          f"timer: {step_ms:.3f} ms; stages (ms, nested: embed holds unpack/decode/mlp) "
+          f"{med}", flush=True)
+    profile_step(step, state, batch)
 
 
 def profile_step(step, state, batch) -> None:
@@ -1224,48 +1256,55 @@ def _serve_breakdown(eng, prompts) -> None:
     profile_call(f"one {eng.cfg.name} decode step", one_step)
 
 
-def _serve_reference() -> float:
-    """Reduced qwen1.5-0.5b and chatglm3-6b (f32) served on the card (the
-    kernel) and on the CPU (plain versions) from one init: tokens equal and
-    logits within 1e-4, in each row up to the first step whose CPU top-2
-    margin is under the bound (after it the two may choose apart)."""
-    import dataclasses
+def _served_on_card_and_cpu(cfg, params, label: str) -> float:
+    """``cfg`` (f32, a reduced config) served from ``params`` on the card
+    (the kernel) and on the CPU (plain versions), 4 prompts of 32 and 16
+    greedy tokens: tokens equal and logits within ``SERVE_REF_BOUND``, in
+    each row up to the first step whose CPU top-2 margin is under the bound
+    (after it the two may choose apart).  Returns the largest gap."""
     import numpy as np
+    from repro_torch.serving import DecodeEngine
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32))
+    got = {dev: _recorded_generate(DecodeEngine(cfg, params, s_max=64, device=dev),
+                                   prompts, 16, keep=True) for dev in ("cuda", "cpu")}
+    (card, lc), (cpu, lp) = ((got[d]["res"], got[d]["logits"].cpu().numpy())
+                             for d in ("cuda", "cpu"))
+    compared, worst = 0, 0.0
+    for b in range(prompts.shape[0]):
+        for t in range(lp.shape[1]):
+            gap = float(np.abs(lc[b, t] - lp[b, t]).max())
+            worst = max(worst, gap)
+            compared += 1
+            check(gap <= SERVE_REF_BOUND, f"{label} row {b} step {t}: card and CPU "
+                                          f"logits differ by {gap}")
+            if t == lp.shape[1] - 1:
+                break
+            top2 = np.sort(lp[b, t, :cfg.vocab_size])[-2:]
+            if top2[1] - top2[0] <= SERVE_REF_BOUND:
+                break
+            check(card.tokens[b, 32 + t] == cpu.tokens[b, 32 + t],
+                  f"{label} row {b} step {t}: card and CPU chose other tokens")
+    print(f"[reference] serve_lm reduced {label}: card (kernel) and CPU (plain) engines, "
+          f"{compared} of {lp.shape[0] * lp.shape[1]} steps compared, max abs logit "
+          f"diff {worst} (bound {SERVE_REF_BOUND}); tokens equal "
+          f"{bool((card.tokens == cpu.tokens).all())}", flush=True)
+    return worst
+
+
+def _serve_reference() -> float:
+    """Reduced qwen1.5-0.5b and chatglm3-6b (f32) served on the card and on
+    the CPU from one init (``_served_on_card_and_cpu``)."""
+    import dataclasses
     import torch
     from repro_torch.configs import reduced
     from repro_torch.models.lm import init_lm
-    from repro_torch.serving import DecodeEngine
     worst = 0.0
     for arch in (LM_ARCH, "chatglm3-6b"):
         cfg = reduced(_serve_cfg(arch))
         cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
             cfg.embedding, lookup_impl="pallas"))
         params = init_lm(torch.Generator().manual_seed(0), cfg)
-        prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32))
-        got = {dev: _recorded_generate(DecodeEngine(cfg, params, s_max=64, device=dev),
-                                       prompts, 16, keep=True) for dev in ("cuda", "cpu")}
-        (card, lc), (cpu, lp) = ((got[d]["res"], got[d]["logits"].cpu().numpy())
-                                 for d in ("cuda", "cpu"))
-        compared, arch_worst = 0, 0.0
-        for b in range(prompts.shape[0]):
-            for t in range(lp.shape[1]):
-                gap = float(np.abs(lc[b, t] - lp[b, t]).max())
-                arch_worst = max(arch_worst, gap)
-                compared += 1
-                check(gap <= SERVE_REF_BOUND, f"{arch} row {b} step {t}: card and CPU "
-                                              f"logits differ by {gap}")
-                if t == lp.shape[1] - 1:
-                    break
-                top2 = np.sort(lp[b, t, :cfg.vocab_size])[-2:]
-                if top2[1] - top2[0] <= SERVE_REF_BOUND:
-                    break
-                check(card.tokens[b, 32 + t] == cpu.tokens[b, 32 + t],
-                      f"{arch} row {b} step {t}: card and CPU chose other tokens")
-        print(f"[reference] serve_lm reduced {arch}: card (kernel) and CPU (plain) engines, "
-              f"{compared} of {lp.shape[0] * lp.shape[1]} steps compared, max abs logit "
-              f"diff {arch_worst} (bound {SERVE_REF_BOUND}); tokens equal "
-              f"{bool((card.tokens == cpu.tokens).all())}", flush=True)
-        worst = max(worst, arch_worst)
+        worst = max(worst, _served_on_card_and_cpu(cfg, params, arch))
     return worst
 
 
@@ -2167,15 +2206,16 @@ def zero_counts() -> None:
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
     fa_ops.flash_attention.launches = 0
+    by_kernel = fa_ops.flash_attention.launches_by_kernel
+    by_kernel.update(dict.fromkeys(by_kernel, 0))
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))
     hd_ops.hash_decode.launches = 0
     hd_ops.hash_decode_backward.launches = 0
     hd_ops.backward_kernel_launches(reset=True)
 
 
-def read_counts(path: str) -> dict:
-    """Every kernel's launch counts since ``zero_counts``: a path's run ends
-    here.  None of the cache's paths runs attention or an encode."""
+def _counts(path: str) -> dict:
+    """Every kernel's launch counts since ``zero_counts``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
@@ -2185,8 +2225,26 @@ def read_counts(path: str) -> dict:
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}
     check_backward_launches(launches, path)
+    return launches
+
+
+def read_counts(path: str) -> dict:
+    """Every kernel's launch counts since ``zero_counts``: a path's run ends
+    here.  None of the cache's paths runs attention or an encode."""
+    launches = _counts(path)
     check(launches["flash_attention"] == 0 and launches["lsh_encode"] == 0,
           f"{path} ran attention or an encode: {launches}")
+    return launches
+
+
+def _path_counts(path: str) -> dict:
+    """``_counts`` with flash_attention's and lsh_encode's launches split by
+    kernel: a training path's run ends here."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    launches = _counts(path)
+    launches["flash_attention_by_kernel"] = dict(fa_ops.flash_attention.launches_by_kernel)
+    launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     return launches
 
 
@@ -4266,6 +4324,435 @@ def phase_elastic(graph) -> tuple:
     return launches, {"elastic_sizes": decoded}, err
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the moe, ssm and hybrid LM families
+# ---------------------------------------------------------------------------
+
+LM_FAMILY_STEPS = 5           # training steps of granite and mamba2, LM_BATCH x LM_SEQ tokens
+# 8 prompts of 512 and 32 greedy tokens (cut from 64 for the script's time:
+# granite's and zamba2's decode steps take 110-180 ms, all host-bound)
+LM_FAMILY_SERVE = (8, 512, 32)
+# f32 cached (single-step recurrence for the SSM layers) against uncached
+# (the chunked scan) logits: ten times the dense qwen bound, for the
+# recurrence's and the scan's other summation order over 64 layers and 512
+# positions; a cache off by one position must miss it.  granite's
+# routing is discontinuous: a router near-tie that the two paths break
+# apart swaps an expert, so its rows are compared up to their first
+# position whose routing differs (the count is printed).
+LM_FAMILY_F32_BOUND = 1e-3
+# granite's sorted-dispatch step against the dense-dispatch loss on one
+# batch from one state: bf16 products summed in other orders (8 experts
+# one at a time against 40 in one product) through 32 layers, averaged
+# over 8,192 tokens.  On the H100 the two came 3.1e-4 apart (5e-2 was the
+# bound before that run); the bound sits at 16 times that
+MOE_SORTED_BOUND = 5e-3
+CONTROL_STEPS = 8          # decode steps of each off-by-one control
+GRANITE, MAMBA2, ZAMBA2 = "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b"
+
+
+def _train_lm_family(cfg, label: str):
+    """The launcher's chain from its parts (``encode_vocab``,
+    ``init_train_state`` with bf16 moments, ``make_train_step``,
+    ``run_training``), as the JAX package's per-arch profile runs it, for
+    ``LM_FAMILY_STEPS`` steps; the launches counted around exactly this run."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.device import make_generator
+    from repro_torch.launch.train import encode_vocab
+    from repro_torch.nn.module import param_count
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (LoopConfig, TrainHyper, init_train_state,
+                                   make_train_step, run_training)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zero_counts()
+    generator = make_generator(0, "cuda")
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                           batch_size=LM_BATCH, seed=0))
+    codes = encode_vocab(cfg, generator, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8, seed=0,
+                         log=lambda line: print(f"[{label}] {line}", flush=True))
+    state = init_train_state(generator, cfg, codes=codes, moments_dtype=torch.bfloat16)
+    hyper = TrainHyper(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01, clip_norm=1.0),
+                       total_steps=LM_FAMILY_STEPS)
+    to_dev = lambda b: {k: torch.from_numpy(v).cuda() for k, v in b.items()}  # noqa: E731
+    res = run_training(make_train_step(cfg, hyper), state, stream,
+                       LoopConfig(total_steps=LM_FAMILY_STEPS, log_every=1), to_device=to_dev)
+    torch.cuda.synchronize()
+    launches = _path_counts(label)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = param_count(res.state["params"], trainable_only=True)
+    print(f"[{label}] {cfg.name} ({cfg.family}; {n_params} trainable f32 parameters, bf16 "
+          f"moments, moe_impl {cfg.moe_impl!r}, attn {cfg.attn_impl!r}, loss_vocab_chunk "
+          f"{cfg.loss_vocab_chunk}) {LM_FAMILY_STEPS} steps of {LM_BATCH} x {LM_SEQ}: losses "
+          f"{res.losses}; step ms {[round(t * 1e3, 3) for t in res.step_times]}; chain wall "
+          f"{wall:.2f} s; peak max_memory_allocated {peak} B above the {base} B held before; "
+          f"launches {launches}; {smi_query('name,power.limit')}", flush=True)
+    check(all(np.isfinite(res.losses)), f"{label}: non-finite loss {res.losses}")
+    check(launches["hash_decode"] == LM_FAMILY_STEPS,
+          f"{label}: hash_decode launched {launches['hash_decode']} times")
+    check(launches["hash_decode_backward"] == LM_FAMILY_STEPS,
+          f"{label}: the hash_decode backward launched {launches['hash_decode_backward']} times")
+    check(launches["lsh_encode_by_kernel"] == {"project": 1, "pack": 1, "fused": 0},
+          f"{label}: the vocabulary encode launched {launches['lsh_encode_by_kernel']}")
+    attn = LM_FAMILY_STEPS * 2 * cfg.n_layers if cfg.n_heads else 0   # remat recomputes each
+    check(launches["flash_attention"] == attn
+          and launches["flash_attention_by_kernel"] == {"bf16_wgmma": attn, "f32_cuda_core": 0},
+          f"{label}: flash_attention launched {launches['flash_attention_by_kernel']}, "
+          f"expected {attn} on the tensor-core kernel")
+    return res, stream, launches, peak
+
+
+def _grad_bits_twice(params, batch, cfg, label: str) -> bool:
+    """Two ``loss_and_grads`` of one batch from one state: the first
+    gradient's leaves copied to the host, then the second's compared with
+    them leaf by leaf, bit for bit (two gradients at once would not fit
+    beside granite's masters and moments)."""
+    import torch
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.train.step import loss_and_grads
+    loss1, grads = loss_and_grads(params, batch, cfg)
+    first = {path: g.cpu() for path, g in leaves_with_path(grads)}
+    del grads
+    loss2, grads = loss_and_grads(params, batch, cfg)
+    differ = [path for path, g in leaves_with_path(grads) if not torch.equal(g.cpu(), first[path])]
+    del grads, first
+    torch.cuda.empty_cache()
+    same = not differ and float(loss1) == float(loss2)
+    print(f"[{label}] two backward passes of one step: losses {float(loss1)} / {float(loss2)}; "
+          f"gradients bitwise {same} ({len(differ)} leaves differ: {differ[:4]})", flush=True)
+    check(same, f"{label}: two gradients of one step differ in {differ[:4]}")
+    return same
+
+
+@contextlib.contextmanager
+def _routing_recorder():
+    """Record the expert ids (sorted within each token's k) of every
+    ``router_probs`` call while inside."""
+    from repro_torch.nn import moe
+    calls, plain = [], moe.router_probs
+
+    def recorded(params, x, cfg):
+        w, idx = plain(params, x, cfg)
+        calls.append(idx.sort(dim=-1).values)
+        return w, idx
+
+    moe.router_probs = recorded
+    try:
+        yield calls
+    finally:
+        moe.router_probs = plain
+
+
+def _lm_family_cached_check(eng, prompts, new: int) -> dict:
+    """An f32 engine's generate against ``lm_forward`` without a cache over
+    its final sequences, padded to a whole SSD chunk (causal, so the pad
+    changes no earlier logit): max gap within ``LM_FAMILY_F32_BOUND``; a cache
+    off by one position either way must miss it over the first
+    ``CONTROL_STEPS`` steps.  For moe, each row is
+    compared up to its first position whose routing differs between the two
+    paths.  Tokens agree wherever the uncached top-2 margin exceeds twice
+    the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import lm_forward
+    cfg, dev = eng.cfg, eng.device
+    B, s0 = prompts.shape
+    with _routing_recorder() as cached_routes:
+        run = _recorded_generate(eng, prompts, new, keep=True)
+    tokens = run["res"].tokens
+    S = tokens.shape[1]
+    pad = (-S) % cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else 0
+    padded = np.concatenate([tokens, np.zeros((B, pad), tokens.dtype)], axis=1)
+    with torch.inference_mode(), _routing_recorder() as full_routes:
+        full, _ = lm_forward(eng.params, torch.as_tensor(padded, device=dev), cfg)
+        ref = full[:, s0 - 1:S]
+        del full
+        first = torch.full((B,), S, device=dev)
+        swapped = 0
+        if cfg.family == "moe":
+            L = cfg.n_layers
+            differ = torch.zeros((B, S), dtype=torch.bool, device=dev)
+            for layer in range(L):
+                cached = torch.cat([cached_routes[layer].reshape(B, s0, -1)]
+                                   + [cached_routes[L * (t + 1) + layer].reshape(B, 1, -1)
+                                      for t in range(new)], dim=1)
+                uncached = full_routes[layer].reshape(B, padded.shape[1], -1)[:, :S]
+                differ |= (cached != uncached).any(-1)
+            swapped = int(differ.sum())
+            first = torch.where(differ.any(1), differ.int().argmax(1), first)
+        pos = torch.arange(new + 1, device=dev) + s0 - 1
+        valid = pos[None, :] < first[:, None]                      # (B, new + 1)
+        per_step = (ref - run["logits"]).abs().amax(-1)
+        gap = float(torch.where(valid, per_step, 0.0).max())
+        # the controls over the first CONTROL_STEPS decode steps: an
+        # off-by-one position shows from the first
+        faulted = {shift: _faulted_gap(eng, tokens[:, :s0 + CONTROL_STEPS], s0, ref, shift)
+                   for shift in (1, -1)}
+        top2 = ref[..., :cfg.vocab_size].topk(2, dim=-1)
+        margin = (top2.values[..., 0] - top2.values[..., 1])[:, :-1]
+        agree = (top2.indices[:, :-1, 0].cpu().numpy() == tokens[:, s0:])
+        sure = ((margin > 2 * LM_FAMILY_F32_BOUND) & valid[:, :-1]).cpu().numpy()
+        scale = float(ref.abs().max())
+    print(f"[{cfg.name}] f32 cached against uncached ({B} x {new + 1} steps, the uncached "
+          f"forward over {padded.shape[1]} tokens): max abs diff {gap} over "
+          f"{int(valid.sum())} compared steps (bound {LM_FAMILY_F32_BOUND}; largest |logit| "
+          f"{scale}); routing swaps between the paths {swapped} (token, layer) pairs, rows "
+          f"cut at positions {first.tolist()}; a cache off by +1 / -1 position ({CONTROL_STEPS} "
+          f"steps): "
+          f"{faulted[1]} / {faulted[-1]}; tokens where the uncached top-2 margin > "
+          f"{2 * LM_FAMILY_F32_BOUND}: {int((agree & sure).sum())} of {int(sure.sum())} agree",
+          flush=True)
+    check(gap <= LM_FAMILY_F32_BOUND, f"{cfg.name}: cached and uncached f32 logits differ by {gap}")
+    check(int(valid.sum()) >= (new + 1) * B // 2,
+          f"{cfg.name}: routing swaps left {int(valid.sum())} steps to compare")
+    for shift, fgap in faulted.items():
+        check(fgap > LM_FAMILY_F32_BOUND, f"{cfg.name}: a cache off by {shift:+d} position stays "
+                                       f"within the bound ({fgap})")
+    check(bool(agree[sure].all()), f"{cfg.name}: tokens with a clear margin differ from uncached")
+    return dict(f32_gap=gap, f32_offby1=faulted, routing_swaps=swapped)
+
+
+def _serve_lm_family(cfg, params, label: str, seed: int) -> tuple:
+    """``DecodeEngine`` on the kernel and on ``gather`` (bitwise), an f32
+    engine against the uncached forward, then the timed bf16 run: prefill,
+    per-token, tokens/s, the cache's bytes (KV and SSM) and peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import _n_attn_sites, _n_ssm_layers, ssm_config
+    from repro_torch.serving import DecodeEngine
+    B, s0, new = LM_FAMILY_SERVE
+    card = smi_query("name,power.limit")
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, s0))
+    eng, run, launches = _serve_pair(cfg, params, prompts, new, label)
+    check(bool(run["logits"].isfinite().all()), f"{label}: non-finite logits")
+    del run
+    f32 = DecodeEngine(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                       s_max=SERVE_S_MAX, decode_backend="auto")
+    out = _lm_family_cached_check(f32, prompts, new)
+    del f32
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timed = _recorded_generate(eng, prompts, new, timed=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    expect = 2 * _n_attn_sites(cfg) * B * SERVE_S_MAX * cfg.n_kv_heads * cfg.head_dim * 2
+    if _n_ssm_layers(cfg):
+        s = ssm_config(cfg)
+        expect += _n_ssm_layers(cfg) * B * (s.n_heads * s.d_state * s.headdim * 4
+                                            + (s.conv_width - 1) * s.conv_channels * 2)
+    check(timed["cache_bytes"] == expect, f"{label}: cache {timed['cache_bytes']} B, "
+                                          f"expected {expect}")
+    print(f"[{label}] {cfg.name} B={B}, prompt {s0}, {new} new tokens, s_max {SERVE_S_MAX}, "
+          f"bf16: prefill {timed['prefill_ms']:.3f} ms; per-token decode "
+          f"{timed['per_token_ms']:.3f} ms (median of steps 2-{new}); "
+          f"{B / timed['per_token_ms'] * 1e3:.1f} tokens/s; generate wall "
+          f"{timed['wall_ms']:.3f} ms; cache {timed['cache_bytes']} B (KV and SSM); params "
+          f"{_nbytes(params)} B; peak max_memory_allocated over that generate {peak} B above "
+          f"the {base} B held; {card}", flush=True)
+    _serve_breakdown(eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+    out.update({k: v for k, v in timed.items() if k not in ("step_ms", "res")}, peak=peak)
+    return launches, out
+
+
+def phase_moe() -> tuple:
+    """granite-moe-3b-a800m at full width: 5 training steps on JAX's
+    profile (dense dispatch, bf16 moments, flash attention), two gradients
+    of one step bitwise, one step of the sorted dispatch from the same
+    state against the dense loss, one dense step's breakdown, then the
+    trained params served."""
+    import dataclasses
+    import torch
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train import TrainHyper, make_train_step
+    t_phase = time.perf_counter()
+    cfg = _serve_cfg(GRANITE, attn_impl="flash", moe_impl="dense")
+    res, stream, train_launches, peak = _train_lm_family(cfg, "moe_train")
+    state = res.state
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    _grad_bits_twice(state["params"], batch, cfg, "moe_train")
+    with torch.no_grad():
+        dense_loss = float(lm_loss(state["params"], batch, cfg))
+    sorted_cfg = dataclasses.replace(cfg, moe_impl="ep")
+    step = make_train_step(sorted_cfg, TrainHyper(total_steps=LM_FAMILY_STEPS + 1))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    sorted_loss = float(m["loss"])
+    sorted_ms = (time.perf_counter() - t0) * 1e3
+    sorted_launches = _path_counts("moe_sorted")
+    print(f"[moe_train] one step of the sorted dispatch (moe_impl 'ep', one device) from the "
+          f"trained state: loss {sorted_loss} against the dense dispatch's {dense_loss} on the "
+          f"same batch (diff {abs(sorted_loss - dense_loss)}, bound {MOE_SORTED_BOUND}); step "
+          f"{sorted_ms:.3f} ms (host clock, 32 read-backs of the group sizes); launches "
+          f"{sorted_launches}", flush=True)
+    check(abs(sorted_loss - dense_loss) <= MOE_SORTED_BOUND,
+          f"sorted dispatch loss {sorted_loss} against dense {dense_loss}")
+    check(sorted_launches["hash_decode"] == 1 and sorted_launches["hash_decode_backward"] == 1,
+          f"moe_sorted launches {sorted_launches}")
+    train_breakdown(make_train_step(cfg, TrainHyper(total_steps=LM_FAMILY_STEPS + 3)), state,
+                    batch, cfg.name)
+    params = state["params"]
+    del state, res, batch
+    torch.cuda.empty_cache()
+    serve_launches, served = _serve_lm_family(_serve_cfg(GRANITE), params, "moe_serve", seed=9)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"moe_train": train_launches, "moe_sorted": sorted_launches,
+             "moe_serve": serve_launches},
+            dict(train_peak=peak, sorted_loss=sorted_loss, dense_loss=dense_loss,
+                 sorted_step_ms=sorted_ms, serve=served))
+
+
+def _ssd_exp_before_mask_grad(L: int, H: int, seed: int = 0, device: str = "cuda") -> tuple:
+    """The intra-chunk decay of one 128-step chunk at mamba2's 80 heads and
+    its dt range, in the JAX package's order (exp over the whole block,
+    then the causal mask) and in the port's (mask to -inf, then exp): the
+    two forward values and whether each dt gradient is finite."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((1, L, H), generator=gen, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).requires_grad_(True)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=device)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=device))[..., None]
+    out = {}
+    for order in ("jax", "port"):
+        cs = torch.cumsum(dt * A, dim=1)[0]
+        dec = cs[:, None, :] - cs[None, :, :]
+        M = (torch.where(causal, torch.exp(dec), 0.0) if order == "jax"
+             else torch.exp(dec.masked_fill(~causal, -math.inf)))
+        g, = torch.autograd.grad(M.sum(), dt)
+        out[order] = (M.detach(), bool(g.isfinite().all()))
+    return torch.equal(out["jax"][0], out["port"][0]), out["jax"][1], out["port"][1]
+
+
+def phase_ssm() -> tuple:
+    """mamba2-2.7b at full width: 5 training steps on JAX's profile (bf16
+    moments, ``loss_vocab_chunk=6304``), one step's breakdown, then the
+    trained params served."""
+    import torch
+    from repro_torch.train import TrainHyper, make_train_step
+    t_phase = time.perf_counter()
+    same, jax_finite, port_finite = _ssd_exp_before_mask_grad(128, 80)
+    print(f"[ssm_train] SSD intra-chunk decay at 80 heads, 128 steps, mamba2's dt range: the "
+          f"same forward values {same}; dt gradient finite with the exp before the mask (the "
+          f"JAX package's order) {jax_finite}, with the mask first (the port's) "
+          f"{port_finite}", flush=True)
+    check(same and port_finite and not jax_finite,
+          "the SSD mask control did not show the overflow it guards against")
+    cfg = _serve_cfg(MAMBA2, loss_vocab_chunk=6304)
+    res, stream, train_launches, peak = _train_lm_family(cfg, "ssm_train")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    train_breakdown(make_train_step(cfg, TrainHyper(total_steps=LM_FAMILY_STEPS + 2)), res.state,
+                    batch, cfg.name)
+    params = res.state["params"]
+    del res
+    torch.cuda.empty_cache()
+    serve_launches, served = _serve_lm_family(_serve_cfg(MAMBA2), params, "ssm_serve", seed=10)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"ssm_train": train_launches, "ssm_serve": serve_launches},
+            dict(train_peak=peak, serve=served))
+
+
+def phase_hybrid() -> tuple:
+    """zamba2-7b at full width, served (its f32 masters and moments do not
+    fit one card for training): ``init_lm``'s peak beside the masters' bytes,
+    then the engines."""
+    import torch
+    from repro_torch.models.lm import init_lm
+    t_phase = time.perf_counter()
+    cfg = _serve_cfg(ZAMBA2)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator("cuda").manual_seed(2), cfg)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    masters = _nbytes(params)
+    print(f"[hybrid] {cfg.name} init_lm: peak max_memory_allocated {init_peak} B for "
+          f"{masters} B of params ({init_peak / masters:.3f}x; each layer drawn into the "
+          f"preallocated stack)", flush=True)
+    check(init_peak < 1.1 * masters, f"init_lm peak {init_peak} B for {masters} B of params")
+    serve_launches, served = _serve_lm_family(cfg, params, "hybrid_serve", seed=11)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[hybrid] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"hybrid_serve": serve_launches}, dict(init_peak=init_peak, masters=masters,
+                                                  serve=served)
+
+
+def _lm_family_reference() -> float:
+    """Reduced granite (both dispatches), mamba2 and zamba2 in f32 on the card
+    (the kernels) and on the CPU (plain versions) from one init: 3 training
+    steps' losses within 1e-4 (the LM's card-against-CPU bound), then
+    served (``_served_on_card_and_cpu``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import TrainHyper, make_train_step
+    worst = 0.0
+    for arch, fields in ((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
+                         (ZAMBA2, {})):
+        cfg = reduced(_serve_cfg(arch, **fields))
+        cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
+            cfg.embedding, lookup_impl="pallas"))
+        params = init_lm(torch.Generator().manual_seed(0), cfg)
+        states = {dev: {"params": _snapshot(params, dev), "step": 0} for dev in ("cuda", "cpu")}
+        for s in states.values():
+            s["opt"] = adamw_init(s["params"])
+        step = make_train_step(cfg, TrainHyper(warmup_steps=1, total_steps=3))
+        stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                               batch_size=4, seed=3))
+        losses = []
+        for _ in range(3):
+            b = stream.next_batch()
+            losses.append([float(step(states[dev], {k: torch.from_numpy(v).to(dev)
+                                                    for k, v in b.items()})[1]["loss"])
+                           for dev in ("cuda", "cpu")])
+        train_gap = max(abs(a - b) for a, b in losses)
+        print(f"[reference] reduced {arch} {fields or ''}: card (kernels) and CPU (plain), 3 "
+              f"steps' (card, CPU) losses {losses}, max diff {train_gap}", flush=True)
+        check(train_gap <= 1e-4, f"reduced {arch}: card and CPU losses differ by {train_gap}")
+        serve_gap = _served_on_card_and_cpu(cfg, params, f"{arch} {fields or ''}".strip())
+        worst = max(worst, train_gap, serve_gap)
+    return worst
+
+
+def phase_lm_families() -> tuple:
+    """Phases moe, ssm and hybrid, the families' reduced configs on card and
+    CPU, and hash_decode bitwise at their paths' row counts."""
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    for phase in (phase_moe, phase_ssm, phase_hybrid):
+        counts, info = phase()
+        launches.update(counts)
+        out[phase.__name__[len("phase_"):]] = info
+    out["reference_gap"] = _lm_family_reference()
+    # training decodes LM_BATCH x LM_SEQ rows a step, serving B x prompt rows
+    # in the prefill and B a decode step; the masters' f32 codebooks
+    B, s0, _ = LM_FAMILY_SERVE
+    sizes = [LM_BATCH * LM_SEQ, B * s0, B]
+    out["max_abs_err"] = max(check_decode_case((rows, 16, 256, 512), variant, seed=60 + i)
+                             for i, rows in enumerate(sizes)
+                             for variant in ("float32", "bfloat16"))
+    out["families_sizes"] = sizes
+    print(f"[families] phases moe, ssm, hybrid and the reduced references: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4319,6 +4806,8 @@ def main() -> None:
     phase_lm_reference()
     serve_lm_launches, serve_lm = phase_serve_lm()
     timing["max_abs_err"] = max(timing["max_abs_err"], serve_lm.pop("max_abs_err"))
+    family_lm_launches, family_lm = phase_lm_families()
+    timing["max_abs_err"] = max(timing["max_abs_err"], family_lm.pop("max_abs_err"))
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
@@ -4334,13 +4823,18 @@ def main() -> None:
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,
              "merchant": merchant_launches, **family_launches, **host_launches,
-             **shard_launches, **elastic_launches, **serve_lm_launches}
+             **shard_launches, **elastic_launches, **serve_lm_launches,
+             **family_lm_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
-    lsh_by_kernel = {k: train_launches["lsh_encode_by_kernel"][k]
-                     + rec_launches["lsh_encode_by_kernel"][k]
+    lsh_by_kernel = {k: sum(counts["lsh_encode_by_kernel"][k] for counts in paths.values()
+                            if "lsh_encode_by_kernel" in counts)
                      for k in train_launches["lsh_encode_by_kernel"]}
+    flash_by_kernel = {k: sum(counts["flash_attention_by_kernel"][k]
+                              for counts in paths.values()
+                              if "flash_attention_by_kernel" in counts)
+                       for k in train_launches["flash_attention_by_kernel"]}
     bwd_by_kernel = {k: sum(counts["hash_decode_backward_by_kernel"][k]
                             for counts in paths.values())
                      for k in serve_launches["hash_decode_backward_by_kernel"]}
@@ -4357,6 +4851,7 @@ def main() -> None:
              codes_host_int8_sizes=host_sizes["int8"], **shard_sizes, **elastic_sizes,
              serve_lm_sizes=serve_lm.pop("serve_lm_sizes"),
              at_decode_step=serve_lm.pop("at_decode_step"), serve_lm=serve_lm,
+             families_sizes=family_lm.pop("families_sizes"), families_lm=family_lm,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),
@@ -4364,7 +4859,7 @@ def main() -> None:
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",
              launches=sum(flash_by_path.values()), launches_by_path=flash_by_path,
-             launches_by_kernel=train_launches["flash_attention_by_kernel"],
+             launches_by_kernel=flash_by_kernel,
              max_abs_err=flash_err, **lm["flash"]),
         dict(name="lsh_encode", route="cuda",
              source="src/repro_torch/kernels/lsh_encode/csrc/lsh_encode.cu",

@@ -4,7 +4,7 @@ package, so a JAX ``RuntimeSpec.to_json()`` loads here unchanged and an
 ``LMConfig`` carries the same fields.
 
 ``get_config`` knows every architecture of the JAX package; the ones whose
-family the port does not run yet raise ``NotImplementedError``.
+family the port does not run yet (audio, vlm) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -119,6 +119,14 @@ class LMConfig:
         r = self.vocab_round
         return -(-self.vocab_size // r) * r
 
+    @property
+    def n_experts_padded(self) -> int:
+        """The experts padded to a multiple of 16 (the JAX package's
+        production model axis), so both packages' params have one shape."""
+        if not self.n_experts:
+            return 0
+        return -(-self.n_experts // 16) * 16 if self.n_experts % 16 else self.n_experts
+
     def embedding_config(self) -> EmbeddingConfig:
         return self.embedding.to_config(self.vocab_padded, self.d_model, self.compute_dtype)
 
@@ -147,6 +155,15 @@ class LMConfig:
         emb = V * D
         head = D * V * (self.n_codebooks if self.input_mode == "audio_tokens" else 1)
         return total + emb + head
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (moe: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        ffn_all = self.n_experts * 3 * D * F
+        ffn_act = self.moe_top_k * 3 * D * F
+        return self.param_count() - self.n_layers * (ffn_all - ffn_act)
 
 
 # ---------------------------------------------------------------------------

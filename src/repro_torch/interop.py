@@ -16,9 +16,13 @@ with its eight fields, as numpy arrays) and returns the port's, so both
 packages can start from one cache state; ``params_from_jax`` converts a
 train state's ``"cache"`` entry the same way.
 
-``lm_cache_from_jax`` takes a JAX ``LMCache`` (``pos``, ``kv_k``, ``kv_v``
-as numpy; the same stacked (sites, B, S_max, K, Dh) layout) and returns the
-port's, so a decode step can start from JAX's own state.
+``lm_cache_from_jax`` takes a JAX ``LMCache`` (``pos``, ``kv_k``, ``kv_v``,
+``ssm_state``, ``conv`` as numpy, the absent ones None; the same stacked
+layouts: (sites, B, S_max, K, Dh) keys and values, (ssm layers, B, H, N, P)
+states, (ssm layers, B, W-1, C) conv tails) and returns the port's, so a
+decode step can start from JAX's own state.  The moe, ssm and hybrid
+params (``blocks``, ``shared``, ``tail``) are nested dicts like the dense
+ones and carry across the same way.
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ def cache_state_from_jax(state, device: DeviceLike = None) -> CacheState:
 def lm_cache_from_jax(cache, device: DeviceLike = None) -> LMCache:
     dev = resolve_device(device)
     get = cache.get if isinstance(cache, dict) else lambda f: getattr(cache, f, None)
-    if get("ssm_state") is not None or get("conv") is not None:
-        raise NotImplementedError("an LMCache with ssm state comes with the ssm family "
-                                  "(ROADMAP A.18)")
-    return LMCache(pos=int(np.asarray(get("pos"))),
-                   kv_k=torch.from_numpy(np.array(get("kv_k"))).to(dev),
-                   kv_v=torch.from_numpy(np.array(get("kv_v"))).to(dev))
+
+    def leaf(name):
+        value = get(name)
+        return None if value is None else torch.from_numpy(np.array(value)).to(dev)
+
+    return LMCache(pos=int(np.asarray(get("pos"))), kv_k=leaf("kv_k"), kv_v=leaf("kv_v"),
+                   ssm_state=leaf("ssm_state"), conv=leaf("conv"))
 
 
 def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:

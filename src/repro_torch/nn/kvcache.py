@@ -1,5 +1,4 @@
-"""Decode-time KV cache (counterpart of ``repro/nn/kvcache.py``'s
-``KVCache``).
+"""Decode-time caches (counterpart of ``repro/nn/kvcache.py``).
 
 ``KVCache`` holds one attention site's (B, S_max, n_kv, d_head) key and
 value buffers and the next write position.  ``pos`` is a Python int that
@@ -12,7 +11,10 @@ rows replaces the whole buffer, one row writes one slot, anything else (a
 chunked prefill) writes a slice at ``pos``.  JAX's one-hot merge for the
 one-row write exists for GSPMD's partitioner; a slot write gives the same
 values (±0 aside).  ``shard()`` is a sharding constraint and has no
-counterpart here; ``SSMCache`` comes with the ssm family (ROADMAP A.18).
+counterpart here.
+
+``SSMCache`` holds one Mamba2 layer's recurrent state (B, H, N, P) f32 and
+its conv tail (B, W-1, C): the last W-1 inputs of the depthwise conv.
 """
 
 from __future__ import annotations
@@ -57,3 +59,17 @@ class KVCache:
     def valid_mask(self) -> torch.Tensor:
         """(S_max,) bool: which cache slots hold live tokens."""
         return torch.arange(self.k.shape[1], device=self.k.device) < self.pos
+
+
+@dataclasses.dataclass
+class SSMCache:
+    state: torch.Tensor      # (B, H, d_state, headdim) f32
+    conv: torch.Tensor       # (B, conv_width - 1, conv_channels)
+
+    @classmethod
+    def zeros(cls, batch: int, n_heads: int, d_state: int, headdim: int,
+              conv_width: int, conv_channels: int, dtype: torch.dtype = torch.float32,
+              device: DeviceLike = None) -> "SSMCache":
+        dev = resolve_device(device)
+        return cls(torch.zeros((batch, n_heads, d_state, headdim), dtype=dtype, device=dev),
+                   torch.zeros((batch, conv_width - 1, conv_channels), dtype=dtype, device=dev))

@@ -2,7 +2,8 @@
 ``repro/serving/engine.py``).
 
 Two engines share the serving surface: the LM ``DecodeEngine`` (prefill,
-then one decode step a token against the per-layer KV caches) and the GNN
+then one decode step a token against the per-site KV caches and, for the
+ssm and hybrid families, the per-layer SSM states) and the GNN
 ``GraphInferenceEngine`` (``serving.gnn``).  Both freeze params at
 construction, fail fast on unknown decode-backend names and expose one
 batched ``serve(requests)`` entry point, which is what the ``Engine``
@@ -97,6 +98,11 @@ class DecodeEngine:
         if tokens.shape[1] + max_new_tokens > self.s_max:
             raise ValueError(f"prompt {tokens.shape[1]} + {max_new_tokens} new tokens "
                              f"> s_max {self.s_max}")
+        chunk = self.cfg.ssm_chunk
+        if self.cfg.family in ("ssm", "hybrid") and tokens.shape[1] > chunk \
+                and tokens.shape[1] % chunk:
+            raise ValueError(f"a {self.cfg.family} prompt of {tokens.shape[1]} tokens: the "
+                             f"chunked scan takes at most {chunk} or a multiple of it")
         last_logits, cache = self._prefill(self.params, {"tokens": tokens})
         out = [tokens]
         for _ in range(max_new_tokens):

@@ -48,9 +48,11 @@ class TrainHyper:
 
 
 def init_train_state(generator: torch.Generator, cfg: LMConfig, codes=None,
-                     aux=None) -> Dict[str, Any]:
+                     aux=None, moments_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """``moments_dtype``: the AdamW moments' storage (bf16 in the JAX
+    package's profiles of the larger archs)."""
     params = init_lm(generator, cfg, codes=codes, aux=aux)
-    return {"params": params, "opt": adamw_init(params), "step": 0}
+    return {"params": params, "opt": adamw_init(params, moments_dtype), "step": 0}
 
 
 def loss_and_grads(params, batch, cfg: LMConfig):

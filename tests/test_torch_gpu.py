@@ -17,7 +17,10 @@ run continued on 3 ranks bitwise its reference, on gloo and over NCCL;
 and LM serving: the engine on the kernel bitwise the engine on the gather
 backend, the KV cache's writes on the card bitwise the CPU's, and the
 chunked cross-entropy on the card within 1e-4 of the CPU's (f32 cuBLAS
-and CPU matmuls sum in other orders).
+and CPU matmuls sum in other orders); and the moe, ssm and hybrid LM
+families: reduced configs on the card against the CPU, the moe gradient
+the same bits twice, the SSM recurrence against the chunked scan, and each
+family's kernel engine bitwise its gather engine.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1387,3 +1390,115 @@ def test_chunked_loss_on_card_matches_cpu(cuda):
     assert abs(float(l_cpu) - float(l_card)) <= 1e-4
     assert float((g_cpu["head"] - g_card["head"].cpu()).abs().max()) <= 1e-4
 
+
+
+# ---------------------------------------------------------------------------
+# the moe, ssm and hybrid LM families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b"}
+
+
+def _family_cfg(family, **fields):
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(FAMILY_ARCHS[family])), **fields)
+
+
+@pytest.mark.parametrize("family", ["moe", "moe_dense", "ssm", "hybrid"])
+def test_family_forward_and_step_on_card_match_cpu(cuda, family):
+    """The reduced config's logits and one training step on the card (the
+    kernels) against the CPU (plain versions) from one init: logits within
+    1e-4, the loss within 1e-4, the params after the step within 1e-4 (f32
+    cuBLAS and CPU matmuls sum in other orders).  Adam's eps is 1 (ROADMAP
+    §C): at 1e-8 the first update is lr · g / |g| and an entry whose
+    gradient is near zero moves by O(lr) on a rounding-level change."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.models import lm
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import TrainHyper, make_train_step
+    fields = {"moe_impl": "dense"} if family == "moe_dense" else {}
+    cfg = _family_cfg(family.split("_")[0], **fields)
+    cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(cfg.embedding,
+                                                                 lookup_impl="pallas"))
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, TrainHyper(optimizer=AdamWConfig(eps=1.0), warmup_steps=1,
+                                           total_steps=3))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev, copy=True)             # the step updates its params in place
+        logits, _ = lm.lm_forward(p, batch["tokens"].to(dev), cfg)
+        state, m = step({"params": p, "opt": adamw_init(p), "step": 0}, _to(batch, dev))
+        out[str(dev)] = (logits.cpu(), float(m["loss"]),
+                         [t.cpu() for _, t in leaves_with_path(state["params"])])
+    (lc, loss_c, pc), (lg, loss_g, pg) = out["cpu"], out[str(cuda)]
+    assert float((lc - lg).abs().max()) <= 1e-4
+    assert abs(loss_c - loss_g) <= 1e-4
+    assert max(float((a.float() - b.float()).abs().max()) for a, b in zip(pc, pg)) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", ["ep", "dense"])
+def test_moe_backward_on_card_is_the_same_bits_twice(cuda, impl):
+    """Two gradients of one reduced moe step on the card (8,192 tokens, so
+    each expert group holds hundreds of rows): the same bits; the sorted
+    dispatch's combine has no accumulating scatter."""
+    from repro_torch.models import lm
+    from repro_torch.nn.module import leaves_with_path, value_and_grad
+    cfg = _family_cfg("moe", moe_impl=impl, compute_dtype="bfloat16")
+    params = lm.init_lm(torch.Generator(cuda).manual_seed(1), cfg)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (16, 513)))
+    batch = _to({"tokens": toks[:, :-1], "labels": toks[:, 1:]}, cuda)
+    runs = [value_and_grad(lambda p: lm.lm_loss(p, batch, cfg), params) for _ in range(2)]
+    assert float(runs[0][0]) == float(runs[1][0])
+    for (path, a), (_, b) in zip(leaves_with_path(runs[0][1]), leaves_with_path(runs[1][1])):
+        assert torch.equal(a, b), path
+
+
+def test_ssm_decode_on_card_equals_the_chunked_forward(cuda):
+    """The mixer's single-step recurrence, 64 steps from a 64-step prefill
+    into the cache, against one chunked pass over the 128 steps, on the card
+    in f32 (1e-3, ``tests/test_nn.py``'s bound)."""
+    from repro_torch.nn import ssm
+    from repro_torch.nn.kvcache import SSMCache
+    cfg = ssm.SSMConfig(d_model=256, d_state=64, headdim=32, chunk=32)
+    p = ssm.init_ssm(torch.Generator(cuda).manual_seed(2), cfg)
+    x = torch.randn((2, 128, 256), generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    full, _ = ssm.ssm_forward(p, x, cfg)
+    cache = SSMCache.zeros(2, cfg.n_heads, cfg.d_state, cfg.headdim, cfg.conv_width,
+                           cfg.conv_channels, device=cuda)
+    y, cache = ssm.ssm_forward(p, x[:, :64], cfg, cache=cache)
+    ys = [y]
+    for t in range(64, 128):
+        y, cache = ssm.ssm_forward(p, x[:, t:t + 1], cfg, cache=cache)
+        ys.append(y)
+    assert float((torch.cat(ys, 1) - full).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("family", list(FAMILY_ARCHS))
+def test_family_engine_on_kernel_is_the_gather_engine(cuda, family):
+    """Reduced configs in bf16: greedy tokens and every step's last logits
+    through the ``hash_decode`` kernel (``auto``) bitwise the gather
+    backend's, the SSM states and KV sites threaded through the steps."""
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import DecodeEngine
+    cfg = _family_cfg(family, compute_dtype="bfloat16")
+    params = init_lm(torch.Generator(cuda).manual_seed(0), cfg)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32))
+    before = ops.hash_decode.launches
+    res = []
+    for impl in ("auto", "gather"):
+        eng, kept = DecodeEngine(cfg, params, s_max=64, decode_backend=impl), []
+
+        def recorded(*args, step):
+            out = step(*args)
+            kept.append(out[0])
+            return out
+
+        eng._prefill = functools.partial(recorded, step=eng._prefill)
+        eng._serve = functools.partial(recorded, step=eng._serve)
+        res.append((eng.generate(prompts, 8).tokens, torch.stack(kept)))
+    assert ops.hash_decode.launches == before + 9
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])
