@@ -167,6 +167,29 @@ weights and data from a seed:
          sites): ``init_lm``'s peak against its masters, then served the
          same way; and the three families' reduced configs trained and
          served on the card and on the CPU;
+  musicgen_train, musicgen_hash, musicgen_serve  full-width
+         ``musicgen-large`` (48 layers, d_model 2048, 32 heads of 64, 4
+         codebooks of 2,048, its dense embedding, LayerNorm, GELU,
+         sinusoidal positions; 2,436,890,624 parameters): 5 steps of 4 x
+         2048 x 4 random codebook tokens on its JAX profile (f32 moments,
+         flash attention), two gradients of one batch bit for bit; the
+         ``hash_full`` ablation (Algorithm 1 over the 2,048-entry
+         vocabulary through ``lsh_encode``, tiled over the 4 codebooks, the
+         32,768 offset ids decoded in one ``hash_decode`` call): loss and
+         codebook gradient on the kernel bitwise on ``gather``; then the
+         trained params served (8 prompts of 512 x 4, 32 greedy tokens, one
+         argmax a codebook; f32 cached against uncached within 1e-4, a
+         cache off by one position outside it);
+  vlm_train, vlm_serve  ``qwen2-vl-7b`` at full width (d_model 3584, 28
+         heads on 4 KV heads of 128, d_ff 18,944, QKV bias, vocab 152,064,
+         ``hash_full``, M-RoPE): 14 of its 28 layers trained 5 steps on its
+         JAX profile (bf16 moments, ``loss_vocab_chunk=19008``, flash) on
+         batches whose (3, 4, 2048) positions lay out a 32 x 32 image span
+         a sequence; three equal streams against standard RoPE bit for bit;
+         then all 28 layers served (8 x 512, 32 greedy tokens, kernel engine
+         bitwise the ``gather`` engine); both families' reduced configs
+         trained and served on the card and on the CPU.  Every LM training
+         path prints its model-FLOPs share of the bf16 peak (``[mfu]``);
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -212,12 +235,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores (data sheet)
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores (data sheet)
-# The data sheet's 67 TFLOP/s f32 outside the tensor cores counts each FMA
-# as two operations; a lone add runs at the FMA rate, so adds peak at half.
-F32_ADDS_PER_S = 67e12 / 2
+# The card's rates, one source: ``repro_torch.launch.mesh`` (NVIDIA's data
+# sheet for the H100 80GB HBM3 at 700 W).  Outside a checkout the import
+# fails and ``main`` stops before any phase.
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.launch.mesh import F32_FLOPS
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS
+except ImportError:
+    HBM_BYTES_PER_S = BF16_FLOPS = F32_FLOPS = float("nan")
+# The data sheet's f32 rate outside the tensor cores counts each FMA as two
+# operations; a lone add runs at the FMA rate, so adds peak at half.
+F32_ADDS_PER_S = F32_FLOPS / 2
 
 N_NODES = 169_343
 N_CLASSES = 40
@@ -422,6 +452,20 @@ def smem_ceiling_ms(B: int, m: int, d_c: int, elem: int = 4) -> tuple:
     return B * m * d_c * elem / (128 * sms * mhz * 1e6) * 1e3, mhz
 
 
+def decode_bytes(B: int, m: int, c: int, d_c: int, storage: str, named: int) -> int:
+    """The bytes one decode must move: the codes read, each codebook row
+    (and int8 scale) that they name read once, f32 rows written.  Where
+    every row is named this is ``roofline.decode_hbm_bytes``'s total, which
+    is checked; a decode step's 8 rows name fewer, counted here."""
+    from repro_torch.launch import roofline
+    elem = roofline.DECODE_DTYPE_BYTES[storage]
+    nbytes = B * m * 4 + named * d_c * elem + B * d_c * 4 + (named * 4 if storage == "int8" else 0)
+    if named == m * c:
+        model = roofline.decode_hbm_bytes(B, c, m, d_c, storage)["total"]
+        check(model == nbytes, f"decode bytes {nbytes} against roofline.decode_hbm_bytes' {model}")
+    return nbytes
+
+
 def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") -> dict:
     """Kernel, plain and ``embedding_bag`` times of the decode without w0
     at one shape from ``storage`` codebooks (f32, or int8 with its
@@ -448,8 +492,7 @@ def time_at_shape(B: int, m: int, c: int, d_c: int, storage: str = "float32") ->
         library = f"embedding_bag {library_ms:.4f} ms (max diff to kernel {lib_err})"
     quantized = scales is not None
     named = int(torch.unique(codes.long() + torch.arange(m, device="cuda") * c).numel())
-    bytes_moved = (B * m * 4 + named * d_c * cb.element_size() + B * d_c * 4
-                   + (named * 4 if quantized else 0))
+    bytes_moved = decode_bytes(B, m, c, d_c, storage, named)
     operations = B * (m - 1) * d_c + (B * m * d_c if quantized else 0)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = operations / F32_ADDS_PER_S * 1e3
@@ -730,6 +773,10 @@ FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
     (2, 4, 2, 129, 128, False, "bfloat16"),
     (1, 4, 1, 1000, 128, True, "bfloat16"),
     (1, 4, 2, 1000, 32, True, "bfloat16"),
+    # the audio and vlm training paths: musicgen-large's 32 heads of 64,
+    # qwen2-vl-7b's 28 query heads on 4 KV heads of 128
+    (LM_BATCH, 32, 32, LM_SEQ, 64, True, "bfloat16"),
+    (LM_BATCH, 28, 4, LM_SEQ, 128, True, "bfloat16"),
 ]
 # tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -863,6 +910,7 @@ def phase_train():
           f"{[round(t * 1e3, 3) for t in res.step_times]}; chain wall {wall:.2f} s; "
           f"max_memory_allocated {peak} B; launches {launches}", flush=True)
     check(all(np.isfinite(res.losses)), f"non-finite loss {res.losses}")
+    print_mfu(cfg, res.step_times, "train")
     per_step = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
     check(launches["flash_attention"] == LM_STEPS * per_step,
           f"flash_attention launched {launches['flash_attention']} times, "
@@ -954,6 +1002,24 @@ def phase_chunked_loss(cfg, params, batch, loss: float, head_grad, plain_peak: i
     check(gap <= CHUNK_GRAD_RTOL * scale, f"chunked head gradient differs by {gap}")
     check(abs(unmasked - loss) > CHUNK_LOSS_RTOL * abs(loss),
           f"the unmasked pad columns moved the loss by only {abs(unmasked - loss)}")
+
+
+def print_mfu(cfg, step_times, label: str) -> float:
+    """The path's model-FLOPs share of the card's bf16 peak:
+    ``roofline.model_flops`` of one LM_BATCH x LM_SEQ training step over
+    the median of steps 2 on (step 1 warms cuBLAS and the allocator)."""
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.shapes import ShapeSpec
+    flops = model_flops(cfg, ShapeSpec("lm_step", "train", LM_SEQ, LM_BATCH), 1)
+    warm = sorted(step_times[1:])
+    med = warm[(len(warm) - 1) // 2]
+    mfu = flops / (med * BF16_FLOPS)
+    print(f"[mfu] {label} ({cfg.name}, {cfg.n_layers} layers): model FLOPs {flops:.6e} a step "
+          f"of {LM_BATCH} x {LM_SEQ} (6 x {cfg.active_param_count()} active params x tokens + "
+          f"causal attention), median step {med * 1e3:.3f} ms -> "
+          f"{flops / med / 1e12:.1f} TFLOP/s, MFU {100 * mfu:.2f}% of {BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s bf16; {smi_query('name,power.limit')}", flush=True)
+    return mfu
 
 
 def train_breakdown(step, state, batch, label: str = "") -> None:
@@ -1075,11 +1141,12 @@ SERVE_REF_BOUND = 1e-4             # reduced configs in f32, card against CPU
 
 
 def _serve_cfg(arch: str, **fields):
+    """The arch's config with ``fields`` replaced and its embedding (the
+    arch's, or ``fields["embedding"]``) decoded by ``lookup_impl="auto"``."""
     import dataclasses
     from repro_torch.configs import get_config
-    base = get_config(arch)
-    return get_config(arch, embedding=dataclasses.replace(base.embedding, lookup_impl="auto"),
-                      **fields)
+    emb = fields.pop("embedding", get_config(arch).embedding)
+    return get_config(arch, embedding=dataclasses.replace(emb, lookup_impl="auto"), **fields)
 
 
 def _recorded_generate(eng, prompts, new: int, keep: bool = False,
@@ -1131,10 +1198,12 @@ def _recorded_generate(eng, prompts, new: int, keep: bool = False,
     return out
 
 
-def _serve_pair(cfg, params, prompts, new: int, label: str) -> tuple:
+def _serve_pair(cfg, params, prompts, new: int, label: str, decodes=None) -> tuple:
     """The engine on the kernel (``auto``) and on ``gather`` from the same
     params: tokens and every step's logits bitwise; the kernel engine's
-    launches counted around its ``generate`` alone."""
+    launches counted around its ``generate`` alone: ``decodes``
+    ``hash_decode`` launches (by default ``new + 1``: one prefill and
+    ``new`` decode steps; 0 for a dense embedding)."""
     import torch
     from repro_torch.serving import DecodeEngine
     eng = DecodeEngine(cfg, params, s_max=SERVE_S_MAX, decode_backend="auto")
@@ -1145,9 +1214,10 @@ def _serve_pair(cfg, params, prompts, new: int, label: str) -> tuple:
     run = _recorded_generate(eng, prompts, new, keep=True)   # the path's run
     torch.cuda.synchronize()
     launches = read_counts(label)
-    check(launches["hash_decode"] == new + 1,
+    decodes = new + 1 if decodes is None else decodes
+    check(launches["hash_decode"] == decodes,
           f"{label}: hash_decode launched {launches['hash_decode']} times, expected "
-          f"{new + 1} (one prefill and {new} decode steps)")
+          f"{decodes} (prefill and {new} decode steps)")
     ref = _recorded_generate(DecodeEngine(cfg, params, s_max=SERVE_S_MAX,
                                           decode_backend="gather"), prompts, new, keep=True)
     same = ((run["res"].tokens == ref["res"].tokens).all()
@@ -1201,7 +1271,7 @@ def _check_cached_against_uncached(eng, run, s0: int, bound: float,
         top2 = ref[..., :cfg.vocab_size].topk(2, dim=-1)
         margin = top2.values[..., 0] - top2.values[..., 1]
         margin = margin[:, :-1].cpu().numpy()               # the steps that chose a token
-        agree = top2.indices[:, :-1, 0].cpu().numpy() == tokens[:, s0:]
+        agree = top2.indices[..., 0][:, :-1].cpu().numpy() == tokens[:, s0:]
         scale = float(ref.abs().max())
     print(f"[serve_lm] {cfg.compute_dtype}: cached against uncached ({tuple(ref.shape)} "
           f"logits): max abs diff {gap} (bound {bound}; largest |logit| {scale})"
@@ -1252,7 +1322,7 @@ def _serve_breakdown(eng, prompts) -> None:
         nxt = eng._sample(state["logits"], gen, 0.0)[:, None]
         state["logits"], state["cache"] = eng._serve(eng.params, state["cache"],
                                                      {"tokens": nxt})
-        int(nxt[0, 0])
+        int(nxt.reshape(-1)[0])
     profile_call(f"one {eng.cfg.name} decode step", one_step)
 
 
@@ -1260,11 +1330,13 @@ def _served_on_card_and_cpu(cfg, params, label: str) -> float:
     """``cfg`` (f32, a reduced config) served from ``params`` on the card
     (the kernel) and on the CPU (plain versions), 4 prompts of 32 and 16
     greedy tokens: tokens equal and logits within ``SERVE_REF_BOUND``, in
-    each row up to the first step whose CPU top-2 margin is under the bound
-    (after it the two may choose apart).  Returns the largest gap."""
+    each row up to the first step whose CPU top-2 margin (the least over an
+    audio config's codebooks) is under the bound (after it the two may
+    choose apart).  Returns the largest gap."""
     import numpy as np
     from repro_torch.serving import DecodeEngine
-    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32))
+    streams = (cfg.n_codebooks,) if cfg.input_mode == "audio_tokens" else ()
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 32) + streams)
     got = {dev: _recorded_generate(DecodeEngine(cfg, params, s_max=64, device=dev),
                                    prompts, 16, keep=True) for dev in ("cuda", "cpu")}
     (card, lc), (cpu, lp) = ((got[d]["res"], got[d]["logits"].cpu().numpy())
@@ -1279,10 +1351,10 @@ def _served_on_card_and_cpu(cfg, params, label: str) -> float:
                                           f"logits differ by {gap}")
             if t == lp.shape[1] - 1:
                 break
-            top2 = np.sort(lp[b, t, :cfg.vocab_size])[-2:]
-            if top2[1] - top2[0] <= SERVE_REF_BOUND:
+            top2 = np.sort(lp[b, t][..., :cfg.vocab_size], axis=-1)[..., -2:]
+            if (top2[..., 1] - top2[..., 0]).min() <= SERVE_REF_BOUND:
                 break
-            check(card.tokens[b, 32 + t] == cpu.tokens[b, 32 + t],
+            check(np.array_equal(card.tokens[b, 32 + t], cpu.tokens[b, 32 + t]),
                   f"{label} row {b} step {t}: card and CPU chose other tokens")
     print(f"[reference] serve_lm reduced {label}: card (kernel) and CPU (plain) engines, "
           f"{compared} of {lp.shape[0] * lp.shape[1]} steps compared, max abs logit "
@@ -1483,7 +1555,7 @@ def time_lm_kernels() -> dict:
     cbg = cb.clone().requires_grad_(True)
     bwd_plain_ms, _ = time_ms(
         lambda: torch.autograd.grad((hash_decode_ref(codes, cbg) * g).sum(), cbg), 10)
-    fwd_bytes = rows * m * 4 + int(torch.unique(idx).numel()) * d_c * 2 + rows * d_c * 4
+    fwd_bytes = decode_bytes(rows, m, c, d_c, "bfloat16", int(torch.unique(idx).numel()))
     fwd_bound = max(fwd_bytes / HBM_BYTES_PER_S, rows * (m - 1) * d_c / F32_ADDS_PER_S) * 1e3
     bwd_bytes = rows * m * 4 + rows * d_c * 4 + m * c * d_c * 2
     bwd_bound = bwd_bytes / HBM_BYTES_PER_S * 1e3
@@ -4350,11 +4422,26 @@ CONTROL_STEPS = 8          # decode steps of each off-by-one control
 GRANITE, MAMBA2, ZAMBA2 = "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b"
 
 
-def _train_lm_family(cfg, label: str):
+def _expected_train_launches(cfg, steps: int) -> dict:
+    """A training path's launches from its config: a hash kind decodes
+    once a step forward and once backward and encodes its vocabulary in one
+    projection and one pack; every attention layer runs flash twice a step
+    under remat, all on the bf16 tensor-core kernel."""
+    hashed = cfg.embedding.kind.startswith("hash")
+    attn = steps * (2 if cfg.remat else 1) * cfg.n_layers if cfg.n_heads else 0
+    return {"hash_decode": steps if hashed else 0,
+            "hash_decode_backward": steps if hashed else 0,
+            "lsh_encode_by_kernel": {"project": int(hashed), "pack": int(hashed), "fused": 0},
+            "flash_attention_by_kernel": {"bf16_wgmma": attn, "f32_cuda_core": 0}}
+
+
+def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16"):
     """The launcher's chain from its parts (``encode_vocab``,
-    ``init_train_state`` with bf16 moments, ``make_train_step``,
+    ``init_train_state`` with ``moments`` Adam moments, ``make_train_step``,
     ``run_training``), as the JAX package's per-arch profile runs it, for
-    ``LM_FAMILY_STEPS`` steps; the launches counted around exactly this run."""
+    ``LM_FAMILY_STEPS`` steps on ``stream`` (a ``TokenStream`` by default);
+    the launches counted around exactly this run, against
+    ``_expected_train_launches``; the MFU line."""
     import numpy as np
     import torch
     from repro_torch.data import TokenStream, TokenStreamConfig
@@ -4370,11 +4457,12 @@ def _train_lm_family(cfg, label: str):
     t0 = time.perf_counter()
     zero_counts()
     generator = make_generator(0, "cuda")
-    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
-                                           batch_size=LM_BATCH, seed=0))
+    if stream is None:
+        stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                               batch_size=LM_BATCH, seed=0))
     codes = encode_vocab(cfg, generator, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8, seed=0,
                          log=lambda line: print(f"[{label}] {line}", flush=True))
-    state = init_train_state(generator, cfg, codes=codes, moments_dtype=torch.bfloat16)
+    state = init_train_state(generator, cfg, codes=codes, moments_dtype=getattr(torch, moments))
     hyper = TrainHyper(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01, clip_norm=1.0),
                        total_steps=LM_FAMILY_STEPS)
     to_dev = lambda b: {k: torch.from_numpy(v).cuda() for k, v in b.items()}  # noqa: E731
@@ -4385,24 +4473,18 @@ def _train_lm_family(cfg, label: str):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     n_params = param_count(res.state["params"], trainable_only=True)
-    print(f"[{label}] {cfg.name} ({cfg.family}; {n_params} trainable f32 parameters, bf16 "
-          f"moments, moe_impl {cfg.moe_impl!r}, attn {cfg.attn_impl!r}, loss_vocab_chunk "
-          f"{cfg.loss_vocab_chunk}) {LM_FAMILY_STEPS} steps of {LM_BATCH} x {LM_SEQ}: losses "
+    print(f"[{label}] {cfg.name} ({cfg.family}; {cfg.n_layers} layers; {n_params} trainable f32 "
+          f"parameters, {moments} moments, moe_impl {cfg.moe_impl!r}, attn {cfg.attn_impl!r}, "
+          f"loss_vocab_chunk {cfg.loss_vocab_chunk}, embedding {cfg.embedding.kind}) "
+          f"{LM_FAMILY_STEPS} steps of {LM_BATCH} x {LM_SEQ}: losses "
           f"{res.losses}; step ms {[round(t * 1e3, 3) for t in res.step_times]}; chain wall "
           f"{wall:.2f} s; peak max_memory_allocated {peak} B above the {base} B held before; "
           f"launches {launches}; {smi_query('name,power.limit')}", flush=True)
     check(all(np.isfinite(res.losses)), f"{label}: non-finite loss {res.losses}")
-    check(launches["hash_decode"] == LM_FAMILY_STEPS,
-          f"{label}: hash_decode launched {launches['hash_decode']} times")
-    check(launches["hash_decode_backward"] == LM_FAMILY_STEPS,
-          f"{label}: the hash_decode backward launched {launches['hash_decode_backward']} times")
-    check(launches["lsh_encode_by_kernel"] == {"project": 1, "pack": 1, "fused": 0},
-          f"{label}: the vocabulary encode launched {launches['lsh_encode_by_kernel']}")
-    attn = LM_FAMILY_STEPS * 2 * cfg.n_layers if cfg.n_heads else 0   # remat recomputes each
-    check(launches["flash_attention"] == attn
-          and launches["flash_attention_by_kernel"] == {"bf16_wgmma": attn, "f32_cuda_core": 0},
-          f"{label}: flash_attention launched {launches['flash_attention_by_kernel']}, "
-          f"expected {attn} on the tensor-core kernel")
+    expect = _expected_train_launches(cfg, LM_FAMILY_STEPS)
+    got = {k: launches[k] for k in expect}
+    check(got == expect, f"{label}: launches {got}, expected {expect}")
+    print_mfu(cfg, res.step_times, label)
     return res, stream, launches, peak
 
 
@@ -4516,39 +4598,57 @@ def _lm_family_cached_check(eng, prompts, new: int) -> dict:
     return dict(f32_gap=gap, f32_offby1=faulted, routing_swaps=swapped)
 
 
-def _serve_lm_family(cfg, params, label: str, seed: int) -> tuple:
-    """``DecodeEngine`` on the kernel and on ``gather`` (bitwise), an f32
-    engine against the uncached forward, then the timed bf16 run: prefill,
-    per-token, tokens/s, the cache's bytes (KV and SSM) and peak memory."""
+def _dense_cached_check(eng, prompts, new: int) -> dict:
+    """An f32 dense engine's cached logits against the uncached forward
+    within ``SERVE_F32_BOUND``, where a cache off by one position must miss."""
+    s0 = prompts.shape[1]
+    return dict(f32_gap=_check_cached_against_uncached(
+        eng, _recorded_generate(eng, prompts, new, keep=True), s0, SERVE_F32_BOUND,
+        controls=True))
+
+
+def _serve_lm_family(cfg, params, label: str, seed: int, decodes=None,
+                     f32_check=_lm_family_cached_check) -> tuple:
+    """``DecodeEngine`` on the kernel and on ``gather`` (bitwise; ``decodes``
+    as ``_serve_pair``'s), an f32 engine checked by ``f32_check(eng,
+    prompts, new)`` against the uncached forward (none if None), then the
+    timed bf16 run: prefill, per-token, tokens/s, the cache's bytes (KV and
+    SSM) and peak memory.  Audio prompts are (B, s0, n_codebooks)."""
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.core.backend import torch_dtype
     from repro_torch.models.lm import _n_attn_sites, _n_ssm_layers, ssm_config
     from repro_torch.serving import DecodeEngine
     B, s0, new = LM_FAMILY_SERVE
     card = smi_query("name,power.limit")
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, s0))
-    eng, run, launches = _serve_pair(cfg, params, prompts, new, label)
+    streams = (cfg.n_codebooks,) if cfg.input_mode == "audio_tokens" else ()
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, s0) + streams)
+    eng, run, launches = _serve_pair(cfg, params, prompts, new, label, decodes=decodes)
     check(bool(run["logits"].isfinite().all()), f"{label}: non-finite logits")
     del run
-    f32 = DecodeEngine(dataclasses.replace(cfg, compute_dtype="float32"), params,
-                       s_max=SERVE_S_MAX, decode_backend="auto")
-    out = _lm_family_cached_check(f32, prompts, new)
-    del f32
+    out = {}
+    if f32_check is not None:
+        f32 = DecodeEngine(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                           s_max=SERVE_S_MAX, decode_backend="auto")
+        out = f32_check(f32, prompts, new)
+        del f32
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     timed = _recorded_generate(eng, prompts, new, timed=True)
     peak = torch.cuda.max_memory_allocated() - base
-    expect = 2 * _n_attn_sites(cfg) * B * SERVE_S_MAX * cfg.n_kv_heads * cfg.head_dim * 2
+    elem = torch_dtype(cfg.compute_dtype).itemsize
+    expect = 2 * _n_attn_sites(cfg) * B * SERVE_S_MAX * cfg.n_kv_heads * cfg.head_dim * elem
     if _n_ssm_layers(cfg):
         s = ssm_config(cfg)
         expect += _n_ssm_layers(cfg) * B * (s.n_heads * s.d_state * s.headdim * 4
-                                            + (s.conv_width - 1) * s.conv_channels * 2)
+                                            + (s.conv_width - 1) * s.conv_channels * elem)
     check(timed["cache_bytes"] == expect, f"{label}: cache {timed['cache_bytes']} B, "
                                           f"expected {expect}")
-    print(f"[{label}] {cfg.name} B={B}, prompt {s0}, {new} new tokens, s_max {SERVE_S_MAX}, "
-          f"bf16: prefill {timed['prefill_ms']:.3f} ms; per-token decode "
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers) B={B}, prompt {s0}"
+          f"{' x ' + str(streams[0]) + ' codebooks' if streams else ''}, {new} new tokens, "
+          f"s_max {SERVE_S_MAX}, bf16: prefill {timed['prefill_ms']:.3f} ms; per-token decode "
           f"{timed['per_token_ms']:.3f} ms (median of steps 2-{new}); "
           f"{B / timed['per_token_ms'] * 1e3:.1f} tokens/s; generate wall "
           f"{timed['wall_ms']:.3f} ms; cache {timed['cache_bytes']} B (KV and SSM); params "
@@ -4639,7 +4739,6 @@ def phase_ssm() -> tuple:
     moments, ``loss_vocab_chunk=6304``), one step's breakdown, then the
     trained params served."""
     import torch
-    from repro_torch.train import TrainHyper, make_train_step
     t_phase = time.perf_counter()
     same, jax_finite, port_finite = _ssd_exp_before_mask_grad(128, 80)
     print(f"[ssm_train] SSD intra-chunk decay at 80 heads, 128 steps, mamba2's dt range: the "
@@ -4650,9 +4749,7 @@ def phase_ssm() -> tuple:
           "the SSD mask control did not show the overflow it guards against")
     cfg = _serve_cfg(MAMBA2, loss_vocab_chunk=6304)
     res, stream, train_launches, peak = _train_lm_family(cfg, "ssm_train")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
-    train_breakdown(make_train_step(cfg, TrainHyper(total_steps=LM_FAMILY_STEPS + 2)), res.state,
-                    batch, cfg.name)
+    _train_breakdown_from(cfg, res.state, stream)
     params = res.state["params"]
     del res
     torch.cuda.empty_cache()
@@ -4690,21 +4787,19 @@ def phase_hybrid() -> tuple:
                                                   serve=served)
 
 
-def _lm_family_reference() -> float:
-    """Reduced granite (both dispatches), mamba2 and zamba2 in f32 on the card
-    (the kernels) and on the CPU (plain versions) from one init: 3 training
-    steps' losses within 1e-4 (the LM's card-against-CPU bound), then
-    served (``_served_on_card_and_cpu``)."""
+def _reduced_reference(cases) -> float:
+    """Each (arch, fields) of ``cases`` reduced, in f32 on the card (the
+    kernels) and on the CPU (plain versions) from one init: 3 training
+    steps' losses within 1e-4 (the LM's card-against-CPU bound), on
+    ``_train_stream``'s batches, then served (``_served_on_card_and_cpu``)."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced
-    from repro_torch.data import TokenStream, TokenStreamConfig
     from repro_torch.models.lm import init_lm
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.train import TrainHyper, make_train_step
     worst = 0.0
-    for arch, fields in ((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
-                         (ZAMBA2, {})):
+    for arch, fields in cases:
         cfg = reduced(_serve_cfg(arch, **fields))
         cfg = dataclasses.replace(cfg, embedding=dataclasses.replace(
             cfg.embedding, lookup_impl="pallas"))
@@ -4713,8 +4808,7 @@ def _lm_family_reference() -> float:
         for s in states.values():
             s["opt"] = adamw_init(s["params"])
         step = make_train_step(cfg, TrainHyper(warmup_steps=1, total_steps=3))
-        stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                                               batch_size=4, seed=3))
+        stream = _train_stream(cfg, 128, 4, seed=3)
         losses = []
         for _ in range(3):
             b = stream.next_batch()
@@ -4728,6 +4822,12 @@ def _lm_family_reference() -> float:
         serve_gap = _served_on_card_and_cpu(cfg, params, f"{arch} {fields or ''}".strip())
         worst = max(worst, train_gap, serve_gap)
     return worst
+
+
+def _lm_family_reference() -> float:
+    """Reduced granite (both dispatches), mamba2 and zamba2 on card and CPU."""
+    return _reduced_reference(((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
+                               (ZAMBA2, {})))
 
 
 def phase_lm_families() -> tuple:
@@ -4753,13 +4853,260 @@ def phase_lm_families() -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the audio and vlm LM families
+# ---------------------------------------------------------------------------
+
+MUSICGEN, QWEN2_VL = "musicgen-large", "qwen2-vl-7b"
+# qwen2-vl-7b trains on 14 of its 28 layers: at 28 its f32 masters, f32
+# gradients and bf16 moments come to ~85 GB, more than the card holds
+VLM_TRAIN_LAYERS = 14
+VL_GRID = 32               # a sequence's image: 32 x 32 patches of its 2,048 positions
+
+
+def vl_positions(batch: int, seq: int, grid: int):
+    """Test data, not a library function: (3, B, S) M-RoPE positions of a
+    text / image / text sequence as Qwen2-VL lays them out.  Text positions
+    are equal in all three streams; row b's ``grid`` x ``grid`` image span
+    starts at text position ``st = grid * (b + 1)``, where the temporal
+    stream holds ``st`` and height and width ``st`` + the patch's row and
+    column; the text after it goes on from the largest position + 1."""
+    import numpy as np
+    pos = np.empty((3, batch, seq), np.int32)
+    rows, cols = np.divmod(np.arange(grid * grid), grid)
+    for b in range(batch):
+        st = grid * (b + 1)
+        end = st + grid * grid
+        pos[:, b, :st] = np.arange(st)
+        pos[:, b, st:end] = st
+        pos[1, b, st:end] += rows
+        pos[2, b, st:end] += cols
+        pos[:, b, end:] = st + grid + np.arange(seq - end)
+    return pos
+
+
+class _AudioStream:
+    """Random (B, S, nq) codebook tokens and their labels from a numpy seed:
+    the JAX package has no audio token stream, and its tests build the batch
+    so."""
+
+    def __init__(self, cfg, seq: int, batch: int, seed: int):
+        import numpy as np
+        self.rng = np.random.default_rng(seed)
+        self.shape = (batch, seq + 1, cfg.n_codebooks)
+        self.vocab = cfg.vocab_size
+
+    def next_batch(self):
+        import numpy as np
+        toks = self.rng.integers(0, self.vocab, self.shape).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class _VLStream:
+    """A ``TokenStream``'s batches with ``vl_positions``' (3, B, S)
+    M-RoPE positions."""
+
+    def __init__(self, cfg, seq: int, batch: int, seed: int):
+        from repro_torch.data import TokenStream, TokenStreamConfig
+        self.tokens = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                                    batch_size=batch, seed=seed))
+        grid = VL_GRID        # the largest that fits every row's image
+        while grid * batch + grid * grid > seq:
+            grid -= 1
+        self.positions = vl_positions(batch, seq, grid)
+
+    def next_batch(self):
+        return dict(self.tokens.next_batch(), positions=self.positions)
+
+
+def _train_stream(cfg, seq: int, batch: int, seed: int):
+    """The batches a config trains on: audio streams, M-RoPE positions, or
+    the token stream."""
+    if cfg.input_mode == "audio_tokens":
+        return _AudioStream(cfg, seq, batch, seed)
+    if cfg.input_mode == "tokens_mrope":
+        return _VLStream(cfg, seq, batch, seed)
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    return TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                         batch_size=batch, seed=seed))
+
+
+def _train_breakdown_from(cfg, state, stream) -> None:
+    """One more step of ``cfg`` from ``state``, under the stage timer and
+    the profiler."""
+    import torch
+    from repro_torch.train import TrainHyper, make_train_step
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    train_breakdown(make_train_step(cfg, TrainHyper(total_steps=LM_FAMILY_STEPS + 3)), state,
+                    batch, cfg.name)
+
+
+def _musicgen_hash(batch) -> dict:
+    """musicgen-large under ``hash_full``: codes from Algorithm 1 over the
+    2,048-entry vocabulary, tiled x 4 by ``init_lm``; one
+    ``loss_and_grads`` on the kernel (``pallas``) and one on ``gather``
+    from the same init: the loss and the codebook gradient bitwise."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.launch.train import encode_vocab
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.step import loss_and_grads
+    cfgs = {impl: get_config(MUSICGEN, attn_impl="flash", embedding=dataclasses.replace(
+        _hash_full(MUSICGEN), lookup_impl=impl)) for impl in ("pallas", "gather")}
+    torch.cuda.empty_cache()
+    zero_counts()
+    generator = make_generator(0, "cuda")
+    codes = encode_vocab(cfgs["pallas"], generator, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8,
+                         seed=0, log=lambda line: print(f"[musicgen_hash] {line}", flush=True))
+    params = init_lm(generator, cfgs["pallas"], codes=codes)
+    buf, V, nq = params["embed"]["codes_buf"], cfgs["pallas"].vocab_padded, cfgs["pallas"].n_codebooks
+    rows = buf.shape[0]
+    tiled = rows == nq * V and all(torch.equal(buf[q * V:(q + 1) * V], buf[:V]) for q in range(nq))
+    out = {}
+    for impl, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(params, batch, cfg)
+        out[impl] = (float(loss), grads["embed"]["decoder"]["codebooks"].clone(),
+                     time.perf_counter() - t0)
+        del grads
+        if impl == "pallas":
+            torch.cuda.synchronize()
+            launches = _path_counts("musicgen_hash")
+    torch.cuda.empty_cache()
+    (lp, gp, tp), (lg, gg, tg) = out["pallas"], out["gather"]
+    same = lp == lg and torch.equal(gp, gg)
+    print(f"[musicgen_hash] {MUSICGEN} under hash_full ({rows} code rows, the {V}-entry "
+          f"vocabulary's tiled x {nq}: {tiled}): loss_and_grads on the kernel {lp} ({tp:.2f} s) "
+          f"and on gather {lg} ({tg:.2f} s); codebook gradient {tuple(gp.shape)} {gp.dtype}, "
+          f"norm {float(gp.float().norm())}; loss and codebook gradient bitwise {same} (max "
+          f"diff {float((gp.float() - gg.float()).abs().max())}); launches {launches}; "
+          f"{smi_query('name,power.limit')}", flush=True)
+    check(tiled, f"musicgen_hash: {rows} code rows, tiled {tiled}")
+    check(same, "musicgen_hash: the kernel's loss or codebook gradient differs from gather's")
+    expect = _expected_train_launches(cfgs["pallas"], 1)
+    got = {k: launches[k] for k in expect}
+    check(got == expect, f"musicgen_hash: launches {got}, expected {expect}")
+    del params, gp, gg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_audio() -> tuple:
+    """musicgen-large at full width: 5 training steps on its JAX profile
+    (f32 moments, one microbatch, flash attention) over random 4-codebook
+    tokens, two gradients of one batch bitwise, one step's breakdown; the
+    ``hash_full`` ablation's kernel against gather; the trained (dense)
+    params served."""
+    import torch
+    t_phase = time.perf_counter()
+    cfg = _serve_cfg(MUSICGEN, attn_impl="flash")
+    res, stream, train_launches, peak = _train_lm_family(
+        cfg, "musicgen_train", stream=_AudioStream(cfg, LM_SEQ, LM_BATCH, seed=0),
+        moments="float32")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    _grad_bits_twice(res.state["params"], batch, cfg, "musicgen_train")
+    _train_breakdown_from(cfg, res.state, stream)
+    params = res.state["params"]
+    del res
+    torch.cuda.empty_cache()
+    hash_launches = _musicgen_hash(batch)
+    del batch
+    serve_launches, served = _serve_lm_family(_serve_cfg(MUSICGEN), params, "musicgen_serve",
+                                              seed=12, decodes=0, f32_check=_dense_cached_check)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[audio] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"musicgen_train": train_launches, "musicgen_hash": hash_launches,
+             "musicgen_serve": serve_launches}, dict(train_peak=peak, serve=served))
+
+
+def _mrope_control(params, cfg, batch) -> dict:
+    """One batch's loss (no gradient) with three equal position streams,
+    with standard RoPE on the same params and positions, and with the
+    batch's distinct streams: the first two bitwise, the third not."""
+    import dataclasses
+    import torch
+    from repro_torch.models.lm import lm_loss
+    text = torch.arange(LM_SEQ, dtype=torch.int32, device="cuda")[None].expand(LM_BATCH, LM_SEQ)
+    with torch.no_grad():
+        equal = float(lm_loss(params, dict(batch, positions=text[None].expand(3, -1, -1)), cfg))
+        standard = float(lm_loss(params, dict(batch, positions=text),
+                                 dataclasses.replace(cfg, rope_variant="standard")))
+        distinct = float(lm_loss(params, batch, cfg))
+    print(f"[vlm_train] M-RoPE control on the trained params: three equal streams {equal}, "
+          f"standard RoPE {standard} (bitwise {equal == standard}); the batch's distinct "
+          f"streams ({VL_GRID} x {VL_GRID} image spans) {distinct} (diff "
+          f"{abs(distinct - equal)})", flush=True)
+    check(equal == standard, f"M-RoPE with equal streams {equal} != standard RoPE {standard}")
+    check(distinct != equal, "the distinct M-RoPE streams gave the equal streams' loss")
+    return dict(equal=equal, standard=standard, distinct=distinct)
+
+
+def phase_vlm() -> tuple:
+    """qwen2-vl-7b at full width: 14 of its 28 layers trained 5 steps on its
+    JAX profile (bf16 moments, ``loss_vocab_chunk=19008``, flash, the
+    vocabulary's Algorithm 1 through ``lsh_encode``) on batches with
+    distinct M-RoPE streams, the equal-streams control and one step's
+    breakdown; then all 28 layers served."""
+    import torch
+    from repro_torch.models.lm import init_lm
+    t_phase = time.perf_counter()
+    cfg = _serve_cfg(QWEN2_VL, attn_impl="flash", loss_vocab_chunk=19_008,
+                     n_layers=VLM_TRAIN_LAYERS)
+    res, stream, train_launches, peak = _train_lm_family(
+        cfg, "vlm_train", stream=_VLStream(cfg, LM_SEQ, LM_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    control = _mrope_control(res.state["params"], cfg, batch)
+    _train_breakdown_from(cfg, res.state, stream)
+    del res, batch
+    torch.cuda.empty_cache()
+    serve_cfg = _serve_cfg(QWEN2_VL)
+    params = init_lm(torch.Generator("cuda").manual_seed(3), serve_cfg)
+    serve_launches, served = _serve_lm_family(serve_cfg, params, "vlm_serve", seed=13,
+                                              f32_check=None)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[vlm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"vlm_train": train_launches, "vlm_serve": serve_launches},
+            dict(train_peak=peak, control=control, serve=served))
+
+
+def phase_audio_vlm() -> tuple:
+    """Phases audio and vlm, their reduced configs on card and CPU, and
+    hash_decode bitwise at the audio path's 32,768 rows (the vlm paths'
+    8,192 / 4,096 / 8 are the families' sizes)."""
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    for phase in (phase_audio, phase_vlm):
+        counts, info = phase()
+        launches.update(counts)
+        out[phase.__name__[len("phase_"):]] = info
+    out["reference_gap"] = _reduced_reference(
+        ((MUSICGEN, {}), (MUSICGEN, {"embedding": _hash_full(MUSICGEN)}), (QWEN2_VL, {})))
+    rows = LM_BATCH * LM_SEQ * 4
+    out["max_abs_err"] = max(check_decode_case((rows, 16, 256, 512), variant, seed=70 + i)
+                             for i, variant in enumerate(("float32", "bfloat16")))
+    out["audio_vlm_sizes"] = [rows]
+    print(f"[audio_vlm] phases audio, vlm and the reduced references: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, out
+
+
+def _hash_full(arch: str):
+    """The arch's embedding spec under ``kind="hash_full"``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).embedding, kind="hash_full")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
-    sys.path.insert(0, str(SRC))
     from repro_torch.device import disable_tf32
     disable_tf32()
     name, count = phase_device()
@@ -4808,6 +5155,8 @@ def main() -> None:
     timing["max_abs_err"] = max(timing["max_abs_err"], serve_lm.pop("max_abs_err"))
     family_lm_launches, family_lm = phase_lm_families()
     timing["max_abs_err"] = max(timing["max_abs_err"], family_lm.pop("max_abs_err"))
+    audio_vlm_launches, audio_vlm = phase_audio_vlm()
+    timing["max_abs_err"] = max(timing["max_abs_err"], audio_vlm.pop("max_abs_err"))
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
@@ -4824,7 +5173,7 @@ def main() -> None:
              **gnn_cached_launches, **full_launches, "link": link_launches,
              "merchant": merchant_launches, **family_launches, **host_launches,
              **shard_launches, **elastic_launches, **serve_lm_launches,
-             **family_lm_launches}
+             **family_lm_launches, **audio_vlm_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -4852,6 +5201,7 @@ def main() -> None:
              serve_lm_sizes=serve_lm.pop("serve_lm_sizes"),
              at_decode_step=serve_lm.pop("at_decode_step"), serve_lm=serve_lm,
              families_sizes=family_lm.pop("families_sizes"), families_lm=family_lm,
+             audio_vlm_sizes=audio_vlm.pop("audio_vlm_sizes"), audio_vlm=audio_vlm,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

@@ -3,8 +3,7 @@
 package, so a JAX ``RuntimeSpec.to_json()`` loads here unchanged and an
 ``LMConfig`` carries the same fields.
 
-``get_config`` knows every architecture of the JAX package; the ones whose
-family the port does not run yet (audio, vlm) raise ``NotImplementedError``.
+``get_config`` knows every architecture of the JAX package.
 """
 
 from __future__ import annotations
@@ -13,9 +12,6 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.embedding import EmbeddingConfig
-
-LM_SLICE = "the LM side-path slice (ROADMAP A.18)"
-
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingSpec:
@@ -181,11 +177,7 @@ def register(name: str):
 def get_config(name: str, **overrides) -> LMConfig:
     """The registered config, with ``overrides`` replaced field by field
     (``get_config("qwen1.5-0.5b", attn_impl="flash")``)."""
-    from repro_torch.configs import archs
-    if name in archs.NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} ({archs.NOT_PORTED[name]} family) is not ported "
-            f"yet; it comes with {LM_SLICE}")
+    from repro_torch.configs import archs  # noqa: F401  (populates the registry)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     cfg = _REGISTRY[name]()
@@ -195,6 +187,6 @@ def get_config(name: str, **overrides) -> LMConfig:
 
 
 def list_archs():
-    """The architectures the port runs (``archs.NOT_PORTED`` has the rest)."""
+    """Every registered architecture."""
     from repro_torch.configs import archs  # noqa: F401  (populates the registry)
     return sorted(_REGISTRY)

@@ -337,6 +337,15 @@ def _sharded_decode(base: DecodeBackend, mesh, codes_l, codebooks, w0):
     return _GatherRows.apply(mesh, base.decode(codes_l, cb, w0))
 
 
+def table_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """A dense table's rows at ``ids`` (any shape), in the table's dtype;
+    the backward sums each row's cotangents in f32 in a fixed order
+    (``_RowGather``), so the table's gradient has the same bits on every
+    run, where an indexed read's accumulating ``index_put_`` may not."""
+    rows = _RowGather.apply(table, ids.reshape(-1).to(torch.int64)).to(table.dtype)
+    return rows.reshape(*ids.shape, table.shape[1])
+
+
 def frontier_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """A dense table's rows of a frontier: under a mesh of several ranks
     ``ids`` is this rank's block, and every rank's rows come back (the

@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.core import codes as codes_lib
 from repro_torch.core import lsh
-from repro_torch.core.backend import DecodeBackend, family_of, frontier_rows, torch_dtype
+from repro_torch.core.backend import (DecodeBackend, family_of, frontier_rows, table_rows,
+                                      torch_dtype)
 from repro_torch.core.decoder import (DecoderConfig, Params, apply_decoder,
                                       init_decoder)
 from repro_torch.stages import stage
@@ -172,7 +173,7 @@ def embed_lookup(params: Params, ids: torch.Tensor, cfg: EmbeddingConfig, *,
         table = params["table"].to(torch_dtype(cfg.compute_dtype))
         if frontier:
             return frontier_rows(table, ids.to(torch.int64))
-        return table[ids.to(torch.int64)]
+        return table_rows(table, ids)
     return apply_decoder(params["decoder"], lookup_codes(params, ids, cfg, codes),
                          cfg.decoder_config(), backend=backend, frontier=frontier, plan=plan)
 

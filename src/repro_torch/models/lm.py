@@ -1,6 +1,9 @@
-"""Decoder LM (counterpart of ``repro/models/lm.py``), four families:
+"""Decoder LM (counterpart of ``repro/models/lm.py``), six families:
 
   dense  : [RMSNorm -> GQA attention] + [RMSNorm -> MLP], n_layers times
+  audio  : dense blocks over the sum of ``n_codebooks`` token streams'
+           embeddings, (B, S, nq) ids -> (B, S, nq, Vpad) logits (musicgen)
+  vlm    : dense blocks under M-RoPE, (3, B, S) positions (qwen2-vl)
   moe    : [RMSNorm -> GQA attention] + [RMSNorm -> MoE]  (``nn.moe``)
   ssm    : [RMSNorm -> Mamba2 SSD]                        (``nn.ssm``)
   hybrid : groups of ``attn_every`` mamba layers, each group followed by
@@ -30,8 +33,7 @@ W-1, C) conv tails.  ``loss_vocab_chunk`` streams the head in vocabulary
 chunks (``_chunked_ce``), so the (tokens, vocab) logits are never held.
 
 The forward marks its stages (embed, blocks, head, loss) for
-``stages.StageTimer``.  The audio and vlm families raise, naming their
-ROADMAP item.
+``stages.StageTimer``.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LM_SLICE, LMConfig
+from repro_torch.configs.base import LMConfig
 from repro_torch.core import embedding as emb_lib
 from repro_torch.core import lsh
 from repro_torch.core.backend import torch_dtype
@@ -58,7 +60,7 @@ from repro_torch.nn.ssm import SSMConfig, init_ssm, ssm_forward
 from repro_torch.stages import stage
 
 NEG_INF = -1e30
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")      # a stack of attention blocks
 
 
 def attn_config(cfg: LMConfig) -> AttentionConfig:
@@ -81,7 +83,7 @@ def ssm_config(cfg: LMConfig) -> SSMConfig:
 
 
 def _n_attn_sites(cfg: LMConfig) -> int:
-    if cfg.family in ("dense", "moe", "audio", "vlm"):
+    if cfg.family in ATTN_FAMILIES:
         return cfg.n_layers
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
@@ -90,13 +92,6 @@ def _n_attn_sites(cfg: LMConfig) -> int:
 
 def _n_ssm_layers(cfg: LMConfig) -> int:
     return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-
-
-def check_ported(cfg: LMConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.input_mode} input) is not ported "
-            f"yet; it comes with {LM_SLICE}")
 
 
 @dataclasses.dataclass
@@ -127,7 +122,6 @@ class LMCache:
 
 def init_cache(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None) -> LMCache:
-    check_ported(cfg)
     dev = resolve_device(device)
     cache = LMCache(pos=0)
     sites, nssm = _n_attn_sites(cfg), _n_ssm_layers(cfg)
@@ -215,25 +209,41 @@ def _unstack(tree, n: int):
     return out
 
 
+def _n_streams(cfg: LMConfig) -> int:
+    """Token streams a position: the audio family's codebooks, else 1."""
+    return cfg.n_codebooks if cfg.input_mode == "audio_tokens" else 1
+
+
+def _table_config(cfg: LMConfig) -> emb_lib.EmbeddingConfig:
+    """The embedding over every stream's vocabulary: the audio family's
+    codebook ``q`` holds rows ``q * vocab_padded`` onward."""
+    ecfg = cfg.embedding_config()
+    return dataclasses.replace(ecfg, n_entities=ecfg.n_entities * _n_streams(cfg))
+
+
 def init_lm(generator: torch.Generator, cfg: LMConfig,
             codes: Optional[torch.Tensor] = None, aux=None) -> Params:
     """``codes``: packed vocabulary codes (from the co-occurrence pass and
     Algorithm 1); ``aux``: the auxiliary matrix to encode from.  With
-    neither, random codes (ALONE), as in the JAX package."""
-    check_ported(cfg)
-    ecfg = cfg.embedding_config()
+    neither, random codes (ALONE), as in the JAX package.  Codes with fewer
+    rows than the table (the audio family's one vocabulary for its
+    codebooks) are tiled to it."""
+    ecfg, tcfg = cfg.embedding_config(), _table_config(cfg)
     if ecfg.needs_codes and codes is None and aux is None:
         codes = lsh.encode_random(generator, ecfg.n_entities, ecfg.c, ecfg.m)
+    if codes is not None and ecfg.needs_codes and codes.shape[0] != tcfg.n_entities:
+        reps = -(-tcfg.n_entities // codes.shape[0])
+        codes = codes.repeat(reps, 1)[:tcfg.n_entities]
     params: Params = {
-        "embed": emb_lib.init_embedding(generator, ecfg, codes=codes, aux=aux),
+        "embed": emb_lib.init_embedding(generator, tcfg, codes=codes, aux=aux),
         "final_norm": init_norm(generator, cfg.d_model, cfg.norm),
-        "head": dense_init(generator, (cfg.d_model, cfg.vocab_padded)),
+        "head": dense_init(generator, (cfg.d_model, cfg.vocab_padded * _n_streams(cfg))),
     }
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         params["blocks"] = _init_stacked(cfg.n_layers, lambda: init_attn_block(generator, cfg))
     elif cfg.family == "ssm":
         params["blocks"] = _init_stacked(cfg.n_layers, lambda: init_ssm_block(generator, cfg))
-    else:                                   # hybrid
+    elif cfg.family == "hybrid":
         groups, rem = divmod(cfg.n_layers, cfg.attn_every)
         flat = _init_stacked(groups * cfg.attn_every, lambda: init_ssm_block(generator, cfg))
         params["blocks"] = map_tree(
@@ -241,6 +251,8 @@ def init_lm(generator: torch.Generator, cfg: LMConfig,
         params["shared"] = init_attn_block(generator, cfg)       # ONE shared block
         if rem:
             params["tail"] = _init_stacked(rem, lambda: init_ssm_block(generator, cfg))
+    else:
+        raise ValueError(cfg.family)
     return params
 
 
@@ -255,11 +267,19 @@ def _sinusoidal_pe(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                   positions: torch.Tensor) -> torch.Tensor:
     """Decode in f32 (the backend's sum), MLP tail and output in the compute
-    dtype."""
+    dtype.  Audio ids (B, S, nq) are offset by ``codebook * vocab_padded``,
+    looked up in one call and summed over the codebooks."""
     dtype = torch_dtype(cfg.compute_dtype)
-    x = emb_lib.embed_lookup(params["embed"], tokens, cfg.embedding_config()).to(dtype)
+    if cfg.input_mode == "audio_tokens":
+        nq = tokens.shape[2]
+        offsets = torch.arange(nq, dtype=tokens.dtype, device=tokens.device) * cfg.vocab_padded
+        x = emb_lib.embed_lookup(params["embed"], tokens + offsets, _table_config(cfg)).sum(dim=2)
+    else:
+        x = emb_lib.embed_lookup(params["embed"], tokens, cfg.embedding_config())
+    x = x.to(dtype)
     if cfg.rope_variant == "none":
-        x = x + _sinusoidal_pe(positions, cfg.d_model, dtype)
+        pos = positions if positions.dim() == 2 else positions[0]
+        x = x + _sinusoidal_pe(pos, cfg.d_model, dtype)
     return x
 
 
@@ -309,7 +329,7 @@ def _ssm_layers_cached(layers, x, cfg, cache: LMCache, first: int):
 def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
             cache: Optional[LMCache]) -> torch.Tensor:
     """The family's layer stack; with a cache, its buffers are written."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ATTN_FAMILIES:
         for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             if cache is None:
                 x = _layer(_attn_layer, cfg, lp, x, cfg, cos, sin)
@@ -347,14 +367,14 @@ def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                cache: Optional[LMCache] = None, positions: Optional[torch.Tensor] = None,
                return_hidden: bool = False) -> Tuple[torch.Tensor, Optional[LMCache]]:
-    """tokens (B, S) int -> (logits (B, S, Vpad) f32, cache).
+    """tokens (B, S) int, audio (B, S, nq) -> (logits (B, S, Vpad) f32,
+    audio (B, S, nq, Vpad); cache).
 
     ``cache=None``: train / prefill from zero, causal over S.  With a
     cache: decode or chunked prefill at ``cache.pos``; the cache's buffers
     are written in place and the returned cache has ``pos`` advanced by S.
     ``return_hidden``: the final-norm hidden states (B, S, D) in place of
     the logits."""
-    check_ported(cfg)
     B, S = tokens.shape[:2]
     offset = cache.pos if cache is not None else 0
     if positions is None:
@@ -370,6 +390,8 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
         if return_hidden:
             return x, new_cache
         logits = (x @ params["head"].to(x.dtype)).float()
+        if cfg.input_mode == "audio_tokens":
+            logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
     return logits, new_cache
 
 
@@ -417,9 +439,11 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig) -> torch.Tensor:
     """Next-token cross-entropy; the vocabulary padding is masked out of the
-    softmax at -1e30.  With ``loss_vocab_chunk`` dividing the padded
-    vocabulary, the chunked form (``_chunked_ce``)."""
-    if cfg.loss_vocab_chunk and cfg.vocab_padded % cfg.loss_vocab_chunk == 0:
+    softmax at -1e30 (for audio, in every codebook).  With
+    ``loss_vocab_chunk`` dividing the padded vocabulary, the chunked form
+    (``_chunked_ce``); never for audio, as in JAX."""
+    if cfg.loss_vocab_chunk and cfg.input_mode != "audio_tokens" \
+            and cfg.vocab_padded % cfg.loss_vocab_chunk == 0:
         x, _ = lm_forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
                           return_hidden=True)
         with stage("loss"):

@@ -2,8 +2,10 @@
 fraction of the head dims (counterpart of ``repro/nn/rope.py``).
 
 ``standard`` rotates every head dim, ``half`` (chatglm3's "2d") the first
-half; ``none`` has no rotary.  Multimodal M-RoPE (qwen2-vl) raises: it
-comes with the LM side-path slice.
+half; ``none`` has no rotary.  Positions are int (B, S), or for M-RoPE
+(qwen2-vl) (3, B, S): temporal, height and width streams, the rotary
+frequencies split into ``mrope_sections`` and each section read from its
+own stream (arXiv:2409.12191).
 """
 
 from __future__ import annotations
@@ -11,8 +13,6 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-
-MROPE_SLICE = "the LM side-path slice (ROADMAP A.18)"
 
 
 def _freqs(d_rot: int, theta: float, device) -> torch.Tensor:
@@ -24,12 +24,16 @@ def rope_cos_sin(positions: torch.Tensor, d_head: int, *, theta: float = 10000.0
                  fraction: float = 1.0,
                  mrope_sections: Optional[Sequence[int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (B, S) int -> (cos, sin) of shape (B, S, d_rot/2) in f32."""
-    if mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is not ported yet; it comes with {MROPE_SLICE}")
+    """positions (B, S), or (3, B, S) with ``mrope_sections``, int -> (cos,
+    sin) of shape (B, S, d_rot/2) in f32."""
     d_rot = int(d_head * fraction) // 2 * 2
     inv = _freqs(d_rot, theta, positions.device)
     ang = positions[..., None].float() * inv
+    if mrope_sections is not None:
+        if sum(mrope_sections) != d_rot // 2:
+            raise ValueError(f"mrope sections {mrope_sections} != d_rot/2 {d_rot // 2}")
+        ang = torch.cat([part[i] for i, part in
+                         enumerate(ang.split(list(mrope_sections), dim=-1))], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -49,7 +53,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def default_positions(batch: int, seq: int, variant: str,
                       device=None) -> torch.Tensor:
-    """Text-only position ids (B, S) int32."""
+    """Text-only position ids (B, S) int32; for M-RoPE (3, B, S), the three
+    streams equal (a text sequence's)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
     if variant == "mrope":
-        raise NotImplementedError(f"M-RoPE is not ported yet; it comes with {MROPE_SLICE}")
-    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(batch, seq)
+        return pos[None].expand(3, batch, seq)
+    return pos

@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import backend as backend_mod
 from repro_torch.device import DeviceLike, make_generator, resolve_device
-from repro_torch.models.lm import NEG_INF, check_ported
+from repro_torch.models.lm import NEG_INF
 from repro_torch.nn.module import map_tree
 from repro_torch.stages import stage
 from repro_torch.train.step import make_prefill_step, make_serve_step
@@ -58,7 +58,6 @@ class DecodeEngine:
 
     def __init__(self, cfg: LMConfig, params, s_max: int = 1024,
                  decode_backend: Optional[str] = None, device: DeviceLike = None):
-        check_ported(cfg)
         self.device = resolve_device(device)
         if decode_backend is not None:
             resolved = (backend_mod.resolve_auto(self.device)
@@ -75,7 +74,8 @@ class DecodeEngine:
 
     def _sample(self, logits: torch.Tensor, generator: torch.Generator,
                 temperature: float) -> torch.Tensor:
-        """(B, Vpad) f32 -> (B,) int32 on the device.  Temperature 0 is the
+        """(B, Vpad) f32 -> (B,) int32 on the device (audio: (B, nq, Vpad)
+        -> (B, nq), one token a codebook).  Temperature 0 is the
         argmax (ties to the first index, as ``jnp.argmax``); above 0 a
         Gumbel-max draw from ``generator``: the categorical distribution of
         JAX's ``jax.random.categorical``, but not its threefry draws, so
@@ -91,8 +91,8 @@ class DecodeEngine:
 
     def generate(self, prompts, max_new_tokens: int, temperature: float = 0.0,
                  seed: int = 0) -> GenerationResult:
-        """prompts: (B, S0) int.  The sampled tokens stay on the device and
-        are copied to the host once, at the end."""
+        """prompts: (B, S0) int (audio: (B, S0, nq)).  The sampled tokens
+        stay on the device and are copied to the host once, at the end."""
         generator = make_generator(seed, self.device)
         tokens = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
         if tokens.shape[1] + max_new_tokens > self.s_max:
@@ -106,7 +106,7 @@ class DecodeEngine:
         last_logits, cache = self._prefill(self.params, {"tokens": tokens})
         out = [tokens]
         for _ in range(max_new_tokens):
-            nxt_tok = self._sample(last_logits, generator, temperature)[:, None]
+            nxt_tok = self._sample(last_logits, generator, temperature)[:, None]   # (B, 1[, nq])
             out.append(nxt_tok)
             last_logits, cache = self._serve(self.params, cache, {"tokens": nxt_tok})
         return GenerationResult(tokens=torch.cat(out, dim=1).cpu().numpy(),

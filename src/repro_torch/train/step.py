@@ -62,7 +62,12 @@ def loss_and_grads(params, batch, cfg: LMConfig):
 
 
 def _microbatch(batch, k: int, i: int):
-    return batch if k == 1 else {n: x.chunk(k, dim=0)[i] for n, x in batch.items()}
+    """Microbatch ``i`` of ``k``: each entry cut on its batch axis, which is
+    dim 1 of M-RoPE ``positions`` (3, B, S) and dim 0 of the rest."""
+    if k == 1:
+        return batch
+    return {n: x.chunk(k, dim=1 if n == "positions" and x.dim() == 3 else 0)[i]
+            for n, x in batch.items()}
 
 
 def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None) -> Callable:
@@ -203,7 +208,8 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
 def make_prefill_step(cfg: LMConfig, s_max: int) -> Callable:
     """(params, {"tokens": (B, S0)[, "positions"]}) -> (last logits (B, Vpad),
     cache): a fresh cache of ``s_max`` slots in the compute dtype, on the
-    tokens' device, filled with the prompt."""
+    tokens' device, filled with the prompt.  Audio tokens are (B, S0, nq)
+    and their last logits (B, nq, Vpad)."""
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         with torch.inference_mode():

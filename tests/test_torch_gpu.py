@@ -20,7 +20,10 @@ chunked cross-entropy on the card within 1e-4 of the CPU's (f32 cuBLAS
 and CPU matmuls sum in other orders); and the moe, ssm and hybrid LM
 families: reduced configs on the card against the CPU, the moe gradient
 the same bits twice, the SSM recurrence against the chunked scan, and each
-family's kernel engine bitwise its gather engine.
+family's kernel engine bitwise its gather engine; and the audio and vlm
+families: M-RoPE's cos and sin on the card against the CPU's, and the
+audio embedding's codebook-offset ids through the kernel bitwise the
+gather backend.
 
 Every test carries the ``gpu`` marker and skips without a card.  The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -181,6 +184,7 @@ def test_serving_through_kernel_matches_gather(cuda):
 
 
 FLASH_CASES = [(2, 4, 4, 256, 64, True, "bfloat16"), (2, 4, 4, 256, 64, True, "float32"),
+               (1, 28, 4, 2048, 128, True, "bfloat16"),     # qwen2-vl: 7 query heads a KV head
                (1, 8, 2, 300, 128, True, "bfloat16"), (1, 8, 2, 300, 128, True, "float32"),
                (1, 4, 4, 1000, 64, True, "bfloat16"), (2, 4, 1, 130, 32, False, "float32"),
                (1, 2, 2, 64, 32, True, "float32"), (3, 2, 2, 1, 64, True, "bfloat16"),
@@ -1502,3 +1506,56 @@ def test_family_engine_on_kernel_is_the_gather_engine(cuda, family):
     assert ops.hash_decode.launches == before + 9
     np.testing.assert_array_equal(res[0][0], res[1][0])
     assert torch.equal(res[0][1], res[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the audio and vlm LM families
+# ---------------------------------------------------------------------------
+
+def test_mrope_cos_sin_on_card_equal_cpu(cuda):
+    """qwen2-vl's M-RoPE at its head dim (128, sections 16 / 24 / 24) over
+    three distinct position streams: each section bitwise the card's
+    standard RoPE of its own stream, and cos and sin within two f32 ulps of
+    the largest angle of the CPU's (CUDA's ``pow``, ``cos`` and ``sin``
+    and the CPU's round differently in the last bits, so on the H100 the
+    two were not bitwise; an angle near 4,096 that differs by an ulp moves
+    its cosine by up to 4.9e-4)."""
+    from repro_torch.nn.rope import rope_cos_sin
+    rng = np.random.default_rng(4)
+    pos = torch.from_numpy(rng.integers(0, 4096, (3, 2, 512)).astype(np.int32))
+    sections = (16, 24, 24)
+    got = rope_cos_sin(pos.to(cuda), 128, theta=1e4, mrope_sections=sections)
+    want = rope_cos_sin(pos, 128, theta=1e4, mrope_sections=sections)
+    atol = 2 * torch.finfo(torch.float32).eps * (float(pos.max()) + 1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=atol)
+    per_stream = [rope_cos_sin(pos[i].to(cuda), 128, theta=1e4) for i in range(3)]
+    lo = 0
+    for i, sec in enumerate(sections):
+        for j in range(2):
+            assert torch.equal(got[j][..., lo:lo + sec], per_stream[i][j][..., lo:lo + sec])
+        lo += sec
+
+
+def test_audio_embedding_offsets_through_kernel_are_gather(cuda):
+    """Reduced musicgen under ``hash_full``: the (B, S, 4) ids offset by
+    codebook x vocab_padded, decoded through the kernel (one launch for all
+    B x S x 4 rows) and summed over the codebooks, bitwise the gather
+    backend's; the forward's logits too."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+    base = reduced(get_config("musicgen-large"))
+    cfgs = {impl: dataclasses.replace(base, embedding=dataclasses.replace(
+        base.embedding, kind="hash_full", lookup_impl=impl)) for impl in ("pallas", "gather")}
+    params = lm.init_lm(torch.Generator(cuda).manual_seed(0), cfgs["pallas"])
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, base.vocab_size, (4, 64, base.n_codebooks))).to(cuda)
+    pos = torch.arange(64, device=cuda)[None].expand(4, 64)
+    before = ops.hash_decode.launches
+    x = {impl: lm._embed_tokens(params, toks, cfg, pos) for impl, cfg in cfgs.items()}
+    assert ops.hash_decode.launches == before + 1
+    assert x["pallas"].shape == (4, 64, base.d_model)
+    assert torch.equal(x["pallas"], x["gather"])
+    logits = {impl: lm.lm_forward(params, toks, cfg)[0] for impl, cfg in cfgs.items()}
+    assert logits["pallas"].shape == (4, 64, base.n_codebooks, base.vocab_padded)
+    assert torch.equal(logits["pallas"], logits["gather"])

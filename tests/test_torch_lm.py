@@ -93,31 +93,38 @@ def test_get_config_overrides_and_unported_archs():
         get_config(ARCH).embedding, lookup_impl="auto"))
     assert cfg.attn_impl == "flash" and cfg.embedding.lookup_impl == "auto"
     assert list_archs() == ["chatglm3-6b", "dbrx-132b", "granite-moe-3b-a800m",
-                            "internlm2-20b", "mamba2-2.7b", ARCH, "yi-9b", "zamba2-7b"]
+                            "internlm2-20b", "mamba2-2.7b", "musicgen-large", ARCH,
+                            "qwen2-vl-7b", "yi-9b", "zamba2-7b"]
     for arch in ("chatglm3-6b", "yi-9b", "internlm2-20b"):   # their fields: test_torch_lm_serving
         assert get_config(arch).family == "dense" and get_config(arch).name == arch
     from repro_torch.configs.archs import NOT_PORTED
-    assert sorted(NOT_PORTED.values()) == ["audio", "vlm"]    # the rest: test_torch_lm_families
-    with pytest.raises(NotImplementedError, match="A.18"):
-        get_config("musicgen-large")
+    assert NOT_PORTED == {}           # audio and vlm fields: test_torch_lm_audio_vlm
+    music = get_config("musicgen-large", attn_impl="flash")
+    assert (music.family, music.input_mode, music.n_codebooks, music.attn_impl) == \
+        ("audio", "audio_tokens", 4, "flash")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
 def test_unported_families_raise(family):
-    """The name is older than the three families' port and kept, so the test
-    keeps its identity across the change: each family's reduced arch now
-    initialises and runs its forward, and the families still unported
-    (audio, vlm) raise naming A.18."""
+    """The name is older than the families' port and kept, so the test keeps
+    its identity across the change: each family's reduced arch initialises
+    and runs its forward, and so do the audio and vlm families (the last
+    two ported); an unknown family raises ``ValueError``, as in JAX."""
     arch = {"moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b", "hybrid": "zamba2-7b"}[family]
     cfg = reduced(get_config(arch))
     params = t_lm.init_lm(torch.Generator().manual_seed(0), cfg)
     logits, _ = t_lm.lm_forward(params, torch.zeros((1, 16), dtype=torch.int64), cfg)
     assert logits.shape == (1, 16, cfg.vocab_padded) and bool(logits.isfinite().all())
-    for other in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="A.18"):
-            t_lm.init_lm(torch.Generator().manual_seed(0), dataclasses.replace(cfg, family=other))
+    for arch, tail in (("musicgen-large", (4,)), ("qwen2-vl-7b", ())):
+        other = reduced(get_config(arch))
+        params = t_lm.init_lm(torch.Generator().manual_seed(0), other)
+        logits, _ = t_lm.lm_forward(params, torch.zeros((1, 16) + tail, dtype=torch.int64), other)
+        assert logits.shape == (1, 16) + tail + (other.vocab_padded,)
+        assert bool(logits.isfinite().all())
+    with pytest.raises(ValueError):
+        t_lm.init_lm(torch.Generator().manual_seed(0), dataclasses.replace(cfg, family="no-such"))
 
 
 # ---- nn.module ----------------------------------------------------------------
@@ -191,8 +198,17 @@ def test_rope_matches_jax(fraction):
         np.asarray(j_rope.apply_rope(jnp.asarray(x), jc, js)), rtol=1e-6, atol=1e-6)
     assert torch.equal(t_rope.default_positions(2, 9, "standard"),
                        torch.from_numpy(np.array(j_rope.default_positions(2, 9, "standard"))))
-    with pytest.raises(NotImplementedError, match="A.18"):
-        t_rope.rope_cos_sin(torch.from_numpy(np.array(pos)), 32, mrope_sections=(4, 6, 6))
+    # M-RoPE over 3 streams (the head's first 2 * 16 * fraction dims rotated)
+    sections = (4, 6, 6) if fraction == 1.0 else (2, 3, 3)
+    pos3 = np.stack([pos, pos + 7, 2 * pos]).astype(np.int32)
+    jc, js = j_rope.rope_cos_sin(jnp.asarray(pos3), 32, fraction=fraction,
+                                 mrope_sections=sections)
+    tc, ts = t_rope.rope_cos_sin(torch.from_numpy(pos3), 32, fraction=fraction,
+                                 mrope_sections=sections)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-6)
+    assert torch.equal(t_rope.default_positions(2, 9, "mrope"),
+                       torch.from_numpy(np.array(j_rope.default_positions(2, 9, "mrope"))))
 
 
 # ---- attention --------------------------------------------------------------------
