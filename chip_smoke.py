@@ -190,6 +190,25 @@ weights and data from a seed:
          bitwise the ``gather`` engine); both families' reduced configs
          trained and served on the card and on the CPU.  Every LM training
          path prints its model-FLOPs share of the bf16 peak (``[mfu]``);
+  lm_tp, lm_dp, moe_ep, pipeline  the LM across 4 ranks of
+         ``torch.distributed`` sharing the card over gloo on the (data 2,
+         model 2) mesh, each rank holding its blocks of the state:
+         ``qwen1.5-0.5b`` at full width under the JAX package's TP ⊗ FSDP
+         (5 steps, then a second run of 2 that must repeat its losses) and
+         under its profile's ``dp_over_model`` (3 steps), each against the
+         one-rank step from the same init and batch (step-0 loss, every
+         rank's step-0 gradient blocks and clip norm, params after one
+         step); ``granite-moe-3b-a800m`` under expert parallelism (2
+         steps; every layer's EP output bitwise ``moe_ffn_ep_reference``);
+         ``gpipe`` over 4 stages of 6 of qwen's
+         blocks against ``pipeline_reference``; ``psum_compressed`` over
+         lm_dp's gradient blocks bitwise its plain version on card and CPU;
+         every replicated leaf equal on all ranks after every step; the
+         period, bytes a rank by axes and operation, peak per rank and MFU
+         on one chip; the reduced configs (qwen under TP ⊗ FSDP, granite
+         under ``dp_over_model`` and under EP with nothing dropped) at 4
+         ranks against one on card and CPU; NCCL one card a rank where
+         there are 4 cards;
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -217,7 +236,8 @@ CPU (plain versions), and the two must agree.  Every check raises on
 failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
 line and then, as its last line, ``{"ok": true, "device": {...}}`` only
 when every phase passed.  It needs one card and imports nothing of JAX;
-phases ``sharded`` and ``elastic`` start 4 processes on it and stop them.
+phases ``sharded``, ``elastic`` and ``lm_ranks`` start 4 processes on it
+and stop them.
 """
 
 from __future__ import annotations
@@ -777,6 +797,10 @@ FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
     # qwen2-vl-7b's 28 query heads on 4 KV heads of 128
     (LM_BATCH, 32, 32, LM_SEQ, 64, True, "bfloat16"),
     (LM_BATCH, 28, 4, LM_SEQ, 128, True, "bfloat16"),
+    # the LM across ranks: a rank's heads, qwen's 8 of 16 and granite's 12
+    # query heads on 4 of its 8 KV heads, 2 sequences a rank
+    (2, 8, 8, LM_SEQ, 64, True, "bfloat16"),
+    (2, 12, 4, LM_SEQ, 64, True, "bfloat16"),
 ]
 # tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -3917,8 +3941,8 @@ def _sharded_rank(rank: int, payload: dict) -> dict:
         torch.cuda.synchronize(dev)
         r["launches"] = read_counts(f"sharded {impl}")
         sink[0] = set()
-        r["bytes_per_step"] = {k[:-6]: (rt.mesh.stats[k] - stats0.get(k, 0)) / SHARD_STEPS
-                               for k in rt.mesh.stats if k.endswith("_bytes")}
+        r["bytes_per_step"] = {k: (rt.mesh.stats[k] - stats0.get(k, 0)) / SHARD_STEPS
+                               for k in rt.mesh.stats if not k.endswith("_calls")}
         r.update(period_ms=float(np.median(periods[1:])),
                  peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
                  overflows=src.plan_overflows,
@@ -5094,6 +5118,760 @@ def phase_audio_vlm() -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase lm_ranks: the LM across 4 ranks of torch.distributed on the card
+# ---------------------------------------------------------------------------
+
+LM_RANKS = 4
+LM_MESH = (2, 2)                   # (data, model)
+LM_TP_STEPS, LM_TP_REPEAT = 5, 2   # lm_tp's run, then a second run of 2 steps
+LM_DP_STEPS = 3
+MOE_EP_STEPS = 2                   # cut from 3: the phase took 252.4 s at 3 (PERF.md §4)
+PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO = 4, 6, 8     # 6 of qwen's 24 blocks a stage
+LM_RANKS_REF = ROOT / "build" / "lm_ranks_ref"
+# the 4-rank step-0 loss against the one-rank step's from the same init and
+# batch (relative): bf16 products split over the model axis sum in another
+# order.  On the H100 it came to 4.3e-6 under TP and 7.7e-8 under DP
+# (PERF.md §6); the bound sits at about ten times the larger
+LM_RANKS_LOSS_BOUND = 5e-5
+# the gathered params after step 1 against the one-rank step's: JAX's own
+# bound for its sharded step (tests/test_parallel.py).  At lr 1e-3 and
+# warmup 100, step 0 moves a weight by about 1e-5, so this bound cannot see
+# the gradient: the gradient check below does
+LM_RANKS_RTOL, LM_RANKS_ATOL = 5e-3, 5e-4
+# the step-0 gradient blocks of every rank against the one-rank step's
+# gradient of the path's config, max |g - g_ref| / max |g_ref| over each
+# leaf's block, and the clip's global norm (relative).  On the H100 they
+# read 0.0217 / 0.0051 and 6.2e-4 / 8.9e-6 (lm_tp / lm_dp), and a data
+# rank's gradient before the data axis's sum, which must fail the bound,
+# 0.755 (PERF.md §6)
+LM_RANKS_GRAD_BOUND, LM_RANKS_NORM_BOUND = 5e-2, 1e-2
+PIPE_OUT_TOL, PIPE_GRAD_TOL = 2e-5, 1e-4
+REDUCED_RANKS_BOUND = 1e-4
+COMPRESS_CHECK = 1 << 16           # elements of each leaf checked against the plain version
+
+
+def _rank_mesh(shape=LM_MESH):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(*shape)
+
+
+def _bits_digest(t) -> int:
+    """A leaf's bits as one integer (its 32-bit words summed as int64)."""
+    import torch
+    t = t.detach().contiguous()
+    if t.element_size() == 2:
+        t = t.view(torch.int16).to(torch.int64)
+    elif t.dtype.is_floating_point:
+        t = t.view(torch.int32).to(torch.int64)
+    return int(t.sum())
+
+
+def _replicated_digests(state, specs, mesh) -> bool:
+    """Every leaf that is whole on some ranks (every param leaf whose spec
+    leaves an axis out) holds the same bits on all of them: each rank's
+    digests of all its leaves, all-gathered, compared among the ranks that
+    should hold the same block."""
+    import torch
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.parallel.sharding import _axes_tuple
+    rows, keys = [], []
+    for path, t in leaves_with_path(state["params"]):
+        spec = specs["params"]
+        for k in path:
+            spec = spec[k]
+        rows.append(_bits_digest(t))
+        keys.append({a for axes in spec for a in _axes_tuple(axes)})
+    mine = torch.tensor(rows, dtype=torch.int64, device=mesh.device)
+    every = [x.tolist() for x in mesh.all_gather(mine, mesh.axis_names, name="check")]
+    coords = [mesh.spec.coords(r) for r in range(mesh.size)]
+    for i, used in enumerate(keys):
+        groups = {}
+        for r, c in enumerate(coords):
+            groups.setdefault(tuple(c[a] for a in sorted(used)), set()).add(every[r][i])
+        if any(len(v) > 1 for v in groups.values()):
+            return False
+    return True
+
+
+def _timed_steps(step, state, stream, steps, mesh, on_step=None):
+    """``steps`` steps of the stream's global batches: losses, host-clock
+    step times (each ending in a synchronise), the mesh's bytes a step."""
+    import torch
+    losses, times, per_step = [], [], []
+    for i in range(steps):
+        batch = stream.next_batch()
+        before = dict(mesh.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        per_step.append({k: v - before.get(k, 0) for k, v in mesh.stats.items()
+                         if not k.endswith("_calls")})
+        if on_step is not None:
+            on_step(i, state)
+    return state, losses, times, per_step
+
+
+def _blocks_against(state, ref_path, specs, mesh) -> dict:
+    """This rank's param blocks against the same blocks of the one-rank
+    step's params (``torch.load``ed, memory-mapped): the largest gap over
+    JAX's allclose bound and the largest absolute gap."""
+    import torch
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.parallel import policy
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    worst, gap = 0.0, 0.0
+    coords = mesh.coords
+    for path, t in leaves_with_path(state["params"]):
+        if not t.is_floating_point():
+            continue
+        spec = specs["params"]
+        for k in path:
+            spec = spec[k]
+        whole = ref["/".join(path)]
+        want = whole[policy.block_slices(whole.shape, spec, mesh, coords)].to(t.device)
+        d = (t - want).abs()
+        gap = max(gap, float(d.max()))
+        worst = max(worst, float((d / (LM_RANKS_ATOL + LM_RANKS_RTOL * want.abs())).max()))
+    return {"over_bound": worst, "max_abs": gap}
+
+
+def _grad_gap(got, want) -> float:
+    """max |got - want| / max |want|."""
+    d = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return d / scale if scale else (0.0 if d == 0 else float("inf"))
+
+
+def _grads_against(grads, ref_path, specs, mesh) -> tuple:
+    """This rank's gradient blocks against the same blocks of the one-rank
+    step's gradient (``torch.load``ed, memory-mapped): the worst leaf's
+    ``_grad_gap`` and its name."""
+    import torch
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.parallel import policy
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    worst = (0.0, "")
+    for path, g in leaves_with_path(grads):
+        spec = specs["params"]
+        for k in path:
+            spec = spec[k]
+        whole = ref["/".join(path)]
+        want = whole[policy.block_slices(whole.shape, spec, mesh, mesh.coords)].to(g.device)
+        worst = max(worst, (_grad_gap(g, want), "/".join(path)))
+    return worst
+
+
+def _lm_rank_run(cfg, strategy, steps, mesh, moments, ref_path=None, grads_ref=None,
+                 grads_at=None, ep_check=False, profile=False):
+    """One rank's training run: encode, init the rank's blocks, ``steps``
+    steps; launches counted around exactly this run.  ``grads_ref``: step
+    0's gradient blocks and clip norm held against the one-rank step's.
+    ``profile``: one more step, rank 0's under torch.profiler (its device
+    busy share and kernels)."""
+    import torch
+    import repro_torch.train.step as step_mod
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.device import make_generator
+    from repro_torch.launch.train import encode_vocab
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import policy
+    from repro_torch.train import TrainHyper, init_train_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    gen = make_generator(0, "cuda")
+    codes = encode_vocab(cfg, gen, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8, seed=0,
+                         log=lambda line: None)
+    out = {"same_codes": True, "replicated_equal": []}
+    if codes is not None:
+        dig = torch.tensor([_bits_digest(codes)], device=mesh.device)
+        out["same_codes"] = len({int(x) for x in mesh.all_gather(dig, mesh.axis_names,
+                                                                 name="check")}) == 1
+    # the init's peak above what the rank held before it: at most its state
+    # (its blocks and their moments) and one whole leaf drawn beside them
+    torch.cuda.synchronize()
+    before_init = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(gen, cfg, codes=codes, moments_dtype=getattr(torch, moments),
+                             mesh=mesh, strategy=strategy)
+    init_peak = torch.cuda.max_memory_allocated() - before_init
+    held = sum(t.numel() * t.element_size() for tree in (state["params"], state["opt"]["mu"],
+                                                          state["opt"]["nu"])
+               for _, t in leaves_with_path(tree))
+    leaf = max(t.numel() * t.element_size()
+               for _, t in leaves_with_path(policy.abstract_params(cfg)))
+    out["init_peak_bound"] = held + leaf
+    hyper = TrainHyper(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01, clip_norm=1.0),
+                       total_steps=steps)
+    step = make_train_step(cfg, hyper, mesh=mesh, strategy=strategy)
+    specs = policy.state_shardings(cfg, state, mesh, strategy)
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                           batch_size=LM_BATCH, seed=0))
+    captured = {}
+    hooked = grads_at is not None or grads_ref is not None
+    if hooked:                         # read the gradients the optimizer gets
+        update = step_mod.adamw_update
+
+        def capture(params, grads, st, *a, **kw):
+            if st["step"] == 0 and grads_ref is not None:
+                out["grads_against"] = _grads_against(grads, grads_ref, specs, mesh)
+                out["grad_norm"] = float(kw["grad_norm"](grads))
+            if st["step"] == grads_at:
+                captured.update({"/".join(p): g.detach().clone()
+                                 for p, g in leaves_with_path(grads)})
+            return update(params, grads, st, *a, **kw)
+        step_mod.adamw_update = capture
+
+    def on_step(i, st):
+        out["replicated_equal"].append(_replicated_digests(st, specs, mesh))
+        if i == 0 and ref_path is not None:
+            out["against_one_rank"] = _blocks_against(st, ref_path, specs, mesh)
+    try:
+        state, losses, times, per_step = _timed_steps(step, state, stream, steps, mesh,
+                                                      on_step)
+    finally:
+        if hooked:
+            step_mod.adamw_update = update
+    torch.cuda.synchronize()
+    out["launches"] = _path_counts("lm_ranks")
+    out.update(losses=losses, times=times, bytes=per_step, wall=time.perf_counter() - t0,
+               peak=max(torch.cuda.max_memory_allocated(), before_init + init_peak) - base,
+               init_peak=init_peak,
+               transport=mesh.backend, device=str(mesh.device))
+    if profile:
+        batch = stream.next_batch()
+        if mesh.rank == 0:
+            profile_call(f"rank 0 of {mesh.size}, one {cfg.name} step",
+                         lambda: float(step(state, batch)[1]["loss"]))
+        else:
+            float(step(state, batch)[1]["loss"])
+    if ep_check:
+        out["ep"] = _ep_layers_check(state, cfg, strategy, mesh, stream)
+    if captured:
+        out["compress"] = _compress_check(captured, mesh)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_layers_check(state, cfg, strategy, mesh, stream) -> dict:
+    """One forward without gradients in which every MoE layer's EP output on
+    this rank's tokens is held against ``moe_ffn_ep_reference`` on the same
+    tokens with all experts (the model line's gathered), bitwise."""
+    import torch
+    import repro_torch.models.lm as lm_mod
+    from repro_torch.nn import moe
+    from repro_torch.parallel.sharding import use_sharding
+    from repro_torch.parallel.tensor import use_plan
+    from repro_torch.train.step import make_shard_plan
+    plan = make_shard_plan(cfg, mesh, strategy, LM_BATCH)
+    original = lm_mod.moe_ffn_ep
+    seen = []
+
+    def checked(params, x, mcfg, plan=None):
+        y = original(params, x, mcfg, plan=plan)
+        full = {k: (v if k == "router" else torch.cat(mesh.all_gather(v, "model", name="check")))
+                for k, v in params.items()}
+        ref = moe.moe_ffn_ep_reference(full, x, mcfg, ep=plan.tp_size, data_shards=1)
+        seen.append((bool(torch.equal(y, ref)), float((y.float() - ref.float()).abs().max())))
+        return y
+    batch = stream.next_batch()
+    from repro_torch.parallel import policy
+    specs = policy.batch_shardings(batch, mesh, strategy)
+    local = {n: policy.shard_leaf(torch.as_tensor(x), specs[n], mesh).to(mesh.device)
+             for n, x in batch.items()}
+    lm_mod.moe_ffn_ep = checked
+    try:
+        with torch.no_grad(), use_sharding(mesh, plan.rules), use_plan(plan):
+            lm_mod.lm_loss(state["params"], local, cfg)
+    finally:
+        lm_mod.moe_ffn_ep = original
+    return {"layers": len(seen), "bitwise": all(s for s, _ in seen),
+            "max_abs": max(e for _, e in seen)}
+
+
+def _compress_check(grads, mesh) -> dict:
+    """``psum_compressed`` over the 4 ranks of every captured gradient
+    leaf: the mean's bits equal on all ranks; the first ``COMPRESS_CHECK``
+    elements of every leaf from every rank, all-gathered, through the
+    one-process plain version on the card and on the CPU, bitwise the
+    ranks' mean there and each other."""
+    import torch
+    from repro_torch.optim import compress
+    axes = mesh.axis_names
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = dict(mesh.stats)
+    means, digests, ok_plain, ok_cpu, n_el = {}, [], True, True, 0
+    for key, g in grads.items():
+        mean, _ = compress.psum_compressed(g, torch.zeros_like(g, dtype=torch.float32), mesh, axes)
+        n_el += g.numel()
+        digests.append(_bits_digest(mean))
+        k = min(COMPRESS_CHECK, g.numel())
+        heads = mesh.all_gather(g.reshape(-1)[:k].float().contiguous(), axes, name="check")
+        zeros = [torch.zeros_like(h) for h in heads]
+        plain, _ = compress.psum_compressed_reference(heads, zeros)
+        cpu, _ = compress.psum_compressed_reference([h.cpu() for h in heads],
+                                                    [z.cpu() for z in zeros])
+        got = mean.reshape(-1)[:k].float()
+        ok_plain &= bool(torch.equal(plain, got))
+        ok_cpu &= bool(torch.equal(cpu, plain.cpu()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dig = torch.tensor(digests, dtype=torch.int64, device=mesh.device)
+    every = mesh.all_gather(dig, axes, name="check")
+    return {"leaves": len(grads), "elements": n_el, "same_on_ranks":
+            all(torch.equal(e, every[0]) for e in every), "plain_bitwise": ok_plain,
+            "cpu_bitwise": ok_cpu, "seconds": secs,
+            "bytes": {k: v - before.get(k, 0) for k, v in mesh.stats.items()
+                      if k.startswith("+".join(axes) + "/compress") and not k.endswith("_calls")}}
+
+
+def _pipe_cfg():
+    import dataclasses
+    cfg = _lm_config()
+    return dataclasses.replace(cfg, n_layers=PIPE_LAYERS, remat=False)
+
+
+def _pipe_stage_fn(p, x):
+    """One pipeline stage: 6 of qwen's blocks (flash attention, bf16)."""
+    from repro_torch.models.lm import _rope, _unstack, attn_block
+    from repro_torch.nn.rope import default_positions
+    cfg = _pipe_cfg()
+    B, S, _ = x.shape
+    cos, sin = _rope(cfg, default_positions(B, S, cfg.rope_variant, x.device))
+    for lp in _unstack(p, PIPE_LAYERS):
+        x = attn_block(lp, x, cfg, cos, sin)[0]
+    return x
+
+
+def _pipe_inputs(device):
+    """All 24 blocks' params drawn from seed 1 (stacked (4, 6, ...)) and 8
+    microbatches of (1, 2048, 1024) bf16 from seed 2."""
+    import torch
+    from repro_torch.models.lm import _init_stacked, init_attn_block
+    from repro_torch.nn.module import map_tree
+    cfg = _pipe_cfg()
+    gen = torch.Generator(device=device).manual_seed(1)
+    blocks = _init_stacked(PIPE_STAGES * PIPE_LAYERS, lambda: init_attn_block(gen, cfg))
+    blocks = map_tree(lambda _, t: t.view((PIPE_STAGES, PIPE_LAYERS) + tuple(t.shape[1:])), blocks)
+    g2 = torch.Generator(device=device).manual_seed(2)
+    xs = torch.randn(PIPE_MICRO, 1, LM_SEQ, cfg.d_model, generator=g2,
+                     device=device).to(torch.bfloat16)
+    return blocks, xs
+
+
+def _pipeline_rank(line, ref_path) -> dict:
+    """This rank's stage of ``gpipe`` on the (1, 4) mesh's model line:
+    forward and backward timed, held against the sequential reference."""
+    import torch
+    from repro_torch.nn.module import leaves_with_path, map_tree
+    from repro_torch.parallel.pipeline import gpipe
+    stage = line.index("model")
+    blocks, xs = _pipe_inputs(line.device)
+    mine = map_tree(lambda _, t: t[stage].detach().clone().requires_grad_(True), blocks)
+    del blocks
+    torch.cuda.empty_cache()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = gpipe(_pipe_stage_fn, mine, xs, line, axis="model")
+    (y.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _path_counts("pipeline")
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    want = ref["out"].to(line.device).float()
+    out_err = float((y.detach().float() - want).abs().max())
+    out_ok = bool(((y.detach().float() - want).abs() <= PIPE_OUT_TOL * (1 + want.abs())).all())
+    grad_err, grad_ok = 0.0, True
+    for path, p in leaves_with_path(mine):
+        w = ref["grads/" + "/".join(path)][stage].to(line.device)
+        d = (p.grad - w).abs()
+        grad_err = max(grad_err, float(d.max()))
+        grad_ok &= bool((d <= PIPE_GRAD_TOL * (1 + w.abs())).all())
+    return {"seconds": secs, "launches": launches, "out_err": out_err, "out_ok": out_ok,
+            "grad_err": grad_err, "grad_ok": grad_ok,
+            "bytes": {k: v for k, v in line.stats.items() if "shift" in k or "pipeline" in k},
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _granite_ep():
+    """granite-moe-3b-a800m with expert-parallel dispatch and flash attention."""
+    return _serve_cfg(GRANITE, attn_impl="flash", moe_impl="ep")
+
+
+# the reduced configs held 4 ranks against one: (case, arch, dp_over_model).
+# "granite ep" runs EP over the model axis with 16 experts at granite's own
+# top-8 and capacity 4.0: a rank's window then holds every row routed to
+# its experts, so nothing drops and one rank's moe_ffn is its reference
+# (reduced granite's 8 experts padded to 16 sit all on model rank 0, where
+# the capacity, at most the rank's rows times top-k, drops rows at any
+# capacity factor: JAX's formula)
+REDUCED_RANK_CASES = (("qwen", LM_ARCH, False), ("granite dp_over_model", GRANITE, True),
+                      ("granite ep", GRANITE, False))
+
+
+def _reduced_hyper():
+    """AdamW at eps 1, lr 1 and no warmup: step 0 moves each weight by
+    about its clipped gradient, so step 1's loss shows the gradient."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainHyper
+    return TrainHyper(optimizer=AdamWConfig(lr=1.0, weight_decay=0.01, clip_norm=1.0, eps=1.0),
+                      warmup_steps=1, total_steps=2)
+
+
+def _reduced_ranks(mesh, device) -> dict:
+    """The ``REDUCED_RANK_CASES`` in f32, 2 steps on the 4 ranks of
+    ``mesh`` on ``device`` (the card: kernels; the CPU: plain versions)."""
+    import torch
+    from repro_torch.parallel import policy
+    from repro_torch.train import init_train_state, make_train_step
+    out = {}
+    m = mesh.on(device)
+    for case, arch, dp in REDUCED_RANK_CASES:
+        cfg = _reduced_ranks_cfg(case, arch)
+        strategy = policy.Strategy(dp_over_model=dp)
+        state = init_train_state(torch.Generator(device=device).manual_seed(0), cfg,
+                                 mesh=m, strategy=strategy)
+        step = make_train_step(cfg, _reduced_hyper(), mesh=m, strategy=strategy)
+        stream = _train_stream(cfg, 128, 4, seed=3)
+        out[case] = [float(step(state, stream.next_batch())[1]["loss"]) for _ in range(2)]
+    return out
+
+
+def _reduced_ranks_cfg(case: str, arch: str):
+    """The reduced config in f32, decoded by the kernel."""
+    import dataclasses
+    from repro_torch.configs import reduced
+    cfg = reduced(_serve_cfg(arch))
+    if case == "granite ep":
+        cfg = dataclasses.replace(cfg, n_experts=16, moe_top_k=8, moe_capacity_factor=4.0)
+    return dataclasses.replace(cfg, embedding=dataclasses.replace(cfg.embedding,
+                                                                  lookup_impl="pallas"))
+
+
+def _lm_ranks_main(rank: int, payload: dict) -> dict:
+    """One of the 4 ranks of phase ``lm_ranks``."""
+    import dataclasses
+    from repro_torch.device import disable_tf32
+    from repro_torch.launch import profiles
+    from repro_torch.parallel import policy
+    disable_tf32()
+    mesh = _rank_mesh()
+    line = _rank_mesh((1, LM_RANKS))
+    out = {}
+    t0 = time.perf_counter()
+    qwen = _lm_config()
+    out["lm_tp"] = _lm_rank_run(qwen, policy.DEFAULT_STRATEGY, LM_TP_STEPS, mesh,
+                                "float32", ref_path=payload["qwen_ref"],
+                                grads_ref=payload["qwen_grads"], profile=True)
+    again = _lm_rank_run(qwen, policy.DEFAULT_STRATEGY, LM_TP_REPEAT, mesh, "float32")
+    out["lm_tp"]["repeat_losses"] = again["losses"]
+    prof = profiles.OPTIMIZED_TRAIN[LM_ARCH]
+    dp_cfg = dataclasses.replace(qwen, **prof["overrides"])
+    out["lm_dp"] = _lm_rank_run(dp_cfg, prof["strategy"], LM_DP_STEPS, mesh,
+                                prof["moments_dtype"], ref_path=payload["qwen_ref"],
+                                grads_ref=payload["qwen_dp_grads"], grads_at=1)
+    granite = _granite_ep()
+    out["moe_ep"] = _lm_rank_run(granite, policy.DEFAULT_STRATEGY, MOE_EP_STEPS, mesh,
+                                 "bfloat16", ep_check=True)
+    out["pipeline"] = _pipeline_rank(line, payload["pipe_ref"])
+    out["reduced"] = {dev: _reduced_ranks(mesh, dev) for dev in ("cuda", "cpu")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _one_rank_references() -> dict:
+    """On the card alone, before the ranks start: qwen's one-rank step from
+    the init and batch the ranks use (step-0 loss, params after step 1,
+    saved for the ranks; the step-0 gradient and clip norm under
+    ``lm_tp``'s config and under ``lm_dp``'s, whose chunked loss rounds
+    otherwise, saved; and the control: the gradient a data rank holds
+    before the data axis's sum, its half of the batch over the global token
+    count, against the whole), granite's
+    one-rank no-drop loss on the first batch, the pipeline's sequential
+    reference (output and gradients), and the reduced configs' one-rank
+    losses on the card and the CPU."""
+    import torch
+    import dataclasses
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.device import make_generator
+    from repro_torch.launch import profiles
+    from repro_torch.launch.train import encode_vocab
+    from repro_torch.models.lm import init_lm, lm_loss
+    from repro_torch.nn.module import leaves_with_path, map_tree
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, global_norm
+    from repro_torch.parallel.pipeline import pipeline_reference
+    from repro_torch.train import TrainHyper, init_train_state, make_train_step
+    from repro_torch.train.step import loss_and_grads
+    LM_RANKS_REF.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for arch, cfg, moments in ((LM_ARCH, _lm_config(), "float32"),
+                               (GRANITE, _granite_ep(), "bfloat16")):
+        torch.cuda.empty_cache()
+        gen = make_generator(0, "cuda")
+        codes = encode_vocab(cfg, gen, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8, seed=0,
+                             log=lambda line: None)
+        state = init_train_state(gen, cfg, codes=codes, moments_dtype=getattr(torch, moments))
+        stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                               batch_size=LM_BATCH, seed=0))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+        if arch == LM_ARCH:
+            half = {k: v[:LM_BATCH // 2] for k, v in batch.items()}
+            part = dict(leaves_with_path(loss_and_grads(state["params"], half, cfg)[1]))
+            dp_cfg = dataclasses.replace(cfg, **profiles.OPTIMIZED_TRAIN[arch]["overrides"])
+            for key, c in (("lm_tp", cfg), ("lm_dp", dp_cfg)):
+                grads = dict(leaves_with_path(loss_and_grads(state["params"], batch, c)[1]))
+                path = LM_RANKS_REF / f"{key}_grads0.pt"
+                torch.save({"/".join(k): g.cpu() for k, g in grads.items()}, path)
+                out[key] = {"loss": None, "grads": str(path),
+                            "grad_norm": float(global_norm(list(grads.values()))),
+                            "grad_control": max(_grad_gap(0.5 * part[k], g)
+                                                for k, g in grads.items())}
+            del part, grads
+            hyper = TrainHyper(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01, clip_norm=1.0),
+                               total_steps=LM_TP_STEPS)
+            state, m = make_train_step(cfg, hyper)(state, batch)
+            out[arch] = out["lm_tp"]["loss"] = out["lm_dp"]["loss"] = float(m["loss"])
+            path = LM_RANKS_REF / "qwen_step1.pt"
+            torch.save({"/".join(p): t.cpu() for p, t in leaves_with_path(state["params"])},
+                       path)
+            out["qwen_ref"] = str(path)
+        else:
+            with torch.no_grad():
+                out[arch] = float(lm_loss(state["params"], batch, cfg))
+        del state, codes
+    torch.cuda.empty_cache()
+    blocks, xs = _pipe_inputs("cuda")
+    blocks = map_tree(lambda _, t: t.requires_grad_(True), blocks)
+    y = pipeline_reference(_pipe_stage_fn, blocks, xs)
+    (y.float() ** 2).sum().backward()
+    ref = {"out": y.detach().cpu()}
+    ref.update({"grads/" + "/".join(p): t.grad.cpu() for p, t in leaves_with_path(blocks)})
+    path = LM_RANKS_REF / "pipeline.pt"
+    torch.save(ref, path)
+    out["pipe_ref"] = str(path)
+    del blocks, xs, y, ref
+    torch.cuda.empty_cache()
+    out["reduced"] = {}
+    for dev in ("cuda", "cpu"):
+        for case, arch, _ in REDUCED_RANK_CASES:
+            cfg = _reduced_ranks_cfg(case, arch)
+            params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+            st = {"params": params, "opt": adamw_init(params), "step": 0}
+            step = make_train_step(cfg, _reduced_hyper())
+            stream = _train_stream(cfg, 128, 4, seed=3)
+            out["reduced"][(dev, case)] = [
+                float(step(st, {k: torch.from_numpy(v).to(dev)
+                                for k, v in stream.next_batch().items()})[1]["loss"])
+                for _ in range(2)]
+    return out
+
+
+def _rank_launches(results, path: str) -> dict:
+    first = results[0][path]["launches"]
+    return {k: (sum(r[path]["launches"][k] for r in results) if not isinstance(v, dict)
+                else {kk: sum(r[path]["launches"][k][kk] for r in results) for kk in v})
+            for k, v in first.items()}
+
+
+def _print_rank_path(label: str, cfg, results, one, steps: int) -> dict:
+    """The path's lines: losses, period, bytes, peaks, MFU, checks."""
+    import numpy as np
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.shapes import ShapeSpec
+    rs = [r[label] for r in results]
+    a = rs[0]
+    warm = sorted(a["times"][1:])
+    period = warm[(len(warm) - 1) // 2]
+    flops = model_flops(cfg, ShapeSpec("lm_step", "train", LM_SEQ, LM_BATCH), 1)
+    mfu = flops / (period * BF16_FLOPS)
+    by = {}
+    for step_bytes in a["bytes"][1:]:
+        for k, v in step_bytes.items():
+            by[k] = by.get(k, 0) + v / max(1, len(a["bytes"]) - 1)
+    print(f"[{label}] {cfg.name} on {LM_RANKS} ranks ({a['transport']}, {SHARED_CARD}) "
+          f"mesh (data, model) = {LM_MESH}: {steps} steps of {LM_BATCH} x {LM_SEQ}: losses "
+          f"{a['losses']}; step ms {[round(t * 1e3, 3) for t in a['times']]}; period (median "
+          f"of steps 2-{steps}) {period * 1e3:.3f} ms; chain wall {a['wall']:.1f} s; "
+          f"{smi_query('name,power.limit')}", flush=True)
+    print(f"[{label}] bytes a rank receives a step (rank 0, mean of steps 2-{steps}), by axes/"
+          f"operation: { {k: round(v) for k, v in sorted(by.items()) if v} }; total "
+          f"{round(sum(by.values()))} B", flush=True)
+    print(f"[{label}] peak max_memory_allocated per rank {[r['peak'] for r in rs]} B; the 4 "
+          f"together {sum(r['peak'] for r in rs)} B; init's peak per rank "
+          f"{[r['init_peak'] for r in rs]} B, at most the rank's state and one whole leaf "
+          f"{[r['init_peak_bound'] for r in rs]} B", flush=True)
+    check(all(r["init_peak"] <= r["init_peak_bound"] for r in rs),
+          f"{label}: init held more than the rank's state and one leaf")
+    print(f"[mfu] {label} ({cfg.name}, {cfg.n_layers} layers, 4 ranks on one card): model "
+          f"FLOPs {flops:.6e} a step, period {period * 1e3:.3f} ms -> MFU {100 * mfu:.2f}% of "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 on 1 chip; {smi_query('name,power.limit')}",
+          flush=True)
+    check(all(np.isfinite(a["losses"])), f"{label}: non-finite loss {a['losses']}")
+    check(all(r["losses"] == a["losses"] for r in rs), f"{label}: the ranks' losses differ")
+    check(all(all(r["replicated_equal"]) for r in rs),
+          f"{label}: a replicated leaf differs across ranks")
+    check(all(r["same_codes"] for r in rs), f"{label}: the ranks encoded other codes")
+    if one is not None:
+        one_loss = one["loss"]
+        gap = abs(a["losses"][0] - one_loss) / abs(one_loss)
+        print(f"[{label}] step-0 loss {a['losses'][0]} against the one-rank step's {one_loss}: "
+              f"relative gap {gap} (bound {LM_RANKS_LOSS_BOUND})", flush=True)
+        check(gap <= LM_RANKS_LOSS_BOUND, f"{label}: step-0 loss {gap} from the one-rank step's")
+    if "against_one_rank" in a:
+        worst = max(r["against_one_rank"]["over_bound"] for r in rs)
+        gap = max(r["against_one_rank"]["max_abs"] for r in rs)
+        print(f"[{label}] params after step 1 against the one-rank step's, every rank's blocks: "
+              f"largest |diff| {gap}, largest |diff| / (atol + rtol |ref|) {worst} (JAX's rtol "
+              f"{LM_RANKS_RTOL}, atol {LM_RANKS_ATOL}: must be <= 1)", flush=True)
+        check(worst <= 1.0, f"{label}: params after step 1 off the one-rank step's by {worst}")
+    if "grads_against" in a:
+        gap, leaf = max(r["grads_against"] for r in rs)
+        norm_gap = abs(a["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+        print(f"[{label}] step-0 gradient against the one-rank step's, every rank's blocks: worst "
+              f"leaf ({leaf}) max |diff| / max |ref| {gap} (bound {LM_RANKS_GRAD_BOUND}); "
+              f"control, a data "
+              f"rank's gradient before the data axis's sum: {one['grad_control']}; the clip's "
+              f"norm {a['grad_norm']} against {one['grad_norm']}: relative gap {norm_gap} (bound "
+              f"{LM_RANKS_NORM_BOUND})", flush=True)
+        check(gap <= LM_RANKS_GRAD_BOUND, f"{label}: step-0 gradient off the one-rank's by {gap}")
+        check(one["grad_control"] > LM_RANKS_GRAD_BOUND,
+              f"{label}: the gradient bound passes a gradient without the data sum")
+        check(norm_gap <= LM_RANKS_NORM_BOUND, f"{label}: clip norm off by {norm_gap}")
+        check(all(r["grad_norm"] == a["grad_norm"] for r in rs), f"{label}: the ranks' norms differ")
+    return {"period_ms": period * 1e3, "mfu": mfu, "bytes_per_step": by,
+            "peak_per_rank": [r["peak"] for r in rs]}
+
+
+def phase_lm_ranks() -> tuple:
+    """The LM across 4 ranks of ``torch.distributed`` sharing the card over
+    gloo (NCCL one card a rank where there are 4): paths lm_tp, lm_dp,
+    moe_ep, pipeline and compress, and the reduced configs' 4 ranks
+    against one on the card and the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import profiles
+    from repro_torch.parallel.sharding import spawn
+    t_phase = time.perf_counter()
+    refs = _one_rank_references()
+    t_ref = time.perf_counter() - t_phase
+    print(f"[lm_ranks] one-rank references: qwen step-0 loss {refs[LM_ARCH]}, granite (moe_ffn, "
+          f"no drop) {refs[GRANITE]}; {t_ref:.1f} s", flush=True)
+    payload = {"qwen_ref": refs["qwen_ref"], "qwen_grads": refs["lm_tp"]["grads"],
+               "qwen_dp_grads": refs["lm_dp"]["grads"], "pipe_ref": refs["pipe_ref"]}
+    try:
+        results = spawn(_lm_ranks_main, LM_RANKS, backend="gloo", args=(payload,),
+                        timeout_s=600)
+    except RuntimeError as e:
+        fail(f"phase lm_ranks: {e}")
+    print(f"[lm_ranks] {LM_RANKS} ranks on {sorted({r['lm_tp']['device'] for r in results})} "
+          f"over {results[0]['lm_tp']['transport']}: {results[0]['seconds']:.1f} s in the "
+          f"ranks", flush=True)
+    qwen = _lm_config()
+    info = {"lm_tp": _print_rank_path("lm_tp", qwen, results, refs["lm_tp"], LM_TP_STEPS)}
+    a = results[0]["lm_tp"]
+    print(f"[lm_tp] a second 4-rank run of {LM_TP_REPEAT} steps from the same init: losses "
+          f"{a['repeat_losses']} against {a['losses'][:LM_TP_REPEAT]}", flush=True)
+    check(a["repeat_losses"] == a["losses"][:LM_TP_REPEAT], "lm_tp: two runs' losses differ")
+    dp_cfg = dataclasses.replace(qwen, **profiles.OPTIMIZED_TRAIN[LM_ARCH]["overrides"])
+    info["lm_dp"] = _print_rank_path("lm_dp", dp_cfg, results, refs["lm_dp"], LM_DP_STEPS)
+    granite = _granite_ep()
+    info["moe_ep"] = _print_rank_path("moe_ep", granite, results, None, MOE_EP_STEPS)
+    g0 = results[0]["moe_ep"]["losses"][0]
+    print(f"[moe_ep] step-0 loss {g0} (EP, capacity {granite.moe_capacity_factor}: rows drop) "
+          f"beside the one-rank moe_ffn (no drop) loss {refs[GRANITE]} (a readout, not a bound)",
+          flush=True)
+    for r in results:
+        ep = r["moe_ep"]["ep"]
+        print(f"[moe_ep] rank {results.index(r)}: {ep['layers']} MoE layers' EP output on its "
+              f"tokens against moe_ffn_ep_reference (all experts, one process): bitwise "
+              f"{ep['bitwise']}, max |diff| {ep['max_abs']}", flush=True)
+        check(ep["bitwise"] and ep["layers"] == granite.n_layers,
+              f"moe_ep: EP differs from moe_ffn_ep_reference ({ep})")
+    comp = [r["lm_dp"]["compress"] for r in results]
+    c0 = comp[0]
+    print(f"[compress] psum_compressed over {LM_RANKS} ranks of lm_dp's step-1 gradient "
+          f"({c0['leaves']} leaves, {c0['elements']} elements a rank): the mean the same bits on "
+          f"every rank {all(c['same_on_ranks'] for c in comp)}; the first {COMPRESS_CHECK} "
+          f"elements of each leaf bitwise the one-process plain version on the card "
+          f"{all(c['plain_bitwise'] for c in comp)}, and the card's plain version bitwise the "
+          f"CPU's {all(c['cpu_bitwise'] for c in comp)}; {c0['seconds']:.2f} s; bytes a rank "
+          f"{c0['bytes']}", flush=True)
+    check(all(c["same_on_ranks"] and c["plain_bitwise"] and c["cpu_bitwise"] for c in comp),
+          "compress: psum_compressed's bits differ")
+    pipe = [r["pipeline"] for r in results]
+    print(f"[pipeline] gpipe over {PIPE_STAGES} ranks (model axis), {PIPE_LAYERS} of qwen's "
+          f"blocks a stage, {PIPE_MICRO} microbatches of (1, {LM_SEQ}, {qwen.d_model}) bf16: "
+          f"forward + backward {[round(p['seconds'], 3) for p in pipe]} s; output max |diff| "
+          f"{max(p['out_err'] for p in pipe)} (bound {PIPE_OUT_TOL}), gradients "
+          f"{max(p['grad_err'] for p in pipe)} (bound {PIPE_GRAD_TOL}) against "
+          f"pipeline_reference; bytes a rank {pipe[0]['bytes']}; peak per rank "
+          f"{[p['peak'] for p in pipe]} B", flush=True)
+    check(all(p["out_ok"] and p["grad_ok"] for p in pipe), "pipeline: gpipe off its reference")
+    for dev in ("cuda", "cpu"):
+        for case, _, _ in REDUCED_RANK_CASES:
+            got = results[0]["reduced"][dev][case]
+            want = refs["reduced"][(dev, case)]
+            gap = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+            print(f"[reference] lm_ranks reduced {case} f32 on {dev}, AdamW eps 1, lr 1: 4 ranks "
+                  f"{got} against 1 rank {want}, relative gap {gap} (bound "
+                  f"{REDUCED_RANKS_BOUND})", flush=True)
+            check(gap <= REDUCED_RANKS_BOUND, f"reduced {case} on {dev}: 4 ranks off by {gap}")
+            check(all(r["reduced"][dev][case] == got for r in results),
+                  f"reduced {case}: the ranks' losses differ")
+    launches = {path: _rank_launches(results, path)
+                for path in ("lm_tp", "lm_dp", "moe_ep", "pipeline")}
+    for path, cfg, steps in (("lm_tp", qwen, LM_TP_STEPS), ("lm_dp", dp_cfg, LM_DP_STEPS),
+                             ("moe_ep", granite, MOE_EP_STEPS)):
+        one = _expected_train_launches(cfg, steps)
+        expect = {k: (v * LM_RANKS if not isinstance(v, dict)
+                      else {kk: vv * LM_RANKS for kk, vv in v.items()}) for k, v in one.items()}
+        got = {k: launches[path][k] for k in expect}
+        print(f"[{path}] launches summed over the ranks {launches[path]}", flush=True)
+        check(got == expect, f"{path}: launches {got}, expected {expect}")
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    check(launches["pipeline"]["flash_attention"] == LM_RANKS * ticks * PIPE_LAYERS,
+          f"pipeline: flash_attention launched {launches['pipeline']['flash_attention']} times")
+    if torch.cuda.device_count() >= LM_RANKS:
+        try:
+            nccl = spawn(_lm_nccl_main, LM_RANKS, backend="nccl", timeout_s=600)
+        except RuntimeError as e:
+            fail(f"phase lm_ranks over NCCL: {e}")
+        print(f"[lm_tp] over NCCL, one card a rank: losses {nccl[0]['losses']} (gloo "
+              f"{a['losses'][:LM_TP_REPEAT]}), step ms {nccl[0]['times']}", flush=True)
+        check(nccl[0]["losses"] == a["losses"][:LM_TP_REPEAT], "NCCL losses differ from gloo's")
+    else:
+        print(f"[lm_ranks] NCCL run skipped: {torch.cuda.device_count()} card(s), it needs "
+              f"{LM_RANKS}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[lm_ranks] phase {secs:.1f} s (one-rank references {t_ref:.1f} s)", flush=True)
+    info["seconds"] = secs
+    info["max_abs_err"] = max(check_decode_case((rows, 16, 256, 512), "bfloat16", seed=80 + i)
+                              for i, rows in enumerate((4096, 2048)))
+    info["lm_ranks_sizes"] = [4096, 2048]
+    return launches, info
+
+
+def _lm_nccl_main(rank: int) -> dict:
+    from repro_torch.device import disable_tf32
+    from repro_torch.parallel import policy
+    disable_tf32()
+    r = _lm_rank_run(_lm_config(), policy.DEFAULT_STRATEGY, LM_TP_REPEAT, _rank_mesh(),
+                     "float32")
+    return {"losses": r["losses"], "times": [round(t * 1e3, 3) for t in r["times"]]}
+
+
+
 def _hash_full(arch: str):
     """The arch's embedding spec under ``kind="hash_full"``."""
     import dataclasses
@@ -5157,6 +5935,8 @@ def main() -> None:
     timing["max_abs_err"] = max(timing["max_abs_err"], family_lm.pop("max_abs_err"))
     audio_vlm_launches, audio_vlm = phase_audio_vlm()
     timing["max_abs_err"] = max(timing["max_abs_err"], audio_vlm.pop("max_abs_err"))
+    lm_ranks_launches, lm_ranks = phase_lm_ranks()
+    timing["max_abs_err"] = max(timing["max_abs_err"], lm_ranks.pop("max_abs_err"))
     rec_launches = phase_reconstruct()
     phase_reconstruct_reference()
     lm = time_lm_kernels()
@@ -5173,7 +5953,7 @@ def main() -> None:
              **gnn_cached_launches, **full_launches, "link": link_launches,
              "merchant": merchant_launches, **family_launches, **host_launches,
              **shard_launches, **elastic_launches, **serve_lm_launches,
-             **family_lm_launches, **audio_vlm_launches}
+             **family_lm_launches, **audio_vlm_launches, **lm_ranks_launches}
     hd_by_path, bwd_by_path, flash_by_path, lsh_by_path = (
         {path: counts[kernel] for path, counts in paths.items()}
         for kernel in ("hash_decode", "hash_decode_backward", "flash_attention", "lsh_encode"))
@@ -5202,6 +5982,7 @@ def main() -> None:
              at_decode_step=serve_lm.pop("at_decode_step"), serve_lm=serve_lm,
              families_sizes=family_lm.pop("families_sizes"), families_lm=family_lm,
              audio_vlm_sizes=audio_vlm.pop("audio_vlm_sizes"), audio_vlm=audio_vlm,
+             lm_ranks_sizes=lm_ranks.pop("lm_ranks_sizes"), lm_ranks=lm_ranks,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
              cached_serve_bitwise_to_uncached=cached_bitwise),

@@ -32,6 +32,16 @@ keys and values, (ssm layers, B, H, N, P) f32 states and (ssm layers, B,
 W-1, C) conv tails.  ``loss_vocab_chunk`` streams the head in vocabulary
 chunks (``_chunked_ce``), so the (tokens, vocab) logits are never held.
 
+Across ranks (``train.step.make_train_step(mesh=...)``), ``lm_loss`` runs
+under the ``parallel.tensor.ShardPlan`` that ``use_plan`` made active, and
+passes it down explicitly: each layer's params are its blocks, gathered on
+their FSDP dim inside the (checkpointed) layer; under tensor parallelism
+attention runs on the rank's heads (``wo``'s partial sums added over
+``model``), the MLP on its slice of ``d_ff``, the MoE on its experts (EP),
+a dense table looks up its slice of the vocabulary, and the loss takes a
+vocab-parallel log-sum-exp.  The hash embedding's codes, codebooks and
+decoder are whole on every rank: each rank decodes its own tokens.
+
 The forward marks its stages (embed, blocks, head, loss) for
 ``stages.StageTimer``.
 """
@@ -43,6 +53,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
@@ -57,6 +68,7 @@ from repro_torch.nn.module import Params, dense_init, map_tree
 from repro_torch.nn.moe import MoEConfig, init_moe, moe_dense_ffn, moe_ffn_ep
 from repro_torch.nn.rope import default_positions, rope_cos_sin
 from repro_torch.nn.ssm import SSMConfig, init_ssm, ssm_forward
+from repro_torch.parallel.tensor import active_plan, layer_specs, ordered_sum
 from repro_torch.stages import stage
 
 NEG_INF = -1e30
@@ -138,6 +150,26 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch
     return cache
 
 
+def cache_shardings(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16):
+    """Every cache buffer's spec from its logical axes under the active
+    mesh and rules (an ``LMCache`` of specs; None without a mesh)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.parallel.sharding import logical_sharding
+    with FakeTensorMode():
+        cache = init_cache(cfg, batch, s_max, dtype, device="cpu")
+    names = {
+        "kv": (None, "batch", "kv_seq", "kv_heads", "head_dim"),
+        "ssm": (None, "batch", "ssm_heads", "ssm_state", None),
+        "conv": (None, "batch", None, "d_ff"),
+    }
+
+    def shard_of(buf, kind):
+        return None if buf is None else logical_sharding(tuple(buf.shape), *names[kind])
+
+    return LMCache(pos=None, kv_k=shard_of(cache.kv_k, "kv"), kv_v=shard_of(cache.kv_v, "kv"),
+                   ssm_state=shard_of(cache.ssm_state, "ssm"), conv=shard_of(cache.conv, "conv"))
+
+
 def init_attn_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     p = {
         "norm1": init_norm(generator, cfg.d_model, cfg.norm),
@@ -151,17 +183,62 @@ def init_attn_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     return p
 
 
+def _tp_attention(p: Params, acfg: AttentionConfig, plan):
+    """(params, config) of the rank's heads: its columns of wq / wk / wv and
+    rows of wo are its blocks already; a replicated bias is cut to them.
+    None where the attention is not split (its heads do not divide the
+    model axis)."""
+    H_loc = p["wq"]["w"].shape[-1] // acfg.d_head
+    if H_loc == acfg.n_heads:
+        return None
+    K_loc = p["wk"]["w"].shape[-1] // acfg.d_head
+    if K_loc == acfg.n_kv_heads:
+        raise NotImplementedError(f"query heads split over the model axis with all "
+                                  f"{acfg.n_kv_heads} kv heads whole")
+    out = {}
+    for name, sub in p.items():
+        out[name] = dict(sub)
+        if "b" in sub and name != "wo":
+            out[name]["b"] = plan.split(sub["b"], dim=-1)
+    return out, dataclasses.replace(acfg, n_heads=H_loc, n_kv_heads=K_loc)
+
+
+def _tp_mlp(p: Params, x: torch.Tensor, act: str, plan) -> torch.Tensor:
+    """The MLP on the rank's slice of d_ff (column-parallel in, row-parallel
+    out, the partial sums added over ``model``)."""
+    dt = x.dtype
+    x = plan.enter(x)
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return plan.exit(h @ p["w_down"].to(dt))
+    h = F.gelu(x @ p["w_up"].to(dt) + plan.split(p["b_up"], -1).to(dt), approximate="tanh")
+    return plan.exit(h @ p["w_down"].to(dt)) + p["b_down"].to(dt)
+
+
 def attn_block(p: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
-               kv: Optional[KVCache] = None) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    h, kv = attention(p["attn"], norm(p["norm1"], x, cfg.norm), attn_config(cfg),
-                      cos=cos, sin=sin, cache=kv)
+               kv: Optional[KVCache] = None, plan=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """One attention block; ``plan``: its params are this rank's (gathered)
+    blocks under that ``ShardPlan``."""
+    acfg = attn_config(cfg)
+    h = norm(p["norm1"], x, cfg.norm)
+    split = _tp_attention(p["attn"], acfg, plan) if plan is not None else None
+    if split is None:
+        h, kv = attention(p["attn"], h, acfg, cos=cos, sin=sin, cache=kv)
+    else:
+        h, kv = attention(split[0], plan.enter(h), split[1], cos=cos, sin=sin, cache=kv)
+        h = plan.exit(h)
     x = x + h
     h2 = norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
         B, S, D = h2.shape
         mcfg = moe_config(cfg)
-        fn = moe_dense_ffn if mcfg.impl == "dense" else moe_ffn_ep
-        y = fn(p["moe"], h2.reshape(B * S, D), mcfg).reshape(B, S, D)
+        if mcfg.impl == "dense":
+            y = moe_dense_ffn(p["moe"], h2.reshape(B * S, D), mcfg)
+        else:
+            y = moe_ffn_ep(p["moe"], h2.reshape(B * S, D), mcfg, plan=plan)
+        y = y.reshape(B, S, D)
+    elif plan is not None and p["mlp"]["w_down"].shape[-2] != cfg.d_ff:
+        y = _tp_mlp(p["mlp"], h2, cfg.act, plan)
     else:
         y = mlp(p["mlp"], h2, cfg.act)
     return x + y, kv
@@ -222,12 +299,24 @@ def _table_config(cfg: LMConfig) -> emb_lib.EmbeddingConfig:
 
 
 def init_lm(generator: torch.Generator, cfg: LMConfig,
-            codes: Optional[torch.Tensor] = None, aux=None) -> Params:
+            codes: Optional[torch.Tensor] = None, aux=None, keep=None) -> Params:
     """``codes``: packed vocabulary codes (from the co-occurrence pass and
     Algorithm 1); ``aux``: the auxiliary matrix to encode from.  With
     neither, random codes (ALONE), as in the JAX package.  Codes with fewer
     rows than the table (the audio family's one vocabulary for its
-    codebooks) are tiled to it."""
+    codebooks) are tiled to it.  ``keep(path, tensor, stacked)``: the part
+    of each drawn leaf to store (a rank's block; ``stacked`` for one layer
+    of a stacked leaf): every leaf is drawn whole from ``generator``, in
+    the one-rank order, and only that part kept."""
+    if keep is None:
+        keep = lambda _, t, stacked: t     # noqa: E731
+
+    def top(prefix):
+        return lambda path, t: keep(prefix + path, t, False)
+
+    def layer(prefix, draw, stacked=True):
+        """One layer drawn whole, each leaf cut by ``keep``."""
+        return lambda: map_tree(lambda path, t: keep(prefix + path, t, stacked), draw())
     ecfg, tcfg = cfg.embedding_config(), _table_config(cfg)
     if ecfg.needs_codes and codes is None and aux is None:
         codes = lsh.encode_random(generator, ecfg.n_entities, ecfg.c, ecfg.m)
@@ -235,22 +324,29 @@ def init_lm(generator: torch.Generator, cfg: LMConfig,
         reps = -(-tcfg.n_entities // codes.shape[0])
         codes = codes.repeat(reps, 1)[:tcfg.n_entities]
     params: Params = {
-        "embed": emb_lib.init_embedding(generator, tcfg, codes=codes, aux=aux),
-        "final_norm": init_norm(generator, cfg.d_model, cfg.norm),
-        "head": dense_init(generator, (cfg.d_model, cfg.vocab_padded * _n_streams(cfg))),
+        "embed": map_tree(top(("embed",)),
+                          emb_lib.init_embedding(generator, tcfg, codes=codes, aux=aux)),
+        "final_norm": map_tree(top(("final_norm",)),
+                               init_norm(generator, cfg.d_model, cfg.norm)),
+        "head": keep(("head",), dense_init(
+            generator, (cfg.d_model, cfg.vocab_padded * _n_streams(cfg))), False),
     }
+    attn_layer = layer(("blocks",), lambda: init_attn_block(generator, cfg))
+    ssm_layer = layer(("blocks",), lambda: init_ssm_block(generator, cfg))
     if cfg.family in ATTN_FAMILIES:
-        params["blocks"] = _init_stacked(cfg.n_layers, lambda: init_attn_block(generator, cfg))
+        params["blocks"] = _init_stacked(cfg.n_layers, attn_layer)
     elif cfg.family == "ssm":
-        params["blocks"] = _init_stacked(cfg.n_layers, lambda: init_ssm_block(generator, cfg))
+        params["blocks"] = _init_stacked(cfg.n_layers, ssm_layer)
     elif cfg.family == "hybrid":
         groups, rem = divmod(cfg.n_layers, cfg.attn_every)
-        flat = _init_stacked(groups * cfg.attn_every, lambda: init_ssm_block(generator, cfg))
+        flat = _init_stacked(groups * cfg.attn_every,
+                             layer(("blocks",), lambda: init_ssm_block(generator, cfg), "hybrid"))
         params["blocks"] = map_tree(
             lambda _, t: t.view((groups, cfg.attn_every) + tuple(t.shape[1:])), flat)
-        params["shared"] = init_attn_block(generator, cfg)       # ONE shared block
+        params["shared"] = map_tree(top(("shared",)), init_attn_block(generator, cfg))
         if rem:
-            params["tail"] = _init_stacked(rem, lambda: init_ssm_block(generator, cfg))
+            params["tail"] = _init_stacked(
+                rem, layer(("tail",), lambda: init_ssm_block(generator, cfg)))
     else:
         raise ValueError(cfg.family)
     return params
@@ -264,19 +360,48 @@ def _sinusoidal_pe(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+def _vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor, dtype, plan) -> torch.Tensor:
+    """A dense table's rows when each model rank holds a slice of the
+    vocabulary: the rank's rows looked up, the others zero, the slices'
+    rows added over ``model``."""
+    from repro_torch.core.embedding import table_rows
+    rows = table.shape[0]
+    local = ids - plan.tp_index * rows
+    mine = (local >= 0) & (local < rows)
+    x = table_rows(table.to(dtype), local.clamp(0, rows - 1)) * mine[..., None].to(dtype)
+    return plan.exit(x)
+
+
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, plan=None) -> torch.Tensor:
     """Decode in f32 (the backend's sum), MLP tail and output in the compute
     dtype.  Audio ids (B, S, nq) are offset by ``codebook * vocab_padded``,
     looked up in one call and summed over the codebooks."""
     dtype = torch_dtype(cfg.compute_dtype)
+    if plan is not None:
+        params = {"embed": plan.view_tree(params["embed"], plan.specs["embed"])}
+        table = params["embed"].get("table")
+        if table is not None and table.shape[0] != _table_config(cfg).n_entities:
+            if cfg.input_mode == "audio_tokens":
+                raise NotImplementedError("a vocab-parallel table for audio tokens")
+            x = _vocab_parallel_lookup(table, tokens, torch_dtype(cfg.embedding_config()
+                                                                  .compute_dtype), plan)
+            return _add_positions(x.to(dtype), cfg, positions, dtype)
+        # each rank decodes its own tokens: outside the mesh, which the
+        # GNN's frontier decode backends would read as one stacked frontier
+        from repro_torch.parallel.sharding import use_sharding
+        with use_sharding(None):
+            return _embed_tokens(params, tokens, cfg, positions)
     if cfg.input_mode == "audio_tokens":
         nq = tokens.shape[2]
         offsets = torch.arange(nq, dtype=tokens.dtype, device=tokens.device) * cfg.vocab_padded
         x = emb_lib.embed_lookup(params["embed"], tokens + offsets, _table_config(cfg)).sum(dim=2)
     else:
         x = emb_lib.embed_lookup(params["embed"], tokens, cfg.embedding_config())
-    x = x.to(dtype)
+    return _add_positions(x.to(dtype), cfg, positions, dtype)
+
+
+def _add_positions(x, cfg: LMConfig, positions, dtype):
     if cfg.rope_variant == "none":
         pos = positions if positions.dim() == 2 else positions[0]
         x = x + _sinusoidal_pe(pos, cfg.d_model, dtype)
@@ -299,22 +424,30 @@ def _layer(fn, cfg: LMConfig, *args):
     return fn(*args)
 
 
-def _attn_layer(lp, x, cfg, cos, sin):
-    return attn_block(lp, x, cfg, cos, sin)[0]
+def _viewed(lp, plan, lspec):
+    """A layer's params as it computes with them: under a plan, its blocks
+    gathered on their FSDP dim (inside the checkpoint, so the recompute
+    gathers them again rather than keeping them)."""
+    return lp if plan is None else plan.view_tree(lp, lspec)
 
 
-def _ssm_layer(lp, x, cfg):
-    return ssm_block(lp, x, cfg)[0]
+def _attn_layer(lp, x, cfg, cos, sin, plan=None, lspec=None):
+    return attn_block(_viewed(lp, plan, lspec), x, cfg, cos, sin, plan=plan)[0]
 
 
-def _hybrid_group(gp, shared, x, cfg, cos, sin):
+def _ssm_layer(lp, x, cfg, plan=None, lspec=None):
+    return ssm_block(_viewed(lp, plan, lspec), x, cfg)[0]
+
+
+def _hybrid_group(gp, shared, x, cfg, cos, sin, plan=None, gspec=None, sspec=None):
     """One hybrid group without a cache: its mamba layers (each
     checkpointed under ``cfg.remat``: the group's checkpoint alone would
     keep all its layers' SSD internals live in its backward), then the
     shared block."""
+    lspec = layer_specs(gspec) if plan is not None else None
     for lp in _unstack(gp, cfg.attn_every):
-        x = _layer(_ssm_layer, cfg, lp, x, cfg)
-    return attn_block(shared, x, cfg, cos, sin)[0]
+        x = _layer(_ssm_layer, cfg, lp, x, cfg, plan, lspec)
+    return attn_block(_viewed(shared, plan, sspec), x, cfg, cos, sin, plan=plan)[0]
 
 
 def _ssm_layers_cached(layers, x, cfg, cache: LMCache, first: int):
@@ -327,12 +460,18 @@ def _ssm_layers_cached(layers, x, cfg, cache: LMCache, first: int):
 
 
 def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
-            cache: Optional[LMCache]) -> torch.Tensor:
-    """The family's layer stack; with a cache, its buffers are written."""
+            cache: Optional[LMCache], plan=None) -> torch.Tensor:
+    """The family's layer stack; with a cache, its buffers are written.
+    ``plan``: the params are this rank's blocks (training only)."""
+    specs, lspec = {}, None
+    if plan is not None:
+        if cache is not None:
+            raise NotImplementedError("decoding with a cache across ranks")
+        specs, lspec = plan.specs, layer_specs(plan.specs["blocks"])
     if cfg.family in ATTN_FAMILIES:
         for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             if cache is None:
-                x = _layer(_attn_layer, cfg, lp, x, cfg, cos, sin)
+                x = _layer(_attn_layer, cfg, lp, x, cfg, cos, sin, plan, lspec)
             else:
                 x, _ = attn_block(lp, x, cfg, cos, sin,
                                   kv=KVCache(cache.kv_k[i], cache.kv_v[i], cache.pos))
@@ -340,7 +479,7 @@ def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
         layers = _unstack(params["blocks"], cfg.n_layers)
         if cache is None:
             for lp in layers:
-                x = _layer(_ssm_layer, cfg, lp, x, cfg)
+                x = _layer(_ssm_layer, cfg, lp, x, cfg, plan, lspec)
         else:
             x = _ssm_layers_cached(layers, x, cfg, cache, 0)
     else:                                   # hybrid
@@ -349,7 +488,8 @@ def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
         shared = params["shared"]
         for g, gp in enumerate(_unstack(params["blocks"], groups)):
             if cache is None:
-                x = _layer(_hybrid_group, cfg, gp, shared, x, cfg, cos, sin)
+                x = _layer(_hybrid_group, cfg, gp, shared, x, cfg, cos, sin, plan,
+                           lspec, specs.get("shared"))
             else:
                 x = _ssm_layers_cached(_unstack(gp, every), x, cfg, cache, g * every)
                 x, _ = attn_block(shared, x, cfg, cos, sin,
@@ -357,8 +497,9 @@ def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
         if rem:
             tail = _unstack(params["tail"], rem)
             if cache is None:
+                tspec = layer_specs(specs["tail"]) if plan is not None else None
                 for lp in tail:
-                    x = _layer(_ssm_layer, cfg, lp, x, cfg)
+                    x = _layer(_ssm_layer, cfg, lp, x, cfg, plan, tspec)
             else:
                 x = _ssm_layers_cached(tail, x, cfg, cache, groups * every)
     return x
@@ -366,7 +507,7 @@ def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
 
 def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                cache: Optional[LMCache] = None, positions: Optional[torch.Tensor] = None,
-               return_hidden: bool = False) -> Tuple[torch.Tensor, Optional[LMCache]]:
+               return_hidden: bool = False, plan=None) -> Tuple[torch.Tensor, Optional[LMCache]]:
     """tokens (B, S) int, audio (B, S, nq) -> (logits (B, S, Vpad) f32,
     audio (B, S, nq, Vpad); cache).
 
@@ -374,25 +515,44 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
     cache: decode or chunked prefill at ``cache.pos``; the cache's buffers
     are written in place and the returned cache has ``pos`` advanced by S.
     ``return_hidden``: the final-norm hidden states (B, S, D) in place of
-    the logits."""
+    the logits.  ``plan``: ``params`` are this rank's blocks and ``tokens``
+    its rows (a ``parallel.tensor.ShardPlan``; no cache)."""
     B, S = tokens.shape[:2]
     offset = cache.pos if cache is not None else 0
     if positions is None:
         positions = default_positions(B, S, cfg.rope_variant, tokens.device) + offset
     cos, sin = _rope(cfg, positions)
     with stage("embed"):
-        x = _embed_tokens(params, tokens, cfg, positions)
+        x = _embed_tokens(params, tokens, cfg, positions, plan)
     with stage("blocks"):
-        x = _blocks(params, x, cfg, cos, sin, cache)
+        x = _blocks(params, x, cfg, cos, sin, cache, plan)
     new_cache = None if cache is None else dataclasses.replace(cache, pos=cache.pos + S)
     with stage("head"):
-        x = norm(params["final_norm"], x, cfg.norm)
+        final_norm = params["final_norm"]
+        if plan is not None:
+            final_norm = plan.view_tree(final_norm, plan.specs["final_norm"])
+        x = norm(final_norm, x, cfg.norm)
         if return_hidden:
             return x, new_cache
-        logits = (x @ params["head"].to(x.dtype)).float()
+        head = _head(params, cfg, plan, x.dtype)
+        if head.shape[1] != _head_cols(cfg):
+            raise NotImplementedError("logits of a vocab-parallel head: lm_loss takes them")
+        logits = (x @ head.to(x.dtype)).float()
         if cfg.input_mode == "audio_tokens":
             logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
     return logits, new_cache
+
+
+def _head_cols(cfg: LMConfig) -> int:
+    return cfg.vocab_padded * _n_streams(cfg)
+
+
+def _head(params: Params, cfg: LMConfig, plan, dtype) -> torch.Tensor:
+    """The head as the rank computes with it (its vocabulary slice under a
+    vocab-parallel plan)."""
+    if plan is None:
+        return params["head"]
+    return plan.view(params["head"], plan.specs["head"], dtype)
 
 
 def _ce_chunk(xf: torch.Tensor, head_c: torch.Tensor, lab: torch.Tensor,
@@ -437,13 +597,106 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return (m + torch.log(s_sum) - gold).mean()
 
 
+def _vocab_parallel_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                       cfg: LMConfig, plan) -> torch.Tensor:
+    """Cross-entropy when each model rank holds a slice of the head's
+    columns: each rank folds its slice (in ``loss_vocab_chunk`` columns
+    where they divide it, each chunk checkpointed) into a running max, sum
+    of exponentials and gold logit (zero off the label's owner), the model
+    ranks' three are stacked, and the log-sum-exp takes the max over them,
+    then the sum of their exponentials, in rank order."""
+    B, S, D = x.shape
+    T = B * S
+    xf = plan.enter(x.reshape(T, D))
+    lab = labels.reshape(T).to(torch.int64)
+    cols = head.shape[1]
+    chunk = cfg.loss_vocab_chunk if cfg.loss_vocab_chunk and cols % cfg.loss_vocab_chunk == 0 \
+        else cols
+    base = plan.tp_index * cols
+    m = torch.full((T,), NEG_INF, dtype=torch.float32, device=x.device)
+    s_sum = torch.zeros(T, dtype=torch.float32, device=x.device)
+    gold = torch.zeros(T, dtype=torch.float32, device=x.device)
+    for i, head_c in enumerate(head.split(chunk, dim=1)):
+        m, s_sum, gold = checkpoint(_ce_chunk, xf, head_c, lab, m, s_sum, gold,
+                                    base + i * chunk, cfg.vocab_size, use_reentrant=False)
+    st = plan.stack(torch.stack([m, s_sum, gold]))            # (model ranks, 3, T)
+    top = st[:, 0].amax(dim=0).detach()
+    total = ordered_sum([r[1] * torch.exp(r[0] - top) for r in st.unbind(0)])
+    gold_all = ordered_sum([r[2] for r in st.unbind(0)])
+    return (top + torch.log(total) - gold_all).mean()
+
+
+def _check_ssm_ranks(cfg: LMConfig, plan) -> None:
+    """The SSM layers' heads are not split across ranks yet (ROADMAP A.21):
+    refuse rules that bind them to an axis of more than one rank."""
+    if not _n_ssm_layers(cfg):
+        return
+    from repro_torch.parallel.sharding import _axes_tuple, current_rules
+    rules = plan.rules if plan.rules is not None else current_rules()
+    for name in ("ssm_heads", "ssm_inner"):
+        axes = tuple(a for a in _axes_tuple(rules.resolve(name)) if a in plan.mesh.shape)
+        if plan.mesh.axes_size(axes) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the rules bind {name!r} to {axes} of {plan.mesh.axes_size(axes)} "
+                f"ranks; tensor parallelism over the SSM heads is ROADMAP A.21 (train the "
+                f"ssm and hybrid families across ranks under Strategy(dp_over_model=True))")
+
+
+def _sharded_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig,
+                  plan) -> torch.Tensor:
+    """This rank's share of the global loss: the mean over its tokens over
+    the number of batch shards (each rank's share is its tokens' sum over
+    the global token count)."""
+    _check_ssm_ranks(cfg, plan)
+    x, _ = lm_forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
+                      return_hidden=True, plan=plan)
+    head = _head(params, cfg, plan, x.dtype)
+    with stage("loss"):
+        if head.shape[1] != _head_cols(cfg):
+            if cfg.input_mode == "audio_tokens":
+                raise NotImplementedError("a vocab-parallel head for audio tokens")
+            loss = _vocab_parallel_ce(x, head, batch["labels"], cfg, plan)
+        else:
+            loss = _loss_from_hidden(x, head, batch["labels"], cfg)
+        return loss / torch.tensor(float(plan.dp), device=loss.device)
+
+
+def _loss_from_hidden(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                      cfg: LMConfig) -> torch.Tensor:
+    if _chunked(cfg):
+        return _chunked_ce(x, head, labels, cfg)
+    B, S = x.shape[:2]
+    logits = (x @ head.to(x.dtype)).float()
+    if cfg.input_mode == "audio_tokens":
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
+    return _plain_ce(logits, labels, cfg)
+
+
+def _chunked(cfg: LMConfig) -> bool:
+    return bool(cfg.loss_vocab_chunk and cfg.input_mode != "audio_tokens"
+                and cfg.vocab_padded % cfg.loss_vocab_chunk == 0)
+
+
+def _plain_ce(logits: torch.Tensor, labels: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    if cfg.vocab_size != cfg.vocab_padded:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig) -> torch.Tensor:
     """Next-token cross-entropy; the vocabulary padding is masked out of the
     softmax at -1e30 (for audio, in every codebook).  With
     ``loss_vocab_chunk`` dividing the padded vocabulary, the chunked form
-    (``_chunked_ce``); never for audio, as in JAX."""
-    if cfg.loss_vocab_chunk and cfg.input_mode != "audio_tokens" \
-            and cfg.vocab_padded % cfg.loss_vocab_chunk == 0:
+    (``_chunked_ce``); never for audio, as in JAX.  Under an active
+    ``ShardPlan`` (``parallel.tensor.use_plan``), this rank's share of the
+    global loss over its blocks and rows."""
+    plan = active_plan()
+    if plan is not None:
+        return _sharded_loss(params, batch, cfg, plan)
+    if _chunked(cfg):
         x, _ = lm_forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
                           return_hidden=True)
         with stage("loss"):
@@ -451,9 +704,4 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig) -> to
     logits, _ = lm_forward(params, batch["tokens"], cfg,
                            positions=batch.get("positions"))
     with stage("loss"):
-        if cfg.vocab_size != cfg.vocab_padded:
-            pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, NEG_INF)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, batch["labels"].to(torch.int64)[..., None])[..., 0]
-        return (logz - gold).mean()
+        return _plain_ce(logits, batch["labels"], cfg)

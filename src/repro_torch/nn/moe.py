@@ -23,8 +23,22 @@ Three entry points:
   * ``moe_dense_ffn``  every expert on every token, the router weights
     zeroing the ones not chosen (granite's training profile: fine-grained
     experts too small to win from the sort);
-  * ``moe_ffn_ep``     ``moe_ffn`` without a mesh, as the JAX package's is;
-    its expert-parallel branch comes with the LM across ranks.
+  * ``moe_ffn_ep``     expert parallelism under a ``ShardPlan`` whose model
+    axis splits the experts: each model rank runs only the assignments
+    routed to its experts, at most ``cap_e`` rows an expert (GShard-style
+    dropping, the capacity counted against the rank's own rows), and the
+    ranks' partial outputs are added over ``model`` in rank order; without
+    such a plan, ``moe_ffn``, as the JAX package's is without a mesh.
+    ``moe_ffn_ep_reference`` is its plain one-process version: the same
+    partials for every data and expert shard, added in rank order.
+
+Each expert's window of the rows sorted by local expert is ``cap_e`` rows
+from the expert's first row, its start clamped to ``T*k - cap_e`` as
+``jax.lax.dynamic_slice`` clamps it: a late expert's window shifts left,
+the rows in it that belong to another expert are masked, and an expert's
+rows past ``cap_e`` are dropped, as in JAX.  The masked rows are read from
+and added to a zero row past the tokens, so every other row of the output
+is added to once an expert, and two runs give the same bits.
 
 The padded experts (``n_experts_padded``) carry weights, so both packages'
 params have one shape, but their router logits are masked to -1e30 and no
@@ -39,9 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.module import Params, dense_init
-from repro_torch.parallel.sharding import data_axis_size
-
-EP_ITEM = "the LM across ranks (ROADMAP A.18)"
+from repro_torch.parallel.tensor import ordered_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +162,9 @@ def moe_dense_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tens
     tensor held, as in the JAX version's ``"tef,te,efd->td"``: it is
     weighted first, then one (T, E*F) x (E*F, D) product sums the experts."""
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+    if params["w_up"].shape[0] != cfg.e_pad:
+        raise NotImplementedError("dense-dispatch MoE over a rank's experts: it runs with "
+                                  "all experts (Strategy(dp_over_model=True))")
     dt = x.dtype
     T = x.shape[0]
     w, idx = router_probs(params, x, cfg)
@@ -166,10 +181,88 @@ def moe_dense_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tens
     return h @ params["w_down"][:E].to(dt).reshape(E * Fd, D)
 
 
-def moe_ffn_ep(params: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """Expert-parallel MoE.  Without an active mesh of more than one rank it
-    is ``moe_ffn``, as the JAX package's is without a mesh; across ranks it
-    raises until the LM's sharding rules are ported."""
-    if data_axis_size() == 1:
+def _dense_expert_ffn(xs: torch.Tensor, wg_e, wu_e, wd_e, cfg: MoEConfig) -> torch.Tensor:
+    """One expert's FFN over its capacity window (rows, D)."""
+    return _expert_ffn(xs, wg_e, wu_e, wd_e, cfg.act)
+
+
+def ep_capacity(t_local: int, cfg: MoEConfig, e_local: int) -> int:
+    """A shard's capacity against its own ``t_local`` rows: its experts'
+    share of the rank's ``t_local * top_k`` assignments times the capacity
+    factor, plus one, at most all of them (the JAX package's formula)."""
+    rows_local = t_local * cfg.top_k
+    capacity = int(rows_local * e_local / cfg.e_pad * cfg.capacity_factor) + 1
+    return min(capacity, rows_local)
+
+
+def _ep_local_ffn(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, params_local: Params,
+                  cfg: MoEConfig, e_local: int, capacity: int, shard: int) -> torch.Tensor:
+    """One EP shard's partial output (T, D): experts [shard * e_local, (shard
+    + 1) * e_local), each one dense product over its window of ``cap_e =
+    capacity // e_local`` rows."""
+    T, D = x.shape
+    k = cfg.top_k
+    n = T * k
+    dev = x.device
+    e_flat = idx.reshape(-1) - shard * e_local                 # local ids
+    t_flat = torch.arange(T, device=dev).repeat_interleave(k)
+    w_flat = w.reshape(-1)
+    local = (e_flat >= 0) & (e_flat < e_local)
+    e_key = torch.where(local, e_flat, torch.full_like(e_flat, e_local))
+    order = torch.argsort(e_key, stable=True)
+    e_s, t_s = e_key[order], t_flat[order]
+    w_s = torch.where(e_s < e_local, w_flat[order], torch.zeros_like(w_flat))
+    cap_e = max(1, capacity // e_local)
+    sizes = torch.bincount(e_s, minlength=e_local + 1)
+    starts = torch.clamp(torch.cumsum(sizes, 0) - sizes, max=n - cap_e)[:e_local]
+    win = starts[:, None] + torch.arange(cap_e, device=dev)[None, :]   # (e_local, cap_e)
+    rows_t, rows_w, rows_e = t_s[win], w_s[win], e_s[win]
+    valid = rows_e == torch.arange(e_local, device=dev)[:, None]
+    rows = torch.where(valid, rows_t, torch.full_like(rows_t, T))     # masked: the zero row
+    weight = rows_w * valid.to(rows_w.dtype)
+    x_pad = torch.cat([x, x.new_zeros(1, D)])
+    wg = params_local["w_gate"].unbind(0) if cfg.act == "swiglu" else [None] * e_local
+    wu, wd = params_local["w_up"].unbind(0), params_local["w_down"].unbind(0)
+    out = x.new_zeros(T + 1, D)
+    for e in range(e_local):
+        ys = _dense_expert_ffn(x_pad.index_select(0, rows[e]), wg[e], wu[e], wd[e], cfg)
+        out = out.index_add(0, rows[e], ys * weight[e][:, None])
+    return out[:T]
+
+
+def moe_ffn_ep(params: Params, x: torch.Tensor, cfg: MoEConfig, plan=None) -> torch.Tensor:
+    """Expert-parallel MoE.  ``moe_ffn`` without a plan or where the model
+    axis does not split the experts (``params`` hold all ``e_pad``); else
+    ``params`` hold this rank's experts (their FSDP dim gathered), ``x``
+    this rank's rows: the router runs on every model rank, each rank runs
+    its experts on the rows routed to them, and the partial outputs are
+    added over ``model``."""
+    e_local = params["w_up"].shape[0]
+    if plan is None or e_local == cfg.e_pad:
         return moe_ffn(params, x, cfg)
-    raise NotImplementedError(f"expert-parallel MoE comes with {EP_ITEM}")
+    w, idx = router_probs(params, x, cfg)
+    capacity = ep_capacity(x.shape[0], cfg, e_local)
+    out = _ep_local_ffn(plan.enter(x), plan.enter(w), idx, params, cfg, e_local,
+                        capacity, plan.tp_index)
+    return plan.exit(out)
+
+
+def moe_ffn_ep_reference(params: Params, x: torch.Tensor, cfg: MoEConfig, ep: int,
+                         data_shards: int) -> torch.Tensor:
+    """``moe_ffn_ep``'s plain one-process version: ``x`` (T, D) split in
+    ``data_shards`` blocks of rows, each routed on its own, each block's
+    partial outputs of the ``ep`` expert shards added in rank order, the
+    blocks concatenated.  ``params`` hold all experts."""
+    T = x.shape[0]
+    t_local = T // data_shards
+    e_local = cfg.e_pad // ep
+    capacity = ep_capacity(t_local, cfg, e_local)
+    outs = []
+    for d in range(data_shards):
+        xd = x[d * t_local:(d + 1) * t_local]
+        w, idx = router_probs(params, xd, cfg)
+        parts = [_ep_local_ffn(xd, w, idx, {name: params[name][s * e_local:(s + 1) * e_local]
+                                            for name in ("w_gate", "w_up", "w_down")},
+                               cfg, e_local, capacity, s) for s in range(ep)]
+        outs.append(ordered_sum(parts))
+    return torch.cat(outs)

@@ -82,9 +82,12 @@ def _update_part(p, g, mu, nu, scale, cfg: AdamWConfig, lr: float, b1t: float, b
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale: float = 1.0):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale: float = 1.0,
+                 grad_norm=None):
     """Returns (params, state), both updated in place.  ``grads`` has the
-    params' structure; its entries for masked leaves are ignored."""
+    params' structure; its entries for masked leaves are ignored.
+    ``grad_norm(grads)``: the clip's global norm (across ranks, the blocks'
+    ``ShardPlan.grad_norm``); ``global_norm`` of the leaves by default."""
     step = state["step"] + 1
     lr = cfg.lr * lr_scale
     trainable = [(path, p) for path, p in leaves_with_path(params) if is_trainable(path, p)]
@@ -96,7 +99,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale: float = 1.0):
 
     gs = [at(grads, path) for path, _ in trainable]
     if cfg.clip_norm is not None:
-        gn = global_norm(gs)
+        gn = global_norm(gs) if grad_norm is None else grad_norm(grads)
         scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     else:
         scale = None

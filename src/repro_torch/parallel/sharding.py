@@ -26,8 +26,24 @@ in CRC-checked chunks (``elastic``'s state handed to ranks that join).
 ``spawn`` starts N ranks of a function in fresh processes (``spawn`` start
 method, ``file://`` rendezvous: no TCP port to collide on) and returns their
 results in rank order; ``init_from_env`` joins the group ``torchrun``
-describes in the environment.  The LM's logical-axis rules are not here
-(ROADMAP A.18).
+describes in the environment.
+
+The LM's logical-axis layer (counterpart of the rest of the JAX module):
+model code names a tensor's dims with *logical* axes (``logical(x,
+"batch", "seq", "embed")``) and the active ``ShardingRules`` maps each
+logical name to mesh axes.  ``_spec_for`` turns that into a spec: one entry
+a dim, ``None``, an axis name or a tuple of names, as a JAX
+``PartitionSpec`` holds them; an axis binds only where the product of its
+sizes divides the dim (leading axes are shed until it does), and never
+twice in one spec.  The mesh comes in two parts: a ``MeshSpec`` holds the
+axis names and sizes (all the policy and the memory model need, at 256 or
+512 "ranks"), and a ``Mesh`` is one rank's live view of it, with its
+coordinates and one process group per line of every set of axes (ranks
+are row-major over the axes, the last fastest, as ``jax.make_mesh`` lays
+out devices).  Every rank builds the same groups in the same order, as
+``torch.distributed`` requires.  ``DataMesh`` is the 1-axis ``Mesh`` of the
+GNN's ranks over a group it is given: the same collectives and the same
+``stats`` keys.
 """
 
 from __future__ import annotations
@@ -35,13 +51,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import itertools
 import os
 import queue
 import tempfile
 import threading
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -49,87 +66,388 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 
 
-@dataclasses.dataclass(frozen=True)
-class DataMesh:
-    """One rank's view of an N-rank data-parallel group.  ``group`` None is
-    the default process group.  ``stats`` counts what this rank received
-    from the others, by collective (bytes and calls)."""
+MeshAxes = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[MeshAxes, ...]
 
-    rank: int
-    size: int
-    device: torch.device
-    group: Any = None
-    stats: Dict[str, int] = dataclasses.field(default_factory=dict, compare=False)
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    rules: Dict[str, MeshAxes]
+
+    def resolve(self, name: Optional[str]) -> MeshAxes:
+        if name is None:
+            return None
+        return self.rules.get(name)
+
+
+# DP over (pod, data); TP/EP over model; SP (long-context cache) over data.
+DEFAULT_RULES = ShardingRules(rules={
+    "batch": ("pod", "data"),
+    "batch_nopod": "data",
+    "seq": None,
+    "kv_seq": None,        # "data" for long-context decode (SP)
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "d_ff": "model",
+    "experts": "model",
+    "expert_ff": None,
+    "vocab": "model",
+    "ssm_heads": "model",
+    "ssm_inner": "model",   # d_inner sharded on SSD-head boundaries
+    "ssm_state": None,
+    "fsdp": "data",        # parameter / optimizer-state sharding axis (ZeRO)
+    "codebook": None,      # hash-decoder codebooks: replicated (small)
+    "entities": None,      # packed code rows
+    "frontier": "data",    # unique-node decode frontier: data-parallel rows
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Axis names and sizes of a mesh, nothing live: ``shape`` maps each
+    name to its size in axis order, as a JAX mesh's ``shape`` does."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """A rank's coordinate on each axis (row-major, the last axis fastest)."""
+        out = {}
+        for name, size in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = rank % size
+            rank //= size
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        rank = 0
+        for name, size in zip(self.axis_names, self.sizes):
+            rank = rank * size + coords[name]
+        return rank
+
+    def line(self, rank: int, axes: Sequence[str]) -> List[int]:
+        """The ranks that share ``rank``'s coordinates off ``axes``, in rank
+        order (row-major over ``axes`` in mesh order)."""
+        axes = [a for a in self.axis_names if a in axes]
+        base = self.coords(rank)
+        out = []
+        for combo in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(base)
+            c.update(zip(axes, combo))
+            out.append(self.rank_of(c))
+        return out
+
+
+def _axes_tuple(axes: MeshAxes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """One rank's view of a ``MeshSpec`` over the initialised process group:
+    its coordinates, its device, and a process group for the line through
+    it of every non-empty set of axes (``group``: the whole mesh's, None
+    for the default group).  Every rank constructs it at the same point:
+    ``dist.new_group`` runs for every line of every set, in one order, on
+    every rank.  ``stats`` counts the bytes this rank receives, keyed
+    ``"<axes>/<collective>"`` (``"data/all_gather"``), and the calls under
+    ``..._calls``."""
+
+    def __init__(self, spec: MeshSpec, device=None):
+        if not distributed():
+            if spec.size != 1:
+                raise ValueError(f"a {spec.shape} mesh needs {spec.size} ranks of an "
+                                 f"initialised process group; none is initialised")
+            world, me = 1, 0
+        else:
+            world, me = dist.get_world_size(), dist.get_rank()
+        if world != spec.size:
+            raise ValueError(f"a {spec.shape} mesh needs {spec.size} ranks; the process "
+                             f"group has {world}")
+        self.spec = spec
+        self.rank = me
+        self.device = rank_device(me, device)
+        self.stats: Dict[str, int] = {}
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        names = spec.axis_names
+        for k in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, k):
+                mine = None
+                for line in self._lines(axes):
+                    if len(line) == 1 or len(line) == world:
+                        group = None          # trivial, or the default group
+                    else:
+                        group = dist.new_group(line)
+                    if me in line:
+                        mine = (group, line)
+                self._groups[axes] = mine
+        self.group = self._groups[names][0]
+
+    def _lines(self, axes) -> List[List[int]]:
+        seen, out = set(), []
+        for r in range(self.spec.size):
+            line = self.spec.line(r, axes)
+            if line[0] not in seen:
+                seen.add(line[0])
+                out.append(line)
+        return out
+
+    def on(self, device) -> "Mesh":
+        """The same mesh (rank, groups, ``stats``) with its tensors on
+        ``device`` (gloo moves CPU and CUDA tensors alike)."""
+        other = object.__new__(type(self))
+        other.__dict__.update(self.__dict__)
+        other.device = torch.device(device)
+        return other
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return self.spec.shape
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.spec.axis_names
+
+    @property
+    def size(self) -> int:
+        return self.spec.size
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return self.spec.coords(self.rank)
+
+    def axes_size(self, axes: MeshAxes) -> int:
+        n = 1
+        for a in _axes_tuple(axes):
+            n *= self.shape.get(a, 1)
+        return n
+
+    def index(self, axes: MeshAxes) -> int:
+        """This rank's position on the line of ``axes`` (row-major)."""
+        i, c = 0, self.coords
+        for a in self.axis_names:
+            if a in _axes_tuple(axes):
+                i = i * self.shape[a] + c[a]
+        return i
+
+    def _line(self, axes: MeshAxes):
+        key = tuple(a for a in self.axis_names if a in _axes_tuple(axes))
+        return self._groups[key]
+
+    def _count(self, axes: MeshAxes, name: str, nbytes: int) -> None:
+        key = "+".join(a for a in self.axis_names if a in _axes_tuple(axes)) + "/" + name
+        self.stats[key] = self.stats.get(key, 0) + int(nbytes)
+        self.stats[key + "_calls"] = self.stats.get(key + "_calls", 0) + 1
 
     @property
     def backend(self) -> str:
-        return str(dist.get_backend(self.group))
+        return str(dist.get_backend(self.group)) if distributed() else "none"
 
-    def _count(self, name: str, nbytes: int) -> None:
-        self.stats[name + "_bytes"] = self.stats.get(name + "_bytes", 0) + int(nbytes)
-        self.stats[name + "_calls"] = self.stats.get(name + "_calls", 0) + 1
-
-    def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Every rank's ``x`` (equal shapes), in rank order."""
+    def all_gather(self, x: torch.Tensor, axes: MeshAxes,
+                   name: str = "all_gather") -> List[torch.Tensor]:
+        """Every rank's ``x`` on the line of ``axes`` (equal shapes), in line
+        order; ``name`` is the operation it serves in ``stats``."""
+        n = self.axes_size(axes)
+        if n == 1:
+            return [x]
+        group, _ = self._line(axes)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
-        self._count("all_gather", (self.size - 1) * x.numel() * x.element_size())
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        self._count(axes, name, (n - 1) * x.numel() * x.element_size())
         return parts
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """Tiled all-to-all along dim 0: ``x``'s ``size`` equal blocks go
-        to ranks 0..size-1, and the blocks received are concatenated in the
-        senders' rank order."""
-        if x.shape[0] % self.size:
-            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split over "
-                             f"{self.size} ranks")
+    def all_to_all(self, x: torch.Tensor, axes: MeshAxes,
+                   name: str = "all_to_all") -> torch.Tensor:
+        """Dim 0 of ``x`` in ``n`` equal blocks, block j to the line's rank
+        j; the blocks received, in the senders' order."""
+        n = self.axes_size(axes)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split over {n} ranks")
+        group, _ = self._line(axes)
         x = x.contiguous()
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
-        self._count("all_to_all", x.numel() * x.element_size() * (self.size - 1) // self.size)
+        dist.all_to_all_single(out, x, group=group)
+        self._count(axes, name, x.numel() * x.element_size() * (n - 1) // n)
+        return out
+
+    def shift(self, x: torch.Tensor, axes: MeshAxes, by: int = 1) -> torch.Tensor:
+        """``x`` moved ``by`` places along the line of ``axes``, cyclically:
+        line rank i sends to i + by and receives from i - by (one
+        ``all_to_all_single`` whose other blocks are empty)."""
+        n = self.axes_size(axes)
+        if n == 1 or by % n == 0:
+            return x
+        group, _ = self._line(axes)
+        i = self.index(axes)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        size = x.numel()
+        send = [size if j == (i + by) % n else 0 for j in range(n)]
+        recv = [size if j == (i - by) % n else 0 for j in range(n)]
+        dist.all_to_all_single(out.reshape(-1), x.reshape(-1), output_split_sizes=recv,
+                               input_split_sizes=send, group=group)
+        self._count(axes, "shift", size * x.element_size())
         return out
 
     def barrier(self) -> None:
+        if not distributed():
+            return
         if self.backend == "nccl":
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
             dist.barrier(group=self.group)
 
 
+class DataMesh(Mesh):
+    """One rank's view of an N-rank data-parallel group: the 1-axis
+    ``("data",)`` mesh over ``group`` (None: the default group), ``rank``
+    this process's rank in it.  Its collectives run over the data axis
+    unless told otherwise.  Built without a process group, it serves code
+    that reads only the rank and the size."""
+
+    def __init__(self, rank: int, size: int, device, group=None):
+        self.spec = MeshSpec((DATA_AXIS,), (int(size),))
+        self.rank = int(rank)
+        self.device = torch.device(device)
+        self.group = group
+        self.stats: Dict[str, int] = {}
+        self._groups = {(DATA_AXIS,): (group, list(range(int(size))))}
+
+    def all_gather(self, x: torch.Tensor, axes: MeshAxes = DATA_AXIS,
+                   name: str = "all_gather") -> List[torch.Tensor]:
+        return super().all_gather(x, axes, name)
+
+    def all_to_all(self, x: torch.Tensor, axes: MeshAxes = DATA_AXIS,
+                   name: str = "all_to_all") -> torch.Tensor:
+        return super().all_to_all(x, axes, name)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None) -> Mesh:
+    """The live mesh of ``shape`` over ``axes`` for this rank of the
+    initialised process group, which must hold ``prod(shape)`` ranks."""
+    return Mesh(MeshSpec(tuple(axes), tuple(int(s) for s in shape)), device=device)
+
+
 class _State(threading.local):
     def __init__(self):
-        self.mesh: Optional[DataMesh] = None
+        self.mesh = None
+        self.rules: ShardingRules = DEFAULT_RULES
 
 
 _STATE = _State()
 
 
 @contextlib.contextmanager
-def use_sharding(mesh: Optional[DataMesh]):
-    """Make ``mesh`` the active mesh of this thread for the code inside."""
-    prev = _STATE.mesh
+def use_sharding(mesh, rules: Optional[ShardingRules] = None):
+    """Make ``mesh`` (a ``DataMesh``, a ``Mesh`` or a ``MeshSpec``) and
+    ``rules`` the active ones of this thread for the code inside."""
+    prev = (_STATE.mesh, _STATE.rules)
     _STATE.mesh = mesh
+    _STATE.rules = rules or DEFAULT_RULES
     try:
         yield
     finally:
-        _STATE.mesh = prev
+        _STATE.mesh, _STATE.rules = prev
 
 
-def current_mesh() -> Optional[DataMesh]:
+def current_mesh():
     return _STATE.mesh
 
 
-def data_axis(mesh: DataMesh) -> str:
-    """The mesh axis carrying data-parallel rows (the port's meshes have
-    only ``"data"``)."""
-    return DATA_AXIS
+def current_rules() -> ShardingRules:
+    return _STATE.rules
 
 
-def data_axis_size(mesh: Optional[DataMesh] = None) -> int:
-    """Rank count of the given (or active) mesh; 1 without one."""
+def _spec_for(shape: Sequence[int], names: Sequence[Optional[str]]) -> Optional[Spec]:
+    """The spec of a tensor of ``shape`` whose dims are named ``names``
+    under the active mesh and rules; None without a mesh."""
+    mesh = _STATE.mesh
+    if mesh is None:
+        return None
+    rules = _STATE.rules
+    sizes = mesh.shape
+    parts = []
+    used: set = set()
+    for dim, name in zip(shape, names):
+        ax = tuple(a for a in _axes_tuple(rules.resolve(name))
+                   if a in sizes and a not in used)
+        # greedy fallback: drop leading axes until the product divides the dim
+        while ax:
+            size = 1
+            for a in ax:
+                size *= sizes[a]
+            if size > 1 and dim % size == 0:
+                break
+            ax = ax[1:]
+        if not ax:
+            parts.append(None)
+            continue
+        used.update(ax)
+        parts.append(ax[0] if len(ax) == 1 else ax)
+    return tuple(parts)
+
+
+def logical_sharding(shape: Sequence[int], *names: Optional[str]) -> Optional[Spec]:
+    """The spec of a logical shape, or None when no mesh is active."""
+    if len(names) != len(shape):
+        raise ValueError(f"{len(names)} names for rank-{len(shape)} shape")
+    return _spec_for(shape, names)
+
+
+def shard_shape(shape: Sequence[int], spec: Optional[Spec], mesh) -> Tuple[int, ...]:
+    """A rank's block of ``shape`` under ``spec``."""
+    if spec is None:
+        return tuple(shape)
+    sizes = mesh.shape
+    out = []
+    for dim, axes in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = 1
+        for a in _axes_tuple(axes):
+            n *= sizes[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+def logical(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """``x`` annotated with logical axis names: ``x`` itself.  Without a
+    mesh, as in JAX.  Under one, ``x`` is already this rank's block (each
+    rank holds what its spec says), so nothing moves here: the collectives
+    sit where blocks change hands, in ``parallel.tensor``.  The names must
+    match ``x``'s dims."""
+    if len(names) != x.dim():
+        raise ValueError(f"{len(names)} names for a rank-{x.dim()} tensor")
+    return x
+
+
+def data_axis(mesh) -> str:
+    """The mesh axis carrying data-parallel rows: ``"data"`` when present,
+    else the first axis."""
+    return DATA_AXIS if DATA_AXIS in mesh.shape else mesh.axis_names[0]
+
+
+def data_axis_size(mesh=None) -> int:
+    """Rank count of the data axis of the given (or active) mesh; 1 without
+    one."""
     mesh = mesh if mesh is not None else _STATE.mesh
-    return 1 if mesh is None else mesh.size
+    if mesh is None:
+        return 1
+    return mesh.shape[data_axis(mesh)]
 
 
 def all_to_all(x: torch.Tensor, mesh: Optional[DataMesh] = None) -> torch.Tensor:

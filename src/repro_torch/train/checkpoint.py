@@ -22,7 +22,13 @@ runtime spec), ``topology`` and the leaves' shapes and dtypes.
   * several ranks (``mesh=``, a ``parallel.sharding.DataMesh``): rank 0
     writes, since every rank holds the same state, and ``wait()`` returns
     on every rank only once rank 0's write is published, so every rank can
-    restore it.
+    restore it;
+  * a state held as blocks (the LM across ranks, ``mesh=`` a live
+    ``parallel.sharding.Mesh``): ``save_sharded`` gathers every leaf whole
+    on every rank (``policy.gather_tree``) and rank 0 writes it, so the
+    checkpoint is the one-rank layout; ``restore_sharded`` reads it on any
+    mesh and keeps each leaf's block under that mesh's specs (a restart on
+    another mesh).
 """
 
 from __future__ import annotations
@@ -140,6 +146,40 @@ class CheckpointManager:
             daemon=True)
         self._thread.start()
         return self._path(step)
+
+    def save_sharded(self, step: int, state: Any, specs: Any,
+                     extra: Optional[Dict] = None) -> str:
+        """Every rank calls it: ``state``'s blocks (``specs``, a
+        ``policy.state_shardings`` tree) gathered whole, then written by
+        rank 0."""
+        from repro_torch.parallel.policy import gather_tree
+        whole = dict(state)
+        whole["params"] = gather_tree(state["params"], specs["params"], self.mesh)
+        whole["opt"] = dict(state["opt"])
+        for m in ("mu", "nu"):
+            whole["opt"][m] = gather_tree(state["opt"][m], specs["opt"][m], self.mesh)
+        return self.save(step, whole, extra=extra)
+
+    def restore_sharded(self, step: int, template: Any, specs: Any) -> Tuple[Any, Dict]:
+        """(state, extra): ``template`` holds this rank's blocks under
+        ``specs`` on this manager's mesh (any mesh: the checkpoint holds
+        whole leaves); each leaf is read whole and its block kept."""
+        from repro_torch.parallel.policy import block_slices
+        path = self._path(step)
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        coords = self.mesh.coords
+        flat = {}
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            for key in z.files:
+                spec = specs
+                for k in key.split("/"):
+                    spec = spec.get(k) if isinstance(spec, dict) else None
+                arr = z[key]
+                if isinstance(spec, tuple) and any(spec):
+                    arr = arr[block_slices(arr.shape, spec, self.mesh, coords)]
+                flat[key] = arr
+        return _unflatten_into(template, flat), manifest["extra"]
 
     def _join(self):
         if self._thread is not None:

@@ -3,7 +3,13 @@
 ``make_train_step(cfg, hyper)`` (LM) returns ``train_step(state, batch) ->
 (state, metrics)``: f32 master params and Adam moments, activations in the
 config's compute dtype, optional global-norm clip, the LR schedule by step
-counter, and gradient accumulation over ``hyper.microbatches``.
+counter, and gradient accumulation over ``hyper.microbatches``.  With
+``mesh=`` (a live ``parallel.sharding.Mesh``) and ``strategy=`` it is one
+rank's step across ranks: the state holds this rank's blocks
+(``init_train_state(mesh=, strategy=)``, or ``policy.shard_tree``), the
+step cuts its rows out of the global batch, the loss is the global mean,
+the gradients are summed over the ranks that saw other rows, the clip's
+norm counts each block once, and AdamW steps the blocks.
 ``make_gnn_train_step(cfg, opt)`` is the node-classification step over
 ``GNNModel`` on a batch dict from an engine source (or the runtime's
 full-graph source); with a ``"cache"`` in
@@ -23,6 +29,7 @@ marked as stages for ``stages.StageTimer``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -48,11 +55,55 @@ class TrainHyper:
 
 
 def init_train_state(generator: torch.Generator, cfg: LMConfig, codes=None,
-                     aux=None, moments_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+                     aux=None, moments_dtype: torch.dtype = torch.float32,
+                     mesh=None, strategy=None) -> Dict[str, Any]:
     """``moments_dtype``: the AdamW moments' storage (bf16 in the JAX
-    package's profiles of the larger archs)."""
-    params = init_lm(generator, cfg, codes=codes, aux=aux)
+    package's profiles of the larger archs).  ``mesh`` (and ``strategy``,
+    the default policy's by default): this rank's blocks of the same state,
+    every leaf drawn whole from ``generator`` in the one-rank order and
+    only the block kept, so a rank holds at most its blocks and one leaf."""
+    keep = None
+    if mesh is not None:
+        keep = _block_keeper(cfg, mesh, strategy)
+    params = init_lm(generator, cfg, codes=codes, aux=aux, keep=keep)
     return {"params": params, "opt": adamw_init(params, moments_dtype), "step": 0}
+
+
+def _block_keeper(cfg: LMConfig, mesh, strategy=None):
+    """``init_lm``'s ``keep``: a drawn leaf's block on this rank (a stacked
+    leaf's layer takes its spec without the leading layer dims)."""
+    from repro_torch.parallel import policy
+    specs = policy.params_shardings(cfg, policy.abstract_params(cfg), mesh,
+                                    strategy or policy.DEFAULT_STRATEGY)
+
+    def keep(path, t, stacked):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        drop = 2 if stacked == "hybrid" else int(bool(stacked))
+        return policy.shard_leaf(t, None if spec is None else tuple(spec[drop:]), mesh)
+    return keep
+
+
+def make_shard_plan(cfg: LMConfig, mesh, strategy=None, batch_size: Optional[int] = None):
+    """The ``parallel.tensor.ShardPlan`` of one rank's step on ``mesh``
+    under ``strategy``: the param specs, the axes a batch of
+    ``batch_size`` rows splits over (the strategy's batch axes by
+    default), and whether the model axis carries tensor parallelism."""
+    from repro_torch.parallel import policy
+    from repro_torch.parallel.tensor import ShardPlan
+    strategy = strategy or policy.DEFAULT_STRATEGY
+    specs = policy.params_shardings(cfg, policy.abstract_params(cfg), mesh, strategy)
+    if batch_size is None:
+        grad_axes = strategy.batch_mesh_axes(mesh)
+    else:
+        spec = policy.batch_shardings({"tokens": torch.empty(batch_size, 0, device="meta")},
+                                      mesh, strategy)["tokens"][0]
+        grad_axes = () if spec is None else ((spec,) if isinstance(spec, str) else tuple(spec))
+    tp = not strategy.dp_over_model and mesh.shape.get("model", 1) > 1
+    return ShardPlan(mesh=mesh, specs=specs, grad_axes=tuple(grad_axes), tp=tp,
+                     compute_dtype=torch_dtype(cfg.compute_dtype),
+                     rules=policy.rules_for(strategy, mesh))
 
 
 def loss_and_grads(params, batch, cfg: LMConfig):
@@ -70,30 +121,63 @@ def _microbatch(batch, k: int, i: int):
             for n, x in batch.items()}
 
 
-def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None) -> Callable:
+def make_train_step(cfg: LMConfig, hyper: Optional[TrainHyper] = None, mesh=None,
+                    strategy=None) -> Callable:
+    """One step; with ``mesh``, one rank's step across ranks (module
+    docstring): ``batch`` is the global batch, host or device, and the
+    metrics' loss the global one, the same on every rank."""
     hyper = hyper or TrainHyper()
     k = max(1, hyper.microbatches)
+    plans: Dict[int, Any] = {}
 
     def train_step(state, batch):
         params = state["params"]
+        plan, scope = None, contextlib.nullcontext()
+        if mesh is not None:
+            plan, batch, scope = _rank_view(cfg, mesh, strategy, plans, batch)
         # gradient accumulation over k microbatches, summed in f32, then
         # scaled by 1/k (one microbatch's activations alive at a time)
-        loss, grads = loss_and_grads(params, _microbatch(batch, k, 0), cfg)
-        for i in range(1, k):
-            loss_i, grads_i = loss_and_grads(params, _microbatch(batch, k, i), cfg)
-            loss = loss + loss_i
-            grads = map_tree(lambda _, a, b: None if a is None else a + b, grads, grads_i)
+        with scope:
+            loss, grads = loss_and_grads(params, _microbatch(batch, k, 0), cfg)
+            for i in range(1, k):
+                loss_i, grads_i = loss_and_grads(params, _microbatch(batch, k, i), cfg)
+                loss = loss + loss_i
+                grads = map_tree(lambda _, a, b: None if a is None else a + b, grads, grads_i)
         if k > 1:
             loss = loss / k
             grads = map_tree(lambda _, g: None if g is None else g * (1.0 / k), grads)
         lr_scale = linear_warmup_cosine(state["step"], hyper.warmup_steps,
                                         hyper.total_steps)
         with stage("optimizer"):
-            adamw_update(params, grads, state["opt"], hyper.optimizer, lr_scale=lr_scale)
+            adamw_update(params, grads, state["opt"], hyper.optimizer, lr_scale=lr_scale,
+                         grad_norm=None if plan is None else plan.grad_norm)
         state["step"] += 1
-        return state, {"loss": loss, "lr_scale": lr_scale}
+        return state, {"loss": loss if plan is None else plan.batch_sum(loss),
+                       "lr_scale": lr_scale}
 
+    train_step.plans = plans
     return train_step
+
+
+def _rank_view(cfg: LMConfig, mesh, strategy, plans: Dict[int, Any], batch):
+    """(plan, this rank's rows of the global ``batch`` on its device, the
+    scope the loss runs under: the mesh and rules, the plan); the plan is
+    made once a batch size."""
+    from repro_torch.parallel import policy
+    from repro_torch.parallel.sharding import use_sharding
+    from repro_torch.parallel.tensor import use_plan
+    strategy = strategy or policy.DEFAULT_STRATEGY
+    rows = batch["tokens"].shape[0]
+    if rows not in plans:
+        plans[rows] = make_shard_plan(cfg, mesh, strategy, rows)
+    plan = plans[rows]
+    specs = policy.batch_shardings(batch, mesh, strategy)
+    local = {n: policy.shard_leaf(torch.as_tensor(x), specs[n], mesh).to(mesh.device)
+             for n, x in batch.items()}
+    scope = contextlib.ExitStack()
+    scope.enter_context(use_sharding(mesh, plan.rules))
+    scope.enter_context(use_plan(plan))
+    return plan, local, scope
 
 
 def init_gnn_train_state(generator: torch.Generator, cfg: GNNConfig, codes=None,

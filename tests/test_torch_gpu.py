@@ -1559,3 +1559,91 @@ def test_audio_embedding_offsets_through_kernel_are_gather(cuda):
     logits = {impl: lm.lm_forward(params, toks, cfg)[0] for impl, cfg in cfgs.items()}
     assert logits["pallas"].shape == (4, 64, base.n_codebooks, base.vocab_padded)
     assert torch.equal(logits["pallas"], logits["gather"])
+
+
+# ---------------------------------------------------------------------------
+# the LM across ranks (repro_torch.parallel.tensor): collectives and the TP
+# autograd functions on CUDA tensors over gloo, 4 ranks sharing the card;
+# the kernels at a rank's shapes
+# ---------------------------------------------------------------------------
+
+def _lm_collectives_program(rank):
+    """The collectives the LM's ranks use and the three its design leaves
+    out, over gloo: ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+    on CUDA tensors; ``send`` / ``recv`` on CPU tensors (gloo writes a
+    pair's payload from host memory: a CUDA tensor failed with "writev:
+    Bad address" on the H100 (PERF.md §6), so ``Mesh.shift``
+    moves a pipeline stage's output with ``all_to_all_single``); the mesh's
+    ``shift`` and ``reduce_scatter``; the TP functions' backward."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import tensor as tp
+    disable_tf32()
+    mesh = make_host_mesh(2, 2)
+    dev = mesh.device
+    out = {}
+    x = torch.arange(6, dtype=torch.float32, device=dev) + 10 * rank
+    full = torch.empty(24, device=dev)
+    dist.all_gather_into_tensor(full, x)
+    out["all_gather_into_tensor"] = full.cpu().tolist()
+    part = torch.empty(6, device=dev)
+    dist.reduce_scatter_tensor(part, torch.arange(24, dtype=torch.float32, device=dev) * (rank + 1))
+    out["reduce_scatter_tensor"] = part.cpu().tolist()
+    buf = torch.full((5,), float(rank))
+    if rank % 2 == 0:
+        dist.send(buf, rank + 1)
+    else:
+        dist.recv(buf, rank - 1)
+    out["send_recv"] = buf.cpu().tolist()
+    out["shift"] = mesh.shift(torch.full((3,), float(rank), device=dev), "model").cpu().tolist()
+    out["rs"] = tp.reduce_scatter(torch.arange(8, dtype=torch.float32, device=dev)
+                                  .reshape(4, 2) * (rank + 1), mesh, "data", 0).cpu().tolist()
+    plan = tp.ShardPlan(mesh=mesh, specs={}, grad_axes=("data",), tp=True,
+                        compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(64, 64, generator=g, device=dev)
+    h = torch.randn(32, 64, generator=g, device=dev).requires_grad_(True)
+    half = plan.split(w.requires_grad_(True), dim=1)
+    y = plan.exit(plan.enter(h) @ half @ half.T)
+    stats = plan.stack(y.sum(dim=1))
+    (stats.square().sum()).backward()
+    out["tp_grad"] = (h.grad.cpu().numpy(), w.grad.cpu().numpy(), y.detach().cpu().numpy())
+    return out
+
+
+def test_lm_collectives_and_tp_backward_on_four_gloo_ranks(cuda):
+    """The collectives over gloo at 4 ranks sharing the card give their
+    definitions' values; the TP functions' backward (enter, exit, split,
+    stack) gives the same bits on the ranks of a model line, and on both
+    data rows (same inputs)."""
+    from repro_torch.parallel.sharding import spawn
+    res = spawn(_lm_collectives_program, 4, backend="gloo")
+    for r, o in enumerate(res):
+        assert o["all_gather_into_tensor"] == [float(v + 10 * q) for q in range(4) for v in range(6)]
+        assert o["reduce_scatter_tensor"] == [float(10 * (6 * r + i)) for i in range(6)]
+        assert o["send_recv"] == [float(r - r % 2)] * 5
+        assert o["shift"] == [float(r - 1 if r % 2 else r + 1)] * 3
+        d = r // 2
+        col = np.arange(8, dtype=np.float32).reshape(4, 2)[2 * d:2 * d + 2]
+        line = [q for q in range(4) if q % 2 == r % 2]
+        assert o["rs"] == (col * sum(q + 1 for q in line)).tolist()
+    for a, b in ((0, 1), (0, 2), (0, 3)):
+        for x, y in zip(res[a]["tp_grad"], res[b]["tp_grad"]):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("rows", [4096, 2048])
+def test_hash_decode_at_a_ranks_rows_bf16(cuda, rows):
+    """The LM's rows a rank decodes at (data 2: 4,096; 4-way DP: 2,048)."""
+    args = _operands((rows, 16, 256, 512), "bfloat16", cuda, seed=rows)
+    assert torch.equal(ops.hash_decode(*args), hash_decode_ref(*args))
+
+
+@pytest.mark.parametrize("case", [(2, 8, 8, 2048, 64), (2, 12, 4, 2048, 64)],
+                         ids=["qwen-8-local-heads", "granite-12-on-4"])
+def test_flash_at_a_ranks_local_heads(cuda, case):
+    B, H, K, S, D = case
+    q, k, v = _qkv(B, H, K, S, D, "bfloat16", cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=True).float()
+    ref = attention_ref(q, k, v, causal=True).float()
+    assert bool(((got - ref).abs() <= 2e-2 + 2e-2 * ref.abs()).all())

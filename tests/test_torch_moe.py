@@ -122,11 +122,18 @@ def test_moe_grads_finite_and_ep_without_mesh_is_sorted():
 
 
 def test_moe_ep_across_ranks_raises_naming_its_item():
+    """Expert parallelism runs across ranks now (``tests/test_torch_lm_ranks.py``);
+    what still raises is dense dispatch over one rank's experts, naming the
+    strategy that runs it (all experts on every rank).  Under a GNN mesh
+    without a plan, ``moe_ffn_ep`` is ``moe_ffn``."""
     from repro_torch.parallel.sharding import DataMesh, use_sharding
     _, tcfg, _, tp, x = _case(8, T=8)
+    tx = torch.from_numpy(x)
     with use_sharding(DataMesh(rank=0, size=2, device=torch.device("cpu"))):
-        with pytest.raises(NotImplementedError, match="A.18"):
-            t_moe.moe_ffn_ep(tp, torch.from_numpy(x), tcfg)
+        assert torch.equal(t_moe.moe_ffn_ep(tp, tx, tcfg), t_moe.moe_ffn(tp, tx, tcfg))
+    half = {k: (v[: tcfg.e_pad // 2] if k != "router" else v) for k, v in tp.items()}
+    with pytest.raises(NotImplementedError, match="dp_over_model"):
+        t_moe.moe_dense_ffn(half, tx, tcfg)
 
 
 @pytest.mark.parametrize("impl", ["sorted", "dense"])
