@@ -146,19 +146,19 @@ weights and data from a seed:
          loss bound;
   moe_train, moe_sorted, moe_serve  full-width ``granite-moe-3b-a800m``
          (32 layers, d_model 1536, 24 heads on 8 KV heads, 40 experts of
-         512 padded to 48, top-8, vocab 49,155, ``hash_full``): 5 steps of
+         512 padded to 48, top-8, vocab 49,155, ``hash_full``): 3 steps of
          4 x 2048 tokens from the launcher's parts on the JAX package's
          profile for it (every expert on every token, ``moe_impl="dense"``;
          bf16 Adam moments; ``attn_impl="flash"``), two gradients of one
          step bit for bit, one step of the sorted dispatch from the same
          state against the dense loss, then the trained params served
-         through ``DecodeEngine`` as ``serve_lm`` is (8 prompts of 512, 32
+         through ``DecodeEngine`` as ``serve_lm`` is (8 prompts of 512, 8
          greedy tokens, cut from 64 for the script's time; kernel engine bitwise the ``gather`` engine; an f32
          engine against ``lm_forward`` without a cache, each row up to its
          first position whose expert routing differs between the two);
   ssm_train, ssm_serve  full-width ``mamba2-2.7b`` (64 Mamba2 layers,
          d_model 2560, 80 SSD heads, state 128): the SSD mask control (the
-         JAX order's NaN dt gradient at these heads), 5 steps on its JAX
+         JAX order's NaN dt gradient at these heads), 3 steps on its JAX
          profile (bf16 moments, ``loss_vocab_chunk=6304``), then served
          the same way (the single-step recurrence against the chunked scan
          in f32);
@@ -170,36 +170,39 @@ weights and data from a seed:
   musicgen_train, musicgen_hash, musicgen_serve  full-width
          ``musicgen-large`` (48 layers, d_model 2048, 32 heads of 64, 4
          codebooks of 2,048, its dense embedding, LayerNorm, GELU,
-         sinusoidal positions; 2,436,890,624 parameters): 5 steps of 4 x
+         sinusoidal positions; 2,436,890,624 parameters): 3 steps of 4 x
          2048 x 4 random codebook tokens on its JAX profile (f32 moments,
          flash attention), two gradients of one batch bit for bit; the
          ``hash_full`` ablation (Algorithm 1 over the 2,048-entry
          vocabulary through ``lsh_encode``, tiled over the 4 codebooks, the
          32,768 offset ids decoded in one ``hash_decode`` call): loss and
          codebook gradient on the kernel bitwise on ``gather``; then the
-         trained params served (8 prompts of 512 x 4, 32 greedy tokens, one
+         trained params served (8 prompts of 512 x 4, 8 greedy tokens, one
          argmax a codebook; f32 cached against uncached within 1e-4, a
          cache off by one position outside it);
   vlm_train, vlm_serve  ``qwen2-vl-7b`` at full width (d_model 3584, 28
          heads on 4 KV heads of 128, d_ff 18,944, QKV bias, vocab 152,064,
-         ``hash_full``, M-RoPE): 14 of its 28 layers trained 5 steps on its
+         ``hash_full``, M-RoPE): 14 of its 28 layers trained 3 steps on its
          JAX profile (bf16 moments, ``loss_vocab_chunk=19008``, flash) on
          batches whose (3, 4, 2048) positions lay out a 32 x 32 image span
          a sequence; three equal streams against standard RoPE bit for bit;
-         then all 28 layers served (8 x 512, 32 greedy tokens, kernel engine
+         then all 28 layers served (8 x 512, 8 greedy tokens, kernel engine
          bitwise the ``gather`` engine); both families' reduced configs
          trained and served on the card and on the CPU.  Every LM training
          path prints its model-FLOPs share of the bf16 peak (``[mfu]``);
-  lm_tp, lm_dp, moe_ep, pipeline  the LM across 4 ranks of
+  lm_tp, lm_dp, moe_ep, ssm_tp, pipeline  the LM across 4 ranks of
          ``torch.distributed`` sharing the card over gloo on the (data 2,
          model 2) mesh, each rank holding its blocks of the state:
          ``qwen1.5-0.5b`` at full width under the JAX package's TP ⊗ FSDP
-         (5 steps, then a second run of 2 that must repeat its losses) and
+         (3 steps, then a second run of 2 that must repeat its losses) and
          under its profile's ``dp_over_model`` (3 steps), each against the
          one-rank step from the same init and batch (step-0 loss, every
          rank's step-0 gradient blocks and clip norm, params after one
-         step); ``granite-moe-3b-a800m`` under expert parallelism (2
-         steps; every layer's EP output bitwise ``moe_ffn_ep_reference``);
+         step); ``granite-moe-3b-a800m`` under expert parallelism (8 of
+         its 32 layers, 2 steps; every layer's EP output bitwise
+         ``moe_ffn_ep_reference``); ``mamba2-2.7b`` under TP over its SSD
+         heads (f32, 2 steps; step-0 loss, gradient blocks and clip norm
+         against the one-rank step);
          ``gpipe`` over 4 stages of 6 of qwen's
          blocks against ``pipeline_reference``; ``psum_compressed`` over
          lm_dp's gradient blocks bitwise its plain version on card and CPU;
@@ -209,6 +212,18 @@ weights and data from a seed:
          under ``dp_over_model`` and under EP with nothing dropped) at 4
          ranks against one on card and CPU; NCCL one card a rank where
          there are 4 cards;
+  serve_tp, serve_ssm_tp, serve_split_kv  prefill and greedy decode
+         across the same 4 ranks (f32): qwen1.5-0.5b and mamba2-2.7b on
+         (2, 2), chatglm3-6b cut to 4 layers on (1, 4), whose 2 KV heads
+         do not divide the model axis, so the cache's slots split over it;
+         every rank the same logits bits, each step's logits against the
+         one-rank steps on the same params and tokens;
+  dryrun  ``launch/dryrun.py``'s ``build_cell`` at each 4-rank path's own
+         mesh and shape, traced on the host (one low-priority worker beside the
+         card's work): bytes by axes and operation equal to what the
+         ranks' ``Mesh.stats`` read, peak a rank within 20% of the card's
+         ``max_memory_allocated``, counted FLOPs beside ``model_flops``,
+         the counter's calibration, one production cell timed;
   reconstruct  the paper's pre-trained embedding reconstruction (§5.1,
          Fig. 1, Table 5) at GloVe's shape: 200,000 x 300 Gaussian-mixture
          embeddings coded by random, hashing (Algorithm 1 through
@@ -3508,7 +3523,7 @@ HOST_STEPS, HOST_STEPS0 = 50, 20    # the paired training runs at prefetch 2 and
 HOST_CKPT = ROOT / "build" / "codes_host_ckpt"
 SWEEP_NODES = 8 * N_NODES           # the sweep's larger graph, 1,354,744 nodes
 SWEEP_CAP = 61_696                  # its fixed frontier: serve's cap
-SWEEP_STEPS = 22
+SWEEP_STEPS = 11                    # cut from 22 for the script's time
 
 
 def _resident_code_bytes(rt) -> int:
@@ -3823,8 +3838,10 @@ def phase_codes_host(graph) -> tuple:
 # -- phase sharded: four ranks over torch.distributed ----------------------
 
 SHARDS = 4
-SHARD_STEPS = 20           # the first run; then 10, a checkpoint, resume, 10 more
-SHARD_MORE = 10
+# the first run; then SHARD_MORE, a checkpoint, resume, SHARD_MORE more (cut from
+# 20 and 10 for the script's time when the LM's serving across ranks came, PERF.md §4)
+SHARD_STEPS = 4
+SHARD_MORE = 2
 SHARD_IMPLS = ("sharded:pallas", "owner:pallas", "auto")
 SHARD_CKPT = ROOT / "build" / "sharded_ckpt"
 
@@ -4424,10 +4441,12 @@ def phase_elastic(graph) -> tuple:
 # slice 15: the moe, ssm and hybrid LM families
 # ---------------------------------------------------------------------------
 
-LM_FAMILY_STEPS = 5           # training steps of granite and mamba2, LM_BATCH x LM_SEQ tokens
-# 8 prompts of 512 and 32 greedy tokens (cut from 64 for the script's time:
-# granite's and zamba2's decode steps take 110-180 ms, all host-bound)
-LM_FAMILY_SERVE = (8, 512, 32)
+# training steps of granite, mamba2, musicgen and qwen2-vl, LM_BATCH x LM_SEQ
+# tokens (cut from 5 for the script's time, PERF.md §4)
+LM_FAMILY_STEPS = 3
+# 8 prompts of 512 and 8 greedy tokens (cut from 64, then 32, for the script's
+# time: granite's and zamba2's decode steps take 110-180 ms, all host-bound)
+LM_FAMILY_SERVE = (8, 512, 8)
 # f32 cached (single-step recurrence for the SSM layers) against uncached
 # (the chunked scan) logits: ten times the dense qwen bound, for the
 # recurrence's and the scan's other summation order over 64 layers and 512
@@ -4442,7 +4461,7 @@ LM_FAMILY_F32_BOUND = 1e-3
 # over 8,192 tokens.  On the H100 the two came 3.1e-4 apart (5e-2 was the
 # bound before that run); the bound sits at 16 times that
 MOE_SORTED_BOUND = 5e-3
-CONTROL_STEPS = 8          # decode steps of each off-by-one control
+CONTROL_STEPS = 4          # decode steps of each off-by-one control (cut from 8)
 GRANITE, MAMBA2, ZAMBA2 = "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b"
 
 
@@ -5124,10 +5143,24 @@ def phase_audio_vlm() -> tuple:
 
 LM_RANKS = 4
 LM_MESH = (2, 2)                   # (data, model)
-LM_TP_STEPS, LM_TP_REPEAT = 5, 2   # lm_tp's run, then a second run of 2 steps
+LM_TP_STEPS, LM_TP_REPEAT = 3, 2   # lm_tp's run (cut from 5), then a second run of 2 steps
 LM_DP_STEPS = 3
 MOE_EP_STEPS = 2                   # cut from 3: the phase took 252.4 s at 3 (PERF.md §4)
 PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO = 4, 6, 8     # 6 of qwen's 24 blocks a stage
+SSM_TP_STEPS = 2                   # mamba2 under TP over its SSD heads (ssm_tp)
+# the serving paths across ranks: (prompts, prompt length, greedy steps);
+# f32 activations, so that 4 ranks against one read the order of the
+# ranks' f32 sums, not bf16 roundings of partial sums
+SERVE_TP = (4, 512, 16)            # qwen1.5-0.5b on (2, 2)
+SERVE_SSM_TP = (4, 256, 4)         # mamba2-2.7b on (2, 2)
+SERVE_SPLIT_KV = (4, 512, 8)       # chatglm3-6b on (1, 4): its 2 KV heads do not divide 4
+SPLIT_KV_LAYERS = 4                # chatglm3-6b cut to 4 of its 28 layers
+CHATGLM = "chatglm3-6b"
+# each serving step's logits, 4 ranks against the one-rank steps on the
+# same params and tokens, f32: the families' f32 bound (the SSM recurrence
+# against the chunked scan over 64 layers)
+SERVE_RANKS_BOUND = 1e-3
+DRY_PEAK_TOL = 0.2                 # the dry run's peak a rank against the card's, relative
 LM_RANKS_REF = ROOT / "build" / "lm_ranks_ref"
 # the 4-rank step-0 loss against the one-rank step's from the same init and
 # batch (relative): bf16 products split over the model axis sum in another
@@ -5196,24 +5229,29 @@ def _replicated_digests(state, specs, mesh) -> bool:
 
 def _timed_steps(step, state, stream, steps, mesh, on_step=None):
     """``steps`` steps of the stream's global batches: losses, host-clock
-    step times (each ending in a synchronise), the mesh's bytes a step."""
+    step times (each ending in a synchronise), the mesh's bytes a step, and
+    ``max_memory_allocated`` before the first step and over each step
+    (the peak is reset before each)."""
     import torch
-    losses, times, per_step = [], [], []
+    losses, times, per_step, peaks = [], [], [], []
     for i in range(steps):
         batch = stream.next_batch()
         before = dict(mesh.stats)
         torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
         losses.append(loss)
         per_step.append({k: v - before.get(k, 0) for k, v in mesh.stats.items()
                          if not k.endswith("_calls")})
         if on_step is not None:
             on_step(i, state)
-    return state, losses, times, per_step
+    return state, losses, times, per_step, peaks
 
 
 def _blocks_against(state, ref_path, specs, mesh) -> dict:
@@ -5335,15 +5373,19 @@ def _lm_rank_run(cfg, strategy, steps, mesh, moments, ref_path=None, grads_ref=N
         if i == 0 and ref_path is not None:
             out["against_one_rank"] = _blocks_against(st, ref_path, specs, mesh)
     try:
-        state, losses, times, per_step = _timed_steps(step, state, stream, steps, mesh,
-                                                      on_step)
+        state, losses, times, per_step, peaks = _timed_steps(step, state, stream, steps, mesh,
+                                                             on_step)
     finally:
         if hooked:
             step_mod.adamw_update = update
     torch.cuda.synchronize()
     out["launches"] = _path_counts("lm_ranks")
+    # the last step's peak above the run's start, less the gradient copies
+    # a compress check holds from an earlier step: the step's own memory
+    held = sum(g.numel() * g.element_size() for g in captured.values())
     out.update(losses=losses, times=times, bytes=per_step, wall=time.perf_counter() - t0,
-               peak=max(torch.cuda.max_memory_allocated(), before_init + init_peak) - base,
+               peak=max(max(peaks), before_init + init_peak) - base,
+               step_peak=peaks[-1] - base - held,
                init_peak=init_peak,
                transport=mesh.backend, device=str(mesh.device))
     if profile:
@@ -5504,9 +5546,13 @@ def _pipeline_rank(line, ref_path) -> dict:
             "peak": torch.cuda.max_memory_allocated()}
 
 
+MOE_EP_LAYERS = 8                  # granite's 32 layers cut to 8 for the script's time
+
+
 def _granite_ep():
-    """granite-moe-3b-a800m with expert-parallel dispatch and flash attention."""
-    return _serve_cfg(GRANITE, attn_impl="flash", moe_impl="ep")
+    """granite-moe-3b-a800m at full width with expert-parallel dispatch and
+    flash attention, cut to ``MOE_EP_LAYERS`` layers."""
+    return _serve_cfg(GRANITE, attn_impl="flash", moe_impl="ep", n_layers=MOE_EP_LAYERS)
 
 
 # the reduced configs held 4 ranks against one: (case, arch, dp_over_model).
@@ -5584,6 +5630,11 @@ def _lm_ranks_main(rank: int, payload: dict) -> dict:
     granite = _granite_ep()
     out["moe_ep"] = _lm_rank_run(granite, policy.DEFAULT_STRATEGY, MOE_EP_STEPS, mesh,
                                  "bfloat16", ep_check=True)
+    out["ssm_tp"] = _lm_rank_run(_ssm_tp_cfg(), policy.DEFAULT_STRATEGY, SSM_TP_STEPS, mesh,
+                                 "bfloat16", grads_ref=payload["ssm_grads"])
+    for label, (cfg, shape) in _serve_paths().items():
+        out[label] = _serve_rank_run(label, cfg, mesh if shape == LM_MESH else line,
+                                     *_serve_dims(label))
     out["pipeline"] = _pipeline_rank(line, payload["pipe_ref"])
     out["reduced"] = {dev: _reduced_ranks(mesh, dev) for dev in ("cuda", "cpu")}
     out["seconds"] = time.perf_counter() - t0
@@ -5650,6 +5701,7 @@ def _one_rank_references() -> dict:
             with torch.no_grad():
                 out[arch] = float(lm_loss(state["params"], batch, cfg))
         del state, codes
+    out["ssm_tp"] = _ssm_tp_reference()
     torch.cuda.empty_cache()
     blocks, xs = _pipe_inputs("cuda")
     blocks = map_tree(lambda _, t: t.requires_grad_(True), blocks)
@@ -5675,6 +5727,287 @@ def _one_rank_references() -> dict:
                                 for k, v in stream.next_batch().items()})[1]["loss"])
                 for _ in range(2)]
     return out
+
+
+def _ssm_tp_cfg():
+    """mamba2-2.7b on its JAX profile's chunk (``loss_vocab_chunk=6304``),
+    decoded by the kernel: ``ssm_train``'s config, here under TP, in f32.
+    In bf16 the step-0 gradient of one leaf, D_skip (each head's sum of
+    dy * x over 524,288 terms that cancel), sat 0.148 from the one-rank
+    step's, over the 0.05 bound (PERF.md §6): the row-parallel
+    partial sums round to bf16 before they are added, the one-rank product
+    once, and 64 layers carry the difference.  In f32 the check reads the
+    TP program, not bf16's roundings."""
+    return _serve_cfg(MAMBA2, loss_vocab_chunk=6304, compute_dtype="float32")
+
+
+def _ssm_tp_reference() -> dict:
+    """mamba2's one-rank step-0 loss and gradient from the init and batch
+    the ranks use (the gradient saved in bf16 for the ranks to read their
+    blocks: 5.4 GB against 10.8 in f32; its rounding is 2^-9 of an element,
+    under a tenth of the 0.05 bound), the clip's norm, and the control: a
+    data rank's gradient before the data axis's sum against the whole."""
+    import torch
+    from repro_torch.data import TokenStream, TokenStreamConfig
+    from repro_torch.device import make_generator
+    from repro_torch.launch.train import encode_vocab
+    from repro_torch.nn.module import leaves_with_path
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import init_train_state
+    from repro_torch.train.step import loss_and_grads
+    cfg = _ssm_tp_cfg()
+    torch.cuda.empty_cache()
+    gen = make_generator(0, "cuda")
+    codes = encode_vocab(cfg, gen, batch=LM_BATCH, seq=LM_SEQ, cooc_batches=8, seed=0,
+                         log=lambda line: None)
+    state = init_train_state(gen, cfg, codes=codes, moments_dtype=torch.bfloat16)
+    stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                                           batch_size=LM_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stream.next_batch().items()}
+    loss, grads = loss_and_grads(state["params"], batch, cfg)
+    grads = dict(leaves_with_path(grads))
+    norm = float(global_norm(list(grads.values())))
+    path = LM_RANKS_REF / "ssm_tp_grads0.pt"
+    torch.save({"/".join(k): g.to(torch.bfloat16).cpu() for k, g in grads.items()}, path)
+    del grads
+    half = {k: v[:LM_BATCH // 2] for k, v in batch.items()}
+    part = dict(leaves_with_path(loss_and_grads(state["params"], half, cfg)[1]))
+    saved = torch.load(path, mmap=True, weights_only=True)
+    control = max(_grad_gap(0.5 * g, saved["/".join(k)].cuda()) for k, g in part.items())
+    del state, part, codes
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "grads": str(path), "grad_norm": norm, "grad_control": control}
+
+
+def _serve_paths() -> dict:
+    """The serving paths across ranks: label -> (config, mesh shape)."""
+    return {"serve_tp": (_serve_cfg(LM_ARCH, compute_dtype="float32"), LM_MESH),
+            "serve_ssm_tp": (_serve_cfg(MAMBA2, compute_dtype="float32"), LM_MESH),
+            "serve_split_kv": (_serve_cfg(CHATGLM, compute_dtype="float32",
+                                          n_layers=SPLIT_KV_LAYERS), (1, LM_RANKS))}
+
+
+def _serve_dims(label: str):
+    """(prompts, prompt length, greedy steps, cache slots) of a serving path."""
+    b, plen, steps = {"serve_tp": SERVE_TP, "serve_ssm_tp": SERVE_SSM_TP,
+                      "serve_split_kv": SERVE_SPLIT_KV}[label]
+    return b, plen, steps, plen + steps
+
+
+def _serve_prompts(cfg, b: int, plen: int):
+    import numpy as np
+    return np.random.default_rng(21).integers(0, cfg.vocab_size, (b, plen))
+
+
+def _greedy(logits, cfg):
+    """The next tokens (B, 1): the argmax over the real vocabulary."""
+    return logits[:, :cfg.vocab_size].argmax(dim=-1, keepdim=True)
+
+
+def _serve_rank_run(label: str, cfg, mesh, b: int, plen: int, steps: int, s_max: int) -> dict:
+    """One rank's serving run: its blocks of the params drawn from seed 0
+    (random codes, as ``examples/serve_lm.py``), the prefill of ``b``
+    prompts of ``plen`` into a cache of ``s_max`` slots, then ``steps``
+    greedy decode steps, every step's logits (global, the same on every
+    rank) kept as numpy (a CPU tensor would travel back through a shared
+    file the exiting rank takes with it); per step the host-clock time (synchronised), the bytes the
+    rank received (``Mesh.stats``) and ``max_memory_allocated``; the
+    launches counted around exactly this run."""
+    import torch
+    from repro_torch.device import make_generator
+    from repro_torch.models.lm import init_lm
+    from repro_torch.parallel import policy
+    from repro_torch.train.step import _block_keeper, make_prefill_step, make_serve_step
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    params = init_lm(make_generator(0, "cuda"), cfg,
+                     keep=_block_keeper(cfg, mesh, policy.DEFAULT_STRATEGY))
+    prefill = make_prefill_step(cfg, s_max, mesh=mesh)
+    serve = make_serve_step(cfg, mesh=mesh)
+    tokens = torch.from_numpy(_serve_prompts(cfg, b, plen)).cuda()
+    logits_all, times, per_step, peaks, fed = [], [], [], [], []
+    cache = None
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(mesh.stats)
+        t1 = time.perf_counter()
+        if i == 0:
+            logits, cache = prefill(params, {"tokens": tokens})
+        else:
+            nxt = _greedy(logits, cfg)
+            fed.append(nxt.cpu())
+            logits, cache = serve(params, cache, {"tokens": nxt})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        per_step.append({k: v - before.get(k, 0) for k, v in mesh.stats.items()
+                         if not k.endswith("_calls")})
+        logits_all.append(logits.float().cpu().numpy())
+    torch.cuda.synchronize()
+    out = {"launches": _path_counts("lm_ranks"), "times": times, "bytes": per_step,
+           "peaks": peaks, "wall": time.perf_counter() - t0, "cache_bytes": cache.nbytes,
+           "kv_seq": cache.kv_seq,
+           "digest": [_bits_digest(torch.from_numpy(x)) for x in logits_all],
+           "tokens": torch.cat(fed, dim=1).numpy() if fed else None,
+           "device": str(mesh.device)}
+    if mesh.rank == 0:
+        out["logits"] = logits_all
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_one_rank(label: str, cfg, ranks_out: dict) -> dict:
+    """On the card alone: the one-rank prefill and serve steps on the same
+    params (drawn whole from seed 0) and the tokens the ranks fed; each
+    step's logits against rank 0's."""
+    import torch
+    from repro_torch.device import make_generator
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    b, plen, steps, s_max = _serve_dims(label)
+    torch.cuda.empty_cache()
+    params = init_lm(make_generator(0, "cuda"), cfg)
+    logits, cache = make_prefill_step(cfg, s_max)(
+        params, {"tokens": torch.from_numpy(_serve_prompts(cfg, b, plen)).cuda()})
+    serve = make_serve_step(cfg)
+    want = [torch.from_numpy(x) for x in ranks_out["logits"]]
+    fed = torch.from_numpy(ranks_out["tokens"]).cuda()
+    gaps = [float((logits.float().cpu() - want[0]).abs().max())]
+    for i in range(steps):
+        logits, cache = serve(params, cache, {"tokens": fed[:, i:i + 1]})
+        gaps.append(float((logits.float().cpu() - want[i + 1]).abs().max()))
+    del params, cache
+    torch.cuda.empty_cache()
+    return gaps
+
+
+# ---- the dry run of the 4-rank paths (launch/dryrun.py), on the host ----
+
+def _dry_specs() -> dict:
+    """Each 4-rank path's cells at its own mesh and shape: label -> list of
+    (cell kind, config, mesh shape, strategy, batch, seq, cache slots,
+    moments dtype)."""
+    import dataclasses
+    from repro_torch.launch import profiles
+    from repro_torch.parallel import policy
+    d = policy.DEFAULT_STRATEGY
+    prof = profiles.OPTIMIZED_TRAIN[LM_ARCH]
+    out = {"lm_tp": [("train", _lm_config(), LM_MESH, d, LM_BATCH, LM_SEQ, None, "float32")],
+           "lm_dp": [("train", dataclasses.replace(_lm_config(), **prof["overrides"]), LM_MESH,
+                      prof["strategy"], LM_BATCH, LM_SEQ, None, prof["moments_dtype"])],
+           "moe_ep": [("train", _granite_ep(), LM_MESH, d, LM_BATCH, LM_SEQ, None, "bfloat16")],
+           "ssm_tp": [("train", _ssm_tp_cfg(), LM_MESH, d, LM_BATCH, LM_SEQ, None, "bfloat16")]}
+    for label, (cfg, shape) in _serve_paths().items():
+        b, plen, _, s_max = _serve_dims(label)
+        out[label] = [("prefill", cfg, shape, d, b, plen, s_max, "float32"),
+                      ("decode", cfg, shape, d, b, s_max, s_max, "float32")]
+    return out
+
+
+def _dry_trace(label: str) -> dict:
+    """One path's cells traced on the virtual rank 0 of its mesh (a worker
+    process: one thread, no card): the bytes by axes and operation, the
+    arguments' and the peak bytes, the counted FLOPs and the trace time."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.parallel.sharding import MeshSpec
+    if label == "production":
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(LM_ARCH, "train_4k", False)
+        rec["wall_s"] = time.perf_counter() - t0
+        return rec
+    out = []
+    for kind, cfg, shape, strategy, b, seq, s_max, moments in _dry_specs()[label]:
+        mesh = MeshSpec(("data", "model"), shape)
+        cell = dryrun.build_cell(cfg, ShapeSpec(label, kind, seq, b), mesh, 1, strategy, moments,
+                                 s_max=s_max)
+        tr = cell.trace()
+        out.append({"kind": kind, "stats": tr["stats"], "argument": tr["argument_bytes"],
+                    "peak": tr["peak_bytes"], "flops": tr["analysis"].flops,
+                    "trace_s": tr["trace_s"], "ops": tr["ops"]})
+    return {"cells": out}
+
+
+def _dry_calibration() -> dict:
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.roofline import calibrate_counter
+    from repro_torch.parallel.sharding import MeshSpec
+    return {"16x16": calibrate_counter(make_production_mesh()),
+            "2x2": calibrate_counter(MeshSpec(("data", "model"), LM_MESH))}
+
+
+def _start_dry_run():
+    """The dry-run traces in one worker process at the lowest priority
+    beside the card's phases (they need no card, and the gloo ranks need
+    the host's cores); ``_finish_dry_run`` collects them."""
+    import multiprocessing as mp
+    import os
+    pool = mp.get_context("spawn").Pool(1, initializer=os.nice, initargs=(19,))
+    labels = ["production"] + list(_dry_specs())
+    return pool, labels, pool.map_async(_dry_trace, labels)
+
+
+def _finish_dry_run(started, results) -> None:
+    """The dry run's readings beside the live ranks': bytes by axes and
+    operation equal, peak a rank within ``DRY_PEAK_TOL``, counted FLOPs
+    beside ``model_flops``, the counter's calibration, the production
+    cell's trace time."""
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.shapes import ShapeSpec
+    pool, labels, pending = started
+    try:
+        dry = dict(zip(labels, pending.get(timeout=900)))
+    finally:
+        pool.terminate()
+        pool.join()
+    calib = _dry_calibration()
+    print(f"[dryrun] counter calibration (per-chip ratio): {calib['16x16']:.3f} at 16x16, "
+          f"{calib['2x2']:.3f} at (2, 2)", flush=True)
+    check(calib["16x16"] == 1.0 and calib["2x2"] == 1.0, f"counter calibration {calib}")
+    prod = dry.pop("production")
+    check(prod["status"] == "ok", f"dry run production cell: {prod.get('error')}")
+    print(f"[dryrun] production cell {LM_ARCH} train_4k 16x16 (one rank of 256, fake tensors, "
+          f"on the card machine's host): trace {prod['trace_s']} s (build {prod['build_s']} s, "
+          f"wall {prod['wall_s']:.1f} s), {prod['ops']} ops, peak "
+          f"{prod['memory']['peak_est_gib']:.3f} GiB a rank (arguments "
+          f"{prod['memory']['argument_gib']:.3f}), counted FLOPs {prod['counted_flops']:.6e} "
+          f"beside model_flops {prod['roofline']['model_flops_per_chip']:.6e}, collective "
+          f"{prod['roofline']['coll_bytes_per_chip']:.6e} B", flush=True)
+    for label, rec in dry.items():
+        live = results[0][label]
+        for cell in rec["cells"]:
+            kind = cell["kind"]
+            if kind == "train":
+                want, peak = live["bytes"][-1], live["step_peak"]
+                cfg, b, seq = next((c[1], c[4], c[5]) for c in _dry_specs()[label])
+                mf = model_flops(cfg, ShapeSpec(label, "train", seq, b), LM_RANKS)
+            elif kind == "prefill":
+                want, peak = live["bytes"][0], live["peaks"][0]
+                mf = None
+            else:
+                want, peak = live["bytes"][-1], max(live["peaks"][1:])
+                mf = None
+            got = {k: v for k, v in cell["stats"].items() if v}
+            want = {k: v for k, v in want.items() if v}
+            ratio = cell["peak"] / peak
+            print(f"[dryrun] {label} {kind} (rank 0, {cell['ops']} ops traced in "
+                  f"{cell['trace_s']:.1f} s): bytes by axes/operation {got}; the live rank 0's "
+                  f"{want}: equal {got == want}; peak a rank {cell['peak']} B (arguments "
+                  f"{cell['argument']} B) against max_memory_allocated {peak} B: ratio "
+                  f"{ratio:.4f} (bound 1 +- {DRY_PEAK_TOL}); counted FLOPs {cell['flops']:.6e}"
+                  + (f" beside model_flops {mf:.6e} a rank" if mf else ""), flush=True)
+            check(got == want, f"dry run {label} {kind}: bytes {got} against the live {want}")
+            if kind == "decode":
+                check(all({k: v for k, v in st.items() if v} == want for st in live["bytes"][1:]),
+                      f"{label}: the decode steps' bytes differ from step to step")
+            check(abs(ratio - 1) <= DRY_PEAK_TOL,
+                  f"dry run {label} {kind}: peak {cell['peak']} against the card's {peak}")
 
 
 def _rank_launches(results, path: str) -> dict:
@@ -5753,22 +6086,59 @@ def _print_rank_path(label: str, cfg, results, one, steps: int) -> dict:
             "peak_per_rank": [r["peak"] for r in rs]}
 
 
+def _print_serve_path(label: str, cfg, shape, results) -> dict:
+    """A serving path's lines: the prefill and per-token times, bytes a
+    rank by axes/operation, cache bytes and peak a rank; the checks: every
+    rank the same logits bits, each step's logits against the one-rank
+    steps on the card alone."""
+    import numpy as np
+    rs = [r[label] for r in results]
+    a = rs[0]
+    b, plen, steps, s_max = _serve_dims(label)
+    per_token = float(np.median(a["times"][2:] if steps > 2 else a["times"][1:]))
+    step_bytes = {k: v for k, v in a["bytes"][-1].items() if v}
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers, f32) on {LM_RANKS} ranks ({SHARED_CARD}) "
+          f"mesh (data, model) = {shape}: prefill {b} x {plen} {a['times'][0] * 1e3:.3f} ms, "
+          f"then {steps} greedy steps: per-token {per_token * 1e3:.3f} ms (median of steps "
+          f"{'2' if steps > 2 else '1'}-{steps}; steps {[round(t * 1e3, 3) for t in a['times'][1:]]}); "
+          f"cache {s_max} slots, {a['cache_bytes']} B a rank, KV slots split over "
+          f"{a['kv_seq'] or 'no axis'}; chain wall {a['wall']:.1f} s; "
+          f"{smi_query('name,power.limit')}", flush=True)
+    print(f"[{label}] bytes rank 0 receives: prefill "
+          f"{ {k: v for k, v in a['bytes'][0].items() if v} }, a decode step {step_bytes}; peak "
+          f"max_memory_allocated per rank: prefill {[r['peaks'][0] for r in rs]} B, decode "
+          f"{[max(r['peaks'][1:]) for r in rs]} B", flush=True)
+    check(all(r["digest"] == a["digest"] for r in rs), f"{label}: the ranks' logits bits differ")
+    gaps = _serve_one_rank(label, cfg, a)
+    print(f"[{label}] each step's logits against the one-rank prefill and serve steps on the same "
+          f"params and tokens (the card alone): max |diff| {[f'{g:.3e}' for g in gaps]} (bound "
+          f"{SERVE_RANKS_BOUND})", flush=True)
+    check(max(gaps) <= SERVE_RANKS_BOUND, f"{label}: logits {max(gaps)} from the one-rank steps")
+    return {"prefill_ms": a["times"][0] * 1e3, "per_token_ms": per_token * 1e3,
+            "bytes_prefill": a["bytes"][0], "bytes_per_step": step_bytes,
+            "peak_per_rank": [max(r["peaks"]) for r in rs], "max_gap": max(gaps)}
+
+
 def phase_lm_ranks() -> tuple:
     """The LM across 4 ranks of ``torch.distributed`` sharing the card over
     gloo (NCCL one card a rank where there are 4): paths lm_tp, lm_dp,
-    moe_ep, pipeline and compress, and the reduced configs' 4 ranks
-    against one on the card and the CPU."""
+    moe_ep, ssm_tp, serve_tp, serve_ssm_tp, serve_split_kv, pipeline and
+    compress, the reduced configs' 4 ranks against one on the card and the
+    CPU, and the dry run of the 4-rank paths (traced on the host beside
+    the card's work) against what their ranks read."""
     import dataclasses
     import torch
     from repro_torch.launch import profiles
     from repro_torch.parallel.sharding import spawn
     t_phase = time.perf_counter()
+    dry_run = _start_dry_run()
     refs = _one_rank_references()
     t_ref = time.perf_counter() - t_phase
     print(f"[lm_ranks] one-rank references: qwen step-0 loss {refs[LM_ARCH]}, granite (moe_ffn, "
           f"no drop) {refs[GRANITE]}; {t_ref:.1f} s", flush=True)
     payload = {"qwen_ref": refs["qwen_ref"], "qwen_grads": refs["lm_tp"]["grads"],
-               "qwen_dp_grads": refs["lm_dp"]["grads"], "pipe_ref": refs["pipe_ref"]}
+               "qwen_dp_grads": refs["lm_dp"]["grads"], "pipe_ref": refs["pipe_ref"],
+               "ssm_grads": refs["ssm_tp"]["grads"]}
     try:
         results = spawn(_lm_ranks_main, LM_RANKS, backend="gloo", args=(payload,),
                         timeout_s=600)
@@ -5798,6 +6168,10 @@ def phase_lm_ranks() -> tuple:
               f"{ep['bitwise']}, max |diff| {ep['max_abs']}", flush=True)
         check(ep["bitwise"] and ep["layers"] == granite.n_layers,
               f"moe_ep: EP differs from moe_ffn_ep_reference ({ep})")
+    info["ssm_tp"] = _print_rank_path("ssm_tp", _ssm_tp_cfg(), results, refs["ssm_tp"],
+                                      SSM_TP_STEPS)
+    for label, (cfg, shape) in _serve_paths().items():
+        info[label] = _print_serve_path(label, cfg, shape, results)
     comp = [r["lm_dp"]["compress"] for r in results]
     c0 = comp[0]
     print(f"[compress] psum_compressed over {LM_RANKS} ranks of lm_dp's step-1 gradient "
@@ -5830,15 +6204,24 @@ def phase_lm_ranks() -> tuple:
             check(all(r["reduced"][dev][case] == got for r in results),
                   f"reduced {case}: the ranks' losses differ")
     launches = {path: _rank_launches(results, path)
-                for path in ("lm_tp", "lm_dp", "moe_ep", "pipeline")}
+                for path in ("lm_tp", "lm_dp", "moe_ep", "ssm_tp", "pipeline", *_serve_paths())}
     for path, cfg, steps in (("lm_tp", qwen, LM_TP_STEPS), ("lm_dp", dp_cfg, LM_DP_STEPS),
-                             ("moe_ep", granite, MOE_EP_STEPS)):
+                             ("moe_ep", granite, MOE_EP_STEPS),
+                             ("ssm_tp", _ssm_tp_cfg(), SSM_TP_STEPS)):
         one = _expected_train_launches(cfg, steps)
         expect = {k: (v * LM_RANKS if not isinstance(v, dict)
                       else {kk: vv * LM_RANKS for kk, vv in v.items()}) for k, v in one.items()}
         got = {k: launches[path][k] for k in expect}
         print(f"[{path}] launches summed over the ranks {launches[path]}", flush=True)
         check(got == expect, f"{path}: launches {got}, expected {expect}")
+    for label in _serve_paths():
+        steps = _serve_dims(label)[2]
+        got = launches[label]
+        print(f"[{label}] launches summed over the ranks {got}", flush=True)
+        check(got["hash_decode"] == LM_RANKS * (1 + steps) and got["hash_decode_backward"] == 0
+              and got["flash_attention"] == 0 and got["lsh_encode"] == 0,
+              f"{label}: launches {got}, expected {LM_RANKS * (1 + steps)} hash_decode only")
+    _finish_dry_run(dry_run, results)
     ticks = PIPE_MICRO + PIPE_STAGES - 1
     check(launches["pipeline"]["flash_attention"] == LM_RANKS * ticks * PIPE_LAYERS,
           f"pipeline: flash_attention launched {launches['pipeline']['flash_attention']} times")
@@ -5887,35 +6270,59 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
     from repro_torch.device import disable_tf32
     disable_tf32()
+    t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"[lap] {what} done at {time.perf_counter() - t_start:.1f} s", flush=True)
     name, count = phase_device()
+    lap("phase_device")
     phase_build()
+    lap("phase_build")
     from repro_torch.graph.engine import default_frontier_cap
     b_main = default_frontier_cap(REQUEST, (15, 15), 256, N_NODES)
     timing = phase_kernel_check(b_main)
+    lap("phase_kernel_check")
     flash_err = phase_flash_check()
+    lap("phase_flash_check")
     phase_backward_check()
+    lap("phase_backward_check")
     serve_launches, cap, graph, (serve_rt, plain, requests, uncached) = phase_slice()
+    lap("phase_slice")
     check(cap == b_main, f"served frontier cap {cap} != checked shape {b_main}")
     cached_launches, cached_bitwise, serve_sizes = phase_cached_serve(serve_rt, plain, requests,
                                                                       uncached)
     batched_launches, batched_sizes, batched_err = phase_batching(serve_rt)
+    lap("phase_batching")
     serve_rt.close()
     del serve_rt, plain, uncached
     phase_small_reference()
+    lap("phase_small_reference")
     gnn_launches, frontier_rows, frontier_sizes, gnn_codes, gnn_ref = phase_gnn_train(graph)
+    lap("phase_gnn_train")
     gnn_cached_launches, planned_sizes = phase_gnn_cached(graph, gnn_ref)
+    lap("phase_gnn_cached")
     full_launches, full_codes, gcn = phase_fullgraph(graph)
+    lap("phase_fullgraph")
     time_spmm(gcn)
+    lap("time_spmm")
     gcn.close()
     del gcn
     link_launches = phase_link(graph)
+    lap("phase_link")
     merchant_launches, merchant_sizes = phase_merchant()
+    lap("phase_merchant")
     phase_fullgraph_reference()
+    lap("phase_fullgraph_reference")
     family_launches, family_sizes, family_err, family_times = phase_families(graph)
+    lap("phase_families")
     phase_families_reference()
+    lap("phase_families_reference")
     host_launches, host_sizes, host_err = phase_codes_host(graph)
+    lap("phase_codes_host")
     shard_launches, shard_sizes, shard_err = phase_sharded(graph)
+    lap("phase_sharded")
     elastic_launches, elastic_sizes, elastic_err = phase_elastic(graph)
+    lap("phase_elastic")
     del graph, gnn_ref
     timing["max_abs_err"] = max(timing["max_abs_err"], batched_err,
                                 check_gnn_frontiers(frontier_sizes),
@@ -5925,27 +6332,41 @@ def main() -> None:
                                                     "decode sizes of the merchant path"),
                                 family_err, host_err, shard_err, elastic_err)
     bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
+    lap("phase_hd_backward_check")
     lsh = phase_lsh_check()
+    lap("phase_lsh_check")
     vocab_flips = phase_lsh_packed_check()
+    lap("phase_lsh_packed_check")
     train_launches, _ = phase_train()
+    lap("phase_train")
     phase_lm_reference()
+    lap("phase_lm_reference")
     serve_lm_launches, serve_lm = phase_serve_lm()
+    lap("phase_serve_lm")
     timing["max_abs_err"] = max(timing["max_abs_err"], serve_lm.pop("max_abs_err"))
     family_lm_launches, family_lm = phase_lm_families()
+    lap("phase_lm_families")
     timing["max_abs_err"] = max(timing["max_abs_err"], family_lm.pop("max_abs_err"))
     audio_vlm_launches, audio_vlm = phase_audio_vlm()
+    lap("phase_audio_vlm")
     timing["max_abs_err"] = max(timing["max_abs_err"], audio_vlm.pop("max_abs_err"))
     lm_ranks_launches, lm_ranks = phase_lm_ranks()
+    lap("phase_lm_ranks")
     timing["max_abs_err"] = max(timing["max_abs_err"], lm_ranks.pop("max_abs_err"))
     rec_launches = phase_reconstruct()
+    lap("phase_reconstruct")
     phase_reconstruct_reference()
+    lap("phase_reconstruct_reference")
     lm = time_lm_kernels()
+    lap("time_lm_kernels")
     bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696),
                  "lm": time_hd_backward(LM_BATCH * LM_SEQ, "bfloat16"),
                  "reconstruct": time_hd_backward(REC_BATCH, graph=True),
                  "full": time_hd_backward(N_NODES)}
     variants = time_variants()
+    lap("time_variants")
     lsh_times = time_lsh()
+    lap("time_lsh")
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
     paths = {"serve": serve_launches, "train": train_launches,
              "reconstruct": rec_launches, "gnn_train": gnn_launches,

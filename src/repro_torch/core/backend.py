@@ -588,7 +588,10 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         order = torch.sort(idx, stable=True).indices
-        lengths = torch.bincount(idx, minlength=ctx.rows)
+        # each row's repeats (bincount's values, with a shape known before
+        # the data: a dry run traces this on tensors without storage)
+        lengths = torch.zeros(ctx.rows, dtype=torch.int64, device=idx.device).scatter_add_(
+            0, idx.to(torch.int64), torch.ones_like(idx, dtype=torch.int64))
         summed = torch.segment_reduce(g.float().index_select(0, order), "sum",
                                       lengths=lengths, axis=0)
         return summed.to(ctx.dtype), None

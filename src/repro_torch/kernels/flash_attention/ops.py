@@ -48,6 +48,12 @@ def _entry():
     return fn
 
 
+def _is_fake(t) -> bool:
+    """A tensor without storage (the dry run's): it has no address to align."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (B, S, H, D) and k, v (B, S, K, D), got "
@@ -66,7 +72,8 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on several devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention operands must be contiguous")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
+    if q.dtype == torch.bfloat16 and not _is_fake(q) and any(t.data_ptr() % TMA_ALIGN
+                                                              for t in (q, k, v)):
         raise ValueError(f"bfloat16 flash_attention operands must start "
                          f"{TMA_ALIGN}-byte aligned (the kernel reads them by TMA)")
 

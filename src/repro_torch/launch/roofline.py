@@ -8,15 +8,17 @@
 ``model_flops`` is the analytic useful work of a cell (6·N_active·tokens
 for training, 2·N_active·tokens forward, with the attention's quadratic
 term); ``decode_hbm_bytes`` and ``decode_roofline`` model one fused
-``hash_decode`` forward.  The JAX module's HLO parsers
-(``collective_bytes``, ``calibrate_cost_analysis``) read XLA's compiled
-programs and come with the LM across ranks (ROADMAP A.18.1).
+``hash_decode`` forward.  The JAX module's two readers of compiled HLO
+have counting twins: ``collective_bytes`` takes a ``VirtualMesh``'s
+recorded calls (the JAX one parses the collectives out of the HLO text),
+and ``calibrate_counter`` checks ``launch.opanalysis.OpAnalyzer`` on a
+sharded matmul as ``calibrate_cost_analysis`` checks XLA's cost analysis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
 
@@ -106,6 +108,47 @@ def model_flops(cfg, shape, n_chips: int) -> float:
     if H:
         total += att / cfg.attn_every if cfg.family == "hybrid" else att
     return total / n_chips
+
+
+def collective_bytes(calls: Iterable[Tuple[str, str, int, int]]) -> Dict[str, float]:
+    """Wire bytes a rank by collective, under JAX's names, from the
+    (primitive, axes, result bytes, group size) calls a
+    ``parallel.sharding.VirtualMesh`` recorded, through the ring model:
+
+      all-gather      result R gathered over p: R·(p−1)/p
+      all-reduce      2·R·(p−1)/p
+      reduce-scatter  result r = R/p: r·(p−1)
+      all-to-all      R·(p−1)/p
+      collective-permute  R
+
+    The port issues all-gathers, all-to-alls and shifts only (its sums
+    over ranks are a gather and a sum in rank order), so those three keys
+    carry its bytes; ``total`` sums them."""
+    from repro_torch.launch.opanalysis import coll_from_calls
+    out = coll_from_calls(calls)
+    out["total"] = sum(out.values())
+    return out
+
+
+def calibrate_counter(mesh) -> float:
+    """Counts a 1024² f32 matmul, the rows of A over the data axes and the
+    columns of B over ``model``, as the virtual rank at coordinate 0 of
+    ``mesh`` (a ``MeshSpec``) runs it, and returns counted / (2n³ / chips):
+    1.0 when the counter reads one rank's FLOPs."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.opanalysis import OpAnalyzer
+    from repro_torch.parallel.policy import shard_leaf
+    from repro_torch.parallel.sharding import VirtualMesh
+    n = 1024
+    vmesh = VirtualMesh(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    with FakeTensorMode():
+        a = shard_leaf(torch.empty(n, n), (axes if len(axes) > 1 else axes[0], None), vmesh)
+        b = shard_leaf(torch.empty(n, n), (None, "model"), vmesh)
+        with OpAnalyzer() as counter:
+            a @ b
+    return counter.flops / (2.0 * n * n * n / mesh.size)
 
 
 # Storage bytes a codebook element by decode precision; int8's f32 absmax

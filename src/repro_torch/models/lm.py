@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -61,7 +62,7 @@ from repro_torch.core import embedding as emb_lib
 from repro_torch.core import lsh
 from repro_torch.core.backend import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.nn.attention import AttentionConfig, attention, init_attention
+from repro_torch.nn.attention import AttentionConfig, AttnSplit, attention, init_attention
 from repro_torch.nn.kvcache import KVCache, SSMCache
 from repro_torch.nn.layers import init_mlp, init_norm, mlp, norm
 from repro_torch.nn.module import Params, dense_init, map_tree
@@ -111,18 +112,32 @@ class LMCache:
     """Every attention site's KV buffers and every SSM layer's state, stacked
     as in the JAX package: ``kv_k`` / ``kv_v`` (sites, B, S_max, K, Dh);
     ``ssm_state`` (ssm layers, B, H, N, P) f32; ``conv`` (ssm layers, B,
-    W-1, C); ``pos`` the next write index, a Python int."""
+    W-1, C); ``pos`` the next write index, a Python int.  Across ranks
+    (``init_cache(mesh=)``) the buffers are the rank's blocks under
+    ``policy.cache_shardings_policy`` and ``kv_seq`` names the mesh axes
+    the KV slots are split over (() where each rank holds all of them)."""
     pos: int
     kv_k: Optional[torch.Tensor] = None
     kv_v: Optional[torch.Tensor] = None
     ssm_state: Optional[torch.Tensor] = None
     conv: Optional[torch.Tensor] = None
+    kv_seq: Tuple[str, ...] = ()
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for t in (self.kv_k, self.kv_v, self.ssm_state, self.conv)
                    if t is not None)
+
+    def kv_site(self, i: int, mesh=None) -> KVCache:
+        """Site ``i``'s ``KVCache`` (views of the stacked buffers): on a
+        rank whose slots are a block over ``kv_seq``, with its first
+        slot's global index and the global length."""
+        if not self.kv_seq:
+            return KVCache(self.kv_k[i], self.kv_v[i], self.pos)
+        held = self.kv_k.shape[2]
+        return KVCache(self.kv_k[i], self.kv_v[i], self.pos, lo=mesh.index(self.kv_seq) * held,
+                       s_max=held * mesh.axes_size(self.kv_seq))
 
     def ssm_layer(self, i: int) -> SSMCache:
         return SSMCache(self.ssm_state[i], self.conv[i])
@@ -132,21 +147,41 @@ class LMCache:
         self.conv[i].copy_(layer.conv)
 
 
-def init_cache(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16,
-               device: DeviceLike = None) -> LMCache:
-    dev = resolve_device(device)
-    cache = LMCache(pos=0)
+def _cache_shapes(cfg: LMConfig, batch: int, s_max: int) -> Dict[str, Tuple[int, ...]]:
+    """The whole cache's buffer shapes, by ``LMCache`` field."""
+    out = {}
     sites, nssm = _n_attn_sites(cfg), _n_ssm_layers(cfg)
     if sites:
-        shape = (sites, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-        cache.kv_k = torch.zeros(shape, dtype=dtype, device=dev)
-        cache.kv_v = torch.zeros(shape, dtype=dtype, device=dev)
+        out["kv_k"] = out["kv_v"] = (sites, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
     if nssm:
         scfg = ssm_config(cfg)
-        cache.ssm_state = torch.zeros(
-            (nssm, batch, scfg.n_heads, scfg.d_state, scfg.headdim), device=dev)
-        cache.conv = torch.zeros(
-            (nssm, batch, scfg.conv_width - 1, scfg.conv_channels), dtype=dtype, device=dev)
+        out["ssm_state"] = (nssm, batch, scfg.n_heads, scfg.d_state, scfg.headdim)
+        out["conv"] = (nssm, batch, scfg.conv_width - 1, scfg.conv_channels)
+    return out
+
+
+def init_cache(cfg: LMConfig, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = None, mesh=None, strategy=None) -> LMCache:
+    """A zero cache for ``batch`` rows of ``s_max`` slots (the SSM states in
+    f32); with ``mesh`` (and ``strategy``) this rank's blocks of it under
+    ``policy.cache_shardings_policy``."""
+    dev = resolve_device(device) if mesh is None else torch.device(device or mesh.device)
+    shapes = _cache_shapes(cfg, batch, s_max)
+    specs = {}
+    if mesh is not None:
+        from repro_torch.parallel import policy
+        from repro_torch.parallel.sharding import _axes_tuple, shard_shape
+        whole = LMCache(pos=0, **{k: types.SimpleNamespace(shape=v) for k, v in shapes.items()})
+        sp = policy.cache_shardings_policy(cfg, whole, mesh,
+                                           strategy or policy.DEFAULT_STRATEGY)
+        specs = {k: getattr(sp, k) for k in shapes}
+        shapes = {k: shard_shape(v, specs[k], mesh) for k, v in shapes.items()}
+    cache = LMCache(pos=0)
+    for name, shape in shapes.items():
+        setattr(cache, name, torch.zeros(
+            shape, dtype=torch.float32 if name == "ssm_state" else dtype, device=dev))
+    if "kv_k" in specs:
+        cache.kv_seq = tuple(a for a in _axes_tuple(specs["kv_k"][2]) if mesh.shape[a] > 1)
     return cache
 
 
@@ -183,24 +218,38 @@ def init_attn_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     return p
 
 
-def _tp_attention(p: Params, acfg: AttentionConfig, plan):
-    """(params, config) of the rank's heads: its columns of wq / wk / wv and
-    rows of wo are its blocks already; a replicated bias is cut to them.
-    None where the attention is not split (its heads do not divide the
-    model axis)."""
-    H_loc = p["wq"]["w"].shape[-1] // acfg.d_head
-    if H_loc == acfg.n_heads:
-        return None
-    K_loc = p["wk"]["w"].shape[-1] // acfg.d_head
-    if K_loc == acfg.n_kv_heads:
-        raise NotImplementedError(f"query heads split over the model axis with all "
-                                  f"{acfg.n_kv_heads} kv heads whole")
+def _tp_attention(p: Params, acfg: AttentionConfig, plan, kv_axes=()):
+    """(params, config, ``AttnSplit``) of the rank's heads: its columns of
+    wq / wk / wv and rows of wo are its blocks already; a replicated bias
+    of a split projection is cut to them.  Where the query heads split and
+    the KV heads stay whole (they do not divide the model axis), the rank
+    computes every KV head and attends with those its query heads read."""
+    Dh = acfg.d_head
+    H_loc = p["wq"]["w"].shape[-1] // Dh
+    K_loc = p["wk"]["w"].shape[-1] // Dh
+    q_split, kv_split = H_loc != acfg.n_heads, K_loc != acfg.n_kv_heads
+    if kv_split and not q_split:
+        raise NotImplementedError(f"kv heads split over the model axis with all "
+                                  f"{acfg.n_heads} query heads whole")
+    kv_sel = None
+    if q_split and not kv_split:
+        g = acfg.n_heads // acfg.n_kv_heads
+        first = plan.tp_index * H_loc
+        if H_loc % g == 0:
+            kv_sel = (first // g, H_loc // g)
+        elif g % H_loc == 0:
+            kv_sel = (first // g, 1)
+        else:
+            raise NotImplementedError(f"{H_loc} query heads a rank straddle the groups of "
+                                      f"{g} that share a KV head")
     out = {}
     for name, sub in p.items():
         out[name] = dict(sub)
-        if "b" in sub and name != "wo":
+        if "b" in sub and name != "wo" and sub["b"].shape[-1] != sub["w"].shape[-1]:
             out[name]["b"] = plan.split(sub["b"], dim=-1)
-    return out, dataclasses.replace(acfg, n_heads=H_loc, n_kv_heads=K_loc)
+    split = AttnSplit(plan=plan, q_split=q_split, kv_split=kv_split, kv_sel=kv_sel,
+                      kv_axes=tuple(kv_axes))
+    return out, dataclasses.replace(acfg, n_heads=H_loc, n_kv_heads=K_loc), split
 
 
 def _tp_mlp(p: Params, x: torch.Tensor, act: str, plan) -> torch.Tensor:
@@ -216,17 +265,20 @@ def _tp_mlp(p: Params, x: torch.Tensor, act: str, plan) -> torch.Tensor:
 
 
 def attn_block(p: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
-               kv: Optional[KVCache] = None, plan=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+               kv: Optional[KVCache] = None, plan=None,
+               kv_axes=()) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """One attention block; ``plan``: its params are this rank's (gathered)
-    blocks under that ``ShardPlan``."""
+    blocks under that ``ShardPlan``; ``kv_axes``: the mesh axes ``kv``'s
+    slots are split over."""
     acfg = attn_config(cfg)
     h = norm(p["norm1"], x, cfg.norm)
-    split = _tp_attention(p["attn"], acfg, plan) if plan is not None else None
-    if split is None:
+    if plan is None:
         h, kv = attention(p["attn"], h, acfg, cos=cos, sin=sin, cache=kv)
     else:
-        h, kv = attention(split[0], plan.enter(h), split[1], cos=cos, sin=sin, cache=kv)
-        h = plan.exit(h)
+        pa, acfg_local, split = _tp_attention(p["attn"], acfg, plan, kv_axes)
+        h, kv = attention(pa, h, acfg_local, cos=cos, sin=sin, cache=kv, split=split)
+        if split.q_split:
+            h = plan.exit(h)
     x = x + h
     h2 = norm(p["norm2"], x, cfg.norm)
     if "moe" in p:
@@ -251,10 +303,13 @@ def init_ssm_block(generator: torch.Generator, cfg: LMConfig) -> Params:
     }
 
 
-def ssm_block(p: Params, x: torch.Tensor, cfg: LMConfig,
-              cache: Optional[SSMCache] = None) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+def ssm_block(p: Params, x: torch.Tensor, cfg: LMConfig, cache: Optional[SSMCache] = None,
+              plan=None) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """One Mamba2 block; ``plan``: its params are this rank's (gathered)
+    blocks, its heads split over ``model`` where the plan's specs split
+    them."""
     h, cache = ssm_forward(p["ssm"], norm(p["norm1"], x, cfg.norm), ssm_config(cfg),
-                           cache=cache)
+                           cache=cache, plan=plan)
     return x + h, cache
 
 
@@ -382,10 +437,12 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
         params = {"embed": plan.view_tree(params["embed"], plan.specs["embed"])}
         table = params["embed"].get("table")
         if table is not None and table.shape[0] != _table_config(cfg).n_entities:
+            edtype = torch_dtype(cfg.embedding_config().compute_dtype)
             if cfg.input_mode == "audio_tokens":
-                raise NotImplementedError("a vocab-parallel table for audio tokens")
-            x = _vocab_parallel_lookup(table, tokens, torch_dtype(cfg.embedding_config()
-                                                                  .compute_dtype), plan)
+                x = _vocab_parallel_lookup(table, tokens + _audio_offsets(cfg, tokens),
+                                           edtype, plan).sum(dim=2)
+            else:
+                x = _vocab_parallel_lookup(table, tokens, edtype, plan)
             return _add_positions(x.to(dtype), cfg, positions, dtype)
         # each rank decodes its own tokens: outside the mesh, which the
         # GNN's frontier decode backends would read as one stacked frontier
@@ -393,12 +450,17 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
         with use_sharding(None):
             return _embed_tokens(params, tokens, cfg, positions)
     if cfg.input_mode == "audio_tokens":
-        nq = tokens.shape[2]
-        offsets = torch.arange(nq, dtype=tokens.dtype, device=tokens.device) * cfg.vocab_padded
-        x = emb_lib.embed_lookup(params["embed"], tokens + offsets, _table_config(cfg)).sum(dim=2)
+        x = emb_lib.embed_lookup(params["embed"], tokens + _audio_offsets(cfg, tokens),
+                                 _table_config(cfg)).sum(dim=2)
     else:
         x = emb_lib.embed_lookup(params["embed"], tokens, cfg.embedding_config())
     return _add_positions(x.to(dtype), cfg, positions, dtype)
+
+
+def _audio_offsets(cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Codebook q's ids start at row ``q * vocab_padded`` of the table."""
+    return torch.arange(tokens.shape[2], dtype=tokens.dtype,
+                        device=tokens.device) * cfg.vocab_padded
 
 
 def _add_positions(x, cfg: LMConfig, positions, dtype):
@@ -436,7 +498,7 @@ def _attn_layer(lp, x, cfg, cos, sin, plan=None, lspec=None):
 
 
 def _ssm_layer(lp, x, cfg, plan=None, lspec=None):
-    return ssm_block(_viewed(lp, plan, lspec), x, cfg)[0]
+    return ssm_block(_viewed(lp, plan, lspec), x, cfg, plan=plan)[0]
 
 
 def _hybrid_group(gp, shared, x, cfg, cos, sin, plan=None, gspec=None, sspec=None):
@@ -450,58 +512,64 @@ def _hybrid_group(gp, shared, x, cfg, cos, sin, plan=None, gspec=None, sspec=Non
     return attn_block(_viewed(shared, plan, sspec), x, cfg, cos, sin, plan=plan)[0]
 
 
-def _ssm_layers_cached(layers, x, cfg, cache: LMCache, first: int):
+def _ssm_layers_cached(layers, x, cfg, cache: LMCache, first: int, plan=None, lspec=None):
     """SSM layers ``first``, ``first + 1``, ... against the cache's state,
     each layer's new state written back in place."""
     for i, lp in enumerate(layers):
-        x, sc = ssm_block(lp, x, cfg, cache=cache.ssm_layer(first + i))
+        x, sc = ssm_block(_viewed(lp, plan, lspec), x, cfg, cache=cache.ssm_layer(first + i),
+                          plan=plan)
         cache.put_ssm_layer(first + i, sc)
     return x
+
+
+def _attn_cached(lp, x, cfg, cos, sin, cache: LMCache, site: int, plan=None, lspec=None):
+    """One attention block against site ``site`` of the cache."""
+    mesh = plan.mesh if plan is not None else None
+    return attn_block(_viewed(lp, plan, lspec), x, cfg, cos, sin,
+                      kv=cache.kv_site(site, mesh), plan=plan, kv_axes=cache.kv_seq)[0]
 
 
 def _blocks(params: Params, x: torch.Tensor, cfg: LMConfig, cos, sin,
             cache: Optional[LMCache], plan=None) -> torch.Tensor:
     """The family's layer stack; with a cache, its buffers are written.
-    ``plan``: the params are this rank's blocks (training only)."""
+    ``plan``: the params are this rank's blocks (and the cache's buffers,
+    under ``init_cache(mesh=)``)."""
     specs, lspec = {}, None
     if plan is not None:
-        if cache is not None:
-            raise NotImplementedError("decoding with a cache across ranks")
         specs, lspec = plan.specs, layer_specs(plan.specs["blocks"])
     if cfg.family in ATTN_FAMILIES:
         for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             if cache is None:
                 x = _layer(_attn_layer, cfg, lp, x, cfg, cos, sin, plan, lspec)
             else:
-                x, _ = attn_block(lp, x, cfg, cos, sin,
-                                  kv=KVCache(cache.kv_k[i], cache.kv_v[i], cache.pos))
+                x = _attn_cached(lp, x, cfg, cos, sin, cache, i, plan, lspec)
     elif cfg.family == "ssm":
         layers = _unstack(params["blocks"], cfg.n_layers)
         if cache is None:
             for lp in layers:
                 x = _layer(_ssm_layer, cfg, lp, x, cfg, plan, lspec)
         else:
-            x = _ssm_layers_cached(layers, x, cfg, cache, 0)
+            x = _ssm_layers_cached(layers, x, cfg, cache, 0, plan, lspec)
     else:                                   # hybrid
         every = cfg.attn_every
         groups, rem = divmod(cfg.n_layers, every)
         shared = params["shared"]
+        gspec = layer_specs(lspec) if plan is not None else None
         for g, gp in enumerate(_unstack(params["blocks"], groups)):
             if cache is None:
                 x = _layer(_hybrid_group, cfg, gp, shared, x, cfg, cos, sin, plan,
                            lspec, specs.get("shared"))
             else:
-                x = _ssm_layers_cached(_unstack(gp, every), x, cfg, cache, g * every)
-                x, _ = attn_block(shared, x, cfg, cos, sin,
-                                  kv=KVCache(cache.kv_k[g], cache.kv_v[g], cache.pos))
+                x = _ssm_layers_cached(_unstack(gp, every), x, cfg, cache, g * every, plan, gspec)
+                x = _attn_cached(shared, x, cfg, cos, sin, cache, g, plan, specs.get("shared"))
         if rem:
             tail = _unstack(params["tail"], rem)
+            tspec = layer_specs(specs["tail"]) if plan is not None else None
             if cache is None:
-                tspec = layer_specs(specs["tail"]) if plan is not None else None
                 for lp in tail:
                     x = _layer(_ssm_layer, cfg, lp, x, cfg, plan, tspec)
             else:
-                x = _ssm_layers_cached(tail, x, cfg, cache, groups * every)
+                x = _ssm_layers_cached(tail, x, cfg, cache, groups * every, plan, tspec)
     return x
 
 
@@ -516,7 +584,9 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
     are written in place and the returned cache has ``pos`` advanced by S.
     ``return_hidden``: the final-norm hidden states (B, S, D) in place of
     the logits.  ``plan``: ``params`` are this rank's blocks and ``tokens``
-    its rows (a ``parallel.tensor.ShardPlan``; no cache)."""
+    its rows (a ``parallel.tensor.ShardPlan``; with a cache, its blocks
+    from ``init_cache(mesh=)``); a vocab-parallel head's logits are
+    stacked over ``model``, the same bits on every model rank."""
     B, S = tokens.shape[:2]
     offset = cache.pos if cache is not None else 0
     if positions is None:
@@ -534,13 +604,23 @@ def lm_forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
         x = norm(final_norm, x, cfg.norm)
         if return_hidden:
             return x, new_cache
-        head = _head(params, cfg, plan, x.dtype)
-        if head.shape[1] != _head_cols(cfg):
-            raise NotImplementedError("logits of a vocab-parallel head: lm_loss takes them")
-        logits = (x @ head.to(x.dtype)).float()
-        if cfg.input_mode == "audio_tokens":
-            logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
+        logits = lm_logits(params, x, cfg, plan)
     return logits, new_cache
+
+
+def lm_logits(params: Params, x: torch.Tensor, cfg: LMConfig, plan=None) -> torch.Tensor:
+    """The head over final-norm hidden states x (B, S, D): f32 (B, S, Vpad),
+    audio (B, S, nq, Vpad).  Under a plan whose head is vocab-parallel, the
+    model ranks' column blocks stacked (``plan.stack``) and put side by
+    side."""
+    B, S = x.shape[:2]
+    head = _head(params, cfg, plan, x.dtype)
+    logits = (x @ head.to(x.dtype)).float()
+    if head.shape[1] != _head_cols(cfg):
+        logits = torch.cat(plan.stack(logits).unbind(0), dim=-1)
+    if cfg.input_mode == "audio_tokens":
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_padded)
+    return logits
 
 
 def _head_cols(cfg: LMConfig) -> int:
@@ -599,47 +679,42 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 def _vocab_parallel_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                        cfg: LMConfig, plan) -> torch.Tensor:
-    """Cross-entropy when each model rank holds a slice of the head's
-    columns: each rank folds its slice (in ``loss_vocab_chunk`` columns
-    where they divide it, each chunk checkpointed) into a running max, sum
-    of exponentials and gold logit (zero off the label's owner), the model
-    ranks' three are stacked, and the log-sum-exp takes the max over them,
-    then the sum of their exponentials, in rank order."""
+    """Cross-entropy when each model rank holds a block of the head's
+    columns: for each token stream (audio's codebooks; text has one) whose
+    vocabulary meets the block, each rank folds its columns (in
+    ``loss_vocab_chunk`` columns where they divide them, each chunk
+    checkpointed) into a running max, sum of exponentials and gold logit
+    (zero off the label's owner; a stream the block misses keeps -1e30, 0,
+    0), the model ranks' statistics are stacked, and each stream's
+    log-sum-exp takes the max over them, then the sum of their
+    exponentials, in rank order."""
     B, S, D = x.shape
     T = B * S
+    nq, vp = _n_streams(cfg), cfg.vocab_padded
     xf = plan.enter(x.reshape(T, D))
-    lab = labels.reshape(T).to(torch.int64)
+    lab = labels.reshape(T, nq).to(torch.int64)
     cols = head.shape[1]
-    chunk = cfg.loss_vocab_chunk if cfg.loss_vocab_chunk and cols % cfg.loss_vocab_chunk == 0 \
-        else cols
     base = plan.tp_index * cols
-    m = torch.full((T,), NEG_INF, dtype=torch.float32, device=x.device)
-    s_sum = torch.zeros(T, dtype=torch.float32, device=x.device)
-    gold = torch.zeros(T, dtype=torch.float32, device=x.device)
-    for i, head_c in enumerate(head.split(chunk, dim=1)):
-        m, s_sum, gold = checkpoint(_ce_chunk, xf, head_c, lab, m, s_sum, gold,
-                                    base + i * chunk, cfg.vocab_size, use_reentrant=False)
-    st = plan.stack(torch.stack([m, s_sum, gold]))            # (model ranks, 3, T)
-    top = st[:, 0].amax(dim=0).detach()
-    total = ordered_sum([r[1] * torch.exp(r[0] - top) for r in st.unbind(0)])
-    gold_all = ordered_sum([r[2] for r in st.unbind(0)])
+    stats = []
+    for q in range(nq):
+        m = torch.full((T,), NEG_INF, dtype=torch.float32, device=x.device)
+        s_sum = torch.zeros(T, dtype=torch.float32, device=x.device)
+        gold = torch.zeros(T, dtype=torch.float32, device=x.device)
+        lo, hi = max(base, q * vp), min(base + cols, (q + 1) * vp)
+        if lo < hi:
+            width = hi - lo
+            chunk = cfg.loss_vocab_chunk if (nq == 1 and cfg.loss_vocab_chunk
+                                             and width % cfg.loss_vocab_chunk == 0) else width
+            for i, head_c in enumerate(head[:, lo - base:hi - base].split(chunk, dim=1)):
+                m, s_sum, gold = checkpoint(_ce_chunk, xf, head_c, lab[:, q], m, s_sum, gold,
+                                            lo - q * vp + i * chunk, cfg.vocab_size,
+                                            use_reentrant=False)
+        stats.append(torch.stack([m, s_sum, gold]))
+    st = plan.stack(torch.stack(stats))                      # (model ranks, nq, 3, T)
+    top = st[:, :, 0].amax(dim=0).detach()
+    total = ordered_sum([r[:, 1] * torch.exp(r[:, 0] - top) for r in st.unbind(0)])
+    gold_all = ordered_sum([r[:, 2] for r in st.unbind(0)])
     return (top + torch.log(total) - gold_all).mean()
-
-
-def _check_ssm_ranks(cfg: LMConfig, plan) -> None:
-    """The SSM layers' heads are not split across ranks yet (ROADMAP A.21):
-    refuse rules that bind them to an axis of more than one rank."""
-    if not _n_ssm_layers(cfg):
-        return
-    from repro_torch.parallel.sharding import _axes_tuple, current_rules
-    rules = plan.rules if plan.rules is not None else current_rules()
-    for name in ("ssm_heads", "ssm_inner"):
-        axes = tuple(a for a in _axes_tuple(rules.resolve(name)) if a in plan.mesh.shape)
-        if plan.mesh.axes_size(axes) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the rules bind {name!r} to {axes} of {plan.mesh.axes_size(axes)} "
-                f"ranks; tensor parallelism over the SSM heads is ROADMAP A.21 (train the "
-                f"ssm and hybrid families across ranks under Strategy(dp_over_model=True))")
 
 
 def _sharded_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig,
@@ -647,14 +722,11 @@ def _sharded_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig,
     """This rank's share of the global loss: the mean over its tokens over
     the number of batch shards (each rank's share is its tokens' sum over
     the global token count)."""
-    _check_ssm_ranks(cfg, plan)
     x, _ = lm_forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
                       return_hidden=True, plan=plan)
     head = _head(params, cfg, plan, x.dtype)
     with stage("loss"):
         if head.shape[1] != _head_cols(cfg):
-            if cfg.input_mode == "audio_tokens":
-                raise NotImplementedError("a vocab-parallel head for audio tokens")
             loss = _vocab_parallel_ce(x, head, batch["labels"], cfg, plan)
         else:
             loss = _loss_from_hidden(x, head, batch["labels"], cfg)

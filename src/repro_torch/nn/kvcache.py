@@ -13,6 +13,11 @@ one-row write exists for GSPMD's partitioner; a slot write gives the same
 values (±0 aside).  ``shard()`` is a sharding constraint and has no
 counterpart here.
 
+Across ranks a cache may hold a block of the slots only (its sequence dim
+split over mesh axes): ``lo`` is the global index of its first slot and
+``s_max`` the global length; ``update`` writes the new rows that fall in
+its block, and ``valid_mask`` marks its live slots.
+
 ``SSMCache`` holds one Mamba2 layer's recurrent state (B, H, N, P) f32 and
 its conv tail (B, W-1, C): the last W-1 inputs of the depthwise conv.
 """
@@ -20,6 +25,7 @@ its conv tail (B, W-1, C): the last W-1 inputs of the depthwise conv.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -31,6 +37,12 @@ class KVCache:
     k: torch.Tensor      # (B, S_max, n_kv, d_head)
     v: torch.Tensor
     pos: int             # next write index (the same for every row)
+    lo: int = 0          # global index of the first slot held (a rank's block)
+    s_max: Optional[int] = None    # global slots; None: all are held
+
+    @property
+    def is_split(self) -> bool:
+        return self.s_max is not None and self.s_max != self.k.shape[1]
 
     @classmethod
     def zeros(cls, batch: int, s_max: int, n_kv: int, d_head: int,
@@ -43,8 +55,15 @@ class KVCache:
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
         """Append S_new timesteps (B, S_new, n_kv, d_head) at ``pos``."""
         s_new, s_max = k_new.shape[1], self.k.shape[1]
-        if self.pos + s_new > s_max:
-            raise ValueError(f"KV cache overflow: {self.pos} + {s_new} rows > S_max {s_max}")
+        total = s_max if self.s_max is None else self.s_max
+        if self.pos + s_new > total:
+            raise ValueError(f"KV cache overflow: {self.pos} + {s_new} rows > S_max {total}")
+        if self.is_split:
+            a, b = max(self.pos, self.lo), min(self.pos + s_new, self.lo + s_max)
+            if a < b:
+                self.k[:, a - self.lo:b - self.lo] = k_new[:, a - self.pos:b - self.pos]
+                self.v[:, a - self.lo:b - self.lo] = v_new[:, a - self.pos:b - self.pos]
+            return dataclasses.replace(self, pos=self.pos + s_new)
         if s_new == s_max:
             self.k.copy_(k_new)
             self.v.copy_(v_new)
@@ -58,7 +77,7 @@ class KVCache:
 
     def valid_mask(self) -> torch.Tensor:
         """(S_max,) bool: which cache slots hold live tokens."""
-        return torch.arange(self.k.shape[1], device=self.k.device) < self.pos
+        return torch.arange(self.k.shape[1], device=self.k.device) + self.lo < self.pos
 
 
 @dataclasses.dataclass

@@ -213,7 +213,10 @@ def _ep_local_ffn(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, params_lo
     e_s, t_s = e_key[order], t_flat[order]
     w_s = torch.where(e_s < e_local, w_flat[order], torch.zeros_like(w_flat))
     cap_e = max(1, capacity // e_local)
-    sizes = torch.bincount(e_s, minlength=e_local + 1)
+    # the rows a local id holds (bincount's values; its output shape is
+    # data-dependent, this one's is not)
+    sizes = torch.zeros(e_local + 1, dtype=e_s.dtype, device=dev).scatter_add_(
+        0, e_s, torch.ones_like(e_s))
     starts = torch.clamp(torch.cumsum(sizes, 0) - sizes, max=n - cap_e)[:e_local]
     win = starts[:, None] + torch.arange(cap_e, device=dev)[None, :]   # (e_local, cap_e)
     rows_t, rows_w, rows_e = t_s[win], w_s[win], e_s[win]

@@ -145,36 +145,82 @@ def ssd_chunked(X: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Te
     return (Y_intra + Y_inter).reshape(B, S, H, Pd), state
 
 
+def _tp_layout(params: Params, cfg: SSMConfig, plan):
+    """(params, local heads, first channel) of the rank's heads under a plan
+    that splits them over ``model``: ``w_z``, ``w_x`` and ``w_dt`` are its
+    column blocks and ``w_out`` its row block already; the replicated
+    per-channel and per-head leaves are cut to its heads (``plan.split``:
+    their gradient gathered).  None where the heads are whole."""
+    DI = cfg.d_inner
+    di_local = params["w_x"].shape[-1]
+    if plan is None or plan.tp_size == 1 or di_local == DI:
+        return None
+    h_local = params["w_dt"].shape[-1]
+    if h_local * cfg.headdim != di_local or params["w_z"].shape[-1] != di_local:
+        raise NotImplementedError(f"SSM channels split over the model axis off its heads' "
+                                  f"boundaries: {di_local} channels with {h_local} heads")
+    p = dict(params)
+    for name in ("conv_x_w", "conv_x_b", "norm_scale", "dt_bias", "A_log", "D_skip"):
+        p[name] = plan.split(params[name], -1)
+    return p, h_local, plan.tp_index * di_local
+
+
 def ssm_forward(params: Params, x: torch.Tensor, cfg: SSMConfig,
-                cache: Optional[SSMCache] = None
+                cache: Optional[SSMCache] = None, plan=None
                 ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """The whole mixer.  x (B, S, D).  With a cache and S == 1, the
     single-step recurrence; with a cache and S > 1 (a prefill), the chunked
     scan from the cache's state.  Returns (y (B, S, D), the new cache or
-    None)."""
+    None).
+
+    ``plan`` (a ``parallel.tensor.ShardPlan``) whose params split the heads
+    over ``model`` (JAX's ``ssm_heads`` / ``ssm_inner`` rules): the rank
+    runs its H/tp heads and DI/tp channels.  ``z``, ``x`` and ``dt`` come
+    from its column blocks (input through ``plan.enter``); B and C, shared
+    by every head, are computed whole on every rank and their gradient,
+    each rank's heads' part, is summed over ``model`` (``plan.enter`` after
+    their conv); the gated RMSNorm's mean over all DI channels adds the
+    ranks' f32 sums of squares in rank order (``plan.reduce``); ``w_out``'s
+    row block gives partial sums added over ``model`` (``plan.exit``).  The
+    cache's state holds the rank's heads; its conv tail holds every channel,
+    and the rank's new x-channel tail is gathered over ``model`` each step."""
     Bb, S, _ = x.shape
     dt_all = x.dtype
     DI, N = cfg.d_inner, cfg.d_state
-    z = x @ params["w_z"].to(dt_all)
-    xc = x @ params["w_x"].to(dt_all)
-    Bc = x @ params["w_b"].to(dt_all)
-    Cc = x @ params["w_c"].to(dt_all)
-    dt = x @ params["w_dt"].to(dt_all)
+    tp = _tp_layout(params, cfg, plan)
+    if tp is None:
+        p, H, lo, xs = params, cfg.n_heads, 0, x
+    else:
+        p, H, lo = tp
+        xs = plan.enter(x)
+    di_local = H * cfg.headdim
+    z = xs @ p["w_z"].to(dt_all)
+    xc = xs @ p["w_x"].to(dt_all)
+    Bc = x @ p["w_b"].to(dt_all)
+    Cc = x @ p["w_c"].to(dt_all)
+    dt = xs @ p["w_dt"].to(dt_all)
 
     tail = cache.conv if cache is not None else None
-    tail_x = tail[..., :DI] if tail is not None else None
+    tail_x = tail[..., lo:lo + di_local] if tail is not None else None
     tail_bc = tail[..., DI:] if tail is not None else None
-    conv_x, new_tail_x = _causal_conv(xc, params["conv_x_w"], params["conv_x_b"], tail_x)
-    conv_bc, new_tail_bc = _causal_conv(torch.cat([Bc, Cc], dim=-1), params["conv_bc_w"],
-                                        params["conv_bc_b"], tail_bc)
+    conv_x, new_tail_x = _causal_conv(xc, p["conv_x_w"], p["conv_x_b"], tail_x)
+    conv_bc, new_tail_bc = _causal_conv(torch.cat([Bc, Cc], dim=-1), p["conv_bc_w"],
+                                        p["conv_bc_b"], tail_bc)
     xc = F.silu(conv_x)
     conv_bc = F.silu(conv_bc)
+    if tp is not None:
+        conv_bc = plan.enter(conv_bc)
     Bc, Cc = conv_bc[..., :N], conv_bc[..., N:]
-    new_tail = torch.cat([new_tail_x, new_tail_bc], dim=-1) if cache is not None else None
+    new_tail = None
+    if cache is not None:
+        if tp is not None:
+            new_tail_x = torch.cat(plan.mesh.all_gather(new_tail_x.contiguous(), "model",
+                                                        name="conv_gather"), dim=-1)
+        new_tail = torch.cat([new_tail_x, new_tail_bc], dim=-1)
 
-    dt = F.softplus(dt.float() + params["dt_bias"][None, None])
-    A = -torch.exp(params["A_log"])                              # (H,) < 0
-    H, Pd = cfg.n_heads, cfg.headdim
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    A = -torch.exp(p["A_log"])                                   # (H,) < 0
+    Pd = cfg.headdim
     X = xc.reshape(Bb, S, H, Pd).float()
     Bf, Cf = Bc.float(), Cc.float()
 
@@ -190,15 +236,19 @@ def ssm_forward(params: Params, x: torch.Tensor, cfg: SSMConfig,
         y, final_state = ssd_chunked(X, dt, A, Bf, Cf, cfg.chunk, init)
         new_cache = SSMCache(state=final_state, conv=new_tail) if cache is not None else None
 
-    y = y + params["D_skip"].to(y.dtype)[None, None, :, None] * X
-    y = y.reshape(Bb, S, DI).to(dt_all)
+    y = y + p["D_skip"].to(y.dtype)[None, None, :, None] * X
+    y = y.reshape(Bb, S, di_local).to(dt_all)
 
-    # gated RMSNorm (mamba2): norm(y * silu(z)) * scale
+    # gated RMSNorm (mamba2): norm(y * silu(z)) * scale, the mean over all DI
     y = y * F.silu(z)
     yf = y.float()
-    var = yf.square().mean(dim=-1, keepdim=True)
-    y = (yf * torch.rsqrt(var + 1e-6) * params["norm_scale"]).to(dt_all)
-    return y @ params["w_out"].to(dt_all), new_cache
+    if tp is None:
+        var = yf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = plan.reduce(yf.square().sum(dim=-1, keepdim=True)) / DI
+    y = (yf * torch.rsqrt(var + 1e-6) * p["norm_scale"]).to(dt_all)
+    out = y @ p["w_out"].to(dt_all)
+    return (out if tp is None else plan.exit(out)), new_cache
 
 
 def ssd_reference(X, dt, A, Bc, Cc) -> torch.Tensor:

@@ -359,6 +359,15 @@ def kv_seq_mesh_axis(cfg: LMConfig, mesh, strategy: Strategy = DEFAULT_STRATEGY,
         a for a in ("data", "model") if a in mesh.shape)
 
 
+def cache_batch_axes(batch: int, mesh, strategy: Strategy = DEFAULT_STRATEGY) -> Tuple[str, ...]:
+    """The axes a serving batch of ``batch`` rows splits over: the cache's
+    batch dim under ``cache_shardings_policy`` (the strategy's batch axes
+    where their product divides it and it holds more than one row, else
+    none)."""
+    baxes = strategy.batch_mesh_axes(mesh)
+    return tuple(baxes) if batch > 1 and _fits(batch, mesh, baxes) else ()
+
+
 def _one_dim_each(spec: Spec) -> Spec:
     """``spec``, which must map each mesh axis to one dim at most (a JAX
     ``NamedSharding`` refuses it otherwise: a cache batch split over

@@ -43,7 +43,10 @@ are row-major over the axes, the last fastest, as ``jax.make_mesh`` lays
 out devices).  Every rank builds the same groups in the same order, as
 ``torch.distributed`` requires.  ``DataMesh`` is the 1-axis ``Mesh`` of the
 GNN's ranks over a group it is given: the same collectives and the same
-``stats`` keys.
+``stats`` keys.  A ``VirtualMesh`` is one rank of a ``MeshSpec`` with no
+process group at all (the dry run's): each collective returns new tensors
+of its output's shape, counts its bytes in the same ``stats`` and records
+the call.
 """
 
 from __future__ import annotations
@@ -336,6 +339,68 @@ class DataMesh(Mesh):
     def all_to_all(self, x: torch.Tensor, axes: MeshAxes = DATA_AXIS,
                    name: str = "all_to_all") -> torch.Tensor:
         return super().all_to_all(x, axes, name)
+
+
+class VirtualMesh(Mesh):
+    """The rank at ``rank`` of ``spec`` with no process group: the program
+    runs as that rank would, on tensors without storage (the dry run traces
+    under ``FakeTensorMode``).  Each collective returns new tensors of its
+    output's shape (their values are never read), counts the bytes the
+    rank would receive in ``stats``, as a live ``Mesh`` does, and appends
+    (primitive, axes, result bytes, group size) to ``calls``."""
+
+    def __init__(self, spec: MeshSpec, rank: int = 0, device="cpu"):
+        self.spec = spec
+        self.rank = int(rank)
+        self.device = torch.device(device)
+        self.stats: Dict[str, int] = {}
+        self.calls: List[Tuple[str, str, int, int]] = []
+        self.group = None
+        self._groups = {}
+
+    @property
+    def backend(self) -> str:
+        return "virtual"
+
+    def _record(self, primitive: str, axes: MeshAxes, result_bytes: int, n: int) -> None:
+        key = "+".join(a for a in self.axis_names if a in _axes_tuple(axes))
+        self.calls.append((primitive, key, int(result_bytes), int(n)))
+
+    def all_gather(self, x: torch.Tensor, axes: MeshAxes,
+                   name: str = "all_gather") -> List[torch.Tensor]:
+        n = self.axes_size(axes)
+        if n == 1:
+            return [x]
+        parts = list(torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                                 device=x.device).unbind(0))
+        nbytes = x.numel() * x.element_size()
+        self._count(axes, name, (n - 1) * nbytes)
+        self._record("all-gather", axes, n * nbytes, n)
+        return parts
+
+    def all_to_all(self, x: torch.Tensor, axes: MeshAxes,
+                   name: str = "all_to_all") -> torch.Tensor:
+        n = self.axes_size(axes)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split over {n} ranks")
+        nbytes = x.numel() * x.element_size()
+        self._count(axes, name, nbytes * (n - 1) // n)
+        self._record("all-to-all", axes, nbytes, n)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def shift(self, x: torch.Tensor, axes: MeshAxes, by: int = 1) -> torch.Tensor:
+        n = self.axes_size(axes)
+        if n == 1 or by % n == 0:
+            return x
+        nbytes = x.numel() * x.element_size()
+        self._count(axes, "shift", nbytes)
+        self._record("collective-permute", axes, nbytes, n)
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def barrier(self) -> None:
+        return None
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None) -> Mesh:

@@ -17,7 +17,10 @@ layout, and the model code calls it where blocks change hands:
   * ``split``: this rank's slice of a replicated tensor forward, the
     slices gathered backward (a replicated bias of a split product);
   * ``stack``: every model rank's tensor stacked forward, this rank's slot
-    of the gradient backward (the vocab-parallel loss's statistics).
+    of the gradient backward (the vocab-parallel loss's statistics);
+  * ``reduce``: the sum over ``model`` forward and backward, for partials
+    whose consumers are themselves split (the SSM's gated RMSNorm: each
+    rank's sum of squares over its channels scales its own channels).
 
 Every sum across ranks is an ``all_gather`` (or an ``all_to_all``)
 followed by a sum in rank order: every rank that holds a block gets the
@@ -44,8 +47,9 @@ from repro_torch.parallel.sharding import Mesh, Spec, _axes_tuple
 
 MODEL = "model"
 # leaves the model casts to the compute dtype at their use: their FSDP
-# gather moves that dtype
+# gather moves that dtype (the SSM's projections under an "ssm" key)
 _CAST = ("w_gate", "w_up", "w_down", "head")
+_SSM_CAST = ("w_z", "w_x", "w_b", "w_c", "w_dt", "w_out")
 
 
 def ordered_sum(parts):
@@ -117,6 +121,17 @@ class _Split(torch.autograd.Function):
     def backward(ctx, g):
         parts = ctx.mesh.all_gather(g.contiguous(), ctx.axes, name="split_grad")
         return torch.cat(parts, dim=ctx.dim), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x.contiguous(), mesh, axes, name="reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, ctx.axes, name="reduce_grad"), None, None
 
 
 class _Stack(torch.autograd.Function):
@@ -222,7 +237,8 @@ class ShardPlan:
             if x is None:
                 return None
             cast = self.compute_dtype if (path[-1] in _CAST or
-                                          (path[-1] == "w" and "attn" in path)) else None
+                                          (path[-1] == "w" and "attn" in path) or
+                                          (path[-1] in _SSM_CAST and "ssm" in path)) else None
             return self.view(x, spec, cast)
         return map_tree(one, tree, specs)
 
@@ -238,6 +254,9 @@ class ShardPlan:
 
     def stack(self, x):
         return _Stack.apply(x, self.mesh, MODEL) if self.tp_size > 1 else x[None]
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self.mesh, MODEL) if self.tp_size > 1 else x
 
     # ---- the step's sums ----
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:

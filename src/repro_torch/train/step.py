@@ -18,7 +18,15 @@ runs as one rank of an N-shard step.
 ``make_prefill_step(cfg, s_max)`` and ``make_serve_step(cfg)`` are the LM
 serving steps: a prefill that fills a fresh ``LMCache`` and one decode step
 against it, each returning the last position's logits, under
-``torch.inference_mode()``.
+``torch.inference_mode()``.  With ``mesh=`` (and ``strategy=``) each is one
+rank's step across ranks, as JAX's are jitted under ``params_shardings``
+and ``cache_shardings_policy``: the params are the rank's blocks (FSDP
+gathers as in training), the cache the rank's blocks from
+``init_cache(mesh=)``, the batch the global one (the rank cuts its rows:
+the cache's batch axes), and the logits the global batch's, the same bits
+on every rank.  Decode binds the ``kv_seq`` rule to ``kv_seq_mesh_axis``;
+prefill never does (the JAX dry run's reason: it would reshard the
+in-flight cache every layer), and writes the slots each rank holds.
 
 The stored params never require grad.  Each step differentiates detached
 views of the trainable leaves (``torch.autograd.grad``, which raises if a
@@ -38,7 +46,8 @@ import torch
 from repro_torch.configs.base import GNNConfig, LMConfig
 from repro_torch.core.backend import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import LMCache, init_cache, init_lm, lm_forward, lm_loss
+from repro_torch.models.lm import (LMCache, init_cache, init_lm, lm_forward, lm_logits,
+                                   lm_loss)
 from repro_torch.nn.module import map_tree, value_and_grad
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
@@ -289,28 +298,85 @@ def make_gnn_train_step(cfg: GNNConfig, opt: Optional[AdamWConfig] = None,
     return train_step
 
 
-def make_prefill_step(cfg: LMConfig, s_max: int) -> Callable:
+def make_prefill_step(cfg: LMConfig, s_max: int, mesh=None, strategy=None) -> Callable:
     """(params, {"tokens": (B, S0)[, "positions"]}) -> (last logits (B, Vpad),
     cache): a fresh cache of ``s_max`` slots in the compute dtype, on the
     tokens' device, filled with the prompt.  Audio tokens are (B, S0, nq)
-    and their last logits (B, nq, Vpad)."""
+    and their last logits (B, nq, Vpad).  ``mesh``: one rank's step
+    (module docstring)."""
+    plans: Dict[int, Any] = {}
+
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         with torch.inference_mode():
-            cache = init_cache(cfg, tokens.shape[0], s_max, torch_dtype(cfg.compute_dtype),
-                               device=tokens.device)
-            logits, cache = lm_forward(params, tokens, cfg, cache=cache,
-                                       positions=batch.get("positions"))
-            return logits[:, -1], cache
+            if mesh is None:
+                cache = init_cache(cfg, tokens.shape[0], s_max, torch_dtype(cfg.compute_dtype),
+                                   device=tokens.device)
+                logits, cache = lm_forward(params, tokens, cfg, cache=cache,
+                                           positions=batch.get("positions"))
+                return logits[:, -1], cache
+            plan, local, scope = _serve_view(cfg, mesh, strategy, plans, batch, decode=False)
+            with scope:
+                cache = init_cache(cfg, tokens.shape[0], s_max, torch_dtype(cfg.compute_dtype),
+                                   mesh=mesh, strategy=strategy)
+                x, cache = lm_forward(params, local["tokens"], cfg, cache=cache,
+                                      positions=local.get("positions"), return_hidden=True,
+                                      plan=plan)
+                return _all_rows(lm_logits(params, x[:, -1:], cfg, plan)[:, 0], plan), cache
     return prefill_step
 
 
-def make_serve_step(cfg: LMConfig) -> Callable:
+def make_serve_step(cfg: LMConfig, mesh=None, strategy=None) -> Callable:
     """(params, cache, {"tokens": (B, 1)[, "positions"]}) -> (logits (B, Vpad),
-    cache): one decode step; the cache's buffers are written in place."""
+    cache): one decode step; the cache's buffers are written in place.
+    ``mesh``: one rank's step (module docstring)."""
+    plans: Dict[int, Any] = {}
+
     def serve_step(params, cache: LMCache, batch):
         with torch.inference_mode():
-            logits, cache = lm_forward(params, batch["tokens"], cfg, cache=cache,
-                                       positions=batch.get("positions"))
-            return logits[:, -1], cache
+            if mesh is None:
+                logits, cache = lm_forward(params, batch["tokens"], cfg, cache=cache,
+                                           positions=batch.get("positions"))
+                return logits[:, -1], cache
+            plan, local, scope = _serve_view(cfg, mesh, strategy, plans, batch, decode=True)
+            with scope:
+                logits, cache = lm_forward(params, local["tokens"], cfg, cache=cache,
+                                           positions=local.get("positions"), plan=plan)
+                return _all_rows(logits[:, -1], plan), cache
     return serve_step
+
+
+def _serve_view(cfg: LMConfig, mesh, strategy, plans: Dict[int, Any], batch, decode: bool):
+    """(plan, this rank's rows of the global serving ``batch`` on its
+    device, the scope the step runs under: the mesh and rules, ``kv_seq``
+    bound for a decode); the plan is made once a batch size and splits
+    the rows over the cache's batch axes."""
+    from repro_torch.parallel import policy
+    from repro_torch.parallel.sharding import ShardingRules, use_sharding
+    from repro_torch.parallel.tensor import block
+    strategy = strategy or policy.DEFAULT_STRATEGY
+    rows = batch["tokens"].shape[0]
+    if rows not in plans:
+        plan = make_shard_plan(cfg, mesh, strategy)
+        plans[rows] = dataclasses.replace(
+            plan, grad_axes=policy.cache_batch_axes(rows, mesh, strategy))
+    plan = plans[rows]
+    local = {}
+    for n, x in batch.items():
+        x = torch.as_tensor(x)
+        dim = 1 if n == "positions" and x.dim() == 3 else 0
+        local[n] = block(x, mesh, plan.grad_axes, dim).to(mesh.device)
+    rules = plan.rules
+    if decode:
+        rules = ShardingRules(rules={**rules.rules, "kv_seq": policy.kv_seq_mesh_axis(
+            cfg, mesh, strategy, rows)})
+    return plan, local, use_sharding(mesh, rules)
+
+
+def _all_rows(logits: torch.Tensor, plan) -> torch.Tensor:
+    """The global batch's logits on every rank: the rank's rows gathered
+    over the batch axes, in rank order."""
+    if plan.dp == 1:
+        return logits
+    return torch.cat(plan.mesh.all_gather(logits.contiguous(), plan.grad_axes,
+                                          name="logits_rows"), dim=0)

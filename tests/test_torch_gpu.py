@@ -1647,3 +1647,48 @@ def test_flash_at_a_ranks_local_heads(cuda, case):
     got = fa_ops.flash_attention(q, k, v, causal=True).float()
     ref = attention_ref(q, k, v, causal=True).float()
     assert bool(((got - ref).abs() <= 2e-2 + 2e-2 * ref.abs()).all())
+
+
+def _split_kv_program(rank):
+    """Split-KV attention (``nn.attention.attend_split``) on 2 gloo ranks
+    sharing the card: each rank holds half of the 1,024 key slots (the
+    live ones end at slot 700), one decode query of 8 heads on 2 KV heads,
+    in f32 and bf16."""
+    from repro_torch.nn.attention import attend_split
+    from repro_torch.parallel.sharding import make_mesh
+    disable_tf32()
+    mesh = make_mesh((2,), ("model",))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _split_kv_inputs(dtype, mesh.device)
+        held = k.shape[1] // 2
+        lo = rank * held
+        valid = torch.arange(held, device=mesh.device) + lo < 700
+        y = attend_split(q, k[:, lo:lo + held], v[:, lo:lo + held], q_offset=699, k_offset=lo,
+                         kv_valid=valid, mesh=mesh, axes="model")
+        out[str(dtype)] = y.float().cpu()
+    return out
+
+
+def _split_kv_inputs(dtype, device):
+    g = torch.Generator(device=device).manual_seed(7)
+    q = torch.randn(4, 1, 8, 128, generator=g, device=device).to(dtype)
+    k = torch.randn(4, 1024, 2, 128, generator=g, device=device).to(dtype)
+    v = torch.randn(4, 1024, 2, 128, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def test_split_kv_combine_on_two_gloo_ranks_against_one_rank(cuda):
+    """The ranks' (max, sum, partial output) combined in rank order: the
+    same bits on both ranks, and within 1e-5 (f32) / 2e-2 (bf16, the
+    kernels' bound) of one rank's attention over all the slots."""
+    from repro_torch.nn.attention import _attend_xla
+    from repro_torch.parallel.sharding import spawn
+    res = spawn(_split_kv_program, 2, backend="gloo")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = _split_kv_inputs(dtype, cuda)
+        valid = torch.arange(1024, device=cuda) < 700
+        ref = _attend_xla(q, k, v, causal=True, q_offset=699, kv_valid=valid).float().cpu()
+        got = res[0][str(dtype)]
+        assert torch.equal(got, res[1][str(dtype)])
+        assert bool(((got - ref).abs() <= tol + tol * ref.abs()).all()), dtype
