@@ -7,7 +7,8 @@ in PERF.md):
 from the root of a checkout.  It builds the port's CUDA kernels from the
 sources in ``src/repro_torch`` (one nvcc per source, all at once), checks
 in the built libraries' SASS that the bf16 flash_attention kernel runs its
-products on the tensor cores (HGMMA), that lsh_encode's products are fused
+products on the tensor cores (HGMMA) and the f32 one on the CUDA cores
+(FFMA, no HMMA or HGMMA), that lsh_encode's products are fused
 (FFMA) and that hash_decode's sums are not (no FFMA), holds each kernel
 against its plain PyTorch version at the shapes its paths give it,
 and drives these paths through the port's entry points, with random
@@ -162,11 +163,17 @@ weights and data from a seed:
          profile (bf16 moments, ``loss_vocab_chunk=6304``), then served
          the same way (the single-step recurrence against the chunked scan
          in f32);
-  hybrid_serve  full-width ``zamba2-7b`` (81 Mamba2 layers in 13 groups of
-         6 and a tail of 3, one shared attention block called at 13
-         sites): ``init_lm``'s peak against its masters, then served the
-         same way; and the three families' reduced configs trained and
-         served on the card and on the CPU;
+  hybrid_train, hybrid_serve  full-width ``zamba2-7b`` (81 Mamba2
+         layers in 13 groups of 6 and a tail of 3, one shared attention
+         block of 32 heads of 112 called at 13 sites): 13 of its layers
+         (two groups and a tail of one, the shared block at 2 sites;
+         1,448,372,736 parameters) trained 2 steps of 4 x 2048 on its
+         JAX profile (bf16 moments, ``loss_vocab_chunk=4000``) through
+         flash at D = 112; then all 81 layers: ``init_lm``'s peak against
+         its masters, then served the same way; and the three families'
+         reduced configs trained and served on the card and on the CPU
+         (zamba2's through the f32 flash kernel, its launches counted as
+         the path ``families_reference``);
   musicgen_train, musicgen_hash, musicgen_serve  full-width
          ``musicgen-large`` (48 layers, d_model 2048, 32 heads of 64, 4
          codebooks of 2,048, its dense embedding, LayerNorm, GELU,
@@ -201,7 +208,8 @@ weights and data from a seed:
          step); ``granite-moe-3b-a800m`` under expert parallelism (8 of
          its 32 layers, 2 steps; every layer's EP output bitwise
          ``moe_ffn_ep_reference``); ``mamba2-2.7b`` under TP over its SSD
-         heads (f32, 2 steps; step-0 loss, gradient blocks and clip norm
+         heads (32 of its 64 layers, f32, 2 steps; step-0 loss, gradient
+         blocks and clip norm
          against the one-rank step);
          ``gpipe`` over 4 stages of 6 of qwen's
          blocks against ``pipeline_reference``; ``psum_compressed`` over
@@ -213,9 +221,10 @@ weights and data from a seed:
          ranks against one on card and CPU; NCCL one card a rank where
          there are 4 cards;
   serve_tp, serve_ssm_tp, serve_split_kv  prefill and greedy decode
-         across the same 4 ranks (f32): qwen1.5-0.5b and mamba2-2.7b on
-         (2, 2), chatglm3-6b cut to 4 layers on (1, 4), whose 2 KV heads
-         do not divide the model axis, so the cache's slots split over it;
+         across the same 4 ranks (f32): qwen1.5-0.5b and mamba2-2.7b (32
+         of its 64 layers) on (2, 2), chatglm3-6b cut to 4 layers on (1,
+         4), whose 2 KV heads do not divide the model axis, so the cache's
+         slots split over it;
          every rank the same logits bits, each step's logits against the
          one-rank steps on the same params and tokens;
   dryrun  ``launch/dryrun.py``'s ``build_cell`` at each 4-rank path's own
@@ -247,10 +256,11 @@ it and read just after.  A small version of each path (a 3,000-node
 graph served, and trained by GCN, SGC and GIN and under each family and
 int8; the reduced LM config, trained and served, the
 reconstruction at the JAX benchmark's size) runs on the card and on the
-CPU (plain versions), and the two must agree.  Every check raises on
-failure, so the script exits nonzero; it prints the ``{"kernels": ...}``
-line and then, as its last line, ``{"ok": true, "device": {...}}`` only
-when every phase passed.  It needs one card and imports nothing of JAX;
+CPU (plain versions), and the two must agree; the reduced LM's training
+launches the f32 flash kernel, counted as the path ``lm_reference``.
+Every check raises on failure, so the script exits nonzero; it prints the
+``{"kernels": ...}`` line and then, as its last line, ``{"ok": true,
+"device": {...}}`` only when every phase passed.  It needs one card and imports nothing of JAX;
 phases ``sharded``, ``elastic`` and ``lm_ranks`` start 4 processes on it
 and stop them.
 """
@@ -397,6 +407,7 @@ def phase_build():
                 print(f"[build]   {line.strip()}", flush=True)
     libraries = dict(built)
     check_tensor_cores(libraries[fa_ops.NAME][0])
+    check_cuda_cores(libraries[fa_ops.NAME][0])
     check_fma(libraries[lsh_ops.NAME][0], libraries[hd_ops.NAME][0])
 
 
@@ -449,6 +460,23 @@ def check_tensor_cores(library: Path) -> None:
         print(f"[sass] flash_attention bf16 kernel D={d.group(1) if d else '?'}: "
               f"{n} HGMMA instructions", flush=True)
         check(n > 0, f"no HGMMA in {fn}: the bf16 products are off the tensor cores")
+
+
+def check_cuda_cores(library: Path) -> None:
+    """The f32 flash_attention kernel must stay IEEE f32 on the CUDA cores:
+    each of its three instantiations holds FFMA (its explicit ``fmaf``
+    products, which ``--fmad=false`` keeps) and no HMMA or HGMMA (no TF32
+    on the tensor cores)."""
+    ffma, hmma, hgmma = (sass_counts(library, op) for op in ("FFMA", "HMMA", "HGMMA"))
+    fns = sorted(fn for fn in ffma if "cuda_core" in fn and "flash_attention_kernel" in fn)
+    check(len(fns) == 3, f"expected the f32 kernel at DT = 32, 64, 128 in {library.name}, "
+                         f"found {fns}")
+    for fn in fns:
+        dt = re.search(r"kernelILi(\d+)E", fn)
+        print(f"[sass] flash_attention f32 kernel DT={dt.group(1) if dt else '?'}: {ffma[fn]} "
+              f"FFMA, {hmma[fn]} HMMA, {hgmma[fn]} HGMMA", flush=True)
+        check(ffma[fn] > 0 and hmma[fn] == 0 and hgmma[fn] == 0,
+              f"{fn}: the f32 products must be FFMA on the CUDA cores")
 
 
 def _operands(B, m, c, d_c, variant, seed):
@@ -816,6 +844,15 @@ FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
     # query heads on 4 of its 8 KV heads, 2 sequences a rank
     (2, 8, 8, LM_SEQ, 64, True, "bfloat16"),
     (2, 12, 4, LM_SEQ, 64, True, "bfloat16"),
+    # zamba2-7b's shared block, 32 heads of 112 (the hybrid_train path's
+    # shape), on both kernels; head dims a tile pads: 80 in the 128-wide
+    # tile, 24 in the 32-wide, ragged and GQA, causal and full
+    (LM_BATCH, 32, 32, LM_SEQ, 112, True, "bfloat16"),
+    (LM_BATCH, 32, 32, LM_SEQ, 112, True, "float32"),
+    (2, 8, 2, 1000, 80, True, "bfloat16"),
+    (1, 4, 4, 129, 80, False, "float32"),
+    (2, 4, 1, 333, 24, True, "float32"),
+    (1, 4, 2, 127, 24, False, "bfloat16"),
 ]
 # tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -1121,10 +1158,12 @@ def profile_call(label: str, fn) -> None:
         print(f"[profile]   {ms:10.3f} ms  x{n:<5d} {name[:110]}", flush=True)
 
 
-def phase_lm_reference():
+def phase_lm_reference() -> dict:
     """The reduced config, 3 steps from one init on the card (kernels) and
     on the CPU (plain versions): losses within 1e-4 (f32 throughout; cuBLAS
-    and the CPU's matmuls sum in other orders)."""
+    and the CPU's matmuls sum in other orders).  Its attention runs the f32
+    flash kernel, once a layer a step (no remat): the launches, counted
+    around the 3 steps."""
     import dataclasses
     import torch
     from repro_torch.configs import reduced
@@ -1144,6 +1183,7 @@ def phase_lm_reference():
     stream = TokenStream(TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=256,
                                            batch_size=4, seed=3))
     worst, losses = 0.0, []
+    zero_counts()
     for _ in range(3):
         b = stream.next_batch()
         pair = [float(step(states[dev], {k: torch.from_numpy(v).to(dev)
@@ -1151,9 +1191,15 @@ def phase_lm_reference():
                 for dev in ("cuda", "cpu")]
         losses.append(pair)
         worst = max(worst, abs(pair[0] - pair[1]))
+    launches = _path_counts("lm_reference")
     print(f"[reference] reduced {LM_ARCH}, 3 steps, (card, CPU) losses {losses}; "
-          f"max abs diff {worst}", flush=True)
+          f"max abs diff {worst}; flash launches {launches['flash_attention_by_kernel']}",
+          flush=True)
     check(worst <= 1e-4, f"card and CPU losses differ by {worst}")
+    want = {"bf16_wgmma": 0, "f32_cuda_core": 3 * cfg.n_layers}
+    check(launches["flash_attention_by_kernel"] == want,
+          f"lm_reference launched flash {launches['flash_attention_by_kernel']}, expected {want}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1526,58 +1572,31 @@ def _nbytes(tree) -> int:
 
 def time_lm_kernels() -> dict:
     """flash_attention at the path's shape: the bf16 tensor-core kernel
-    (the path's) beside its plain version and
-    ``scaled_dot_product_attention``, and the f32 CUDA-core kernel on the
-    same values in f32; hash_decode forward and backward at the path's
-    B = batch x seq rows."""
+    (the path's) and the f32 CUDA-core kernel, and both at zamba2-7b's
+    shape (32 heads of 112, the hybrid_train path's; D = 112 runs the
+    128-wide tile), each beside its plain version,
+    ``scaled_dot_product_attention`` in the same dtype and its bound
+    (``kernels/flash_attention/sweep.py``); hash_decode forward and
+    backward at the path's B = batch x seq rows."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.sweep import describe, time_flash
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_ref
-    B, H, K, S, D, causal, dtype = FLASH_CASES[0]
-    q, k, v = _qkv(B, H, K, S, D, dtype)
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).transpose(1, 2)
-    lib_err = float((lib.float() - fa_ops.flash_attention(q, k, v).float()).abs().max())
-    kernel_ms, enqueue_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
-    plain_ms, _ = time_ms(lambda: attention_ref(q, k, v), 5)
-    library_ms, _ = time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), 20)
-    q32, k32, v32 = (t.float() for t in (q, k, v))
-    f32_ms, f32_enqueue_ms = time_ms(lambda: fa_ops.flash_attention(q32, k32, v32), 10)
-    qh32, kh32, vh32 = (t.float() for t in (qh, kh, vh))
-    f32_library_ms, _ = time_ms(
-        lambda: F.scaled_dot_product_attention(qh32, kh32, vh32, is_causal=True), 10)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * D * pairs * B * H
-    nbytes = 4 * B * S * H * D * q.element_size()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
-    f32_ops_ms = flops / F32_FLOPS * 1e3
-    f32_bytes_ms = 2 * bytes_ms
-    flash = dict(design="wgmma", ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=max(bytes_ms, ops_ms),
-                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                 tflops=flops / kernel_ms / 1e9,
-                 variants={"bf16_wgmma": dict(ms=kernel_ms, bound_ms=max(bytes_ms, ops_ms)),
-                           "f32_cuda_core": dict(ms=f32_ms, library_ms=f32_library_ms,
-                                                 bound_ms=max(f32_bytes_ms, f32_ops_ms))})
-    print(f"[time] flash_attention B={B} H={H} S={S} D={D} causal {dtype}: wgmma kernel "
-          f"{kernel_ms:.4f} ms (host enqueues in {enqueue_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
-          f"(max diff to kernel {lib_err}); {flops} flops: {ops_ms:.4f} ms at the "
-          f"bf16 tensor-core peak; {nbytes} B: {bytes_ms:.4f} ms; kernel at "
-          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, {kernel_ms / max(ops_ms, bytes_ms):.2f}x "
-          f"its bound, {kernel_ms / library_ms:.2f}x scaled_dot_product_attention",
-          flush=True)
-    print(f"[time] flash_attention same shape in float32: CUDA-core kernel {f32_ms:.4f} ms "
-          f"(host enqueues in {f32_enqueue_ms:.4f} ms), scaled_dot_product_attention in "
-          f"float32 {f32_library_ms:.4f} ms; bound {max(f32_bytes_ms, f32_ops_ms):.4f} "
-          f"ms at the f32 CUDA-core peak ({f32_ops_ms:.4f} ms) and by bytes "
-          f"({f32_bytes_ms:.4f} ms); kernel at {flops / f32_ms / 1e9:.1f} TFLOP/s", flush=True)
-    del q, k, v, qh, kh, vh, lib, q32, k32, v32, qh32, kh32, vh32
+    B, H, K, S, D, causal, _ = FLASH_CASES[0]
+    shapes = {"bf16_wgmma": (B, H, K, S, D, causal, "bfloat16"),
+              "f32_cuda_core": (B, H, K, S, D, causal, "float32"),
+              "bf16_wgmma_zamba2": (LM_BATCH, 32, 32, LM_SEQ, 112, True, "bfloat16"),
+              "f32_cuda_core_zamba2": (LM_BATCH, 32, 32, LM_SEQ, 112, True, "float32")}
+    variants = {}
+    for name, shape in shapes.items():
+        variants[name] = row = time_flash(*shape, iters=10 if shape[-1] == "float32" else 20)
+        print(f"[time] {name}: {describe(row)}", flush=True)
+        torch.cuda.empty_cache()
+    main = variants["bf16_wgmma"]
+    flash = dict(design="wgmma", variants=variants, **{
+        key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "tflops")})
 
     rows, m, c, d_c = LM_BATCH * LM_SEQ, 16, 256, 512
     codes, cb, _, _ = _operands(rows, m, c, d_c, "bfloat16", seed=9)
@@ -4463,26 +4482,34 @@ LM_FAMILY_F32_BOUND = 1e-3
 MOE_SORTED_BOUND = 5e-3
 CONTROL_STEPS = 4          # decode steps of each off-by-one control (cut from 8)
 GRANITE, MAMBA2, ZAMBA2 = "granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-7b"
+# zamba2-7b trained at full width on one card: two groups of six Mamba2
+# layers and a tail of one (the structure ``reduced`` keeps), the shared
+# block at its 2 sites; 1,448,372,736 params by ``param_count()``
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_PARAMS = 13, 1_448_372_736
+HYBRID_TRAIN_STEPS = 2     # cut from 3 for the script's time (PERF.md §4)
 
 
 def _expected_train_launches(cfg, steps: int) -> dict:
     """A training path's launches from its config: a hash kind decodes
     once a step forward and once backward and encodes its vocabulary in one
-    projection and one pack; every attention layer runs flash twice a step
-    under remat, all on the bf16 tensor-core kernel."""
+    projection and one pack; every attention site (a layer, or a hybrid's
+    shared-block call) runs flash twice a step under remat, all on the bf16
+    tensor-core kernel."""
+    from repro_torch.models.lm import _n_attn_sites
     hashed = cfg.embedding.kind.startswith("hash")
-    attn = steps * (2 if cfg.remat else 1) * cfg.n_layers if cfg.n_heads else 0
+    attn = steps * (2 if cfg.remat else 1) * _n_attn_sites(cfg)
     return {"hash_decode": steps if hashed else 0,
             "hash_decode_backward": steps if hashed else 0,
             "lsh_encode_by_kernel": {"project": int(hashed), "pack": int(hashed), "fused": 0},
             "flash_attention_by_kernel": {"bf16_wgmma": attn, "f32_cuda_core": 0}}
 
 
-def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16"):
+def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16",
+                     steps: int = LM_FAMILY_STEPS):
     """The launcher's chain from its parts (``encode_vocab``,
     ``init_train_state`` with ``moments`` Adam moments, ``make_train_step``,
     ``run_training``), as the JAX package's per-arch profile runs it, for
-    ``LM_FAMILY_STEPS`` steps on ``stream`` (a ``TokenStream`` by default);
+    ``steps`` steps on ``stream`` (a ``TokenStream`` by default);
     the launches counted around exactly this run, against
     ``_expected_train_launches``; the MFU line."""
     import numpy as np
@@ -4507,10 +4534,10 @@ def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16"):
                          log=lambda line: print(f"[{label}] {line}", flush=True))
     state = init_train_state(generator, cfg, codes=codes, moments_dtype=getattr(torch, moments))
     hyper = TrainHyper(optimizer=AdamWConfig(lr=1e-3, weight_decay=0.01, clip_norm=1.0),
-                       total_steps=LM_FAMILY_STEPS)
+                       total_steps=steps)
     to_dev = lambda b: {k: torch.from_numpy(v).cuda() for k, v in b.items()}  # noqa: E731
     res = run_training(make_train_step(cfg, hyper), state, stream,
-                       LoopConfig(total_steps=LM_FAMILY_STEPS, log_every=1), to_device=to_dev)
+                       LoopConfig(total_steps=steps, log_every=1), to_device=to_dev)
     torch.cuda.synchronize()
     launches = _path_counts(label)
     wall = time.perf_counter() - t0
@@ -4519,12 +4546,12 @@ def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16"):
     print(f"[{label}] {cfg.name} ({cfg.family}; {cfg.n_layers} layers; {n_params} trainable f32 "
           f"parameters, {moments} moments, moe_impl {cfg.moe_impl!r}, attn {cfg.attn_impl!r}, "
           f"loss_vocab_chunk {cfg.loss_vocab_chunk}, embedding {cfg.embedding.kind}) "
-          f"{LM_FAMILY_STEPS} steps of {LM_BATCH} x {LM_SEQ}: losses "
+          f"{steps} steps of {LM_BATCH} x {LM_SEQ}: losses "
           f"{res.losses}; step ms {[round(t * 1e3, 3) for t in res.step_times]}; chain wall "
           f"{wall:.2f} s; peak max_memory_allocated {peak} B above the {base} B held before; "
           f"launches {launches}; {smi_query('name,power.limit')}", flush=True)
     check(all(np.isfinite(res.losses)), f"{label}: non-finite loss {res.losses}")
-    expect = _expected_train_launches(cfg, LM_FAMILY_STEPS)
+    expect = _expected_train_launches(cfg, steps)
     got = {k: launches[k] for k in expect}
     check(got == expect, f"{label}: launches {got}, expected {expect}")
     print_mfu(cfg, res.step_times, label)
@@ -4805,12 +4832,24 @@ def phase_ssm() -> tuple:
 
 
 def phase_hybrid() -> tuple:
-    """zamba2-7b at full width, served (its f32 masters and moments do not
-    fit one card for training): ``init_lm``'s peak beside the masters' bytes,
-    then the engines."""
+    """zamba2-7b at full width: ``HYBRID_TRAIN_LAYERS`` of its 81 layers
+    trained ``HYBRID_TRAIN_STEPS`` steps on its JAX profile (bf16 moments,
+    ``loss_vocab_chunk=4000``) through flash at its heads of 112 (at 81
+    layers its masters and moments do not fit one card); then all 81
+    served: ``init_lm``'s peak beside the masters' bytes, then the
+    engines."""
     import torch
-    from repro_torch.models.lm import init_lm
+    from repro_torch.models.lm import _n_attn_sites, init_lm
     t_phase = time.perf_counter()
+    train_cfg = _serve_cfg(ZAMBA2, attn_impl="flash", loss_vocab_chunk=4000,
+                           n_layers=HYBRID_TRAIN_LAYERS)
+    check(train_cfg.head_dim == 112 and _n_attn_sites(train_cfg) == 2
+          and train_cfg.param_count() == HYBRID_TRAIN_PARAMS,
+          f"hybrid_train: {train_cfg.n_layers} layers, heads of {train_cfg.head_dim}, "
+          f"{_n_attn_sites(train_cfg)} shared-block sites, {train_cfg.param_count()} params")
+    res, _, train_launches, train_peak = _train_lm_family(train_cfg, "hybrid_train",
+                                                          steps=HYBRID_TRAIN_STEPS)
+    del res
     cfg = _serve_cfg(ZAMBA2)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -4826,8 +4865,8 @@ def phase_hybrid() -> tuple:
     del params
     torch.cuda.empty_cache()
     print(f"[hybrid] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"hybrid_serve": serve_launches}, dict(init_peak=init_peak, masters=masters,
-                                                  serve=served)
+    return ({"hybrid_train": train_launches, "hybrid_serve": serve_launches},
+            dict(train_peak=train_peak, init_peak=init_peak, masters=masters, serve=served))
 
 
 def _reduced_reference(cases) -> float:
@@ -4867,10 +4906,19 @@ def _reduced_reference(cases) -> float:
     return worst
 
 
-def _lm_family_reference() -> float:
-    """Reduced granite (both dispatches), mamba2 and zamba2 on card and CPU."""
-    return _reduced_reference(((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
-                               (ZAMBA2, {})))
+def _lm_family_reference() -> tuple:
+    """Reduced granite (both dispatches), mamba2 and zamba2 on card and CPU,
+    zamba2's shared block through flash (the f32 kernel at its 2 sites a
+    step); the gap and the launches, counted around the four."""
+    zero_counts()
+    gap = _reduced_reference(((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
+                              (ZAMBA2, {"attn_impl": "flash"})))
+    launches = _path_counts("families_reference")
+    want = {"bf16_wgmma": 0, "f32_cuda_core": 3 * 2}
+    check(launches["flash_attention_by_kernel"] == want,
+          f"families_reference launched flash {launches['flash_attention_by_kernel']}, "
+          f"expected {want}")
+    return gap, launches
 
 
 def phase_lm_families() -> tuple:
@@ -4882,7 +4930,7 @@ def phase_lm_families() -> tuple:
         counts, info = phase()
         launches.update(counts)
         out[phase.__name__[len("phase_"):]] = info
-    out["reference_gap"] = _lm_family_reference()
+    out["reference_gap"], launches["families_reference"] = _lm_family_reference()
     # training decodes LM_BATCH x LM_SEQ rows a step, serving B x prompt rows
     # in the prefill and B a decode step; the masters' f32 codebooks
     B, s0, _ = LM_FAMILY_SERVE
@@ -5148,10 +5196,11 @@ LM_DP_STEPS = 3
 MOE_EP_STEPS = 2                   # cut from 3: the phase took 252.4 s at 3 (PERF.md §4)
 PIPE_STAGES, PIPE_LAYERS, PIPE_MICRO = 4, 6, 8     # 6 of qwen's 24 blocks a stage
 SSM_TP_STEPS = 2                   # mamba2 under TP over its SSD heads (ssm_tp)
+SSM_TP_LAYERS = 32                 # ssm_tp's and serve_ssm_tp's mamba2, cut from 64 (PERF.md §4)
 # the serving paths across ranks: (prompts, prompt length, greedy steps);
 # f32 activations, so that 4 ranks against one read the order of the
 # ranks' f32 sums, not bf16 roundings of partial sums
-SERVE_TP = (4, 512, 16)            # qwen1.5-0.5b on (2, 2)
+SERVE_TP = (4, 512, 8)             # qwen1.5-0.5b on (2, 2); 8 steps, cut from 16
 SERVE_SSM_TP = (4, 256, 4)         # mamba2-2.7b on (2, 2)
 SERVE_SPLIT_KV = (4, 512, 8)       # chatglm3-6b on (1, 4): its 2 KV heads do not divide 4
 SPLIT_KV_LAYERS = 4                # chatglm3-6b cut to 4 of its 28 layers
@@ -5731,14 +5780,16 @@ def _one_rank_references() -> dict:
 
 def _ssm_tp_cfg():
     """mamba2-2.7b on its JAX profile's chunk (``loss_vocab_chunk=6304``),
-    decoded by the kernel: ``ssm_train``'s config, here under TP, in f32.
-    In bf16 the step-0 gradient of one leaf, D_skip (each head's sum of
-    dy * x over 524,288 terms that cancel), sat 0.148 from the one-rank
-    step's, over the 0.05 bound (PERF.md §6): the row-parallel
-    partial sums round to bf16 before they are added, the one-rank product
-    once, and 64 layers carry the difference.  In f32 the check reads the
+    decoded by the kernel: ``ssm_train``'s config, here under TP, cut to
+    ``SSM_TP_LAYERS`` layers, in f32.  In bf16 (at all 64 layers) the
+    step-0 gradient of one leaf, D_skip (each head's sum of dy * x over
+    524,288 terms that cancel), sat 0.148 from the one-rank step's, over
+    the 0.05 bound (PERF.md §6): the row-parallel partial sums round to
+    bf16 before they are added, the one-rank product once, and the layers
+    carry the difference.  In f32 the check reads the
     TP program, not bf16's roundings."""
-    return _serve_cfg(MAMBA2, loss_vocab_chunk=6304, compute_dtype="float32")
+    return _serve_cfg(MAMBA2, loss_vocab_chunk=6304, compute_dtype="float32",
+                      n_layers=SSM_TP_LAYERS)
 
 
 def _ssm_tp_reference() -> dict:
@@ -5782,7 +5833,8 @@ def _ssm_tp_reference() -> dict:
 def _serve_paths() -> dict:
     """The serving paths across ranks: label -> (config, mesh shape)."""
     return {"serve_tp": (_serve_cfg(LM_ARCH, compute_dtype="float32"), LM_MESH),
-            "serve_ssm_tp": (_serve_cfg(MAMBA2, compute_dtype="float32"), LM_MESH),
+            "serve_ssm_tp": (_serve_cfg(MAMBA2, compute_dtype="float32",
+                                        n_layers=SSM_TP_LAYERS), LM_MESH),
             "serve_split_kv": (_serve_cfg(CHATGLM, compute_dtype="float32",
                                           n_layers=SPLIT_KV_LAYERS), (1, LM_RANKS))}
 
@@ -6339,7 +6391,7 @@ def main() -> None:
     lap("phase_lsh_packed_check")
     train_launches, _ = phase_train()
     lap("phase_train")
-    phase_lm_reference()
+    lm_ref_launches = phase_lm_reference()
     lap("phase_lm_reference")
     serve_lm_launches, serve_lm = phase_serve_lm()
     lap("phase_serve_lm")
@@ -6368,7 +6420,7 @@ def main() -> None:
     lsh_times = time_lsh()
     lap("time_lsh")
     rec_shape, vocab_shape = (f"{n}x{d}x{w}" for n, d, w in LSH_PATH_SHAPES)
-    paths = {"serve": serve_launches, "train": train_launches,
+    paths = {"serve": serve_launches, "train": train_launches, "lm_reference": lm_ref_launches,
              "reconstruct": rec_launches, "gnn_train": gnn_launches,
              "serve_cached": cached_launches, "serve_batched": batched_launches,
              **gnn_cached_launches, **full_launches, "link": link_launches,

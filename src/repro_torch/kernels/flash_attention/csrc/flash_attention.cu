@@ -19,7 +19,10 @@
 // contiguous, exactly as nn/attention.py holds them: nothing is transposed
 // and K and V are never replicated (q head h reads kv head h / (H/K) in
 // place).  Any Sq and Skv: out-of-range query rows are not stored, and
-// out-of-range key rows load as zeros and score -1e30.  D in {32, 64, 128}.
+// out-of-range key rows load as zeros and score -1e30.  Any D <= 128 with
+// D % 8 == 0 (the configs use 32, 64, 112 and 128): each kernel runs the
+// tile of the next width of 32, 64 and 128, its columns from D on zeros,
+// and stores only the D columns.
 //
 // What bounds it: operations.  At the training shape (B=4, H=16, S=2048,
 // D=64, causal, bf16) the work is 4*D flops for each of 2,098,176 visible
@@ -28,14 +31,14 @@
 // kernels, chosen by dtype:
 //
 // bfloat16 (the training path): both products on the tensor cores.  A
-// block is one producer warpgroup and two (D = 128) or three (D <= 64)
+// block is one producer warpgroup and two (DT = 128) or three (DT <= 64)
 // consumer warpgroups of 64 query rows each, as registers allow (setmaxnreg
 // moves the producer's registers to the consumers).  One producer thread
 // issues TMA loads of the Q tile (two slots) and of 128-row K and V tiles
 // into a ring of stages, completed on mbarriers; the tensor maps are 4-D
-// views of the (B, S, heads, D) tensors (dims D, heads, S, B; box (D or 64,
-// 1, rows, 1)), so a tile is one copy, GQA is a coordinate, and rows past S
-// arrive as zeros.  Each consumer warpgroup: S = Q.K^T is a wgmma
+// views of the (B, S, heads, D) tensors (dims D, heads, S, B; box (DT or
+// 64, 1, rows, 1)), so a tile is one copy, GQA is a coordinate, and rows
+// past S and columns past D arrive as zeros.  Each consumer warpgroup: S = Q.K^T is a wgmma
 // (m64n128k16, Q and K from shared memory, K as stored is the K-major B
 // operand); the softmax runs on the f32 accumulator fragment in registers
 // (quad shuffles for each row's max, exp2 with scale*log2(e) folded in, a
@@ -46,8 +49,8 @@
 // rounds its softmax weights to bf16 before .v as well.  S of tile t and
 // P.V of tile t - 1 share one wgmma window, so tile t's softmax runs while
 // P.V is on the tensor cores.  Q, K and V tiles use the swizzle that the
-// wgmma descriptors name: 128 B for D = 64 and D = 128 (two 64-column
-// panels), 64 B for D = 32.  Under the causal mask a warpgroup skips the
+// wgmma descriptors name: 128 B for DT = 64 and DT = 128 (two 64-column
+// panels), 64 B for DT = 32.  Under the causal mask a warpgroup skips the
 // key tiles wholly above its own 64 rows.  The grid is persistent, one
 // block per SM, walking (batch, head, query tile) units heaviest causal
 // unit first, dealt to the blocks in a snake.  What is left between this
@@ -56,13 +59,27 @@
 // L2 once per query tile (python -m repro_torch.kernels.flash_attention.ablate
 // times the parts).
 //
-// float32 (the reduced card-vs-CPU reference): the CUDA-core kernel, f32
+// float32 (the card-vs-CPU references): the CUDA-core kernel, IEEE f32
 // FMAs from shared-memory tiles; on the tensor cores f32 would be TF32,
-// which the 2e-5 tolerance does not allow.  Each thread owns a 4 x 4 tile
-// of scores and a 4 x D/16 tile of the output, so one shared-memory value
-// feeds 4 FMAs; the Q and K tiles are padded by one float per row so the 16
-// threads of a row group read 16 banks; the heaviest causal query tiles of
-// each (batch, head) are scheduled first.
+// which the 2e-5 tolerance does not allow.  What bounds it is the FMA
+// pipe: at the shape above 0.5131 ms at the 67 TFLOP/s f32 peak.  A block
+// of 256 threads owns 128 query rows; each thread an 8 x 8 register tile of
+// S (8 x 4 at DT = 128, whose key tiles are 64 rows) and 8 rows x DT/16
+// columns of O.  Q sits in shared memory D-major, so per d a thread's 8
+// rows are two 128-bit reads; K row-major, so a 128-bit read gives one of
+// its keys at 4 d: per 4 d, 16 reads for 256 FMAs.  The lanes of a warp
+// that share rows or keys read them by broadcast, and the tiles' 4-float
+// chunks are swizzled (Q's by d, K's by key, P's by row group), so neither
+// the copies nor the reads conflict.  K/V tiles are double-buffered with
+// 16-byte cp.async: tile t + 1 is copied while tile t is multiplied.  The
+// softmax takes exp2 with scale*log2(e) folded in, masks only the tiles
+// that cross the diagonal or the end of the keys, and skips those wholly
+// above it; P makes one trip through shared memory, written and read back
+// by the 16 lanes that own its rows, as 128-bit loads for O += P.V.  No
+// atomics; each output row's sums run in one fixed order.  Blocks are
+// numbered heaviest causal query tile first.  Its registers (up to 255 a
+// thread) and 229,376 B of shared memory leave one block of 8 warps an SM
+// (python -m repro_torch.kernels.flash_attention.ablate times the parts).
 
 #include <cuda.h>          // CUtensorMap and its encode's types; the encode is fetched at run time
 #include <cuda_runtime.h>
@@ -75,36 +92,126 @@ constexpr float NEG_INF = -1e30f;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
+// The head dims both kernels take: D <= 128 and D % 8 == 0 (the bf16
+// kernel's TMA row stride, D * 2 bytes, must be a multiple of 16).
+constexpr int kMaxHeadDim = 128;
+constexpr int kHeadDimStep = 8;
+
 // Error codes of the entry point besides cudaError_t (which stays below 1000).
 constexpr int kErrTensorMap = 1000;     // + the CUresult of cuTensorMapEncodeTiled
 constexpr int kErrEntryPoint = 2000;    // + the status of cudaGetDriverEntryPoint's lookup
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // ---------------------------------------------------------------------------
 // float32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 namespace cuda_core {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // key rows per tile
+constexpr int THREADS = 256;
+constexpr int BQ = 128;          // query rows per block
 constexpr int TX = 16;           // threads across key columns / output columns
-constexpr int TY = 16;           // threads across query rows
-constexpr int THREADS = TX * TY;
-constexpr int RQ = BQ / TY;      // query rows per thread (4)
-constexpr int RK = BK / TX;      // key columns per thread (4)
-constexpr int PP = BK + 1;       // padded row stride of the P tile
+constexpr int RQ = 8;            // query rows per thread: 4 * ty + (0..3), and 64 + the same
 
-__device__ __forceinline__ float widen(float x) { return x; }
+// DT: the tile's head width (32, 64 or 128; columns from D on are zeros)
+template <int DT>
+struct Tile {
+  static constexpr int BK = DT == 128 ? 64 : 128;   // key rows per tile: shared memory allows 64 at DT = 128
+  static constexpr int RK = BK / TX;                // keys per thread: 4 * tx + (0..3), and 64 + the same
+  static constexpr int RD = DT / TX;                // output columns per thread
+  static constexpr int VW = RD < 4 ? RD : 4;        // ... read as vectors of VW floats
+  // sQ (DT, BQ) is D-major, sK and sV (BK, DT) and sP (BQ, BK) row-major;
+  // K and V double-buffered.  229,376 B at DT = 64 and 128.
+  static constexpr int NC = BK * DT / 4 / THREADS;   // 16-byte copies a thread a K (or V) tile
+  static constexpr int Q_FLOATS = DT * BQ;
+  static constexpr int KV_FLOATS = DT * BK;
+  static constexpr size_t SMEM = sizeof(float) * (static_cast<size_t>(Q_FLOATS) +
+                                                  4 * static_cast<size_t>(KV_FLOATS) +
+                                                  static_cast<size_t>(BQ) * BK);
+};
 
-template <typename T> __device__ __forceinline__ T narrow(float x);
-template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+// The D-major Q tile holds 4-float chunks of one d row, swizzled by d:
+// chunk c of row d sits at chunk c ^ (d % 8).  A warp's 4-byte copies (4
+// rows x 8 d) then write 32 banks, and its 16-byte reads at one d stay
+// conflict free.
+__device__ __forceinline__ int dmajor(int d, int row, int rows) {
+  return d * rows + ((((row >> 2) ^ (d & 7)) << 2) | (row & 3));
+}
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // sQ (BQ, D+1), sK (BK, D+1), sV (BK, D), sP (BQ, BK+1), all f32
-  return sizeof(float) * (static_cast<size_t>(BQ) * (D + 1) +
-                          static_cast<size_t>(BK) * (D + 1) +
-                          static_cast<size_t>(BK) * D +
-                          static_cast<size_t>(BQ) * PP);
+// The K tile's 4-float chunk c of key row `key` sits at chunk c ^ (key/4 %
+// 8): the 16 lanes that read one chunk of keys 4 tx + j hit 8 bank quads.
+template <int DT>
+__device__ __forceinline__ int kswz(int key, int chunk) {
+  return key * DT + ((chunk ^ ((key >> 2) & 7)) << 2);
+}
+
+// One float from global to shared memory, asynchronously; `valid` false
+// writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// 16 bytes from global to shared memory (both 16-byte aligned), through L2
+// only; `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a (B, S, heads, D) tensor at head `hd` into a
+// D-major tile (d < D only).  Each warp copies blocks of 4 rows x 8 d: 32
+// bytes of each of 4 rows, one sector each.  Rows past S read as zeros.
+template <int ROWS>
+__device__ __forceinline__ void load_dmajor(float* dst, const float* src, int b, int r0, int S,
+                                            int heads, int hd, int D, int tid) {
+  const int blocks = ROWS / 4 * (D / 8);
+  const int lane = tid & 31;
+  for (int blk = tid >> 5; blk < blocks; blk += THREADS / 32) {
+    const int row = (blk % (ROWS / 4)) * 4 + (lane >> 3);
+    const int d = (blk / (ROWS / 4)) * 8 + (lane & 7);
+    const int pos = r0 + row;
+    const bool valid = pos < S;
+    const float* g = src + (((static_cast<size_t>(b) * S + (valid ? pos : 0)) * heads + hd) * D + d);
+    cp_async4(dst + dmajor(d, row, ROWS), g, valid);
+  }
+}
+
+// Chunk e (16 bytes) of rows [r0, r0 + rows) of a (B, S, heads, D) tensor
+// at head `hd` in a row-major (rows, DT) tile (a warp copies whole rows);
+// SWZ: K's chunk swizzle.  Rows past S and columns from D on read as zeros.
+template <int DT, bool SWZ>
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src, int b, int r0, int S,
+                                           int heads, int hd, int D, int e) {
+  constexpr int CHUNKS = DT / 4;
+  const int row = e / CHUNKS, c = e % CHUNKS;
+  const int pos = r0 + row;
+  const bool valid = pos < S && 4 * c < D;
+  const float* g = src + (((static_cast<size_t>(b) * S + (valid ? pos : 0)) * heads + hd) * D +
+                          (valid ? 4 * c : 0));
+  cp_async16(dst + (SWZ ? kswz<DT>(row, c) : row * DT + 4 * c), g, valid);
+}
+
+// Copy i of a thread's 2 * NC for the K/V tile of keys [k0, k0 + BK): the
+// first NC are K's, the rest V's.
+template <int DT>
+__device__ __forceinline__ void copy_kv(int i, float* sk, float* sv, const float* k,
+                                        const float* v, int b, int k0, int Skv, int K, int kvh,
+                                        int D, int tid) {
+  constexpr int NC = Tile<DT>::BK * DT / 4 / THREADS;
+  const int e = tid + THREADS * (i % NC);
+  if (i < NC) copy_chunk<DT, true>(sk, k, b, k0, Skv, K, kvh, D, e);
+  else copy_chunk<DT, false>(sv, v, b, k0, Skv, K, kvh, D, e);
 }
 
 // Butterfly over the 16 lanes of a row group: every lane ends with the same
@@ -123,161 +230,217 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int Sq, int Skv, int H, int K, int causal, float scale) {
-  constexpr int DP = D + 1;      // padded row stride of the Q and K tiles
-  constexpr int RD = D / TX;     // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;              // (BQ, DP)
-  float* sK = sQ + BQ * DP;      // (BK, DP)
-  float* sV = sK + BK * DP;      // (BK, D)
-  float* sP = sV + BK * D;       // (BQ, PP)
+template <int N>
+__device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    dst[0] = v.x; dst[1] = v.y;
+  }
+}
+
+// Thread (ty, tx) owns query rows row_of(i), two 128-bit reads of a d row
+// of sQ, and of each key tile keys key_of(j).  Its output columns are
+// col_of(c), VW at a time.
+__device__ __forceinline__ int row_of(int ty, int i) { return (i >> 2) * 64 + ty * 4 + (i & 3); }
+__device__ __forceinline__ int key_of(int tx, int j) { return (j >> 2) * 64 + tx * 4 + (j & 3); }
+template <int VW>
+__device__ __forceinline__ int col_of(int tx, int c) { return (c / VW) * (TX * VW) + tx * VW + c % VW; }
+
+template <int DT>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int B, int Sq,
+                       int Skv, int H, int K, int D, int causal, float scale_log2) {
+  using T = Tile<DT>;
+  constexpr int BK = T::BK, RK = T::RK, RD = T::RD, VW = T::VW;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // (DT, BQ), D-major
+  float* sK = sQ + T::Q_FLOATS;                    // 2 x (BK, DT), chunks swizzled
+  float* sV = sK + 2 * T::KV_FLOATS;               // 2 x (BK, DT)
+  float* sP = sV + 2 * T::KV_FLOATS;               // (BQ, BK): P's 4-float chunks swizzled by ty
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // one block per query tile of one (batch, head); blocks are numbered head
+  // fastest, then batch, then query tile from the last: the heaviest causal
+  // tiles start first
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int u = blockIdx.x;
+  const int h = u % H;
+  u /= H;
+  const int b = u % B;
+  const int q0 = (n_qt - 1 - u / B) * BQ;
   const int kvh = h / (H / K);
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    const int qpos = q0 + r;
-    sQ[r * DP + c] = qpos < Sq
-        ? widen(q[((static_cast<size_t>(b) * Sq + qpos) * H + h) * D + c]) : 0.f;
-  }
+  // causal: key tiles starting past the tile's last query row are skipped
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  load_dmajor<BQ>(sQ, q, b, q0, Sq, H, h, D, tid);
+#pragma unroll
+  for (int i = 0; i < 2 * T::NC; ++i) copy_kv<DT>(i, sK, sV, k, v, b, 0, Skv, K, kvh, D, tid);
+  cp_async_commit();
 
   float m_run[RQ], l_run[RQ], acc[RQ][RD];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
+    l_run[i] = 0.f;              // this thread's keys only, summed over the row at the end
 #pragma unroll
     for (int c = 0; c < RD; ++c) acc[i][c] = 0.f;
   }
 
-  // causal: key tiles starting past the tile's last query row are skipped
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    __syncthreads();             // the last tile's sK, sV, sP reads are done
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const int kpos = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kpos < Skv) {
-        const size_t off = ((static_cast<size_t>(b) * Skv + kpos) * K + kvh) * D + c;
-        kx = widen(k[off]);
-        vx = widen(v[off]);
-      }
-      sK[r * DP + c] = kx;
-      sV[r * D + c] = vx;
+    const float* kt = sK + (t & 1) * T::KV_FLOATS;
+    const float* vt = sV + (t & 1) * T::KV_FLOATS;
+    cp_async_wait_all();
+    __syncthreads();             // tile t is in; every read of tile t - 1 is done
+    if (t + 1 < n_tiles) {       // tile t + 1 is copied while tile t is multiplied
+#pragma unroll
+      for (int i = 0; i < 2 * T::NC; ++i)
+        copy_kv<DT>(i, sK + ((t + 1) & 1) * T::KV_FLOATS, sV + ((t + 1) & 1) * T::KV_FLOATS, k,
+                    v, b, k0 + BK, Skv, K, kvh, D, tid);
     }
-    __syncthreads();
+    cp_async_commit();
 
+    // S = Q . K^T: per 4 d, one 128-bit read of K per key and two of Q per
+    // d for 32 * RK FMAs; d ascending
     float s[RQ][RK];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RQ], kv[RK];
+    for (int d0 = 0; d0 < D; d0 += 8) {
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = sQ[(ty * RQ + i) * DP + d];
+      for (int d4 = 0; d4 < 8; d4 += 4) {
+        float kv[RK][4];
 #pragma unroll
-      for (int j = 0; j < RK; ++j) kv[j] = sK[(tx + j * TX) * DP + d];
+        for (int j = 0; j < RK; ++j) load_vec(kv[j], kt + kswz<DT>(key_of(tx, j), (d0 + d4) >> 2));
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+        for (int dd = 0; dd < 4; ++dd) {
+          const int d = d0 + d4 + dd;
+          float qv[RQ];
 #pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int i = 0; i < RQ; i += 4) {
+            float x[4];
+            load_vec(x, sQ + d * BQ + (((i / 4 * 16 + ty) ^ (d4 + dd)) << 2));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qv[i + e] = x[e];
+          }
+#pragma unroll
+          for (int i = 0; i < RQ; ++i)
+#pragma unroll
+            for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qv[i], kv[j][dd], s[i][j]);
+        }
+      }
     }
 
+    // online softmax: the mask only on tiles that cross the diagonal or the
+    // end of the keys; p = exp2(s * c - m * c), c = scale * log2(e)
+    const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > q0);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int row = ty * RQ + i;
-      const int qpos = q0 + row;
+      const int row = row_of(ty, i);
+      if (masked) {
+        const int qpos = q0 + row;
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          const int kpos = k0 + key_of(tx, j);
+          if (kpos >= Skv || (causal && kpos > qpos)) s[i][j] = NEG_INF;
+        }
+      }
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kpos = k0 + tx + j * TX;
-        float x = __fmul_rn(s[i][j], scale);
-        if (kpos >= Skv || (causal && kpos > qpos)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
+      for (int j = 0; j < RK; ++j) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m_run[i], group_max(mx));
-      const float alpha = expf(m_run[i] - m_new);
+      const float alpha = exp2f(__fmul_rn(__fsub_rn(m_run[i], m_new), scale_log2));
+      const float neg = __fmul_rn(-m_new, scale_log2);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[row * PP + tx + j * TX] = p;
-        psum = __fadd_rn(psum, p);
+        s[i][j] = exp2f(fmaf(s[i][j], scale_log2, neg));
+        psum = __fadd_rn(psum, s[i][j]);
       }
-      l_run[i] = __fadd_rn(__fmul_rn(alpha, l_run[i]), group_sum(psum));
+      l_run[i] = __fadd_rn(__fmul_rn(alpha, l_run[i]), psum);
       m_run[i] = m_new;
 #pragma unroll
       for (int c = 0; c < RD; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
+      // P's row, 4 keys a 128-bit store, chunks swizzled by ty so that the
+      // two row groups of a warp read different banks below
+#pragma unroll
+      for (int j = 0; j < RK; j += 4)
+        *reinterpret_cast<float4*>(sP + row * BK + (((j / 4 * 16 + tx) ^ (ty & 1)) << 2)) =
+            make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
     }
-    __syncthreads();             // the P tile is complete
+    __syncwarp();                // P's rows: written and read by the same 16 lanes
 
+    // O += P . V: per 4 keys, one 128-bit read of P per row and RD/VW reads
+    // of V per key for 32 * RD FMAs
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ], vv[RD];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = sP[(ty * RQ + i) * PP + kk];
-#pragma unroll
-      for (int c = 0; c < RD; ++c) vv[c] = sV[kk * D + tx + c * TX];
+    for (int kk = 0; kk < BK; kk += 4) {
+      float p[RQ][4];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
+        load_vec(p[i], sP + row_of(ty, i) * BK + (((kk >> 2) ^ (ty & 1)) << 2));
 #pragma unroll
-        for (int c = 0; c < RD; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        float vv[RD];
+#pragma unroll
+        for (int c = 0; c < RD; c += VW) {
+          float x[VW];
+          load_vec(x, vt + (kk + e) * DT + col_of<VW>(tx, c));
+#pragma unroll
+          for (int w = 0; w < VW; ++w) vv[c + w] = x[w];
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int c = 0; c < RD; ++c) acc[i][c] = fmaf(p[i][e], vv[c], acc[i][c]);
+      }
     }
   }
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int qpos = q0 + ty * RQ + i;
+    const float l = fmaxf(group_sum(l_run[i]), 1e-30f);
+    const int qpos = q0 + row_of(ty, i);
     if (qpos >= Sq) continue;
-    const float l = fmaxf(l_run[i], 1e-30f);
-    T* orow = o + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * D;
+    float* orow = o + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < RD; ++c) orow[tx + c * TX] = narrow<T>(__fdiv_rn(acc[i][c], l));
+    for (int c = 0; c < RD; ++c) {
+      const int col = col_of<VW>(tx, c);
+      if (col < D) orow[col] = __fdiv_rn(acc[i][c], l);
+    }
   }
 }
 
-template <typename T, int D>
-int launch_typed(const void* q, const void* k, const void* v, void* o, int B,
-                 int H, int K, int Sq, int Skv, int causal, float scale,
-                 cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+template <int DT>
+int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+                 int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = Tile<DT>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, H, K, causal, scale);
+  const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float log2e = 1.4426950408889634f;
+  flash_attention_kernel<DT><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), B, Sq, Skv, H, K, D, causal, scale * log2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int Sq, int Skv, int D, int causal, float scale,
-               cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch_typed<T, 32>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    case 64: return launch_typed<T, 64>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    case 128: return launch_typed<T, 128>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+               int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
+  if (D <= 32) return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 64) return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
 }
 
 }  // namespace cuda_core
@@ -290,32 +453,30 @@ namespace tensor_core {
 constexpr int BK = 128;            // key rows per tile
 constexpr int STAGES = 2;          // K/V ring depth (a third stage gains nothing at D = 64)
 
-template <int D>
+template <int DT>
 struct Tile {
-  // consumer warpgroups of 64 query rows each, as registers allow: at
-  // D = 128 the O accumulator takes 64 registers a thread
-  static constexpr int CONSUMERS = D == 128 ? 2 : 3;
+  // DT: the tile's head width (32, 64 or 128); a head dim D below it
+  // arrives zero-padded (the tensor map's out-of-bounds fill).  Consumer
+  // warpgroups of 64 query rows each, as registers allow: at DT = 128 the
+  // O accumulator takes 64 registers a thread
+  static constexpr int CONSUMERS = DT == 128 ? 2 : 3;
   static constexpr int BQ = 64 * CONSUMERS;            // query rows per block
   static constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup (last)
   // setmaxnreg: the producer gives its registers to the consumers, so that
   // all of the SM's 65,536 go to one block
   static constexpr int PRODUCER_REGS = CONSUMERS == 2 ? 40 : 32;
   static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 160;
-  static constexpr int PD = D < 64 ? D : 64;           // columns of one TMA box / swizzle panel
-  static constexpr int PANELS = D / PD;
+  static constexpr int PD = DT < 64 ? DT : 64;           // columns of one TMA box / swizzle panel
+  static constexpr int PANELS = DT / PD;
   static constexpr int ROW = PD * 2;                   // bytes of a panel row: the swizzle span
   static constexpr int LAYOUT = PD == 64 ? 1 : 2;      // descriptor layout: 1 = 128 B, 2 = 64 B swizzle
   static constexpr int Q_PANEL = BQ * ROW;
   static constexpr int KV_PANEL = BK * ROW;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;          // one K or one V tile
+  static constexpr int Q_BYTES = BQ * DT * 2;
+  static constexpr int KV_BYTES = BK * DT * 2;         // one K or one V tile
   static constexpr int BARRIERS = 4 + 4 * STAGES;      // q_full[2], q_free[2], k_full[], v_full[], k_free[], v_free[]
   static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -447,10 +608,10 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
 
 // O += P . V for one V tile at `v`: BK/16 steps of k16 (V rows 16kk ...
 // 16kk + 15), one wgmma per 64-column panel of O.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[Tile<D>::PANELS][Tile<D>::PD / 2],
+template <int DT>
+__device__ __forceinline__ void issue_pv(float (&acc)[Tile<DT>::PANELS][Tile<DT>::PD / 2],
                                          const uint32_t (&pa)[BK / 16][4], uint32_t v) {
-  using T = Tile<D>;
+  using T = Tile<DT>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -476,12 +637,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // S = Q . K^T for one K tile at `k` and this warpgroup's 64 Q rows at `q`:
-// D/16 steps of k16, each inside one 64-column panel.
-template <int D>
+// DT/16 steps of k16, each inside one 64-column panel (columns from D on
+// are zeros; skipping their steps at run time serialises the wgmmas).
+template <int DT>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q, uint32_t k) {
-  using T = Tile<D>;
+  using T = Tile<DT>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DT / 16; ++kk) {
     const int p = kk * 16 / T::PD;
     const uint32_t off = (kk * 16 % T::PD) * 2;
     const uint64_t da = smem_desc(q + p * T::Q_PANEL + off, 16, 8 * T::ROW, T::LAYOUT);
@@ -539,15 +701,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], RowState& st, 
 // O *= alpha by rows; P in bf16 from the softmax's f32 p.  K-step kk of
 // P.V takes S's columns 16kk ... 16kk + 15, which the accumulator layout
 // already holds in register-A order.
-template <int D>
-__device__ __forceinline__ void rescale_and_pack(float (&acc)[Tile<D>::PANELS][Tile<D>::PD / 2],
+template <int DT>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[Tile<DT>::PANELS][Tile<DT>::PD / 2],
                                                  uint32_t (&pa)[BK / 16][4],
                                                  const float (&sc)[BK / 2],
                                                  const float (&alpha)[2]) {
 #pragma unroll
-  for (int p = 0; p < Tile<D>::PANELS; ++p)
+  for (int p = 0; p < Tile<DT>::PANELS; ++p)
 #pragma unroll
-    for (int i = 0; i < Tile<D>::PD / 2; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < Tile<DT>::PD / 2; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -562,10 +724,10 @@ struct Work {
   int h, b, q0, kvh, n_tiles;
 };
 
-template <int D>
+template <int DT>
 __device__ __forceinline__ Work work_unit(int u, int B, int Sq, int Skv, int H, int K,
                                           int causal) {
-  constexpr int BQ = Tile<D>::BQ;
+  constexpr int BQ = Tile<DT>::BQ;
   const int n_qt = (Sq + BQ - 1) / BQ;
   Work w;
   w.h = u % H;
@@ -588,14 +750,14 @@ __device__ __forceinline__ int unit_of(int n) {
   return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Tile<D>::THREADS, 1)
+template <int DT>
+__global__ void __launch_bounds__(Tile<DT>::THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H,
-                      int K, int causal, float scale_log2, int n_units) {
-  using T = Tile<D>;
+                      int K, int D, int causal, float scale_log2, int n_units) {
+  using T = Tile<DT>;
   constexpr int PD = T::PD;
   constexpr int CONSUMERS = T::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
@@ -636,7 +798,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (; n * gridDim.x < n_units; ++n) {
         const int u = unit_of(n);
         if (u >= n_units) break;                   // the last round is partial
-        const Work w = work_unit<D>(u, B, Sq, Skv, H, K, causal);
+        const Work w = work_unit<DT>(u, B, Sq, Skv, H, K, causal);
         const int qs = n & 1;
         if (n >= 2) mbar_wait(q_free + 8 * qs, ((n >> 1) - 1) & 1);
         mbar_expect_tx(q_full + 8 * qs, T::Q_BYTES);
@@ -674,7 +836,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (; n * gridDim.x < n_units; ++n) {
       const int u = unit_of(n);
       if (u >= n_units) break;
-      const Work w = work_unit<D>(u, B, Sq, Skv, H, K, causal);
+      const Work w = work_unit<DT>(u, B, Sq, Skv, H, K, causal);
       const int qs = n & 1;
       const int qrow0 = w.q0 + 64 * wg;
       const int qpos[2] = {qrow0 + row, qrow0 + row + 8};
@@ -701,12 +863,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % STAGES;
         mbar_wait(k_full + 8 * s, (it / STAGES) & 1);
         wgmma_fence();
-        issue_s<D>(sc, q_wg, sK + s * T::KV_BYTES);
+        issue_s<DT>(sc, q_wg, sK + s * T::KV_BYTES);
         wgmma_wait<0>();
         fence_regs(sc);
         mbar_arrive(k_free + 8 * s);
         softmax_tile(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, scale_log2);
-        rescale_and_pack<D>(acc, pa, sc, alpha);
+        rescale_and_pack<DT>(acc, pa, sc, alpha);
       }
 
       // tile t >= 1: issue S = Q . K_t^T and then P.V of tile t - 1 in one
@@ -721,8 +883,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
         fence_regs(pa);
         wgmma_fence();
-        issue_s<D>(sc, q_wg, sK + s * T::KV_BYTES);
-        issue_pv<D>(acc, pa, sV + sp * T::KV_BYTES);
+        issue_s<DT>(sc, q_wg, sK + s * T::KV_BYTES);
+        issue_pv<DT>(acc, pa, sV + sp * T::KV_BYTES);
         wgmma_wait<1>();                  // S is done; P.V may still run
         fence_regs(sc);
         mbar_arrive(k_free + 8 * s);
@@ -733,7 +895,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
         fence_regs(pa);
         mbar_arrive(v_free + 8 * sp);
-        rescale_and_pack<D>(acc, pa, sc, alpha);
+        rescale_and_pack<DT>(acc, pa, sc, alpha);
       }
       mbar_arrive(q_free + 8 * qs);       // every S of this unit is done
 
@@ -744,7 +906,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
       fence_regs(pa);
       wgmma_fence();
-      issue_pv<D>(acc, pa, sV + last * T::KV_BYTES);
+      issue_pv<DT>(acc, pa, sV + last * T::KV_BYTES);
       wgmma_wait<0>();
 #pragma unroll
       for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
@@ -776,6 +938,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int p = 0; p < T::PANELS; ++p)
 #pragma unroll
           for (int j = 0; j < PD / 8; ++j) {
+            if (p * 64 + 8 * j >= D) continue;          // the tile's zero-padded columns
             const float* e = &acc[p][4 * j + 2 * r];
             *reinterpret_cast<__nv_bfloat162*>(orow + p * 64 + 8 * j + col0) =
                 __floats2bfloat162_rn(e[0] * inv[r], e[1] * inv[r]);
@@ -815,11 +978,12 @@ int encode_fn(EncodeTiled* fn) {
 
 // A (B, S, heads, D) bf16 tensor as a 4-D map (dims D, heads, S, B), box
 // (PD, 1, rows, 1), swizzled as the wgmma descriptors expect; rows past S
-// read as zeros.
-template <int D>
+// and columns from D up to the tile's DT read as zeros.  D * 2 bytes, the
+// row stride, must be a multiple of 16: D % 8 == 0.
+template <int DT>
 int encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
-                int heads, int rows) {
-  using T = Tile<D>;
+                int heads, int D, int rows) {
+  using T = Tile<DT>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
@@ -834,18 +998,18 @@ int encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, in
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
 }
 
-template <int D>
+template <int DT>
 int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
-                 int Sq, int Skv, int causal, float scale, cudaStream_t stream) {
+                 int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
   EncodeTiled encode;
   int err = encode_fn(&encode);
   if (err) return err;
   CUtensorMap tm_q, tm_k, tm_v;
-  if ((err = encode_bshd<D>(encode, &tm_q, q, B, Sq, H, Tile<D>::BQ))) return err;
-  if ((err = encode_bshd<D>(encode, &tm_k, k, B, Skv, K, BK))) return err;
-  if ((err = encode_bshd<D>(encode, &tm_v, v, B, Skv, K, BK))) return err;
-  const size_t smem = Tile<D>::SMEM;
-  cudaError_t cerr = cudaFuncSetAttribute(flash_attention_wgmma<D>,
+  if ((err = encode_bshd<DT>(encode, &tm_q, q, B, Sq, H, D, Tile<DT>::BQ))) return err;
+  if ((err = encode_bshd<DT>(encode, &tm_k, k, B, Skv, K, D, BK))) return err;
+  if ((err = encode_bshd<DT>(encode, &tm_v, v, B, Skv, K, D, BK))) return err;
+  const size_t smem = Tile<DT>::SMEM;
+  cudaError_t cerr = cudaFuncSetAttribute(flash_attention_wgmma<DT>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           static_cast<int>(smem));
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
@@ -853,22 +1017,19 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B, in
   if ((cerr = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(cerr);
   cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const int n_units = (Sq + Tile<D>::BQ - 1) / Tile<D>::BQ * B * H;
+  const int n_units = (Sq + Tile<DT>::BQ - 1) / Tile<DT>::BQ * B * H;
   const float log2e = 1.4426950408889634f;
-  flash_attention_wgmma<D><<<min(n_units, sms), Tile<D>::THREADS, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, K, causal,
+  flash_attention_wgmma<DT><<<min(n_units, sms), Tile<DT>::THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, K, D, causal,
       scale * log2e, n_units);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
                int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    case 64: return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    case 128: return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D <= 32) return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 64) return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
 }
 
 }  // namespace tensor_core
@@ -888,12 +1049,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Skv <= 0)
+  if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Skv <= 0 || D <= 0 ||
+      D > kMaxHeadDim || D % kHeadDimStep != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return cuda_core::launch_dim<float>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      return cuda_core::launch_dim(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     case kBF16:
       return tensor_core::launch_dim(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     default:

@@ -7,9 +7,11 @@ CUDA tensors and runs the plain version ``ref.attention_ref`` on CPU
 tensors; there is no other route, so a CUDA call launches a kernel or
 raises.  The dtype picks the kernel: bfloat16 runs the tensor-core kernel
 (wgmma on TMA-fed tiles), float32 the CUDA-core kernel (f32 FMAs; on the
-tensor cores f32 would be TF32).  The backward recomputes the plain
-version under autograd, as the JAX wrapper recomputes ``mha_ref`` in XLA
-(a backward kernel is later work).
+tensor cores f32 would be TF32).  Both kernels take any head dim D <= 128
+with D % 8 == 0 (``MAX_HEAD_DIM``, ``HEAD_DIM_STEP``); the plain version on
+the CPU takes any D, as the JAX wrapper does.  The backward recomputes the
+plain version under autograd, as the JAX wrapper recomputes ``mha_ref`` in
+XLA (a backward kernel is later work).
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each dtype launches, as counted in ``flash_attention.launches_by_kernel``
 KERNELS = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_core"}
-HEAD_DIMS = (32, 64, 128)
-TMA_ALIGN = 16      # bytes: the bf16 kernel's tensor maps need aligned bases
+# the head dims the kernels take: D <= 128 and D % 8 == 0 (the bf16 kernel's
+# TMA row stride, D * 2 bytes, must be a multiple of 16)
+MAX_HEAD_DIM, HEAD_DIM_STEP = 128, 8
+ALIGN = 16          # bytes: both kernels' bases (tensor maps; 16-byte copies)
 
 
 def build() -> Tuple[Path, str]:
@@ -66,16 +70,20 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one of float32/bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k, v on several devices")
+    if q.device.type != "cpu" and (D > MAX_HEAD_DIM or D % HEAD_DIM_STEP):
+        raise ValueError(f"head dim {D}: the flash_attention kernels take D <= "
+                         f"{MAX_HEAD_DIM} with D % {HEAD_DIM_STEP} == 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention operands must be contiguous")
-    if q.dtype == torch.bfloat16 and not _is_fake(q) and any(t.data_ptr() % TMA_ALIGN
-                                                              for t in (q, k, v)):
-        raise ValueError(f"bfloat16 flash_attention operands must start "
-                         f"{TMA_ALIGN}-byte aligned (the kernel reads them by TMA)")
+    # the bf16 kernel reads by TMA, the f32 kernel by 16-byte copies; the
+    # plain version takes f32 at any address on the CPU
+    aligned = q.dtype == torch.bfloat16 or q.device.type != "cpu"
+    if aligned and not _is_fake(q) and any(t.data_ptr() % ALIGN for t in (q, k, v)):
+        raise ValueError(f"{str(q.dtype).removeprefix('torch.')} flash_attention operands "
+                         f"must start {ALIGN}-byte aligned (the kernels read them by TMA "
+                         f"or 16-byte copies)")
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -133,8 +141,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Skv, K, D), float32 or bfloat16, D in
-    {32, 64, 128} -> (B, Sq, H, D) in q's dtype.  Differentiable.
+    """q (B, Sq, H, D), k/v (B, Skv, K, D), float32 or bfloat16 -> (B, Sq,
+    H, D) in q's dtype.  Differentiable.  On the card D <= 128 with D % 8
+    == 0; on the CPU any D.
 
     CUDA operands launch a kernel on the current stream (no
     synchronisation; ``flash_attention.launches`` counts the launches and

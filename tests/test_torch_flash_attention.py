@@ -108,9 +108,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         t_ops.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         t_ops.flash_attention(q, k.to(torch.bfloat16), v)
-    with pytest.raises(ValueError, match="head dim"):
-        t_ops.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                              v[..., :48].contiguous())
+    # the head dim: any D on the CPU (the plain version, as JAX's wrapper);
+    # off the CPU the kernels' D <= 128, D % 8 == 0 (meta tensors reach the
+    # check without a card)
+    q48, k48, v48 = (t[..., :48].contiguous() for t in (q, k, v))
+    assert torch.equal(t_ops.flash_attention(q48, k48, v48), attention_ref(q48, k48, v48))
+    for D in (100, 136):
+        meta = [torch.empty(t.shape[:-1] + (D,), device="meta") for t in (q, k, v)]
+        with pytest.raises(ValueError, match="head dim"):
+            t_ops.flash_attention(*meta)
+    t_ops._check(*(torch.empty(t.shape[:-1] + (112,), device="meta") for t in (q, k, v)))
     with pytest.raises(ValueError):
         t_ops.flash_attention(q[:, :, :3].contiguous(), k, v)      # H % K != 0
     with pytest.raises(ValueError, match="contiguous"):
@@ -136,7 +143,8 @@ def test_wrapper_rejects_unaligned_bf16_operands():
         assert args[i].data_ptr() % 16 and args[i].is_contiguous()
         with pytest.raises(ValueError, match="16-byte aligned"):
             t_ops.flash_attention(*args)
-    # f32 goes to the CUDA-core kernel, which has no such need
+    # f32 on the CPU runs the plain version, which takes any address (on the
+    # card the f32 kernel's 16-byte copies need the same alignment)
     q32 = _shifted(q.float())
     assert torch.equal(t_ops.flash_attention(q32, k.float(), v.float()),
                        attention_ref(q32, k.float(), v.float()))

@@ -2,7 +2,8 @@
 its plain PyTorch version, its backward, the kernel backend inside the
 serving path, the device-side LSH encode, the hand-written
 ``flash_attention`` kernels (bf16 on the tensor cores, f32 on the CUDA
-cores) against their plain version, the LM train
+cores) against their plain version at every head dim they take (D <= 128,
+D % 8 == 0: zamba2's 112 among them) and refusing the others, the LM train
 step on the card against the CPU, the hand-written ``lsh_encode`` kernel
 against its plain version, the reconstruction path on the card against
 the CPU, and the GNN training slice: the ``hash_decode`` backward kernel
@@ -195,6 +196,15 @@ FLASH_CASES = [(2, 4, 4, 256, 64, True, "bfloat16"), (2, 4, 4, 256, 64, True, "f
                (2, 4, 1, 129, 64, True, "bfloat16"), (2, 4, 2, 129, 128, False, "bfloat16"),
                (2, 2, 2, 129, 32, True, "bfloat16"), (1, 4, 1, 1000, 128, True, "bfloat16"),
                (1, 4, 4, 1000, 64, False, "bfloat16"), (1, 4, 2, 1000, 32, True, "bfloat16")]
+# head dims outside the tiles' widths: zamba2's 112 and 80 (the 128-wide
+# tile), 24 (the 32-wide); both kernels, ragged S, GQA, causal and full
+FLASH_HEAD_DIMS = [(B, H, K, S, D, causal, dtype)
+                   for D in (24, 80, 112) for dtype in ("bfloat16", "float32")
+                   for B, H, K, S, causal in ((2, 4, 2, 333, True), (1, 8, 2, 129, False),
+                                              (1, 4, 4, 1000, True))]
+# the f32 kernel at every D it takes, ragged S, GQA, causal and full
+FLASH_F32_DIMS = [(B, H, K, S, D, causal, "float32") for D in range(8, 129, 8)
+                  for B, H, K, S, causal in ((2, 4, 2, 257, True), (1, 6, 3, 200, False))]
 # Sq != Skv through the bf16 kernel: (Sq, Skv, causal); causal is the
 # plain version's top-left mask (key position <= query position)
 FLASH_RAGGED = [(129, 300, True), (300, 129, True), (1, 1000, False), (1000, 1, True),
@@ -209,7 +219,8 @@ def _qkv(B, H, K, S, D, dtype, device, seed=0, Skv=None):
             for shape in ((B, S, H, D), (B, Skv, K, D), (B, Skv, K, D))]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HEAD_DIMS + FLASH_F32_DIMS,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_flash_kernel_matches_plain_version(cuda, case):
     B, H, K, S, D, causal, dtype = case
     q, k, v = _qkv(B, H, K, S, D, dtype, cuda)
@@ -256,6 +267,46 @@ def test_flash_bf16_kernel_rejects_unaligned_operands(cuda):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="aligned"):
         fa_ops.flash_attention(shifted, k, v)
+
+
+@pytest.mark.parametrize("D", [64, 112])
+@pytest.mark.parametrize("case", FLASH_RAGGED, ids=lambda c: "-".join(map(str, c)))
+def test_flash_f32_kernel_query_and_key_lengths_differ(cuda, case, D):
+    Sq, Skv, causal = case
+    q, k, v = _qkv(2, 4, 2, Sq, D, "float32", cuda, seed=7, Skv=Skv)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [100, 136, 4])
+def test_flash_kernels_refuse_head_dims_they_do_not_take(cuda, D, dtype):
+    """On the card D <= 128 with D % 8 == 0; the CPU takes any D."""
+    q, k, v = _qkv(1, 4, 2, 64, D, dtype, cuda)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, k, v)
+    assert fa_ops.flash_attention.launches == before
+    got = fa_ops.flash_attention(*(t.cpu() for t in (q, k, v)))
+    assert torch.equal(got, attention_ref(*(t.cpu() for t in (q, k, v))))
+
+
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
+def test_flash_f32_kernel_is_deterministic(cuda, D):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(2, 8, 2, 1000, D, "float32", cuda, seed=6)
+    assert torch.equal(fa_ops.flash_attention(q, k, v), fa_ops.flash_attention(q, k, v))
+
+
+def test_flash_f32_kernel_rejects_unaligned_operands(cuda):
+    """The f32 kernel copies K and V in 16-byte pieces: on the card the
+    wrapper raises rather than copy."""
+    q, k, v = _qkv(1, 4, 2, 64, 64, "float32", cuda)
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(q, shifted, v)
 
 
 def test_flash_kernel_gradients_are_the_plain_recompute(cuda):
