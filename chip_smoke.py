@@ -6,11 +6,14 @@ in PERF.md):
 
 from the root of a checkout.  It builds the port's CUDA kernels from the
 sources in ``src/repro_torch`` (one nvcc per source, all at once), checks
-in the built libraries' SASS that the bf16 flash_attention kernel runs its
-products on the tensor cores (HGMMA) and the f32 one on the CUDA cores
-(FFMA, no HMMA or HGMMA), that lsh_encode's products are fused
-(FFMA) and that hash_decode's sums are not (no FFMA), holds each kernel
-against its plain PyTorch version at the shapes its paths give it,
+in the built libraries' SASS that the bf16 and f16 flash_attention
+kernel runs its products on the tensor cores (HGMMA) and the f32 and panel
+ones on the CUDA cores (FFMA, no HMMA or HGMMA), that lsh_encode's
+products are fused (FFMA) and that hash_decode's sums are not (no FFMA),
+holds each kernel against its plain PyTorch version at the shapes its
+paths give it and at the inputs no config gives it (flash in f16, at
+head dims 4 to 320 and on strided and unaligned operands; f16 codebooks;
+12-bit codes in the backward),
 and drives these paths through the port's entry points, with random
 weights and data from a seed:
 
@@ -244,15 +247,16 @@ weights and data from a seed:
 The ``hash_decode`` backward kernels (the codebook gradient: a stable
 sort of each codebook's rows by code, then the sums) are held bitwise
 against their plain versions at 64 uniform shapes, at skewed codes, at
-the GNN run's real codes and at the full graph's 169,343 rows (uniform
-and the full-graph GCN's codes; the sort against ``code_order`` too), and
-timed at a training frontier, at 61,696 rows, at the LM step's 8,192 bf16
-rows, at the reconstruction's 512 (as a CUDA graph) and at 169,343 rows,
-beside the one-hot contraction they replaced and ``embedding_bag``'s
-backward.
+the GNN run's real codes, at the full graph's 169,343 rows (uniform
+and the full-graph GCN's codes; the sort against ``code_order`` too), in
+f16 and at (m, c) = (16, 4096), and timed at a training frontier, at
+61,696 rows (also at c = 4,096), at the LM step's 8,192 bf16 rows, at the
+reconstruction's 512 (as a CUDA graph) and at 169,343 rows, beside the
+one-hot contraction they replaced and ``embedding_bag``'s backward.
 
 Each path is driven with the kernels' launch counts set to 0 just before
-it and read just after.  A small version of each path (a 3,000-node
+it and read just after, and so are the operands the wrappers copied on the
+way (``[copies]``), which must stay 0 on every path.  A small version of each path (a 3,000-node
 graph served, and trained by GCN, SGC and GIN and under each family and
 int8; the reduced LM config, trained and served, the
 reconstruction at the JAX benchmark's size) runs on the card and on the
@@ -448,32 +452,36 @@ def check_fma(lsh_library: Path, hd_library: Path) -> None:
 
 
 def check_tensor_cores(library: Path) -> None:
-    """The bf16 flash_attention kernel must do its products on the tensor
-    cores: count the HGMMA instructions in each of its instantiations'
-    SASS and fail on any with none."""
+    """The bf16 and f16 flash_attention kernel must do its products on the
+    tensor cores: count the HGMMA instructions in each of its
+    instantiations' SASS and fail on any with none."""
     counts = {fn: n for fn, n in sass_counts(library, "HGMMA").items()
               if "flash_attention_wgmma" in fn}
-    check(len(counts) == 3, f"expected the bf16 kernel at D = 32, 64, 128 in "
+    check(len(counts) == 8, f"expected the bf16 and f16 kernel at D = 32, 64, 128, 256 in "
                             f"{library.name}, found {sorted(counts)}")
     for fn, n in sorted(counts.items()):
-        d = re.search(r"wgmmaILi(\d+)E", fn)
-        print(f"[sass] flash_attention bf16 kernel D={d.group(1) if d else '?'}: "
-              f"{n} HGMMA instructions", flush=True)
-        check(n > 0, f"no HGMMA in {fn}: the bf16 products are off the tensor cores")
+        d = re.search(r"wgmmaILi(\d+)ELb([01])E", fn)
+        what = f"{'f16' if d.group(2) == '1' else 'bf16'} kernel D={d.group(1)}" if d else fn
+        print(f"[sass] flash_attention {what}: {n} HGMMA instructions", flush=True)
+        check(n > 0, f"no HGMMA in {fn}: the 16-bit products are off the tensor cores")
 
 
 def check_cuda_cores(library: Path) -> None:
     """The f32 flash_attention kernel must stay IEEE f32 on the CUDA cores:
-    each of its three instantiations holds FFMA (its explicit ``fmaf``
+    each of its four instantiations holds FFMA (its explicit ``fmaf``
     products, which ``--fmad=false`` keeps) and no HMMA or HGMMA (no TF32
-    on the tensor cores)."""
+    on the tensor cores); so must the panel kernel's three (f32, bf16 and
+    f16 operands, f32 sums)."""
     ffma, hmma, hgmma = (sass_counts(library, op) for op in ("FFMA", "HMMA", "HGMMA"))
     fns = sorted(fn for fn in ffma if "cuda_core" in fn and "flash_attention_kernel" in fn)
-    check(len(fns) == 3, f"expected the f32 kernel at DT = 32, 64, 128 in {library.name}, "
-                         f"found {fns}")
-    for fn in fns:
+    check(len(fns) == 4, f"expected the f32 kernel at DT = 32, 64, 128, 256 in "
+                         f"{library.name}, found {fns}")
+    panels = sorted(fn for fn in ffma if "flash_attention_panels" in fn)
+    check(len(panels) == 3, f"expected the panel kernel in 3 dtypes, found {panels}")
+    for fn in fns + panels:
         dt = re.search(r"kernelILi(\d+)E", fn)
-        print(f"[sass] flash_attention f32 kernel DT={dt.group(1) if dt else '?'}: {ffma[fn]} "
+        what = f"f32 kernel DT={dt.group(1)}" if dt else f"panel kernel {fn}"
+        print(f"[sass] flash_attention {what}: {ffma[fn]} "
               f"FFMA, {hmma[fn]} HMMA, {hgmma[fn]} HGMMA", flush=True)
         check(ffma[fn] > 0 and hmma[fn] == 0 and hgmma[fn] == 0,
               f"{fn}: the f32 products must be FFMA on the CUDA cores")
@@ -489,8 +497,9 @@ def _operands(B, m, c, d_c, variant, seed):
     w0 = torch.from_numpy(rng.standard_normal(d_c).astype(np.float32))
     dtype, _, with_w0 = variant.partition("+")
     scales = None
-    if dtype == "bfloat16":
-        cb, w0 = cb.to(torch.bfloat16), w0.to(torch.bfloat16).float()
+    if dtype in ("bfloat16", "float16"):
+        half = getattr(torch, dtype)
+        cb, w0 = cb.to(half), w0.to(half).float()
     elif dtype == "int8":
         cb, scales = ops.quantize_codebooks(cb)
     return [None if t is None else t.cuda()
@@ -521,6 +530,7 @@ def decode_bytes(B: int, m: int, c: int, d_c: int, storage: str, named: int) -> 
     every row is named this is ``roofline.decode_hbm_bytes``'s total, which
     is checked; a decode step's 8 rows name fewer, counted here."""
     from repro_torch.launch import roofline
+    storage = "bfloat16" if storage == "float16" else storage   # the same 2 bytes a value
     elem = roofline.DECODE_DTYPE_BYTES[storage]
     nbytes = B * m * 4 + named * d_c * elem + B * d_c * 4 + (named * 4 if storage == "int8" else 0)
     if named == m * c:
@@ -649,20 +659,26 @@ def phase_kernel_check(B_main: int):
     import torch
     m, c, d_c = 16, 256, 512
     cases = [((B_main, m, c, d_c), v) for v in
-             ("float32", "float32+w0", "bfloat16", "int8+w0")]
+             ("float32", "float32+w0", "bfloat16", "int8+w0", "float16", "float16+w0")]
     cases += [((4 * B_main, m, c, d_c), "float32"),
               ((LM_BATCH * LM_SEQ, m, c, d_c), "bfloat16")]
     cases += [((100, 8, 16, 96), "float32+w0"), ((33, 4, 4, 130), "int8"),
               ((7, 3, 8, 5), "bfloat16+w0"), ((REC_BATCH, m, c, d_c), "float32"),
               ((5000, m, c, 130), "int8+w0"), ((5000, 3, 8, 5), "bfloat16+w0"),
-              ((N_NODES, m, c, d_c), "float32")]     # a full-graph step decodes every node
-    max_err = max(check_decode_case(shape, variant, seed=i)
-                  for i, (shape, variant) in enumerate(cases))
+              ((N_NODES, m, c, d_c), "float32"),     # a full-graph step decodes every node
+              ((4096, m, c, d_c), "float16+w0"), ((7, 3, 8, 5), "float16"),
+              ((N_NODES, m, c, d_c), "float16")]
+    errs = {case: check_decode_case(*case, seed=i) for i, case in enumerate(cases)}
+    max_err = max(errs.values())
     timing = time_at_shape(B_main, m, c, d_c)
     time_at_shape(4 * B_main, m, c, d_c)
     full = time_at_shape(N_NODES, m, c, d_c)
+    # each float16 timing carries the error checked at its own shape
+    f16 = {rows: dict(time_at_shape(rows, m, c, d_c, "float16"),
+                      max_abs_err=errs[((rows, m, c, d_c), "float16")])
+           for rows in (B_main, N_NODES)}
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, **timing, at_full_graph=full)
+    return dict(max_abs_err=max_err, **timing, at_full_graph=full, float16=f16)
 
 
 def _spec(lookup_impl: str, n_nodes: int, n_classes: int, model: str = "sage"):
@@ -853,9 +869,27 @@ FLASH_CASES = [  # (B, H, K, S, D, causal, dtype): the path's shape first
     (1, 4, 4, 129, 80, False, "float32"),
     (2, 4, 1, 333, 24, True, "float32"),
     (1, 4, 2, 127, 24, False, "bfloat16"),
+    # float16 on the tensor cores at the training path's shape; then every
+    # kind of head dim no config has, in each dtype: padded to the step (4,
+    # 100), the 256-wide tile (136, 192, 256), panels (320); ragged S, GQA,
+    # causal and full
+    (LM_BATCH, 16, 16, LM_SEQ, 64, True, "float16"),
+    *[(2, 8, 2 if causal else 8, 777 if causal else 300, D, causal, dtype)
+      for D, causal in ((4, True), (100, False), (136, True), (192, False), (256, True),
+                        (320, True))
+      for dtype in ("bfloat16", "float16", "float32")],
 ]
-# tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|
-FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# tests/test_kernels.py's tolerance: |kernel - plain| <= tol + tol * |plain|;
+# float16's at its 2**-11 rounding
+FLASH_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 2e-5}
+# operands the wrapper copies first, one counted copy each: a strided view
+# (every other column of a wider tensor) and a bf16 q 2 bytes off a 16-byte
+# boundary; each held bitwise to the contiguous call
+FLASH_LAYOUTS = [("strided", (2, 8, 2, 1000, 64, True, "bfloat16")),
+                 ("unaligned", (2, 8, 2, 1000, 128, True, "bfloat16")),
+                 # k stored (B, K, D, S) and permuted: strides that look
+                 # channels_last, at a D the wrapper pads
+                 ("channels_last", (2, 8, 2, 1000, 100, True, "bfloat16"))]
 
 
 def _qkv(B, H, K, S, D, dtype, seed=0):
@@ -866,35 +900,62 @@ def _qkv(B, H, K, S, D, dtype, seed=0):
             for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
 
 
-def phase_flash_check() -> float:
+def phase_flash_check() -> tuple:
     """flash_attention vs its plain version on the card at the path's shape,
-    a GQA, a ragged, a non-causal and the reduced config's shape."""
+    a GQA, a ragged, a non-causal and the reduced config's shape, float16,
+    every kind of head dim and two layouts the wrapper copies.  Returns the
+    path's shape's error and, by kernel and tile width, the largest error of
+    each instantiation and its launches here."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    worst = 0.0
-    for i, (B, H, K, S, D, causal, dtype) in enumerate(FLASH_CASES):
+    worst, by_instance = 0.0, {}
+    layouts = [(None, case) for case in FLASH_CASES] + FLASH_LAYOUTS
+    for i, (layout, (B, H, K, S, D, causal, dtype)) in enumerate(layouts):
         q, k, v = _qkv(B, H, K, S, D, dtype, seed=i)
-        before = ops.flash_attention.launches
+        if layout is not None:
+            want = ops.flash_attention(q, k, v, causal=causal)
+            if layout == "strided":
+                wide = torch.zeros(q.shape[:-1] + (2 * D,), dtype=q.dtype, device="cuda")
+                q = wide[..., ::2].copy_(q)
+            elif layout == "unaligned":
+                moved = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:].view(q.shape)
+                q = moved.copy_(q)
+            else:
+                k = torch.empty((B, K, D, S), dtype=k.dtype,
+                                device="cuda").permute(0, 3, 1, 2).copy_(k)
+        before, copies = ops.flash_attention.launches, ops.flash_attention.copies
         got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         check(ops.flash_attention.launches == before + 1, "flash kernel did not launch")
+        kernel, width = ops.kernel_of(q.dtype, D)
+        padded = D % ops.HEAD_DIM_STEP != 0
+        want_copies = 4 if padded else (1 if layout else 0)
+        check(ops.flash_attention.copies == copies + want_copies,
+              f"flash_attention copied {ops.flash_attention.copies - copies} tensors, "
+              f"not {want_copies}")
         ref = attention_ref(q, k, v, causal=causal).float()
         diff = (got.float() - ref).abs()
         err = float(diff.max())
         tol = FLASH_TOL[dtype]
         within = bool((diff <= tol + tol * ref.abs()).all())
         finite = bool(torch.isfinite(got).all())
-        print(f"[flash] B={B} H={H} K={K} S={S} D={D} causal={causal} {dtype}: "
-              f"max_abs_err={err}, within rtol=atol={tol}: {within}, finite={finite}",
-              flush=True)
-        check(finite and within,
-              f"flash_attention {(B, H, K, S, D, causal, dtype)} off by {err}")
+        same = layout is None or torch.equal(got, want)
+        print(f"[flash] B={B} H={H} K={K} S={S} D={D} causal={causal} {dtype}"
+              f"{'' if layout is None else ' ' + layout}: {kernel} at width {width}, "
+              f"max_abs_err={err}, within rtol=atol={tol}: {within}, finite={finite}, "
+              f"copies {want_copies}" + ("" if layout is None else f", bitwise the "
+                                         f"contiguous call: {same}"), flush=True)
+        check(finite and within and same,
+              f"flash_attention {(B, H, K, S, D, causal, dtype, layout)} off by {err}")
         if i == 0:
             worst = err
+        row = by_instance.setdefault(f"{kernel}/{width}", {"max_abs_err": 0.0, "launches": 0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["launches"] += 1
         del q, k, v, got, ref
     torch.cuda.empty_cache()
-    return worst
+    return worst, by_instance
 
 
 def phase_backward_check() -> float:
@@ -969,6 +1030,7 @@ def phase_train():
     hd_ops.hash_decode_backward.launches = 0
     hd_ops.backward_kernel_launches(reset=True)
     hd_ops.hash_decode.launches = 0            # the training path's run starts here
+    zero_copies()
     res = train(cfg, steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, device="cuda",
                 log_every=1, log=lambda line: print(f"[train] {line}", flush=True))
     torch.cuda.synchronize()
@@ -978,6 +1040,7 @@ def phase_train():
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}  # ... and ends here
     check_backward_launches(launches, "train")
+    check_no_copies("train")
     launches["flash_attention_by_kernel"] = dict(by_kernel)
     launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
@@ -991,7 +1054,7 @@ def phase_train():
     check(launches["flash_attention"] == LM_STEPS * per_step,
           f"flash_attention launched {launches['flash_attention']} times, "
           f"expected {LM_STEPS} steps x {per_step}")
-    check(by_kernel == {"bf16_wgmma": LM_STEPS * per_step, "f32_cuda_core": 0},
+    check(by_kernel == flash_want(bf16_wgmma=LM_STEPS * per_step),
           f"the bf16 training path's attention went to {by_kernel}, not only "
           f"to the tensor-core kernel")
     check(launches["hash_decode"] >= LM_STEPS, f"hash_decode launched {launches['hash_decode']} times")
@@ -1196,7 +1259,7 @@ def phase_lm_reference() -> dict:
           f"max abs diff {worst}; flash launches {launches['flash_attention_by_kernel']}",
           flush=True)
     check(worst <= 1e-4, f"card and CPU losses differ by {worst}")
-    want = {"bf16_wgmma": 0, "f32_cuda_core": 3 * cfg.n_layers}
+    want = flash_want(f32_cuda_core=3 * cfg.n_layers)
     check(launches["flash_attention_by_kernel"] == want,
           f"lm_reference launched flash {launches['flash_attention_by_kernel']}, expected {want}")
     return launches
@@ -1587,10 +1650,18 @@ def time_lm_kernels() -> dict:
     shapes = {"bf16_wgmma": (B, H, K, S, D, causal, "bfloat16"),
               "f32_cuda_core": (B, H, K, S, D, causal, "float32"),
               "bf16_wgmma_zamba2": (LM_BATCH, 32, 32, LM_SEQ, 112, True, "bfloat16"),
-              "f32_cuda_core_zamba2": (LM_BATCH, 32, 32, LM_SEQ, 112, True, "float32")}
+              "f32_cuda_core_zamba2": (LM_BATCH, 32, 32, LM_SEQ, 112, True, "float32"),
+              # the instantiations no config runs: f16 at the path's shape,
+              # the 256-wide tile in each dtype, D = 320 in panels
+              "f16_wgmma": (B, H, K, S, D, causal, "float16"),
+              "bf16_wgmma_d256": (B, H, K, S, 256, causal, "bfloat16"),
+              "f16_wgmma_d256": (B, H, K, S, 256, causal, "float16"),
+              "f32_cuda_core_d256": (B, H, K, S, 256, causal, "float32"),
+              "panels_d320": (B, H, K, S, 320, causal, "bfloat16")}
     variants = {}
     for name, shape in shapes.items():
-        variants[name] = row = time_flash(*shape, iters=10 if shape[-1] == "float32" else 20)
+        iters = 5 if name.startswith("panels") else 10 if shape[-1] == "float32" else 20
+        variants[name] = row = time_flash(*shape, iters=iters)
         print(f"[time] {name}: {describe(row)}", flush=True)
         torch.cuda.empty_cache()
     main = variants["bf16_wgmma"]
@@ -1791,6 +1862,7 @@ def phase_reconstruct() -> dict:
     hd_ops.hash_decode_backward.launches = 0
     hd_ops.backward_kernel_launches(reset=True)
     lsh_ops.launches_by_kernel.update(dict.fromkeys(lsh_ops.KERNELS, 0))  # the path starts here
+    zero_copies()
     res = run(**REC, steps=REC_STEPS, schemes=REC_SCHEMES, device="cuda",
               log=lambda line: print(line, flush=True))
     torch.cuda.synchronize()
@@ -1800,6 +1872,7 @@ def phase_reconstruct() -> dict:
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values()),
                 "flash_attention": fa_ops.flash_attention.launches}   # ... and ends here
     check_backward_launches(launches, "reconstruct")
+    check_no_copies("reconstruct")
     launches["lsh_encode_by_kernel"] = dict(lsh_ops.launches_by_kernel)
     wall = time.perf_counter() - t0
     print(f"[reconstruct] schemes {list(res['schemes'])}: wall {wall:.2f} s, launches "
@@ -1974,7 +2047,7 @@ def _bwd_operands(B, m, c, d_c, variant, seed, kind="uniform"):
     dtype, _, with_w0 = variant.partition("+")
     w0 = (torch.from_numpy(rng.standard_normal(d_c).astype(np.float32)).cuda()
           if with_w0 else None)
-    return codes, g, w0, {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    return codes, g, w0, getattr(torch, dtype)
 
 
 def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
@@ -1987,20 +2060,27 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
     the GNN run's first batch (``gnn_codes``, its frontier with its padding
     rows), and at the full graph's 169,343 rows, uniform and the full-graph
     GCN's real codes (``full_codes``); each with and without w0, f32 and
-    bf16 codebooks.  Returns the number of cases and the largest error."""
+    bf16 codebooks.  Returns the number of cases, the largest error and
+    the largest error at each (m, c)."""
     import torch
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import code_order, hash_decode_backward_ref
-    n, worst = 0, 0.0
+    n, worst, worst_by_mc = 0, 0.0, {}
     cases = [("uniform", B, m, c, d_c) for B in (1, REC_BATCH, frontier_rows, 61_696)
              for m, c in ((16, 256), (3, 16)) for d_c in (512, 130)]
     cases += [("one_code", frontier_rows, 16, 256, 512), ("one_code", 61_696, 3, 16, 130),
               ("zipf", frontier_rows, 16, 256, 512), ("zipf", 61_696, 16, 256, 130),
               ("uniform", 61_696, 16, 16, 512), ("gnn", gnn_codes.shape[0], 16, 256, 512),
-              ("uniform", N_NODES, 16, 256, 512), ("fullgraph", N_NODES, 16, 256, 512)]
+              ("uniform", N_NODES, 16, 256, 512), ("fullgraph", N_NODES, 16, 256, 512),
+              # 12-bit codes, (m, c) = (16, 4096): the sort's blocks take the
+              # codes in ranges (an (m, c) histogram passes 227 KiB)
+              ("uniform", 61_696, 16, 4096, 512), ("zipf", 61_696, 16, 4096, 130)]
     real = {"gnn": gnn_codes, "fullgraph": full_codes}
     for kind, B, m, c, d_c in cases:
-        for variant in ("float32", "float32+w0", "bfloat16", "bfloat16+w0"):
+        variants = ("float32", "float32+w0", "bfloat16", "bfloat16+w0")
+        if (B, m, c) == (61_696, 16, 256) and kind == "uniform":
+            variants += ("float16", "float16+w0")
+        for variant in variants:
             codes, g, w0, dtype = _bwd_operands(B, m, c, d_c, variant, seed=n,
                                                 kind="uniform" if kind in real else kind)
             if kind in real:
@@ -2025,8 +2105,9 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
             same, again = torch.equal(a.cpu(), ref), torch.equal(a, b)
             err = float((a.cpu().float() - ref.float()).abs().max())
             worst = max(worst, err)
+            worst_by_mc[m, c] = max(worst_by_mc.get((m, c), 0.0), err)
             shown = ((B in (frontier_rows, 61_696, N_NODES) and variant == "float32")
-                     or kind != "uniform")
+                     or kind != "uniform" or c > 256 or variant.startswith("float16"))
             if shown or not (same and again):
                 longest = int((offsets[:, 1:] - offsets[:, :-1]).max())
                 print(f"[backward] hash_decode_backward {kind} B={B} m={m} c={c} "
@@ -2041,7 +2122,7 @@ def phase_hd_backward_check(frontier_rows: int, gnn_codes, full_codes) -> tuple:
           f"version, two calls bitwise equal in each, the sort equal to code_order in "
           f"each", flush=True)
     torch.cuda.empty_cache()
-    return n, worst
+    return n, worst, worst_by_mc
 
 
 def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run",
@@ -2071,19 +2152,21 @@ def check_gnn_frontiers(sizes, what: str = "frontier sizes of the run",
     return worst
 
 
-def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False) -> dict:
+def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False,
+                     c: int = 256) -> dict:
     """The backward kernels at ``rows`` rows (m=16, c=256, d_c=512, no w0,
     ``storage`` codebooks) beside their bound, the one-hot contraction they
     replaced, their plain version (index_add_ on the card) and the backward
     of ``F.embedding_bag(mode="sum")`` over the flattened (m*c, d_c) table
     (in ``storage``, its cotangent cast to it).  ``graph``: the kernels timed
     as a CUDA graph (at small B the host enqueues a call slower than the
-    card runs it)."""
+    card runs it).  ``c`` above 256 (12-bit codes at 4,096) leaves the
+    one-hot out: its (B, m, c) f32 operand alone would take 16 GB."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.hash_decode import ops
     from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
-    m, c, d_c = 16, 256, 512
+    m, d_c = 16, 512
     codes, g, _, dtype = _bwd_operands(rows, m, c, d_c, storage, seed=11)
 
     def kernel():
@@ -2096,8 +2179,10 @@ def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False) -
         iota = torch.arange(c, dtype=codes.dtype, device=codes.device)
         return torch.einsum("bmc,bd->mcd", (codes[:, :, None] == iota).float(), g).to(dtype)
 
-    onehot_ms, _ = time_ms(onehot, 5)
-    onehot_err = float((onehot().float() - kernel().float()).abs().max())
+    onehot_ms = onehot_err = None
+    if c <= 256:
+        onehot_ms, _ = time_ms(onehot, 5)
+        onehot_err = float((onehot().float() - kernel().float()).abs().max())
     plain_ms, _ = time_ms(lambda: hash_decode_backward_ref(codes, g, None, c, dtype), 5)
     table = torch.zeros(m * c, d_c, device="cuda", dtype=dtype, requires_grad=True)
     idx = codes.long() + (torch.arange(m, device="cuda") * c)[None, :]
@@ -2113,9 +2198,11 @@ def time_hd_backward(rows: int, storage: str = "float32", graph: bool = False) -
     bound_ms = max(bytes_ms, adds_ms)
     bound_by = "bytes" if bytes_ms >= adds_ms else "operations"
     how = f"as a CUDA graph ({events_ms:.4f} ms back to back)" if graph else "back to back"
+    onehot_text = ("not run" if onehot_ms is None
+                   else f"{onehot_ms:.4f} ms (max diff {onehot_err})")
     print(f"[time] hash_decode_backward B={rows} m={m} c={c} d_c={d_c} {storage}: kernels "
           f"{kernel_ms:.4f} ms {how} (host enqueues a call in {enqueue_ms:.4f} ms), one-hot "
-          f"contraction {onehot_ms:.4f} ms (max diff {onehot_err}), plain (index_add_ on "
+          f"contraction {onehot_text}, plain (index_add_ on "
           f"the card) {plain_ms:.4f} ms, embedding_bag backward {library_ms:.4f} ms (max "
           f"diff {lib_err}); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B in "
           f"{bytes_ms:.4f} ms, {adds} adds in {adds_ms:.4f} ms); kernels "
@@ -2330,8 +2417,36 @@ CACHE_FIELDS = ("node_ids", "values", "version", "last_used", "version_counter",
                 "hits", "misses")
 
 
+def flash_want(**counts) -> dict:
+    """flash_attention's launches by kernel: ``counts``, 0 for every other
+    kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return {k: counts.get(k, 0) for k in fa_ops.flash_attention.launches_by_kernel}
+
+
+def zero_copies() -> None:
+    """The operands the three wrappers copied (strided, unaligned, a head
+    dim padded or 16 bits widened) to 0."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    fa_ops.flash_attention.copies = hd_ops.hash_decode.copies = lsh_ops.copies = 0
+
+
+def check_no_copies(path: str) -> None:
+    """A model path hands every kernel its operands as they are: the
+    wrappers copied none since ``zero_copies``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_decode import ops as hd_ops
+    from repro_torch.kernels.lsh_encode import ops as lsh_ops
+    copies = {"flash_attention": fa_ops.flash_attention.copies,
+              "hash_decode": hd_ops.hash_decode.copies, "lsh_encode": lsh_ops.copies}
+    print(f"[copies] {path}: {copies}", flush=True)
+    check(not any(copies.values()), f"{path} copied operands on the way to a kernel: {copies}")
+
+
 def zero_counts() -> None:
-    """Every kernel's launch counts to 0: a path's run starts here."""
+    """Every kernel's launch and copy counts to 0: a path's run starts here."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
@@ -2342,10 +2457,12 @@ def zero_counts() -> None:
     hd_ops.hash_decode.launches = 0
     hd_ops.hash_decode_backward.launches = 0
     hd_ops.backward_kernel_launches(reset=True)
+    zero_copies()
 
 
 def _counts(path: str) -> dict:
-    """Every kernel's launch counts since ``zero_counts``."""
+    """Every kernel's launch counts since ``zero_counts``; the path copied
+    no operand (``check_no_copies``)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_decode import ops as hd_ops
     from repro_torch.kernels.lsh_encode import ops as lsh_ops
@@ -2355,6 +2472,7 @@ def _counts(path: str) -> dict:
                 "flash_attention": fa_ops.flash_attention.launches,
                 "lsh_encode": sum(lsh_ops.launches_by_kernel.values())}
     check_backward_launches(launches, path)
+    check_no_copies(path)
     return launches
 
 
@@ -4501,7 +4619,7 @@ def _expected_train_launches(cfg, steps: int) -> dict:
     return {"hash_decode": steps if hashed else 0,
             "hash_decode_backward": steps if hashed else 0,
             "lsh_encode_by_kernel": {"project": int(hashed), "pack": int(hashed), "fused": 0},
-            "flash_attention_by_kernel": {"bf16_wgmma": attn, "f32_cuda_core": 0}}
+            "flash_attention_by_kernel": flash_want(bf16_wgmma=attn)}
 
 
 def _train_lm_family(cfg, label: str, stream=None, moments: str = "bfloat16",
@@ -4914,7 +5032,7 @@ def _lm_family_reference() -> tuple:
     gap = _reduced_reference(((GRANITE, {}), (GRANITE, {"moe_impl": "dense"}), (MAMBA2, {}),
                               (ZAMBA2, {"attn_impl": "flash"})))
     launches = _path_counts("families_reference")
-    want = {"bf16_wgmma": 0, "f32_cuda_core": 3 * 2}
+    want = flash_want(f32_cuda_core=3 * 2)
     check(launches["flash_attention_by_kernel"] == want,
           f"families_reference launched flash {launches['flash_attention_by_kernel']}, "
           f"expected {want}")
@@ -6334,7 +6452,7 @@ def main() -> None:
     b_main = default_frontier_cap(REQUEST, (15, 15), 256, N_NODES)
     timing = phase_kernel_check(b_main)
     lap("phase_kernel_check")
-    flash_err = phase_flash_check()
+    flash_err, flash_instances = phase_flash_check()
     lap("phase_flash_check")
     phase_backward_check()
     lap("phase_backward_check")
@@ -6383,7 +6501,8 @@ def main() -> None:
                                 check_gnn_frontiers(merchant_sizes,
                                                     "decode sizes of the merchant path"),
                                 family_err, host_err, shard_err, elastic_err)
-    bwd_cases, bwd_err = phase_hd_backward_check(frontier_rows, gnn_codes, full_codes)
+    bwd_cases, bwd_err, bwd_err_by_mc = phase_hd_backward_check(frontier_rows, gnn_codes,
+                                                                full_codes)
     lap("phase_hd_backward_check")
     lsh = phase_lsh_check()
     lap("phase_lsh_check")
@@ -6414,7 +6533,8 @@ def main() -> None:
     bwd_times = {"frontier": time_hd_backward(frontier_rows), "cap": time_hd_backward(61_696),
                  "lm": time_hd_backward(LM_BATCH * LM_SEQ, "bfloat16"),
                  "reconstruct": time_hd_backward(REC_BATCH, graph=True),
-                 "full": time_hd_backward(N_NODES)}
+                 "full": time_hd_backward(N_NODES),
+                 "c4096": time_hd_backward(61_696, c=4096)}
     variants = time_variants()
     lap("time_variants")
     lsh_times = time_lsh()
@@ -6440,6 +6560,21 @@ def main() -> None:
     bwd_by_kernel = {k: sum(counts["hash_decode_backward_by_kernel"][k]
                             for counts in paths.values())
                      for k in serve_launches["hash_decode_backward_by_kernel"]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    flash_rows = {"f16_wgmma/64": "f16_wgmma", "bf16_wgmma/256": "bf16_wgmma_d256",
+                  "f16_wgmma/256": "f16_wgmma_d256", "f32_cuda_core/256": "f32_cuda_core_d256",
+                  "panels/320": "panels_d320"}
+    flash_new = [dict(name=f"flash_attention {inst}", launches=0,
+                      checked_launches=flash_instances[inst]["launches"],
+                      max_abs_err=flash_instances[inst]["max_abs_err"],
+                      **{k: lm["flash"]["variants"][row][k] for k in keys})
+                 for inst, row in flash_rows.items()]
+    hd_new = [dict(name=f"hash_decode float16 B={rows}", launches=0,
+                   **{k: row[k] for k in ("max_abs_err", *keys)})
+              for rows, row in timing.pop("float16").items()]
+    bwd_new = [dict(name="hash_decode_backward (m, c) = (16, 4096) B=61696", launches=0,
+                    max_abs_err=bwd_err_by_mc[16, 4096],
+                    **{k: bwd_times["c4096"][k] for k in keys})]
     print(json.dumps({"kernels": [
         dict(name="hash_decode", route="cuda",
              source="src/repro_torch/kernels/hash_decode/csrc/hash_decode.cu",
@@ -6458,13 +6593,14 @@ def main() -> None:
              lm_ranks_sizes=lm_ranks.pop("lm_ranks_sizes"), lm_ranks=lm_ranks,
              int8_at_frontier=family_times["int8"],
              tt_decode_not_a_kernel=family_times["tt"],
-             cached_serve_bitwise_to_uncached=cached_bitwise),
+             cached_serve_bitwise_to_uncached=cached_bitwise,
+             instantiations_on_no_path=hd_new),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:85",
              launches=sum(flash_by_path.values()), launches_by_path=flash_by_path,
              launches_by_kernel=flash_by_kernel,
-             max_abs_err=flash_err, **lm["flash"]),
+             max_abs_err=flash_err, **lm["flash"], instantiations_on_no_path=flash_new),
         dict(name="lsh_encode", route="cuda",
              source="src/repro_torch/kernels/lsh_encode/csrc/lsh_encode.cu",
              replaces="src/repro/kernels/lsh_encode/kernel.py:54",
@@ -6484,7 +6620,7 @@ def main() -> None:
              **{k: v for k, v in bwd_times["frontier"].items() if k != "rows"},
              frontier_rows=frontier_rows, at_61696=bwd_times["cap"],
              at_lm_bf16=bwd_times["lm"], at_reconstruct_graph=bwd_times["reconstruct"],
-             at_full_graph=bwd_times["full"]),
+             at_full_graph=bwd_times["full"], instantiations_on_no_path=bwd_new),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -47,11 +47,11 @@ mesh of several ranks to ``owner`` when the measured frontier duplication
 beats ``OWNER_DUP_THRESHOLD``, else to ``sharded``.
 
 Every backend carries a ``MixedPrecisionPolicy`` and states it in
-``dtype_contract()``: codebooks may be stored bf16 or absmax-int8 (int8 is
-fused into the kernel; gather, onehot and tt decode the dequantized values
-through ``quantize_dequantize``, which are the same f32 products), the
-gradient goes straight through to the float masters, and the sum is
-always f32.
+``dtype_contract()``: codebooks may be stored f32, bf16, f16 or absmax-int8
+(the kernel takes each as it is stored, int8 with its scales fused; gather,
+onehot and tt widen them, and decode int8's dequantized values through
+``quantize_dequantize``, which are the same f32 products), the gradient
+goes straight through to the float masters, and the sum is always f32.
 """
 
 from __future__ import annotations
@@ -248,7 +248,7 @@ class KernelBackend(DecodeBackend):
         if self.policy.quantize == "int8":
             masters = codebooks
             codebooks, scales = hd_ops.quantize_codebooks(codebooks.detach())
-        elif codebooks.dtype not in (torch.float32, torch.bfloat16):
+        elif codebooks.dtype not in (torch.float32, torch.bfloat16, torch.float16):
             codebooks = codebooks.float()
         return hd_ops.hash_decode(
             codes.to(torch.int32).contiguous(), codebooks.contiguous(),
@@ -543,6 +543,9 @@ class HashEmbBackend(DecodeBackend):
     def dtype_contract(self) -> Dict[str, str]:
         return dict(self.base.dtype_contract(), backend=self.name,
                     family="hashemb (pools + per-position weights)")
+
+    def feature_dim(self, codebooks) -> int:
+        return self.base.feature_dim(codebooks)
 
     def decode(self, codes, codebooks, w0=None):
         return self.base.decode(codes, codebooks, w0)
@@ -865,6 +868,25 @@ class CachedDecodeBackend:
     def init_state(self, capacity: int, d: int, dtype=torch.float32,
                    device=None) -> CacheState:
         return CacheState.create(capacity, d, dtype, device)
+
+    @staticmethod
+    def dtype_contract(base: Optional[DecodeBackend] = None) -> Dict[str, str]:
+        """The cache layer's dtype contract: misses take the base backend's
+        contract end to end; hits are served from ``CacheState.values``,
+        stored in the model's compute dtype, so a cached hit adds one
+        compute-dtype round trip to the base's drift bound and nothing
+        else.  The hit/miss select and the bookkeeping are dtype-free."""
+        contract = {
+            "backend": "cached",
+            "storage": "CacheState.values in compute dtype (hits); "
+                       "base backend storage (misses)",
+            "compute": "base backend",
+            "accumulate": "float32 (base backend)",
+            "output": "float32",
+        }
+        if base is not None:
+            contract["base"] = base.dtype_contract()["backend"]
+        return contract
 
     def _classify(self, state: CacheState, ids: torch.Tensor, valid):
         found, slot = _first_slots(state.node_ids, ids)

@@ -105,6 +105,13 @@ class CSRMatrix:
         return CSRMatrix(self.data[order], rows.astype(np.int32),
                          np.cumsum(indptr, dtype=np.int32), (self.shape[1], self.shape[0]))
 
+    def to_dense(self, device=None) -> torch.Tensor:
+        """The (n_rows, n_cols) dense matrix on ``device`` (the CPU by
+        default); duplicate entries add up."""
+        out = np.zeros(self.shape, self.data.dtype)
+        np.add.at(out, (self.row_ids(), self.indices), self.data)
+        return torch.from_numpy(out).to(device or "cpu")
+
     def on(self, device) -> "DeviceCSR":
         """The matrix uploaded to ``device`` once (its transpose on the
         first backward)."""

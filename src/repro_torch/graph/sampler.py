@@ -275,6 +275,11 @@ class FrontierBatch:
             return np.asarray(self.valid, bool)
         return np.arange(self.unique.shape[0]) < self.n_unique
 
+    @property
+    def targets(self):
+        """Level-0 (target) node ids, rebuilt from the frontier."""
+        return self.unique[self.index_maps[0]]
+
     def levels(self) -> List[Array]:
         """Rebuild the naive level list."""
         return [self.unique[m] for m in self.index_maps]

@@ -34,9 +34,9 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "no_exp2": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                  "y = x * 0.5f;")],
     # no mask, max, exp2 or sums: the wgmma and TMA pipeline alone
-    "no_softmax": [("softmax_tile(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, "
+    "no_softmax": [("softmax_tile<BK>(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, "
                     "scale_log2);", "alpha[0] = alpha[1] = 1.f;"),
-                   ("softmax_tile(sc, st, alpha, t * BK > mask_from, t * BK, Skv, causal, "
+                   ("softmax_tile<BK>(sc, st, alpha, t * BK > mask_from, t * BK, Skv, causal, "
                     "qpos, col0,\n                     scale_log2);",
                     "alpha[0] = alpha[1] = 1.f;")],
     # every consumer warpgroup computes every key tile of its unit
@@ -48,7 +48,7 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     # one unit per block (not persistent), heaviest first
     "one_unit_per_block": [("<<<min(n_units, sms), ", "<<<n_units, ")],
     # two consumer warpgroups (128 query rows a block) at D = 64 too
-    "two_consumers": [("static constexpr int CONSUMERS = DT == 128 ? 2 : 3;",
+    "two_consumers": [("static constexpr int CONSUMERS = DT >= 128 ? 2 : 3;",
                        "static constexpr int CONSUMERS = 2;")],
     # a K/V ring of three stages (shared memory allows it at D <= 64 only)
     "three_stages": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],

@@ -19,10 +19,13 @@
 // contiguous, exactly as nn/attention.py holds them: nothing is transposed
 // and K and V are never replicated (q head h reads kv head h / (H/K) in
 // place).  Any Sq and Skv: out-of-range query rows are not stored, and
-// out-of-range key rows load as zeros and score -1e30.  Any D <= 128 with
-// D % 8 == 0 (the configs use 32, 64, 112 and 128): each kernel runs the
-// tile of the next width of 32, 64 and 128, its columns from D on zeros,
-// and stores only the D columns.
+// out-of-range key rows load as zeros and score -1e30.  Types: float32,
+// bfloat16 and float16.  Any D % 8 == 0: a D <= 256 (the configs use 32,
+// 64, 112 and 128) runs the tiled kernel of its dtype at the next tile
+// width of 32, 64, 128 and 256, its columns from D on zeros, and stores
+// only the D columns; a D above 256 runs the panel kernel (at the end),
+// which streams D through shared memory.  The wrapper pads another D up to
+// the step with zero columns.
 //
 // What bounds it: operations.  At the training shape (B=4, H=16, S=2048,
 // D=64, causal, bf16) the work is 4*D flops for each of 2,098,176 visible
@@ -30,23 +33,27 @@
 // tensor-core peak, against 67 MB of q, k, v and o (0.0200 ms).  Two
 // kernels, chosen by dtype:
 //
-// bfloat16 (the training path): both products on the tensor cores.  A
-// block is one producer warpgroup and two (DT = 128) or three (DT <= 64)
-// consumer warpgroups of 64 query rows each, as registers allow (setmaxnreg
-// moves the producer's registers to the consumers).  One producer thread
-// issues TMA loads of the Q tile (two slots) and of 128-row K and V tiles
-// into a ring of stages, completed on mbarriers; the tensor maps are 4-D
+// bfloat16 (the training path) and float16: both products on the tensor
+// cores (wgmma .bf16 or .f16 operands, f32 sums).  A block is one producer
+// warpgroup and two (DT >= 128) or three (DT <= 64) consumer warpgroups of
+// 64 query rows each, as registers allow (setmaxnreg moves the producer's
+// registers to the consumers).  One producer thread issues TMA loads of the
+// Q tile (two slots) and of 128-row K and V tiles into a ring of stages
+// (at DT = 256: one Q slot and 64-row tiles, 192 KB of shared memory; each
+// consumer's O then takes 128 registers a thread and S 32), completed on
+// mbarriers; the tensor maps are 4-D
 // views of the (B, S, heads, D) tensors (dims D, heads, S, B; box (DT or
 // 64, 1, rows, 1)), so a tile is one copy, GQA is a coordinate, and rows
 // past S and columns past D arrive as zeros.  Each consumer warpgroup: S = Q.K^T is a wgmma
 // (m64n128k16, Q and K from shared memory, K as stored is the K-major B
-// operand); the softmax runs on the f32 accumulator fragment in registers
-// (quad shuffles for each row's max, exp2 with scale*log2(e) folded in, a
-// mask only on tiles that cross the diagonal or the end of the keys); P is
-// rounded to bf16 in place, since the accumulator layout of wgmma is its
-// register-A layout, and O += P.V is a second wgmma with V from shared
-// memory as the MN-major B operand (the transpose bit).  The plain version
-// rounds its softmax weights to bf16 before .v as well.  S of tile t and
+// operand; m64n64k16 at DT = 256); the softmax runs on the f32 accumulator
+// fragment in registers (quad shuffles for each row's max, exp2 with
+// scale*log2(e) folded in, a mask only on tiles that cross the diagonal or
+// the end of the keys); P is rounded to the operands' type in place, since
+// the accumulator layout of wgmma is its register-A layout, and O += P.V is
+// a second wgmma with V from shared memory as the MN-major B operand (the
+// transpose bit).  The plain version rounds its softmax weights to q's type
+// before .v as well.  S of tile t and
 // P.V of tile t - 1 share one wgmma window, so tile t's softmax runs while
 // P.V is on the tensor cores.  Q, K and V tiles use the swizzle that the
 // wgmma descriptors name: 128 B for DT = 64 and DT = 128 (two 64-column
@@ -65,7 +72,8 @@
 // pipe: at the shape above 0.5131 ms at the 67 TFLOP/s f32 peak.  A block
 // of 256 threads owns 128 query rows; each thread an 8 x 8 register tile of
 // S (8 x 4 at DT = 128, whose key tiles are 64 rows) and 8 rows x DT/16
-// columns of O.  Q sits in shared memory D-major, so per d a thread's 8
+// columns of O (at DT = 256: 64 query rows and 32-row key tiles, 4 x 2 of S
+// and 4 rows x 16 columns of O, in 204,800 B of shared memory).  Q sits in shared memory D-major, so per d a thread's 8
 // rows are two 128-bit reads; K row-major, so a 128-bit read gives one of
 // its keys at 4 d: per 4 d, 16 reads for 256 FMAs.  The lanes of a warp
 // that share rows or keys read them by broadcast, and the tiles' 4-float
@@ -84,18 +92,24 @@
 #include <cuda.h>          // CUtensorMap and its encode's types; the encode is fetched at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-// The head dims both kernels take: D <= 128 and D % 8 == 0 (the bf16
-// kernel's TMA row stride, D * 2 bytes, must be a multiple of 16).
-constexpr int kMaxHeadDim = 128;
-constexpr int kHeadDimStep = 8;
+// The head dims the tiled kernels take: D <= 256 and D % 8 == 0 (the
+// 16-bit kernel's TMA row stride, D * 2 bytes, must be a multiple of 16;
+// the f32 kernel copies 8 d at a time).  A larger D runs the panel kernel;
+// the entry point refuses a D % 8 != 0, which the wrapper pads up to the
+// step with zero columns.
+constexpr int kMaxTileDim = 256;
+constexpr int kTileStep = 8;
 
 // Error codes of the entry point besides cudaError_t (which stays below 1000).
 constexpr int kErrTensorMap = 1000;     // + the CUresult of cuTensorMapEncodeTiled
@@ -111,19 +125,22 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 namespace cuda_core {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 128;          // query rows per block
 constexpr int TX = 16;           // threads across key columns / output columns
-constexpr int RQ = 8;            // query rows per thread: 4 * ty + (0..3), and 64 + the same
 
-// DT: the tile's head width (32, 64 or 128; columns from D on are zeros)
+// DT: the tile's head width (32, 64, 128 or 256; columns from D on are zeros)
 template <int DT>
 struct Tile {
-  static constexpr int BK = DT == 128 ? 64 : 128;   // key rows per tile: shared memory allows 64 at DT = 128
-  static constexpr int RK = BK / TX;                // keys per thread: 4 * tx + (0..3), and 64 + the same
+  // query rows per block: 128, but 64 at DT = 256, where a 128-row Q tile
+  // alone would take 128 KB of shared memory
+  static constexpr int BQ = DT == 256 ? 64 : 128;
+  static constexpr int RQ = BQ / 16;                // query rows per thread: 4 * ty + (0..3), and 64 + the same
+  // key rows per tile, as shared memory allows: 64 at DT = 128, 32 at DT = 256
+  static constexpr int BK = DT == 256 ? 32 : DT == 128 ? 64 : 128;
+  static constexpr int RK = BK / TX;                // keys per thread: 4 * tx + (0..3), and 64 + the same (2 * tx + (0..1) at BK = 32)
   static constexpr int RD = DT / TX;                // output columns per thread
   static constexpr int VW = RD < 4 ? RD : 4;        // ... read as vectors of VW floats
   // sQ (DT, BQ) is D-major, sK and sV (BK, DT) and sP (BQ, BK) row-major;
-  // K and V double-buffered.  229,376 B at DT = 64 and 128.
+  // K and V double-buffered.  229,376 B at DT = 64 and 128, 204,800 B at 256.
   static constexpr int NC = BK * DT / 4 / THREADS;   // 16-byte copies a thread a K (or V) tile
   static constexpr int Q_FLOATS = DT * BQ;
   static constexpr int KV_FLOATS = DT * BK;
@@ -245,7 +262,10 @@ __device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
 // of sQ, and of each key tile keys key_of(j).  Its output columns are
 // col_of(c), VW at a time.
 __device__ __forceinline__ int row_of(int ty, int i) { return (i >> 2) * 64 + ty * 4 + (i & 3); }
-__device__ __forceinline__ int key_of(int tx, int j) { return (j >> 2) * 64 + tx * 4 + (j & 3); }
+template <int RK>
+__device__ __forceinline__ int key_of(int tx, int j) {
+  return RK < 4 ? tx * RK + j : (j >> 2) * 64 + tx * 4 + (j & 3);
+}
 template <int VW>
 __device__ __forceinline__ int col_of(int tx, int c) { return (c / VW) * (TX * VW) + tx * VW + c % VW; }
 
@@ -255,7 +275,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o, int B, int Sq,
                        int Skv, int H, int K, int D, int causal, float scale_log2) {
   using T = Tile<DT>;
-  constexpr int BK = T::BK, RK = T::RK, RD = T::RD, VW = T::VW;
+  constexpr int BQ = T::BQ, RQ = T::RQ, BK = T::BK, RK = T::RK, RD = T::RD, VW = T::VW;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);   // (DT, BQ), D-major
   float* sK = sQ + T::Q_FLOATS;                    // 2 x (BK, DT), chunks swizzled
@@ -320,7 +340,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int d4 = 0; d4 < 8; d4 += 4) {
         float kv[RK][4];
 #pragma unroll
-        for (int j = 0; j < RK; ++j) load_vec(kv[j], kt + kswz<DT>(key_of(tx, j), (d0 + d4) >> 2));
+        for (int j = 0; j < RK; ++j) load_vec(kv[j], kt + kswz<DT>(key_of<RK>(tx, j), (d0 + d4) >> 2));
 #pragma unroll
         for (int dd = 0; dd < 4; ++dd) {
           const int d = d0 + d4 + dd;
@@ -350,7 +370,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int qpos = q0 + row;
 #pragma unroll
         for (int j = 0; j < RK; ++j) {
-          const int kpos = k0 + key_of(tx, j);
+          const int kpos = k0 + key_of<RK>(tx, j);
           if (kpos >= Skv || (causal && kpos > qpos)) s[i][j] = NEG_INF;
         }
       }
@@ -370,12 +390,18 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m_run[i] = m_new;
 #pragma unroll
       for (int c = 0; c < RD; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
-      // P's row, 4 keys a 128-bit store, chunks swizzled by ty so that the
-      // two row groups of a warp read different banks below
+      // P's row, 4 keys a 128-bit store (2 a 64-bit store at BK = 32),
+      // chunks swizzled by ty so that the two row groups of a warp read
+      // different banks below
+      if constexpr (RK < 4) {
+        *reinterpret_cast<float2*>(sP + row * BK + (((tx >> 1) ^ (ty & 1)) << 2) + 2 * (tx & 1)) =
+            make_float2(s[i][0], s[i][1]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < RK; j += 4)
-        *reinterpret_cast<float4*>(sP + row * BK + (((j / 4 * 16 + tx) ^ (ty & 1)) << 2)) =
-            make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
+        for (int j = 0; j < RK; j += 4)
+          *reinterpret_cast<float4*>(sP + row * BK + (((j / 4 * 16 + tx) ^ (ty & 1)) << 2)) =
+              make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
+      }
     }
     __syncwarp();                // P's rows: written and read by the same 16 lanes
 
@@ -423,6 +449,7 @@ template <int DT>
 int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
                  int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
   const size_t smem = Tile<DT>::SMEM;
+  constexpr int BQ = Tile<DT>::BQ;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -440,26 +467,31 @@ int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int 
                int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
   if (D <= 32) return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
   if (D <= 64) return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
-  return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 128) return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  return launch_typed<256>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
 }
 
 }  // namespace cuda_core
 
 // ---------------------------------------------------------------------------
-// bfloat16: TMA-fed tiles, wgmma, warp-specialised
+// bfloat16 and float16: TMA-fed tiles, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 namespace tensor_core {
 
-constexpr int BK = 128;            // key rows per tile
 constexpr int STAGES = 2;          // K/V ring depth (a third stage gains nothing at D = 64)
 
 template <int DT>
 struct Tile {
-  // DT: the tile's head width (32, 64 or 128); a head dim D below it
+  // DT: the tile's head width (32, 64, 128 or 256); a head dim D below it
   // arrives zero-padded (the tensor map's out-of-bounds fill).  Consumer
   // warpgroups of 64 query rows each, as registers allow: at DT = 128 the
-  // O accumulator takes 64 registers a thread
-  static constexpr int CONSUMERS = DT == 128 ? 2 : 3;
+  // O accumulator takes 64 registers a thread, at DT = 256 128
+  static constexpr int CONSUMERS = DT >= 128 ? 2 : 3;
+  // key rows per tile, and Q slots: at DT = 256 a 128-row K or V tile
+  // would take 64 KB, so 64-row tiles and one Q slot (64 KB + 2 stages x
+  // 2 x 32 KB of the 227 KB)
+  static constexpr int BK = DT == 256 ? 64 : 128;
+  static constexpr int Q_SLOTS = DT == 256 ? 1 : 2;
   static constexpr int BQ = 64 * CONSUMERS;            // query rows per block
   static constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup (last)
   // setmaxnreg: the producer gives its registers to the consumers, so that
@@ -474,8 +506,9 @@ struct Tile {
   static constexpr int KV_PANEL = BK * ROW;
   static constexpr int Q_BYTES = BQ * DT * 2;
   static constexpr int KV_BYTES = BK * DT * 2;         // one K or one V tile
-  static constexpr int BARRIERS = 4 + 4 * STAGES;      // q_full[2], q_free[2], k_full[], v_full[], k_free[], v_free[]
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+  // q_full[], q_free[] (a Q slot each), k_full[], v_full[], k_free[], v_free[]
+  static constexpr int BARRIERS = 2 * Q_SLOTS + 4 * STAGES;
+  static constexpr size_t SMEM = 1024 + Q_SLOTS * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -553,73 +586,93 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j]) :: "memory");
 }
 
-// The wgmma wrappers: scale-d (accumulate into D or overwrite it) is a
-// predicate operand, set from a register.
-// D (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem, K-major)^T
+// The wgmma wrappers, for bf16 or (F16) f16 operands with f32 sums:
+// scale-d (accumulate into D or overwrite it) is a predicate operand, set
+// from a register.
+#define FA_OUT16(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),    \
+    "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define FA_OUT32(d) FA_OUT16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define FA_OUT64(d) FA_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
+    "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+    "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define FA_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define FA_R32 FA_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define FA_R64 FA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+    "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+// D (64 x N) (+)= A (64 x 16, smem) . B (N x 16, smem, K-major)^T
+#define FA_SS(N, TY, R, P, A, B)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R "}, %" #A    \
+  ", %" #B ", p, 1, 1, 0, 0;\n}\n"
+// D (64 x N, f32) += A (64 x 16, registers) . B (16 x N, smem, MN-major)
+#define FA_RS(N, TY, R, P, A0, A1, A2, A3, B)                                     \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                                \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R "}, {%" #A0  \
+  ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n"
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (F16)
+    asm volatile(FA_SS(128, "f16", FA_R64, 66, 64, 65)
+                 : FA_OUT64(d) : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(FA_SS(128, "bf16", FA_R64, 66, 64, 65)
+                 : FA_OUT64(d) : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem, MN-major)
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  if constexpr (F16)
+    asm volatile(FA_SS(64, "f16", FA_R32, 34, 32, 33)
+                 : FA_OUT32(d) : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(FA_SS(64, "bf16", FA_R32, 34, 32, 33)
+                 : FA_OUT32(d) : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (F16)
+    asm volatile(FA_RS(64, "f16", FA_R32, 37, 32, 33, 34, 35, 36)
+                 : FA_OUT32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS(64, "bf16", FA_R32, 37, 32, 33, 34, 35, 36)
+                 : FA_OUT32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 32, f32) += A (64 x 16, bf16 registers) . B (16 x 32, smem, MN-major)
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (F16)
+    asm volatile(FA_RS(32, "f16", FA_R16, 21, 16, 17, 18, 19, 20)
+                 : FA_OUT16(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS(32, "bf16", FA_R16, 21, 16, 17, 18, 19, 20)
+                 : FA_OUT16(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // O += P . V for one V tile at `v`: BK/16 steps of k16 (V rows 16kk ...
 // 16kk + 15), one wgmma per 64-column panel of O.
-template <int DT>
+template <int DT, bool F16>
 __device__ __forceinline__ void issue_pv(float (&acc)[Tile<DT>::PANELS][Tile<DT>::PD / 2],
-                                         const uint32_t (&pa)[BK / 16][4], uint32_t v) {
+                                         const uint32_t (&pa)[Tile<DT>::BK / 16][4], uint32_t v) {
   using T = Tile<DT>;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
+  for (int kk = 0; kk < T::BK / 16; ++kk) {
 #pragma unroll
     for (int p = 0; p < T::PANELS; ++p) {
       const uint64_t db = smem_desc(v + p * T::KV_PANEL + kk * 16 * T::ROW, T::KV_PANEL,
                                     8 * T::ROW, T::LAYOUT);
-      if constexpr (T::PD == 64) wgmma_rs_n64(acc[p], pa[kk], db);
-      else wgmma_rs_n32(acc[p], pa[kk], db);
+      if constexpr (T::PD == 64) wgmma_rs_n64<F16>(acc[p], pa[kk], db);
+      else wgmma_rs_n32<F16>(acc[p], pa[kk], db);
     }
   }
   wgmma_commit();
@@ -631,16 +684,23 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two f32 values rounded to the operands' 16-bit type, as one register.
+template <bool F16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (F16) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // S = Q . K^T for one K tile at `k` and this warpgroup's 64 Q rows at `q`:
 // DT/16 steps of k16, each inside one 64-column panel (columns from D on
 // are zeros; skipping their steps at run time serialises the wgmmas).
-template <int DT>
-__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q, uint32_t k) {
+template <int DT, bool F16>
+__device__ __forceinline__ void issue_s(float (&sc)[Tile<DT>::BK / 2], uint32_t q, uint32_t k) {
   using T = Tile<DT>;
 #pragma unroll
   for (int kk = 0; kk < DT / 16; ++kk) {
@@ -648,7 +708,8 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q, uint32_
     const uint32_t off = (kk * 16 % T::PD) * 2;
     const uint64_t da = smem_desc(q + p * T::Q_PANEL + off, 16, 8 * T::ROW, T::LAYOUT);
     const uint64_t db = smem_desc(k + p * T::KV_PANEL + off, 16, 8 * T::ROW, T::LAYOUT);
-    wgmma_ss_n128(sc, da, db, kk > 0);
+    if constexpr (T::BK == 128) wgmma_ss_n128<F16>(sc, da, db, kk > 0);
+    else wgmma_ss_n64<F16>(sc, da, db, kk > 0);
   }
   wgmma_commit();
 }
@@ -664,6 +725,7 @@ struct RowState {
 // quad of lanes that shares a row, p = exp2(s*c - m*c) with c =
 // scale*log2(e), the rows' partial sums.  Returns each row's alpha.
 // Element i of the fragment: row (i >> 1) & 1, column 8 * (i >> 2) + col0 + (i & 1).
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], RowState& st, float (&alpha)[2],
                                              bool masked, int k0, int Skv, int causal,
                                              const int (&qpos)[2], int col0, float scale_log2) {
@@ -698,14 +760,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], RowState& st, 
   }
 }
 
-// O *= alpha by rows; P in bf16 from the softmax's f32 p.  K-step kk of
-// P.V takes S's columns 16kk ... 16kk + 15, which the accumulator layout
-// already holds in register-A order.
-template <int DT>
+// O *= alpha by rows; P in the operands' type from the softmax's f32 p.
+// K-step kk of P.V takes S's columns 16kk ... 16kk + 15, which the
+// accumulator layout already holds in register-A order.
+template <int DT, bool F16>
 __device__ __forceinline__ void rescale_and_pack(float (&acc)[Tile<DT>::PANELS][Tile<DT>::PD / 2],
-                                                 uint32_t (&pa)[BK / 16][4],
-                                                 const float (&sc)[BK / 2],
+                                                 uint32_t (&pa)[Tile<DT>::BK / 16][4],
+                                                 const float (&sc)[Tile<DT>::BK / 2],
                                                  const float (&alpha)[2]) {
+  constexpr int BK = Tile<DT>::BK;
 #pragma unroll
   for (int p = 0; p < Tile<DT>::PANELS; ++p)
 #pragma unroll
@@ -713,7 +776,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[Tile<DT>::PANELS][
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    for (int j = 0; j < 4; ++j) pa[kk][j] = pack2<F16>(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
 }
 
 // One unit of work: a query tile of one (batch, head).  Units are numbered
@@ -727,7 +790,7 @@ struct Work {
 template <int DT>
 __device__ __forceinline__ Work work_unit(int u, int B, int Sq, int Skv, int H, int K,
                                           int causal) {
-  constexpr int BQ = Tile<DT>::BQ;
+  constexpr int BQ = Tile<DT>::BQ, BK = Tile<DT>::BK;
   const int n_qt = (Sq + BQ - 1) / BQ;
   Work w;
   w.h = u % H;
@@ -744,36 +807,40 @@ __device__ __forceinline__ Work work_unit(int u, int B, int Sq, int Skv, int H, 
 // Persistent: in round n a block takes unit n * gridDim.x + blockIdx.x, in
 // odd rounds counted from the other end (a snake, which evens out the
 // causal units' weights across blocks).  The K/V ring and its barrier
-// phases run on across units; Q has two slots, so the next unit's Q and
-// first K/V tiles load while this unit finishes.
+// phases run on across units; Q has two slots (one at DT = 256), so the
+// next unit's Q and first K/V tiles load while this unit finishes.
 __device__ __forceinline__ int unit_of(int n) {
   return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-template <int DT>
+// E: the operands' and the output's type, __nv_bfloat16 or __half (F16).
+template <int DT, bool F16>
 __global__ void __launch_bounds__(Tile<DT>::THREADS, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      __nv_bfloat16* __restrict__ o, int B, int Sq, int Skv, int H,
+                      void* __restrict__ o_raw, int B, int Sq, int Skv, int H,
                       int K, int D, int causal, float scale_log2, int n_units) {
   using T = Tile<DT>;
-  constexpr int PD = T::PD;
+  using E = typename std::conditional<F16, __half, __nv_bfloat16>::type;
+  using E2 = typename std::conditional<F16, __half2, __nv_bfloat162>::type;
+  constexpr int PD = T::PD, BK = T::BK, QS = T::Q_SLOTS;
   constexpr int CONSUMERS = T::CONSUMERS;
+  E* __restrict__ o = static_cast<E*>(o_raw);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;   // swizzle atoms need 1024 B
-  const uint32_t sK = sQ + 2 * T::Q_BYTES;                    // 2 Q slots, then STAGES K tiles
+  const uint32_t sK = sQ + QS * T::Q_BYTES;                   // QS Q slots, then STAGES K tiles
   const uint32_t sV = sK + STAGES * T::KV_BYTES;              // STAGES V tiles
   const uint32_t q_full = sV + STAGES * T::KV_BYTES;          // + 8 * slot
-  const uint32_t q_free = q_full + 16;                        // consumers are done with a Q slot
-  const uint32_t k_full = q_free + 16;                        // + 8 * stage
+  const uint32_t q_free = q_full + 8 * QS;                    // consumers are done with a Q slot
+  const uint32_t k_full = q_free + 8 * QS;                    // + 8 * stage
   const uint32_t v_full = k_full + 8 * STAGES;
   const uint32_t k_free = v_full + 8 * STAGES;                // consumers are done with a K stage
   const uint32_t v_free = k_free + 8 * STAGES;                // ... with a V stage
 
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QS; ++i) {
       mbar_init(q_full + 8 * i, 1);
       mbar_init(q_free + 8 * i, CONSUMERS * 128);
     }
@@ -799,8 +866,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int u = unit_of(n);
         if (u >= n_units) break;                   // the last round is partial
         const Work w = work_unit<DT>(u, B, Sq, Skv, H, K, causal);
-        const int qs = n & 1;
-        if (n >= 2) mbar_wait(q_free + 8 * qs, ((n >> 1) - 1) & 1);
+        const int qs = n % QS;
+        if (n >= QS) mbar_wait(q_free + 8 * qs, ((n / QS) - 1) & 1);
         mbar_expect_tx(q_full + 8 * qs, T::Q_BYTES);
 #pragma unroll
         for (int p = 0; p < T::PANELS; ++p)
@@ -837,7 +904,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int u = unit_of(n);
       if (u >= n_units) break;
       const Work w = work_unit<DT>(u, B, Sq, Skv, H, K, causal);
-      const int qs = n & 1;
+      const int qs = n % QS;
       const int qrow0 = w.q0 + 64 * wg;
       const int qpos[2] = {qrow0 + row, qrow0 + row + 8};
       const uint32_t q_wg = sQ + qs * T::Q_BYTES + wg * 64 * T::ROW;   // this warpgroup's Q rows
@@ -852,23 +919,23 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int p = 0; p < T::PANELS; ++p)
 #pragma unroll
         for (int i = 0; i < PD / 2; ++i) acc[p][i] = 0.f;
-      uint32_t pa[BK / 16][4];          // P in bf16, the A operand of P.V
+      uint32_t pa[BK / 16][4];          // P in E, the A operand of P.V
       RowState st = {{NEG_INF, NEG_INF}, {0.f, 0.f}};
       float sc[BK / 2];
       float alpha[2];
 
       // tile 0: S, softmax, P
-      mbar_wait(q_full + 8 * qs, (n >> 1) & 1);
+      mbar_wait(q_full + 8 * qs, (n / QS) & 1);
       {
         const int s = it % STAGES;
         mbar_wait(k_full + 8 * s, (it / STAGES) & 1);
         wgmma_fence();
-        issue_s<DT>(sc, q_wg, sK + s * T::KV_BYTES);
+        issue_s<DT, F16>(sc, q_wg, sK + s * T::KV_BYTES);
         wgmma_wait<0>();
         fence_regs(sc);
         mbar_arrive(k_free + 8 * s);
-        softmax_tile(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, scale_log2);
-        rescale_and_pack<DT>(acc, pa, sc, alpha);
+        softmax_tile<BK>(sc, st, alpha, 0 > mask_from, 0, Skv, causal, qpos, col0, scale_log2);
+        rescale_and_pack<DT, F16>(acc, pa, sc, alpha);
       }
 
       // tile t >= 1: issue S = Q . K_t^T and then P.V of tile t - 1 in one
@@ -883,19 +950,19 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
         fence_regs(pa);
         wgmma_fence();
-        issue_s<DT>(sc, q_wg, sK + s * T::KV_BYTES);
-        issue_pv<DT>(acc, pa, sV + sp * T::KV_BYTES);
+        issue_s<DT, F16>(sc, q_wg, sK + s * T::KV_BYTES);
+        issue_pv<DT, F16>(acc, pa, sV + sp * T::KV_BYTES);
         wgmma_wait<1>();                  // S is done; P.V may still run
         fence_regs(sc);
         mbar_arrive(k_free + 8 * s);
-        softmax_tile(sc, st, alpha, t * BK > mask_from, t * BK, Skv, causal, qpos, col0,
+        softmax_tile<BK>(sc, st, alpha, t * BK > mask_from, t * BK, Skv, causal, qpos, col0,
                      scale_log2);
         wgmma_wait<0>();                  // the previous tile's P.V is done
 #pragma unroll
         for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
         fence_regs(pa);
         mbar_arrive(v_free + 8 * sp);
-        rescale_and_pack<DT>(acc, pa, sc, alpha);
+        rescale_and_pack<DT, F16>(acc, pa, sc, alpha);
       }
       mbar_arrive(q_free + 8 * qs);       // every S of this unit is done
 
@@ -906,7 +973,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
       fence_regs(pa);
       wgmma_fence();
-      issue_pv<DT>(acc, pa, sV + last * T::KV_BYTES);
+      issue_pv<DT, F16>(acc, pa, sV + last * T::KV_BYTES);
       wgmma_wait<0>();
 #pragma unroll
       for (int p = 0; p < T::PANELS; ++p) fence_regs(acc[p]);
@@ -933,15 +1000,16 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (qpos[r] >= Sq) continue;
-        __nv_bfloat16* orow = o + ((static_cast<size_t>(w.b) * Sq + qpos[r]) * H + w.h) * D;
+        E* orow = o + ((static_cast<size_t>(w.b) * Sq + qpos[r]) * H + w.h) * D;
 #pragma unroll
         for (int p = 0; p < T::PANELS; ++p)
 #pragma unroll
           for (int j = 0; j < PD / 8; ++j) {
             if (p * 64 + 8 * j >= D) continue;          // the tile's zero-padded columns
             const float* e = &acc[p][4 * j + 2 * r];
-            *reinterpret_cast<__nv_bfloat162*>(orow + p * 64 + 8 * j + col0) =
-                __floats2bfloat162_rn(e[0] * inv[r], e[1] * inv[r]);
+            const uint32_t pair = pack2<F16>(e[0] * inv[r], e[1] * inv[r]);
+            *reinterpret_cast<E2*>(orow + p * 64 + 8 * j + col0) =
+                *reinterpret_cast<const E2*>(&pair);
           }
       }
     }
@@ -976,11 +1044,11 @@ int encode_fn(EncodeTiled* fn) {
   return 0;
 }
 
-// A (B, S, heads, D) bf16 tensor as a 4-D map (dims D, heads, S, B), box
-// (PD, 1, rows, 1), swizzled as the wgmma descriptors expect; rows past S
-// and columns from D up to the tile's DT read as zeros.  D * 2 bytes, the
-// row stride, must be a multiple of 16: D % 8 == 0.
-template <int DT>
+// A (B, S, heads, D) bf16 or (F16) f16 tensor as a 4-D map (dims D, heads,
+// S, B), box (PD, 1, rows, 1), swizzled as the wgmma descriptors expect;
+// rows past S and columns from D up to the tile's DT read as zeros.  D * 2
+// bytes, the row stride, must be a multiple of 16: D % 8 == 0.
+template <int DT, bool F16>
 int encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
                 int heads, int D, int rows) {
   using T = Tile<DT>;
@@ -991,25 +1059,27 @@ int encode_bshd(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, in
                                  static_cast<cuuint64_t>(S) * heads * D * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::PD), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  const CUresult r = encode(map, F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4, const_cast<void*>(ptr),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             T::PD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
 }
 
-template <int DT>
+template <int DT, bool F16>
 int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
                  int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
   EncodeTiled encode;
   int err = encode_fn(&encode);
   if (err) return err;
   CUtensorMap tm_q, tm_k, tm_v;
-  if ((err = encode_bshd<DT>(encode, &tm_q, q, B, Sq, H, D, Tile<DT>::BQ))) return err;
-  if ((err = encode_bshd<DT>(encode, &tm_k, k, B, Skv, K, D, BK))) return err;
-  if ((err = encode_bshd<DT>(encode, &tm_v, v, B, Skv, K, D, BK))) return err;
+  constexpr int BK = Tile<DT>::BK;
+  if ((err = encode_bshd<DT, F16>(encode, &tm_q, q, B, Sq, H, D, Tile<DT>::BQ))) return err;
+  if ((err = encode_bshd<DT, F16>(encode, &tm_k, k, B, Skv, K, D, BK))) return err;
+  if ((err = encode_bshd<DT, F16>(encode, &tm_v, v, B, Skv, K, D, BK))) return err;
   const size_t smem = Tile<DT>::SMEM;
-  cudaError_t cerr = cudaFuncSetAttribute(flash_attention_wgmma<DT>,
+  cudaError_t cerr = cudaFuncSetAttribute(flash_attention_wgmma<DT, F16>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           static_cast<int>(smem));
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
@@ -1019,29 +1089,229 @@ int launch_typed(const void* q, const void* k, const void* v, void* o, int B, in
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   const int n_units = (Sq + Tile<DT>::BQ - 1) / Tile<DT>::BQ * B * H;
   const float log2e = 1.4426950408889634f;
-  flash_attention_wgmma<DT><<<min(n_units, sms), Tile<DT>::THREADS, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), B, Sq, Skv, H, K, D, causal,
-      scale * log2e, n_units);
+  flash_attention_wgmma<DT, F16><<<min(n_units, sms), Tile<DT>::THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, o, B, Sq, Skv, H, K, D, causal, scale * log2e, n_units);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool F16>
 int launch_dim(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
                int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
-  if (D <= 32) return launch_typed<32>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
-  if (D <= 64) return launch_typed<64>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
-  return launch_typed<128>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 32) return launch_typed<32, F16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 64) return launch_typed<64, F16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  if (D <= 128) return launch_typed<128, F16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
+  return launch_typed<256, F16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, stream);
 }
 
 }  // namespace tensor_core
 
+// ---------------------------------------------------------------------------
+// D > 256, any dtype: the panel kernel (CUDA cores)
+// ---------------------------------------------------------------------------
+namespace panel {
+
+// A block of 256 threads owns 64 query rows of one (batch, head) and one
+// window of 64 output columns; thread (ty, tx) owns rows 4 ty + (0..3),
+// keys 4 tx + (0..3) of each 64-key tile and output columns 4 tx + (0..3)
+// of the window.  S = Q . K^T is summed over D in panels of 64 columns
+// that stream through shared memory (widened to f32; q and k are read
+// again for every key tile), so no tile grows with D; each window recomputes
+// the same S, in the same order, and so the same softmax.  The softmax is
+// the tiled kernels' (exp2 with scale*log2(e) folded in, -1e30 under the
+// mask, tiles wholly above the diagonal skipped); P is rounded to the
+// operands' type before P.V, as the tensor-core kernel and the plain
+// version round it.  No atomics.  Simple, not fast: S costs D/64 windows
+// over.
+constexpr int THREADS = 256;
+constexpr int TX = 16;
+constexpr int BQ = 64;            // query rows a block
+constexpr int BK = 64;            // keys a tile
+constexpr int DP = 64;            // head-dim columns a panel, and output columns a window
+constexpr int LD = DP + 1;        // shared-memory row stride (floats): no bank conflicts down a column
+constexpr size_t SMEM = sizeof(float) * 4 * BQ * LD;   // sQ, sK, sP, sV: 66,560 B
+
+template <typename E> __device__ __forceinline__ float widen(E x);
+template <> __device__ __forceinline__ float widen<float>(float x) { return x; }
+template <> __device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float widen<__half>(__half x) { return __half2float(x); }
+
+template <typename E> __device__ __forceinline__ E narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_rn(x); }
+
+// Rows [r0, r0 + 64) x columns [c0, c0 + 64) of a (B, S, heads, D) tensor at
+// head `hd`, widened to f32, into a (64, LD) tile; past S or D, zeros.
+template <typename E>
+__device__ __forceinline__ void load_tile(float* dst, const E* __restrict__ src, int b, int r0,
+                                          int S, int heads, int hd, int D, int c0, int tid) {
+  for (int e = tid; e < 64 * DP; e += THREADS) {
+    const int r = e / DP, c = e % DP;
+    const int pos = r0 + r, col = c0 + c;
+    float x = 0.f;
+    if (pos < S && col < D)
+      x = widen<E>(src[((static_cast<size_t>(b) * S + pos) * heads + hd) * D + col]);
+    dst[r * LD + c] = x;
+  }
+}
+
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = TX / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = TX / 2; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_panels(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, E* __restrict__ o, int B, int Sq, int Skv,
+                       int H, int K, int D, int causal, float scale_log2) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * LD;
+  float* sP = sK + BK * LD;
+  float* sV = sP + BQ * LD;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  // blocks: window fastest, then head, batch, and query tile from the last
+  const int n_win = (D + DP - 1) / DP;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  int u = blockIdx.x;
+  const int win = u % n_win;
+  u /= n_win;
+  const int h = u % H;
+  u /= H;
+  const int b = u % B;
+  const int q0 = (n_qt - 1 - u / B) * BQ;
+  const int kvh = h / (H / K);
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  float m_run[4], l_run[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = NEG_INF;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += DP) {       // S over D's panels, d ascending
+      __syncthreads();                         // the last panel's (or tile's) reads are done
+      load_tile<E>(sQ, q, b, q0, Sq, H, h, D, c0, tid);
+      load_tile<E>(sK, k, b, k0, Skv, K, kvh, D, c0, tid);
+      __syncthreads();
+      for (int d = 0; d < DP; ++d) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qv[i] = sQ[(4 * ty + i) * LD + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kv[j] = sK[(4 * tx + j) * LD + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+    load_tile<E>(sV, v, b, k0, Skv, K, kvh, D, win * DP, tid);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + 4 * tx + j;
+        if (kpos >= Skv || (causal && kpos > qpos)) s[i][j] = NEG_INF;
+      }
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+      const float m_new = fmaxf(m_run[i], group_max(mx));
+      const float alpha = exp2f(__fmul_rn(__fsub_rn(m_run[i], m_new), scale_log2));
+      const float neg = __fmul_rn(-m_new, scale_log2);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(fmaf(s[i][j], scale_log2, neg));
+        psum = __fadd_rn(psum, p);
+        sP[(4 * ty + i) * LD + 4 * tx + j] = widen<E>(narrow<E>(p));
+      }
+      l_run[i] = __fadd_rn(__fmul_rn(alpha, l_run[i]), psum);
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
+    }
+    __syncthreads();                           // P and V are in
+    for (int kk = 0; kk < BK; ++kk) {          // O += P . V, keys ascending
+      float vv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) vv[c] = sV[kk * LD + 4 * tx + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = sP[(4 * ty + i) * LD + kk];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = fmaxf(group_sum(l_run[i]), 1e-30f);
+    const int qpos = q0 + 4 * ty + i;
+    if (qpos >= Sq) continue;
+    E* orow = o + ((static_cast<size_t>(b) * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = win * DP + 4 * tx + c;
+      if (col < D) orow[col] = narrow<E>(__fdiv_rn(acc[i][c], l));
+    }
+  }
+}
+
+template <typename E>
+int launch_typed(const void* q, const void* k, const void* v, void* o, int B, int H, int K,
+                 int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_panels<E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H *
+                           ((D + DP - 1) / DP);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const float log2e = 1.4426950408889634f;
+  flash_attention_panels<E><<<static_cast<unsigned>(blocks), THREADS, SMEM, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<E*>(o), B, Sq, Skv, H, K, D, causal, scale * log2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace panel
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Device pointers on card
-// `device`; dtype 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
-// wgmma kernel; q, k, v 16-byte aligned).  Launches on `stream`, does not
-// synchronise.  Returns 0 on success, else a cudaError_t (below 1000),
-// 1000 + the CUresult of a failed tensor-map encode, or 2000 + the status
-// of a failed cudaGetDriverEntryPoint lookup.
+// `device`, contiguous, 16-byte aligned; dtype 0 = float32, 1 = bfloat16,
+// 2 = float16; D % 8 == 0 (else cudaErrorInvalidValue).  A D <= 256 runs
+// the tiled kernel of its dtype: the CUDA-core kernel for float32, the
+// wgmma kernel for the 16-bit types; a larger D runs the panel kernel.
+// Launches on `stream`, does not synchronise.
+// Returns 0 on success, else a cudaError_t (below 1000), 1000 + the
+// CUresult of a failed tensor-map encode, or 2000 + the status of a failed
+// cudaGetDriverEntryPoint lookup.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype, int B,
                                       int H, int K, int Sq, int Skv, int D,
@@ -1050,14 +1320,25 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Skv <= 0 || D <= 0 ||
-      D > kMaxHeadDim || D % kHeadDimStep != 0)
+      D % kTileStep != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxTileDim) {
+    switch (dtype) {
+      case kF32: return panel::launch_typed<float>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      case kBF16:
+        return panel::launch_typed<__nv_bfloat16>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      case kF16: return panel::launch_typed<__half>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (dtype) {
     case kF32:
       return cuda_core::launch_dim(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     case kBF16:
-      return tensor_core::launch_dim(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+      return tensor_core::launch_dim<false>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
+    case kF16:
+      return tensor_core::launch_dim<true>(q, k, v, o, B, H, K, Sq, Skv, D, causal, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,13 +5,19 @@ Public layout is ``nn.attention``'s: q (B, S, H, D), k/v (B, S, K, D).
 (a ``torch.autograd.Function``): the forward launches a CUDA kernel on
 CUDA tensors and runs the plain version ``ref.attention_ref`` on CPU
 tensors; there is no other route, so a CUDA call launches a kernel or
-raises.  The dtype picks the kernel: bfloat16 runs the tensor-core kernel
-(wgmma on TMA-fed tiles), float32 the CUDA-core kernel (f32 FMAs; on the
-tensor cores f32 would be TF32).  Both kernels take any head dim D <= 128
-with D % 8 == 0 (``MAX_HEAD_DIM``, ``HEAD_DIM_STEP``); the plain version on
-the CPU takes any D, as the JAX wrapper does.  The backward recomputes the
-plain version under autograd, as the JAX wrapper recomputes ``mha_ref`` in
-XLA (a backward kernel is later work).
+raises.  The dtype and the head dim pick the kernel (``kernel_of``):
+bfloat16 and float16 run the tensor-core kernel (wgmma on TMA-fed tiles),
+float32 the CUDA-core kernel (f32 FMAs; on the tensor cores f32 would be
+TF32), each at any D <= 256 (``TILE_MAX_HEAD_DIM``); a D above it runs the
+panel kernel, which streams D through shared memory, in any of the three.
+The plain version takes the same inputs.  Operands may have any layout:
+on the card the wrapper copies each that is strided or not 16-byte aligned
+to a fresh contiguous tensor, and zero-pads a D % 8 != 0 up to the step
+the kernels take (the TMA rows and 16-byte copies), slicing the output back;
+``flash_attention.copies`` counts every such copy.  The scale is 1/sqrt(D)
+of the true D.  Float64 and mixed dtypes are refused.  The backward
+recomputes the plain version under autograd, as the JAX wrapper recomputes
+``mha_ref`` in XLA (a backward kernel is later work).
 """
 
 from __future__ import annotations
@@ -29,13 +35,18 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NAME = "flash_attention"
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel each dtype launches, as counted in ``flash_attention.launches_by_kernel``
-KERNELS = {torch.bfloat16: "bf16_wgmma", torch.float32: "f32_cuda_core"}
-# the head dims the kernels take: D <= 128 and D % 8 == 0 (the bf16 kernel's
-# TMA row stride, D * 2 bytes, must be a multiple of 16)
-MAX_HEAD_DIM, HEAD_DIM_STEP = 128, 8
-ALIGN = 16          # bytes: both kernels' bases (tensor maps; 16-byte copies)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the tiled kernel each dtype launches, as counted in
+# ``flash_attention.launches_by_kernel``; a head dim padded above
+# TILE_MAX_HEAD_DIM launches PANELS whatever the dtype
+KERNELS = {torch.bfloat16: "bf16_wgmma", torch.float16: "f16_wgmma",
+           torch.float32: "f32_cuda_core"}
+PANELS = "panels"
+# the kernels take D % 8 == 0 (the 16-bit kernel's TMA row stride, D * 2
+# bytes, must be a multiple of 16), the tiled ones D <= 256; the wrapper
+# pads another D up to the step
+TILE_MAX_HEAD_DIM, HEAD_DIM_STEP = 256, 8
+ALIGN = 16          # bytes: the tiled kernels' bases (tensor maps; 16-byte copies)
 
 
 def build() -> Tuple[Path, str]:
@@ -52,10 +63,15 @@ def _entry():
     return fn
 
 
-def _is_fake(t) -> bool:
-    """A tensor without storage (the dry run's): it has no address to align."""
-    from torch._subclasses.fake_tensor import FakeTensor
-    return isinstance(t, FakeTensor)
+def kernel_of(dtype: torch.dtype, D: int) -> Tuple[str, int]:
+    """(the kernel a CUDA call at head dim D launches, as counted in
+    ``launches_by_kernel``; the width it runs D at: the tile of 32, 64,
+    128 or 256 that holds D padded to the step, or the padded D itself in
+    panels)."""
+    padded = -(-D // HEAD_DIM_STEP) * HEAD_DIM_STEP
+    if padded > TILE_MAX_HEAD_DIM:
+        return PANELS, padded
+    return KERNELS[dtype], next(t for t in (32, 64, 128, 256) if padded <= t)
 
 
 def _check(q, k, v) -> None:
@@ -68,43 +84,52 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
                          f"(batch, head dim, or H % K != 0)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one of float32/bfloat16, got "
+        raise TypeError(f"q, k, v must share one of float32/bfloat16/float16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k, v on several devices")
-    if q.device.type != "cpu" and (D > MAX_HEAD_DIM or D % HEAD_DIM_STEP):
-        raise ValueError(f"head dim {D}: the flash_attention kernels take D <= "
-                         f"{MAX_HEAD_DIM} with D % {HEAD_DIM_STEP} == 0")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention operands must be contiguous")
-    # the bf16 kernel reads by TMA, the f32 kernel by 16-byte copies; the
-    # plain version takes f32 at any address on the CPU
-    aligned = q.dtype == torch.bfloat16 or q.device.type != "cpu"
-    if aligned and not _is_fake(q) and any(t.data_ptr() % ALIGN for t in (q, k, v)):
-        raise ValueError(f"{str(q.dtype).removeprefix('torch.')} flash_attention operands "
-                         f"must start {ALIGN}-byte aligned (the kernels read them by TMA "
-                         f"or 16-byte copies)")
+
+
+def _operand(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` as the kernels read it: itself if contiguous and 16-byte
+    aligned, else one fresh contiguous copy (zero-padded by ``pad`` head-dim
+    columns), counted in ``flash_attention.copies``.  The copy is allocated
+    row-major whatever ``t``'s strides suggest (``F.pad`` would keep a
+    channels_last-like layout, which the kernels would misread)."""
+    if not pad and t.is_contiguous() and t.data_ptr() % ALIGN == 0:
+        return t
+    D = t.shape[-1]
+    out = t.new_zeros(*t.shape[:-1], D + pad)
+    out[..., :D].copy_(t)
+    flash_attention.copies += 1
+    return out
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
     if B == 0 or Sq == 0:
-        return out
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
     if Skv == 0:
         raise ValueError("flash_attention needs at least one key")
+    kernel, _ = kernel_of(q.dtype, D)
+    pad = -D % HEAD_DIM_STEP
+    q, k, v = (_operand(t, pad) for t in (q, k, v))
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   _DTYPES[q.dtype], B, H, K, Sq, Skv, D, int(causal),
+                   _DTYPES[q.dtype], B, H, K, Sq, Skv, D + pad, int(causal),
                    1.0 / math.sqrt(D),
                    dev.index if dev.index is not None else torch.cuda.current_device(),
                    stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {_describe(err)}")
     flash_attention.launches += 1
-    flash_attention.launches_by_kernel[KERNELS[q.dtype]] += 1
+    flash_attention.launches_by_kernel[kernel] += 1
+    if pad:
+        out = out[..., :D].contiguous()
+        flash_attention.copies += 1
     return out
 
 
@@ -141,17 +166,20 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Skv, K, D), float32 or bfloat16 -> (B, Sq,
-    H, D) in q's dtype.  Differentiable.  On the card D <= 128 with D % 8
-    == 0; on the CPU any D.
+    """q (B, Sq, H, D), k/v (B, Skv, K, D), float32, bfloat16 or float16,
+    any D and any layout -> (B, Sq, H, D) in q's dtype, contiguous.
+    Differentiable.
 
     CUDA operands launch a kernel on the current stream (no
-    synchronisation; ``flash_attention.launches`` counts the launches and
-    ``flash_attention.launches_by_kernel`` splits them by kernel); CPU
-    operands run the plain version."""
+    synchronisation; ``flash_attention.launches`` counts the launches,
+    ``flash_attention.launches_by_kernel`` splits them by kernel and
+    ``flash_attention.copies`` counts the operands copied or padded, and
+    the padded outputs cut back, on the way); CPU operands run the plain
+    version, which reads them as they are."""
     _check(q, k, v)
     return _FlashAttention.apply(q, k, v, causal)
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_kernel = dict.fromkeys(KERNELS.values(), 0)
+flash_attention.launches_by_kernel = dict.fromkeys([*KERNELS.values(), PANELS], 0)
+flash_attention.copies = 0

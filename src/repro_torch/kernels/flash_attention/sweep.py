@@ -6,7 +6,8 @@ and its bound on the H100 (``launch.mesh``'s rates).
 
 Run by its path, the file times the kernels of whichever package PYTHONPATH
 names, so that one call can time two checkouts in turns; a shape that a
-checkout's wrapper refuses prints as refused.  It prints a line a shape, then
+checkout's wrapper refuses (an earlier one's float16 or D > 128) prints as
+refused.  It prints a line a shape, then
 one JSON object with every row and the card's name and power limit.
 """
 
@@ -27,6 +28,11 @@ SHAPES = [
     (2, 4, 4, 1000, 80, False, "float32", "full attention at D = 80"),
     (4, 4, 4, 256, 32, True, "float32", "lm_reference, reduced qwen1.5-0.5b"),
     (4, 4, 4, 128, 32, True, "float32", "families_reference, reduced granite, zamba2"),
+    (4, 16, 16, 2048, 64, True, "float16", "lm_train's shape in f16 (no config)"),
+    (4, 16, 16, 2048, 256, True, "bfloat16", "D = 256, the 256-wide tile (no config)"),
+    (4, 16, 16, 2048, 256, True, "float16", "D = 256 in f16 (no config)"),
+    (4, 16, 16, 2048, 256, True, "float32", "D = 256 in f32 (no config)"),
+    (4, 16, 16, 2048, 320, True, "bfloat16", "D = 320, the panel kernel (no config)"),
 ]
 
 
@@ -142,7 +148,7 @@ def main() -> None:
     for *shape, where in SHAPES:
         try:
             row = time_flash(*shape)
-        except ValueError as e:           # a head dim this checkout's wrapper refuses
+        except (ValueError, TypeError) as e:   # a head dim or dtype this checkout refuses
             print(f"[sweep] {shape} ({where}): refused: {e}", flush=True)
             continue
         row["where"] = where

@@ -10,9 +10,12 @@
 // directly.  Each one-hot row of the TPU kernel has exactly one nonzero, so
 // both compute the same f32 sums.
 //
-// Storage types: float32, bfloat16, or int8 with a per-(codebook, code)
-// float32 scale table (scales (m, c)); every term is widened to f32 and the
-// sum is taken in f32.  w0 (d_c,) float32 is optional.
+// Storage types: float32, bfloat16, float16, or int8 with a per-(codebook,
+// code) float32 scale table (scales (m, c)); every term is widened to f32
+// (exactly) and the sum is taken in f32.  w0 (d_c,) float32 is optional.
+// Any (m, c): where a slice of every codebook does not fit in shared
+// memory the direct variant decodes, and it stages a block's codes only
+// where they fit (fewer rows a block first).
 //
 // Bitwise contract: the output equals the plain PyTorch version
 // (ref.py) and the JAX package's gather backend bit for bit.  The sum starts
@@ -56,8 +59,8 @@
 //   d_cb[j, k, :] = sum over b ascending with codes[b, j] = k of g[b, :] * w0
 //
 // summed in f32 from +0 with __fadd_rn (g * w0 rounded by __fmul_rn first),
-// then rounded once to the codebooks' type (f32 or bf16, round to nearest
-// even).  Every (j, k, f) sum belongs to one thread and runs in ascending
+// then rounded once to the codebooks' type (f32, bf16 or f16, round to
+// nearest even).  Every (j, k, f) sum belongs to one thread and runs in ascending
 // b, so the result is the plain version's (ref.py, index_add_ on the CPU)
 // bit for bit and the same on every run: no atomics in any float sum.
 // What bounds it: g must be read once (B*d_c*4 bytes, 49 MB at a 24,000-row
@@ -71,7 +74,10 @@
 //      code_order), in two launches over parts of R >= 512 rows (at most 32
 //      parts).  hash_decode_count_kernel reads each part's codes once, in
 //      order, and counts each codebook's codes (shared-memory atomics: an
-//      integer count does not depend on their order).  hash_decode_place_-
+//      integer count does not depend on their order).  Where the (m, c)
+//      counts would pass a block's shared memory (m * c > 58,112), or a
+//      place block's (c > 3,227: 12-bit codes), the blocks take the codes
+//      in ranges that fit, reading their part's codes once a range.  hash_decode_place_-
 //      kernel, one block a (part, codebook), starts each code's rows after
 //      the rows of smaller codes and its own rows in earlier parts (from the
 //      counts), and places the part's rows: ballots over the code's bits
@@ -97,6 +103,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -104,7 +111,7 @@
 
 namespace {
 
-enum StorageType { kF32 = 0, kBF16 = 1, kInt8 = 2 };
+enum StorageType { kF32 = 0, kBF16 = 1, kInt8 = 2, kF16 = 3 };
 
 template <typename T> struct Widen;
 
@@ -128,6 +135,16 @@ template <> struct Widen<__nv_bfloat16> {
   }
 };
 
+template <> struct Widen<__half> {
+  __device__ __forceinline__ static void vec4(const __half* p, float v[4]) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __half* e = reinterpret_cast<const __half*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __half2float(e[k]);     // f16 -> f32 is exact
+  }
+  __device__ __forceinline__ static float one(const __half* p) { return __half2float(*p); }
+};
+
 template <> struct Widen<int8_t> {
   __device__ __forceinline__ static void vec4(const int8_t* p, float v[4]) {
     const char4 x = *reinterpret_cast<const char4*>(p);
@@ -140,8 +157,11 @@ template <> struct Widen<int8_t> {
 };
 
 // blockDim = (TX, TY): TX threads x 4 features span the row (looping when
-// d_c > 4*TX), TY rows per block, one row per threadIdx.y.
-template <typename T, bool VEC>
+// d_c > 4*TX), TY rows per block, one row per threadIdx.y.  STAGE: the
+// block's TY x m codes are staged (clamped) in shared memory; without it,
+// where one row's m codes would not fit, each code is read and clamped
+// where it is used.
+template <typename T, bool VEC, bool STAGE>
 __global__ void hash_decode_kernel(const int32_t* __restrict__ codes,
                                    const T* __restrict__ cb,
                                    const float* __restrict__ w0,
@@ -154,20 +174,22 @@ __global__ void hash_decode_kernel(const int32_t* __restrict__ codes,
   const int rows_here = min(static_cast<int>(blockDim.y), B - row0);
   const int nthreads = blockDim.x * blockDim.y;
   const int32_t* block_codes = codes + static_cast<size_t>(row0) * m;
-  for (int i = ty * blockDim.x + tx; i < rows_here * m; i += nthreads) {
-    // out-of-range codes clamp, as the JAX gather's indexing does
-    s_codes[i] = min(max(block_codes[i], 0), c - 1);
+  if (STAGE) {
+    for (int i = ty * blockDim.x + tx; i < rows_here * m; i += nthreads) {
+      // out-of-range codes clamp, as the JAX gather's indexing does
+      s_codes[i] = min(max(block_codes[i], 0), c - 1);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   if (ty >= rows_here) return;
 
-  const int32_t* rc = s_codes + ty * m;
+  const int32_t* rc = STAGE ? s_codes + ty * m : block_codes + static_cast<size_t>(ty) * m;
   float* orow = out + static_cast<size_t>(row0 + ty) * d_c;
   for (int f0 = tx * 4; f0 < d_c; f0 += blockDim.x * 4) {
     float acc[4];
 #pragma unroll 4
     for (int j = 0; j < m; ++j) {
-      const int code = rc[j];
+      const int code = STAGE ? rc[j] : min(max(rc[j], 0), c - 1);
       const T* src = cb + (static_cast<size_t>(j) * c + code) * d_c + f0;
       float v[4];
       if (VEC) {
@@ -234,6 +256,15 @@ template <> struct Chunk<__nv_bfloat16> {
       v[2 * k] = __uint_as_float(w[k] << 16);           // bf16 -> f32 is exact
       v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
+  }
+};
+
+template <> struct Chunk<__half> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void widen(const uint4& r, float v[kN]) {
+    const __half* e = reinterpret_cast<const __half*>(&r);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __half2float(e[k]);      // f16 -> f32 is exact
   }
 };
 
@@ -376,18 +407,14 @@ int launch_staged(const int32_t* codes, const void* cb, const float* w0,
 template <typename T>
 void launch_typed(const int32_t* codes, const void* cb, const float* w0,
                   const float* scales, float* out, int B, int m, int c,
-                  int d_c, int vec, int tx, int ty, cudaStream_t stream) {
+                  int d_c, int vec, int tx, int ty, int stage, cudaStream_t stream) {
   const dim3 block(tx, ty);
   const dim3 grid((B + ty - 1) / ty);
-  const size_t smem = static_cast<size_t>(ty) * m * sizeof(int32_t);
+  const size_t smem = stage ? static_cast<size_t>(ty) * m * sizeof(int32_t) : 0;
   const T* cbt = static_cast<const T*>(cb);
-  if (vec) {
-    hash_decode_kernel<T, true><<<grid, block, smem, stream>>>(
-        codes, cbt, w0, scales, out, B, m, c, d_c);
-  } else {
-    hash_decode_kernel<T, false><<<grid, block, smem, stream>>>(
-        codes, cbt, w0, scales, out, B, m, c, d_c);
-  }
+  auto kernel = vec ? (stage ? hash_decode_kernel<T, true, true> : hash_decode_kernel<T, true, false>)
+                    : (stage ? hash_decode_kernel<T, false, true> : hash_decode_kernel<T, false, false>);
+  kernel<<<grid, block, smem, stream>>>(codes, cbt, w0, scales, out, B, m, c, d_c);
 }
 
 // ----- backward: the codebook gradient --------------------------------------
@@ -406,6 +433,9 @@ template <typename T> __device__ __forceinline__ T round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 round_to<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half round_to<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // The lanes of the warp whose key equals this lane's, for keys in [-1, c):
@@ -452,30 +482,33 @@ __device__ int block_exclusive_scan(int own, int* scan) {
   return scan[warp] + incl - own;
 }
 
-// Places rows [r_lo, r_hi) of codebook j in the stable order by code:
-// given start[k], the place of the part's first row of code k, each row
-// goes to rows_out[start[code] + its rank among the part's rows of that
-// code].  The block's W warps each own a contiguous chunk of the part (a
+// Places rows [r_lo, r_hi) of codebook j whose code lies in [lo, lo + n)
+// in the stable order by code: given start[k], the place of the part's
+// first row of code lo + k, each row goes to rows_out[start[code - lo] + its
+// rank among the part's rows of that code].  The block's W warps each own a contiguous chunk of the part (a
 // multiple of 32 rows), so ascending (warp, step, lane) is ascending b; a
 // row's rank is the count of its code in the warps before its own (the
 // warps' per-code counts, hist, scanned per code) plus its rank in its
 // warp's earlier steps and in its own step (a popcount of its same_key
-// group).  Integers only: the same on every run.  hist: c * (W + 1) ints
+// group).  Integers only: the same on every run.  hist: n * (W + 1) ints
 // of shared memory ([code][warp], a row of W + 1 so that a warp's codes
 // fall in different banks).
 template <int W>
-__device__ void place_rows(const int32_t* __restrict__ codes, int m, int j, int c,
-                           int r_lo, int r_hi, const int* start, int* hist, int* rows_out) {
+__device__ void place_rows(const int32_t* __restrict__ codes, int m, int j, int c, int lo,
+                           int n, int r_lo, int r_hi, const int* start, int* hist,
+                           int* rows_out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;         // the lanes below this one
   const int chunk = (r_hi - r_lo + 32 * W - 1) / (32 * W) * 32;
   const int b_lo = r_lo + warp * chunk, b_hi = min(r_hi, b_lo + chunk);
-  const int bits = 32 - __clz(c - 1);               // bits of the largest code
-  for (int i = threadIdx.x; i < c * (W + 1); i += 32 * W) hist[i] = 0;
-  // row b's code, or -1 past the chunk; out-of-range codes clamp, as the
-  // forward's do
+  const int bits = 32 - __clz(n - 1);               // bits of the range's largest key
+  for (int i = threadIdx.x; i < n * (W + 1); i += 32 * W) hist[i] = 0;
+  // row b's code less lo, or -1 past the chunk or outside the range;
+  // out-of-range codes clamp, as the forward's do
   auto key = [&](int b) {
-    return b < b_hi ? min(max(codes[static_cast<size_t>(b) * m + j], 0), c - 1) : -1;
+    if (b >= b_hi) return -1;
+    const int k = min(max(codes[static_cast<size_t>(b) * m + j], 0), c - 1) - lo;
+    return k >= 0 && k < n ? k : -1;
   };
   __syncthreads();
   for (int b0 = b_lo; b0 < b_hi; b0 += 32 * kSortAhead) {   // count
@@ -491,7 +524,7 @@ __device__ void place_rows(const int32_t* __restrict__ codes, int m, int j, int 
     }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < c; k += 32 * W) {          // each warp's start a code
+  for (int k = threadIdx.x; k < n; k += 32 * W) {          // each warp's start a code
     int run = start[k];
     for (int w = 0; w < W; ++w) {
       const int v = hist[k * (W + 1) + w];
@@ -518,17 +551,20 @@ __device__ void place_rows(const int32_t* __restrict__ codes, int m, int j, int 
   }
 }
 
-// The sort's first launch: grid P (one block a part of R rows), 512
-// threads; dynamic shared memory m * c ints.  counts (P, m, c): how many
-// rows of each part have each (clamped) code in each codebook.  The part's
-// codes are read once, in order (coalesced); the counts are shared-memory
+// The sort's first launch: grid (P, ranges), one block a part of R rows
+// and a range of `span` (codebook, code) pairs j * c + k, 512 threads;
+// dynamic shared memory `span` ints (every pair in one range up to
+// kCountSpan pairs: m * c <= 58,112).  counts (P, m, c): how many rows of
+// each part have each (clamped) code in each codebook.  The part's codes
+// are read once a range, in order (coalesced); the counts are shared-memory
 // atomics, whose order cannot change an integer count.
 __global__ void __launch_bounds__(512)
 hash_decode_count_kernel(const int32_t* __restrict__ codes, int B, int m, int c, int R,
-                         int* __restrict__ counts) {
+                         int span, int* __restrict__ counts) {
   extern __shared__ int s_count[];
   const int mc = m * c;
-  for (int i = threadIdx.x; i < mc; i += blockDim.x) s_count[i] = 0;
+  const int lo = blockIdx.y * span, n = min(span, mc - lo);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s_count[i] = 0;
   __syncthreads();
   const int e0 = blockIdx.x * R * m;                 // B * m < 2^31 (the wrapper checks)
   const int e1 = min(B, (blockIdx.x + 1) * R) * m;
@@ -542,57 +578,65 @@ hash_decode_count_kernel(const int32_t* __restrict__ codes, int B, int m, int c,
     }
 #pragma unroll
     for (int u = 0; u < kAhead; ++u) {
-      if (k[u] >= 0) atomicAdd(&s_count[(e + u * blockDim.x) % m * c + k[u]], 1);
+      const int pair = (e + u * blockDim.x) % m * c + k[u] - lo;
+      if (k[u] >= 0 && pair >= 0 && pair < n) atomicAdd(&s_count[pair], 1);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < mc; i += blockDim.x) {
-    counts[static_cast<size_t>(blockIdx.x) * mc + i] = s_count[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    counts[static_cast<size_t>(blockIdx.x) * mc + lo + i] = s_count[i];
   }
 }
 
 // The sort's second launch: grid (P, m), 32 * kPlaceWarps threads, block
-// (p, j) places part p's rows of codebook j.  Its codes' places start after
-// all rows of smaller codes and this code's rows in parts before p (both
-// from counts); block (0, j) writes offsets[j].  Dynamic shared memory
-// c * (kPlaceWarps + 2) + kPlaceWarps + 1 ints.
+// (p, j) places part p's rows of codebook j, one range of `span` codes at a
+// time (every code in one range up to kPlaceSpan codes: c <= 3,227).  Its
+// codes' places start after all rows of smaller codes and this code's rows
+// in parts before p (both from counts); block (0, j) writes offsets[j].
+// Dynamic shared memory span * (kPlaceWarps + 2) + kPlaceWarps + 1 ints.
 __global__ void __launch_bounds__(32 * kPlaceWarps)
 hash_decode_place_kernel(const int32_t* __restrict__ codes, int B, int m, int c, int R,
-                         int P, const int* __restrict__ counts, int* __restrict__ offsets,
-                         int* __restrict__ rows) {
+                         int P, int span, const int* __restrict__ counts,
+                         int* __restrict__ offsets, int* __restrict__ rows) {
   constexpr int W = kPlaceWarps;
   extern __shared__ int s_place[];
-  int* hist = s_place;                               // c * (W + 1)
-  int* start = hist + c * (W + 1);                   // c
-  int* scan = start + c;                             // W + 1
+  int* hist = s_place;                               // span * (W + 1)
+  int* start = hist + span * (W + 1);                // span
+  int* scan = start + span;                          // W + 1
   const int p = blockIdx.x, j = blockIdx.y;
-  const int per = (c + 32 * W - 1) / (32 * W);       // codes a thread
-  const int k0 = min(c, static_cast<int>(threadIdx.x) * per), k1 = min(c, k0 + per);
-  int own = 0;                                       // the rows of this thread's codes
-  for (int k = k0; k < k1; ++k) {
-    const int* col = counts + static_cast<size_t>(j) * c + k;
-    int before = 0, total = 0;
-#pragma unroll 8
-    for (int q = 0; q < P; ++q) {
-      const int v = col[static_cast<size_t>(q) * m * c];
-      total += v;
-      before += q < p ? v : 0;
-    }
-    start[k] = before;
-    hist[k] = total;
-    own += total;
-  }
-  int run = block_exclusive_scan<W>(own, scan);      // the rows of smaller codes
   int* off = offsets + static_cast<size_t>(j) * (c + 1);
-  for (int k = k0; k < k1; ++k) {
-    if (p == 0) off[k] = run;
-    start[k] += run;
-    run += hist[k];
+  int below = 0;                                     // the rows of codes below the range
+  for (int lo = 0; lo < c; lo += span) {
+    const int n = min(span, c - lo);
+    const int per = (n + 32 * W - 1) / (32 * W);     // codes a thread
+    const int k0 = min(n, static_cast<int>(threadIdx.x) * per), k1 = min(n, k0 + per);
+    int own = 0;                                     // the rows of this thread's codes
+    for (int k = k0; k < k1; ++k) {
+      const int* col = counts + static_cast<size_t>(j) * c + lo + k;
+      int before = 0, total = 0;
+#pragma unroll 8
+      for (int q = 0; q < P; ++q) {
+        const int v = col[static_cast<size_t>(q) * m * c];
+        total += v;
+        before += q < p ? v : 0;
+      }
+      start[k] = before;
+      hist[k] = total;
+      own += total;
+    }
+    int run = below + block_exclusive_scan<W>(own, scan);   // the rows of smaller codes
+    below += scan[W];
+    for (int k = k0; k < k1; ++k) {
+      if (p == 0) off[lo + k] = run;
+      start[k] += run;
+      run += hist[k];
+    }
+    __syncthreads();                                 // hist is reused
+    place_rows<W>(codes, m, j, c, lo, n, p * R, min(B, (p + 1) * R), start, hist,
+                  rows + static_cast<size_t>(j) * B);
+    __syncthreads();                                 // start, hist and scan are reused
   }
   if (p == 0 && threadIdx.x == 0) off[c] = B;
-  __syncthreads();                                   // hist is reused
-  place_rows<W>(codes, m, j, c, p * R, min(B, (p + 1) * R), start, hist,
-                rows + static_cast<size_t>(j) * B);
 }
 
 // kLaneF f32 (g) or T (d_cb) values that one lane loads or stores at once
@@ -692,11 +736,21 @@ int allow_smem(K kernel, int smem, int& allowed) {
   return 0;
 }
 
-// the dynamic shared memory of a count block ((m, c) counts) and of a place
-// block (hist, start and scan of place_rows), in bytes
-long long count_smem(int m, int c) { return 4LL * m * c; }
+// The sort's ranges: a count block counts at most kCountSpan (codebook,
+// code) pairs and a place block places at most kPlaceSpan codes at a time,
+// so that each stays within a block's 227 KiB of shared memory at any
+// (m, c); below them, one range takes every pair or code.
+constexpr int kSmemInts = 232448 / 4;
+constexpr int kCountSpan = kSmemInts;
+constexpr int kPlaceSpan = (kSmemInts - kPlaceWarps - 1) / (kPlaceWarps + 2);
+int count_span(int m, int c) { return static_cast<int>(std::min<long long>(1LL * m * c, kCountSpan)); }
+int place_span(int c) { return std::min(c, kPlaceSpan); }
+
+// the dynamic shared memory of a count block (a range's counts) and of a
+// place block (hist, start and scan of place_rows), in bytes
+long long count_smem(int m, int c) { return 4LL * count_span(m, c); }
 long long place_smem(int c) {
-  return 4LL * (static_cast<long long>(c) * (kPlaceWarps + 2) + kPlaceWarps + 1);
+  return 4LL * (static_cast<long long>(place_span(c)) * (kPlaceWarps + 2) + kPlaceWarps + 1);
 }
 
 // CUDA launches of the backward's kernels (count, place, sum), counted on
@@ -714,10 +768,13 @@ int launch_sort(const int32_t* codes, int B, int m, int c, int* offsets, int* ro
   int err = allow_smem(hash_decode_count_kernel, smem[0], allowed[0]);
   if (err == 0) err = allow_smem(hash_decode_place_kernel, smem[1], allowed[1]);
   if (err != 0) return err;
-  hash_decode_count_kernel<<<P, 512, smem[0], stream>>>(codes, B, m, c, R, counts);
+  const int cspan = count_span(m, c);
+  const long long mc = 1LL * m * c;
+  hash_decode_count_kernel<<<dim3(P, static_cast<unsigned>((mc + cspan - 1) / cspan)), 512,
+                             smem[0], stream>>>(codes, B, m, c, R, cspan, counts);
   ++g_launched[0];
   hash_decode_place_kernel<<<dim3(P, m), 32 * kPlaceWarps, smem[1], stream>>>(
-      codes, B, m, c, R, P, counts, offsets, rows);
+      codes, B, m, c, R, P, place_span(c), counts, offsets, rows);
   ++g_launched[1];
   return static_cast<int>(cudaGetLastError());
 }
@@ -758,14 +815,16 @@ int launch_backward(const int32_t* codes, const float* g, const float* w0, void*
 
 // Plain C entry points (loaded with ctypes).  Pointers are device pointers
 // on card `device`; w0 and scales may be null.  storage: 0 = f32, 1 = bf16,
-// 2 = int8.  They launch on `stream`, do not synchronise and return
+// 2 = int8, 3 = f16.  They launch on `stream`, do not synchronise and return
 // cudaGetLastError() (or the error of setting the shared-memory size).
 
-// The direct variant: blockDim (tx, ty).
+// The direct variant: blockDim (tx, ty); stage: the block's ty x m codes
+// staged in shared memory (ty * m * 4 bytes, at most 48 KiB), else read
+// where they are used.
 extern "C" int hash_decode_launch(const void* codes, const void* cb,
                                   int storage, const void* w0,
                                   const void* scales, void* out, int B, int m,
-                                  int c, int d_c, int vec, int tx, int ty,
+                                  int c, int d_c, int vec, int tx, int ty, int stage,
                                   int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -776,13 +835,16 @@ extern "C" int hash_decode_launch(const void* codes, const void* cb,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case kF32:
-      launch_typed<float>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, st);
+      launch_typed<float>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, stage, st);
       break;
     case kBF16:
-      launch_typed<__nv_bfloat16>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, st);
+      launch_typed<__nv_bfloat16>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, stage, st);
+      break;
+    case kF16:
+      launch_typed<__half>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, stage, st);
       break;
     case kInt8:
-      launch_typed<int8_t>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, st);
+      launch_typed<int8_t>(ci, cb, w, s, o, B, m, c, d_c, vec, tx, ty, stage, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -814,6 +876,9 @@ extern "C" int hash_decode_staged_launch(const void* codes, const void* cb,
     case kBF16:
       return launch_staged<__nv_bfloat16>(ci, cb, w, s, o, B, m, c, d_c, vec, grid,
                                           smem, n_slices, rows_per_unit, st);
+    case kF16:
+      return launch_staged<__half>(ci, cb, w, s, o, B, m, c, d_c, vec, grid, smem,
+                                   n_slices, rows_per_unit, st);
     case kInt8:
       return launch_staged<int8_t>(ci, cb, w, s, o, B, m, c, d_c, vec, grid, smem,
                                    n_slices, rows_per_unit, st);
@@ -823,7 +888,8 @@ extern "C" int hash_decode_staged_launch(const void* codes, const void* cb,
 }
 
 // The codebook gradient: codes (B, m) int32, g (B, d_c) f32, w0 (d_c,) f32
-// or null -> d_cb (m, c, d_c) written whole, f32 (storage 0) or bf16 (1).
+// or null -> d_cb (m, c, d_c) written whole, f32 (storage 0), bf16 (1) or
+// f16 (3).
 // work: hash_decode_backward_sizes' sizes[0] int32 of device scratch for
 // the sort's offsets, rows and counts.  Three launches: the sort's two, then
 // the sum.
@@ -843,6 +909,8 @@ extern "C" int hash_decode_backward_launch(const void* codes, const void* g,
       return launch_backward<float>(ci, gf, w, d_cb, B, m, c, d_c, wk, st);
     case kBF16:
       return launch_backward<__nv_bfloat16>(ci, gf, w, d_cb, B, m, c, d_c, wk, st);
+    case kF16:
+      return launch_backward<__half>(ci, gf, w, d_cb, B, m, c, d_c, wk, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -863,13 +931,11 @@ extern "C" int hash_decode_sort_launch(const void* codes, int B, int m, int c, v
 // The backward's sizes at (B, m, c), so that its callers hold no copy of
 // the layout: sizes[0] = int32 elements of its scratch (offsets (m, c + 1),
 // rows (m, B), then the parts' counts), sizes[1] = the counts' share
-// (kMaxParts * m * c), sizes[2] = the larger dynamic shared memory of the
-// sort's two blocks, in bytes.
+// (kMaxParts * m * c).
 extern "C" void hash_decode_backward_sizes(int B, int m, int c, long long* sizes) {
   const long long counts = static_cast<long long>(kMaxParts) * m * c;
   sizes[0] = static_cast<long long>(m) * (c + 1) + static_cast<long long>(m) * B + counts;
   sizes[1] = counts;
-  sizes[2] = std::max(count_smem(m, c), place_smem(c));
 }
 
 // The backward kernels' launches since the library was loaded or last

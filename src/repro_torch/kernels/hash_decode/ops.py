@@ -6,8 +6,12 @@
 There is no other route: a CUDA call launches the kernel or raises.  The
 kernel has two variants (``launch_shape``): from ``STAGED_MIN_ROWS`` rows
 on, a slice of every codebook is staged in shared memory and a persistent
-grid walks the rows; below it, each row's codebook rows are read directly.
-Both give the plain version's bits.
+grid walks the rows; below it, or where a slice of every codebook does not
+fit, each row's codebook rows are read directly.  Both give the plain
+version's bits.  Codebooks are stored float32, bfloat16, float16 or int8;
+any (m, c); any layout: on the card a strided operand is copied once to a
+contiguous one (``hash_decode.copies`` counts the copies), and an
+unaligned one is read element by element, uncopied.
 
 Every call goes through ``_HashDecode`` (a ``torch.autograd.Function``) on
 either device.  Its backward computes what the JAX package's ``_bwd``
@@ -18,8 +22,9 @@ either device.  Its backward computes what the JAX package's ``_bwd``
 
 in f32, cast to the operands' dtypes.  ``d_cb`` comes from the CUDA
 backward kernels (CUDA operands; ``hash_decode_backward.launches`` counts
-a call): a stable counting sort of each codebook's rows by code (two launches),
-then one warp a (feature slice, codebook, code) sums its rows in
+a call): a stable counting sort of each codebook's rows by code (two
+launches, over ranges of codes where an (m, c) histogram outgrows shared
+memory), then one warp a (feature slice, codebook, code) sums its rows in
 registers.  On CPU operands it is the plain version
 ``ref.hash_decode_backward_ref`` (``index_add_`` on the CPU).  Both sum
 each (j, k, feature) in ascending b with no atomics, so they agree bit for
@@ -56,7 +61,8 @@ from repro_torch.kernels.hash_decode.ref import (code_order as code_order_ref,
 SOURCE = Path(__file__).resolve().parent / "csrc" / "hash_decode.cu"
 NAME = "hash_decode"
 
-_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float16: 3}
+_GRAD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # the backward's d_cb types
 SLICE_BYTES = 32               # bytes of a codebook row's feature slice (staged)
 SMEM_LIMIT = 227 * 1024        # dynamic shared memory a block may have (H100)
 _DIRECT_SMEM = 48 * 1024
@@ -159,7 +165,8 @@ class Launch(NamedTuple):
     """How one decode launches.  ``staged``: ``grid`` persistent blocks of
     ``threads``, ``smem`` bytes of codebook slices (and int8 scales), units
     of one feature slice (``slices`` a row) x ``rows`` rows.  ``direct``:
-    ``grid`` blocks of (``tx``, ``rows``) threads, ``smem`` bytes of codes."""
+    ``grid`` blocks of (``tx``, ``rows``) threads, ``smem`` bytes of codes
+    (0: each code is read where it is used)."""
     variant: str
     grid: int
     threads: int
@@ -176,8 +183,10 @@ def launch_shape(B: int, m: int, c: int, d_c: int, elem: int, quantized: bool,
     m*c rows (8 f32, 16 bf16 or 32 int8 features), ``sms // slices`` row
     ranges so the units fill the card once.  Otherwise the direct variant:
     each thread owns 4 consecutive features, up to 128 threads (512
-    features) a row pass, the rest of the 256-thread block further rows.
-    ``variant`` forces one of the two (to time them against each other)."""
+    features) a row pass, the rest of the 256-thread block further rows, as
+    many as have room for their m codes in 48 KiB of shared memory (none
+    staged where one row's do not fit).  ``variant`` forces one of the two
+    (to time them against each other)."""
     staged_smem = m * c * SLICE_BYTES + (m * c * 4 if quantized else 0)
     if variant is None:
         variant = ("staged" if B >= STAGED_MIN_ROWS and staged_smem <= SMEM_LIMIT
@@ -197,9 +206,9 @@ def launch_shape(B: int, m: int, c: int, d_c: int, elem: int, quantized: bool,
     tx = min(128, -(-quads // 32) * 32)
     ty = max(1, _DIRECT_THREADS // tx)
     if ty * m * 4 > _DIRECT_SMEM:
-        raise ValueError(f"m={m} codes per row need {ty * m * 4} B of shared "
-                         f"memory, above {_DIRECT_SMEM}")
-    return Launch("direct", -(-B // ty), tx * ty, ty * m * 4, rows=ty, tx=tx)
+        ty = _DIRECT_SMEM // (m * 4) or ty
+    smem = ty * m * 4 if ty * m * 4 <= _DIRECT_SMEM else 0
+    return Launch("direct", -(-B // ty), tx * ty, smem, rows=ty, tx=tx)
 
 
 @lru_cache(maxsize=None)
@@ -211,7 +220,7 @@ def _check(codes, codebooks, w0, scales) -> None:
     if codes.dim() != 2 or codes.dtype != torch.int32:
         raise TypeError(f"codes must be (B, m) int32, got {tuple(codes.shape)} {codes.dtype}")
     if codebooks.dim() != 3 or codebooks.dtype not in _STORAGE:
-        raise TypeError(f"codebooks must be (m, c, d_c) float32/bfloat16/int8, "
+        raise TypeError(f"codebooks must be (m, c, d_c) float32/bfloat16/float16/int8, "
                         f"got {tuple(codebooks.shape)} {codebooks.dtype}")
     m, c, d_c = codebooks.shape
     if codes.shape[1] != m:
@@ -228,8 +237,16 @@ def _check(codes, codebooks, w0, scales) -> None:
     operands = [t for t in (codes, codebooks, w0, scales) if t is not None]
     if len({t.device for t in operands}) != 1:
         raise ValueError(f"operands on several devices: {[str(t.device) for t in operands]}")
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("hash_decode operands must be contiguous")
+
+
+def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` as the kernels read it: itself if contiguous (or None), else
+    one contiguous copy, counted in ``hash_decode.copies``.  The copy is
+    differentiable, so a gradient reaches the strided original."""
+    if t is None or t.is_contiguous():
+        return t
+    hash_decode.copies += 1
+    return t.contiguous()
 
 
 def _forward(codes, codebooks, w0, scales, variant: Optional[str] = None) -> torch.Tensor:
@@ -262,8 +279,8 @@ def _forward(codes, codebooks, w0, scales, variant: Optional[str] = None) -> tor
     else:
         vec = int(d_c % 4 == 0 and codebooks.data_ptr() % (4 * elem) == 0
                   and out.data_ptr() % 16 == 0 and w0_aligned)
-        err = _entry("hash_decode_launch", 8)(
-            *ptrs, B, m, c, d_c, vec, shape.tx, shape.rows, index, stream)
+        err = _entry("hash_decode_launch", 9)(
+            *ptrs, B, m, c, d_c, vec, shape.tx, shape.rows, int(shape.smem > 0), index, stream)
     if err != 0:
         raise RuntimeError(f"hash_decode kernel launch failed: cudaError {err}")
     hash_decode.launches += 1
@@ -276,16 +293,13 @@ BACKWARD_KERNELS = ("count", "place", "sum")     # the backward's launches, in o
 def sort_sizes(B: int, m: int, c: int) -> Tuple[int, int]:
     """(int32 elements of the backward's scratch, of the sort's counts in
     it), as the library lays them out; raises ValueError, before any
-    launch, where the sort cannot run: B*m codes beyond its int32 indices,
-    or blocks above ``SMEM_LIMIT`` of shared memory (the count block holds
-    an (m, c) int32 histogram, so m*c*4 B; a place block (c*18 + 17)*4 B)."""
+    launch, where the sort cannot run: B*m codes beyond its int32 indices.
+    Any (m, c): the sort's blocks take the codes in ranges that fit in
+    shared memory."""
     if B * m >= 2 ** 31:
         raise ValueError(f"B*m = {B * m} codes are beyond the sort's int32 indices")
-    sizes = (ctypes.c_longlong * 3)()
+    sizes = (ctypes.c_longlong * 2)()
     _sizes_entry()(B, m, c, sizes)
-    if sizes[2] > SMEM_LIMIT:
-        raise ValueError(f"m={m} x c={c} codes need {sizes[2]} B of shared memory "
-                         f"in the backward's sort, above {SMEM_LIMIT}")
     return sizes[0], sizes[1]
 
 
@@ -312,8 +326,7 @@ def code_order(codes: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.Tensor]
         raise ValueError(f"code_order runs on cuda (kernel) or cpu (plain), got {dev}")
     if codes.dim() != 2 or codes.dtype != torch.int32:
         raise TypeError(f"codes must be (B, m) int32, got {tuple(codes.shape)} {codes.dtype}")
-    if not codes.is_contiguous():
-        raise ValueError("code_order's codes must be contiguous")
+    codes = _contiguous(codes)
     B, m = codes.shape
     _, n_counts = sort_sizes(B, m, c)
     offsets = torch.zeros((m, c + 1), dtype=torch.int32, device=dev)
@@ -331,21 +344,22 @@ def code_order(codes: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.Tensor]
 
 def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tensor],
                   c: int, dtype: torch.dtype) -> torch.Tensor:
-    """d_cb (m, c, d_c) in ``dtype`` (float32 or bfloat16) for codes (B, m)
-    int32, g (B, d_c) float32 and w0 (d_c,) float32 or None: the backward
-    kernels on CUDA operands (one call counted in
+    """d_cb (m, c, d_c) in ``dtype`` (float32, bfloat16 or float16) for
+    codes (B, m) int32, g (B, d_c) float32 and w0 (d_c,) float32 or None:
+    the backward kernels on CUDA operands (one call counted in
     ``hash_decode_backward.launches``, each kernel's launch in
     ``backward_kernel_launches``; the sort's offsets and rows in a scratch
-    tensor from the caching allocator), its plain version on CPU ones.
-    Raises ValueError where the sort cannot run (``sort_sizes``: at most
-    m*c = 58,112 codes, c <= 3,227, B*m < 2**31)."""
+    tensor from the caching allocator; a strided operand copied once,
+    counted in ``hash_decode.copies``), its plain version on CPU ones.
+    Raises ValueError where the sort cannot run (``sort_sizes``: B*m >=
+    2**31)."""
     dev = codes.device
     if dev.type == "cpu":
         return hash_decode_backward_ref(codes, g, w0, c, dtype)
     if dev.type != "cuda":
         raise ValueError(f"hash_decode_backward runs on cuda (kernel) or cpu (plain), got {dev}")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the codebook gradient is float32 or bfloat16, not {dtype}")
+    if dtype not in _GRAD_DTYPES:
+        raise TypeError(f"the codebook gradient is float32, bfloat16 or float16, not {dtype}")
     if (codes.dim() != 2 or codes.dtype != torch.int32 or g.dim() != 2
             or g.dtype != torch.float32 or g.shape[0] != codes.shape[0]):
         raise TypeError(f"codes must be (B, m) int32 and g (B, d_c) float32, got "
@@ -355,9 +369,9 @@ def codebook_grad(codes: torch.Tensor, g: torch.Tensor, w0: Optional[torch.Tenso
     if w0 is not None and (w0.dtype != torch.float32 or tuple(w0.shape) != (d_c,)):
         raise TypeError(f"w0 must be ({d_c},) float32, got {tuple(w0.shape)} {w0.dtype}")
     n_work, _ = sort_sizes(B, m, c)
-    if not all(t.is_contiguous() and t.device == dev for t in (codes, g)) or (
-            w0 is not None and (not w0.is_contiguous() or w0.device != dev)):
-        raise ValueError("hash_decode_backward operands must be contiguous, on one device")
+    if g.device != dev or (w0 is not None and w0.device != dev):
+        raise ValueError("hash_decode_backward operands must be on one device")
+    codes, g, w0 = (_contiguous(t) for t in (codes, g, w0))
     d_cb = torch.empty((m, c, d_c), dtype=dtype, device=dev)
     if B == 0 or d_c == 0 or m == 0:
         return d_cb.zero_()
@@ -387,7 +401,7 @@ def hash_decode_backward(codes: torch.Tensor, codebooks: torch.Tensor,
     d_cb = d_w0 = None
     if need_cb:
         dtype = cb_dtype or codebooks.dtype
-        sums = dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
+        sums = dtype if dtype in _GRAD_DTYPES else torch.float32
         d_cb = codebook_grad(codes, g, None if w0 is None else w0.float().contiguous(),
                              codebooks.shape[1], sums).to(dtype)
     if need_w0 and w0 is not None:
@@ -423,19 +437,25 @@ def hash_decode(codes: torch.Tensor, codebooks: torch.Tensor,
                 w0: Optional[torch.Tensor] = None,
                 scales: Optional[torch.Tensor] = None,
                 masters: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """codes (B, m) int32, codebooks (m, c, d_c) f32/bf16/int8 (+ scales
-    (m, c) f32 for int8), w0 (d_c,) f32 or None -> (B, d_c) f32.
+    """codes (B, m) int32, codebooks (m, c, d_c) f32/bf16/f16/int8 (+
+    scales (m, c) f32 for int8), w0 (d_c,) f32 or None -> (B, d_c) f32, in
+    any layout.
 
     CUDA operands launch the kernel on the current stream (no
-    synchronisation; ``hash_decode.launches`` counts the launches); CPU
-    operands run the plain version.  Differentiable in ``codebooks`` and
-    ``w0``.  int8 codebooks take no gradient; ``masters`` (m, c, d_c), the
-    float tensor they were quantized from, takes it straight through."""
+    synchronisation; ``hash_decode.launches`` counts the launches, and
+    ``hash_decode.copies`` the strided operands copied to contiguous ones
+    first); CPU operands run the plain version, which reads them as they
+    are.  Differentiable in ``codebooks`` and ``w0``.  int8 codebooks take
+    no gradient; ``masters`` (m, c, d_c), the float tensor they were
+    quantized from, takes it straight through."""
     _check(codes, codebooks, w0, scales)
     if masters is not None and (scales is None or masters.shape != codebooks.shape):
         raise ValueError("masters go with int8 codebooks and scales, in their shape")
+    if codes.device.type == "cuda":
+        codes, codebooks, w0, scales = (_contiguous(t) for t in (codes, codebooks, w0, scales))
     return _HashDecode.apply(codes, codebooks, w0, scales, masters)
 
 
 hash_decode.launches = 0
+hash_decode.copies = 0
 hash_decode_backward.launches = 0

@@ -15,7 +15,11 @@ tensors) or runs the plain PyTorch version in ``ref.py`` (CPU tensors,
 which is how the tests reach it on a machine without a card).  There is no
 other route: a CUDA call launches the kernel or raises, whatever the shape
 (ragged n, d and W are handled inside the kernel).  ``launches_by_kernel``
-counts the launches of each.
+counts the launches of each.  Operands may be float32, bfloat16 or
+float16, in any layout: the kernels read f32, so on the card a 16-bit or
+strided operand is widened (exactly) or copied once to a contiguous f32
+tensor, and ``copies`` counts those copies; the plain version widens them
+as the JAX kernel's body does.
 
 ``encode_dense`` is Algorithm 1 for a dense auxiliary matrix with every
 word's projections at once, (d, n_bits), so A is read once for up to 128
@@ -51,6 +55,8 @@ MAX_COLUMNS = 128     # projection columns one launch takes (four words)
 
 KERNELS = ("project", "pack", "fused")
 launches_by_kernel = dict.fromkeys(KERNELS, 0)
+copies = 0            # operands widened or made contiguous for a kernel
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {  # entry point: argument types (pointers, then ints, then the stream)
@@ -79,16 +85,16 @@ def _launch(kernel: str, dev: torch.device, *args) -> None:
 
 
 def _check(who: str, tensors: Sequence[torch.Tensor], max_w: int) -> None:
-    """A (n, d), V (d, w), and t (w,) if given: f32, one device, contiguous,
-    1 <= w <= max_w."""
+    """A (n, d), V (d, w), and t (w,) if given: f32, bf16 or f16, one
+    device, 1 <= w <= max_w."""
     A, V = tensors[0], tensors[1]
     t = tensors[2] if len(tensors) > 2 else None
     if A.dim() != 2 or V.dim() != 2 or (t is not None and t.dim() != 1):
         raise ValueError(f"{who} needs A (n, d), V (d, w)"
                          + (", t (w,)" if t is not None else "") + "; got "
                          + ", ".join(str(tuple(x.shape)) for x in tensors))
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise TypeError(f"{who} takes float32 operands, got "
+    if any(x.dtype not in _FLOATS for x in tensors):
+        raise TypeError(f"{who} takes float32, bfloat16 or float16 operands, got "
                         + ", ".join(str(x.dtype) for x in tensors))
     d, w = V.shape
     if A.shape[1] != d:
@@ -97,17 +103,25 @@ def _check(who: str, tensors: Sequence[torch.Tensor], max_w: int) -> None:
         raise ValueError(f"{who} takes 1..{max_w} projection columns, V has w={w}")
     if t is not None and t.shape[0] != w:
         raise ValueError(f"t has {t.shape[0]} thresholds for w={w}")
-    _same_device_contiguous(who, tensors)
+    _same_device(who, tensors)
 
 
-def _same_device_contiguous(who: str, tensors: Sequence[torch.Tensor]) -> None:
+def _same_device(who: str, tensors: Sequence[torch.Tensor]) -> None:
     if len({x.device for x in tensors}) != 1:
         raise ValueError(f"operands on several devices: {[str(x.device) for x in tensors]}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError(f"{who} operands must be contiguous")
     dev = tensors[0].device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{who} runs on cuda (kernel) or cpu (plain), got {dev}")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a kernel reads it: contiguous f32, itself if it is one,
+    else one exact copy, counted in ``copies``."""
+    global copies
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    copies += 1
+    return torch.empty_like(x, dtype=torch.float32, memory_format=torch.contiguous_format).copy_(x)
 
 
 def _words(n: int, w: int, dev: torch.device) -> torch.Tensor:
@@ -121,12 +135,14 @@ def _as_uint32(words: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def project(A: torch.Tensor, V: torch.Tensor, *,
             row_block: Optional[int] = ROW_BLOCK) -> torch.Tensor:
-    """A (n, d), V (d, w <= 128), f32 -> U = A @ V (n, w) f32.  CUDA
-    operands launch the kernel (every sum in ascending k, one FMA a term);
-    CPU operands run the plain product in row blocks of ``row_block``."""
+    """A (n, d), V (d, w <= 128), f32/bf16/f16 -> U = A @ V (n, w) f32.
+    CUDA operands launch the kernel (every sum in ascending k, one FMA a
+    term); CPU operands run the plain product, widened to f32, in row
+    blocks of ``row_block``."""
     _check("project", (A, V), MAX_COLUMNS)
     if A.device.type == "cpu":
-        return project_rows(A, V, row_block)
+        return project_rows(A.float(), V.float(), row_block)
+    A, V = _f32(A), _f32(V)
     (n, d), w = A.shape, V.shape[1]
     U = torch.empty((n, w), dtype=torch.float32, device=A.device)
     if n:
@@ -136,17 +152,20 @@ def project(A: torch.Tensor, V: torch.Tensor, *,
 
 @torch.no_grad()
 def pack(U: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """U (n, w <= 128), t (w,), f32 -> (n, ceil(w / 32)) int64 words of
-    U > t (the uint32 pattern in the low 32 bits)."""
+    """U (n, w <= 128), t (w,), f32/bf16/f16 -> (n, ceil(w / 32)) int64
+    words of U > t (the uint32 pattern in the low 32 bits), compared in
+    f32."""
     if U.dim() != 2 or t.dim() != 1 or t.shape[0] != U.shape[1]:
         raise ValueError(f"pack needs U (n, w), t (w,); got {tuple(U.shape)}, {tuple(t.shape)}")
-    if U.dtype != torch.float32 or t.dtype != torch.float32:
-        raise TypeError(f"pack takes float32 operands, got {U.dtype}, {t.dtype}")
+    if U.dtype not in _FLOATS or t.dtype not in _FLOATS:
+        raise TypeError(f"pack takes float32, bfloat16 or float16 operands, got "
+                        f"{U.dtype}, {t.dtype}")
     if not 1 <= U.shape[1] <= MAX_COLUMNS:
         raise ValueError(f"pack takes 1..{MAX_COLUMNS} columns, U has {U.shape[1]}")
-    _same_device_contiguous("pack", (U, t))
+    _same_device("pack", (U, t))
     if U.device.type == "cpu":
-        return pack_words(U, t)
+        return pack_words(U.float(), t.float())
+    U, t = _f32(U), _f32(t)
     n, w = U.shape
     out = _words(n, w, U.device)
     if n:
@@ -159,6 +178,7 @@ def _encode_words(who: str, A: torch.Tensor, V: torch.Tensor, t: torch.Tensor,
     _check(who, (A, V, t), max_w)
     if A.device.type == "cpu":
         return lsh_encode_words_ref(A, V, t)
+    A, V, t = _f32(A), _f32(V), _f32(t)
     (n, d), w = A.shape, V.shape[1]
     out = _words(n, w, A.device)
     if n:
@@ -169,16 +189,17 @@ def _encode_words(who: str, A: torch.Tensor, V: torch.Tensor, t: torch.Tensor,
 
 @torch.no_grad()
 def lsh_encode_words(A: torch.Tensor, V: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """A (n, d), V (d, w <= 128), t (w,), all f32 -> (n, ceil(w / 32))
-    int64 words of (A @ V) > t, in one launch on a CUDA device (no
-    synchronisation), the plain version on the CPU."""
+    """A (n, d), V (d, w <= 128), t (w,), f32/bf16/f16 (widened to f32)
+    -> (n, ceil(w / 32)) int64 words of (A @ V) > t, in one launch on a
+    CUDA device (no synchronisation), the plain version on the CPU."""
     return _encode_words("lsh_encode_words", A, V, t, MAX_COLUMNS)
 
 
 @torch.no_grad()
 def lsh_encode_word(A: torch.Tensor, V: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """A (n, d), V (d, w <= 32), t (w,), all f32 -> (n,) int64 words: the
-    TPU kernel's function, through the same launch as ``lsh_encode_words``."""
+    """A (n, d), V (d, w <= 32), t (w,), f32/bf16/f16 (widened to f32) ->
+    (n,) int64 words: the TPU kernel's function, through the same launch as
+    ``lsh_encode_words``."""
     return _encode_words("lsh_encode_word", A, V, t, codes_lib.WORD_BITS)[:, 0]
 
 

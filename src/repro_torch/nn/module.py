@@ -68,6 +68,18 @@ def param_count(params: Params, trainable_only: bool = False) -> int:
                if not trainable_only or not any(k.endswith("_buf") for k in path))
 
 
+def param_bytes(params: Params, trainable_only: bool = False) -> int:
+    return sum(leaf.numel() * leaf.element_size() for path, leaf in leaves_with_path(params)
+               if not trainable_only or not any(k.endswith("_buf") for k in path))
+
+
+def cast_floats(tree: Params, dtype: torch.dtype) -> Params:
+    """The tree with every float leaf cast to ``dtype``; other leaves as
+    they are."""
+    return map_tree(lambda path, x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point()
+                    else x, tree)
+
+
 def value_and_grad(fn, params: Params):
     """(fn(params) detached, grads): grads has the params' structure, f32
     tensors on the trainable leaves and None elsewhere.  The stored params

@@ -1,5 +1,6 @@
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
-from repro_torch.optim.schedule import linear_warmup_cosine
+from repro_torch.optim.schedule import (constant_schedule, cosine_schedule,
+                                       linear_warmup_cosine)
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "linear_warmup_cosine"]
+           "constant_schedule", "cosine_schedule", "linear_warmup_cosine"]

@@ -1,10 +1,19 @@
-"""The learning-rate schedule of the LM train step (counterpart of
-``linear_warmup_cosine`` in ``repro/optim/schedule.py``): the multiplicative
-scale of ``AdamWConfig.lr`` for an integer step, as a Python float."""
+"""Learning-rate schedules (counterpart of ``repro/optim/schedule.py``):
+the multiplicative scale of ``AdamWConfig.lr`` for an integer step, as a
+Python float.  The LM train step uses ``linear_warmup_cosine``."""
 
 from __future__ import annotations
 
 import math
+
+
+def constant_schedule(step: int) -> float:
+    return 1.0
+
+
+def cosine_schedule(step: int, total_steps: int, final_frac: float = 0.1) -> float:
+    t = min(max(step / max(total_steps, 1), 0.0), 1.0)
+    return final_frac + (1 - final_frac) * 0.5 * (1 + math.cos(math.pi * t))
 
 
 def linear_warmup_cosine(step: int, warmup_steps: int, total_steps: int,

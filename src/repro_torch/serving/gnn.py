@@ -156,6 +156,20 @@ class GraphInferenceEngine:
             b *= 2
         return min(b, self.max_coalesce)
 
+    def decode_buckets(self, max_requests: int = 1) -> Tuple[int, ...]:
+        """Every decode-row count a microbatch of at most ``max_requests``
+        can pad its decode to: the whole coalesced frontier uncached; with
+        the cache, 0, the frontier, and ``pad_to`` doubled below it (the
+        miss buckets, ``CachedDecodeBackend.miss_bucket``)."""
+        cap = self._request_bucket(max_requests) * self.frontier_cap
+        if not self.cached:
+            return (cap,)
+        out, b = [0, cap], self.pad_to
+        while b < cap:
+            out.append(b)
+            b *= 2
+        return tuple(sorted(set(out)))
+
     # -- the host's table of cached ids ------------------------------------
     def _read_held(self) -> None:
         """Build ``_held`` (a bool per node id: does the cache hold it) and

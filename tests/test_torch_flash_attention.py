@@ -102,26 +102,29 @@ def test_wrapper_equals_its_plain_version_in_bshd():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Float64 and mixed dtypes are refused; float16, any head dim and any
+    layout compute (the plain version on the CPU, as JAX's wrapper)."""
     q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)))
                for a in _qkv(1, 4, 2, 16, 64))
     with pytest.raises(TypeError):
         t_ops.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         t_ops.flash_attention(q, k.to(torch.bfloat16), v)
-    # the head dim: any D on the CPU (the plain version, as JAX's wrapper);
-    # off the CPU the kernels' D <= 128, D % 8 == 0 (meta tensors reach the
-    # check without a card)
+    h = [t.half() for t in (q, k, v)]
+    assert torch.equal(t_ops.flash_attention(*h), attention_ref(*h))
+    # the head dim: any D; on the card D % 8 != 0 pads to the step and D >
+    # 256 runs the panel kernel
     q48, k48, v48 = (t[..., :48].contiguous() for t in (q, k, v))
     assert torch.equal(t_ops.flash_attention(q48, k48, v48), attention_ref(q48, k48, v48))
-    for D in (100, 136):
-        meta = [torch.empty(t.shape[:-1] + (D,), device="meta") for t in (q, k, v)]
-        with pytest.raises(ValueError, match="head dim"):
-            t_ops.flash_attention(*meta)
-    t_ops._check(*(torch.empty(t.shape[:-1] + (112,), device="meta") for t in (q, k, v)))
+    assert t_ops.kernel_of(torch.float32, 100) == ("f32_cuda_core", 128)
+    assert t_ops.kernel_of(torch.bfloat16, 136) == ("bf16_wgmma", 256)
+    assert t_ops.kernel_of(torch.float16, 4) == ("f16_wgmma", 32)
+    assert t_ops.kernel_of(torch.bfloat16, 320) == ("panels", 320)
     with pytest.raises(ValueError):
         t_ops.flash_attention(q[:, :, :3].contiguous(), k, v)      # H % K != 0
-    with pytest.raises(ValueError, match="contiguous"):
-        t_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    got = t_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k.transpose(1, 2).contiguous().transpose(1, 2), v)
+    assert torch.equal(got, t_ops.flash_attention(q, k, v))
 
 
 def _shifted(t):
@@ -133,18 +136,19 @@ def _shifted(t):
 
 
 def test_wrapper_rejects_unaligned_bf16_operands():
-    """The bf16 kernel reads q, k and v through TMA tensor maps, whose base
-    addresses must be 16-byte aligned: the wrapper raises rather than copy."""
+    """An operand 2 bytes off a 16-byte boundary computes as the aligned one
+    does: the plain version reads it where it is on the CPU (on the card the
+    wrapper copies it to an aligned tensor, counted in ``copies``)."""
     q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2))).to(torch.bfloat16)
                for a in _qkv(1, 4, 2, 16, 64))
+    want = t_ops.flash_attention(q, k, v)
+    copies = t_ops.flash_attention.copies
     for i in range(3):
         args = [q, k, v]
         args[i] = _shifted(args[i])
         assert args[i].data_ptr() % 16 and args[i].is_contiguous()
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            t_ops.flash_attention(*args)
-    # f32 on the CPU runs the plain version, which takes any address (on the
-    # card the f32 kernel's 16-byte copies need the same alignment)
+        assert torch.equal(t_ops.flash_attention(*args), want)
+    assert t_ops.flash_attention.copies == copies       # the CPU copies nothing
     q32 = _shifted(q.float())
     assert torch.equal(t_ops.flash_attention(q32, k.float(), v.float()),
                        attention_ref(q32, k.float(), v.float()))
@@ -155,6 +159,6 @@ def test_cpu_calls_move_no_launch_count(dtype):
     q, k, v = (torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2))).to(dtype)
                for a in _qkv(1, 4, 2, 32, 32))
     by_kernel = dict(t_ops.flash_attention.launches_by_kernel)
-    assert set(by_kernel) == {"bf16_wgmma", "f32_cuda_core"}
+    assert set(by_kernel) == {"bf16_wgmma", "f16_wgmma", "f32_cuda_core", "panels"}
     t_ops.flash_attention(q, k, v)
     assert t_ops.flash_attention.launches_by_kernel == by_kernel

@@ -46,7 +46,7 @@ one bit for bit.  ``flash_attention``
 against its plain version, as ``assert_allclose(rtol=tol, atol=tol)``:
 2e-5 in float32 (f32 FMAs against f32 cuBLAS products), 2e-2 in bfloat16 (the plain version takes the scores and
 ``w @ v`` in bf16 as ``mha_ref`` does; ``tests/test_kernels.py``'s
-tolerances).
+tolerances), 5e-3 in float16 (the same roundings at f16's 2**-11).
 """
 
 import dataclasses
@@ -205,6 +205,14 @@ FLASH_HEAD_DIMS = [(B, H, K, S, D, causal, dtype)
 # the f32 kernel at every D it takes, ragged S, GQA, causal and full
 FLASH_F32_DIMS = [(B, H, K, S, D, causal, "float32") for D in range(8, 129, 8)
                   for B, H, K, S, causal in ((2, 4, 2, 257, True), (1, 6, 3, 200, False))]
+# float16 at every tile width (32, 64, 128, 256) and in panels, and the
+# head dims the tiles pad (4, 100, 136, 192) or that take panels (320), in
+# each dtype; ragged S, GQA, causal and full
+FLASH_ANY_DIMS = [(B, H, K, S, D, causal, dtype)
+                  for D in (4, 32, 64, 100, 128, 136, 192, 256, 320, 333)
+                  for dtype in ("float16", "bfloat16", "float32")
+                  for B, H, K, S, causal in ((1, 4, 2, 257, True), (1, 4, 4, 129, False))]
+FLASH_TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 2e-5}
 # Sq != Skv through the bf16 kernel: (Sq, Skv, causal); causal is the
 # plain version's top-left mask (key position <= query position)
 FLASH_RAGGED = [(129, 300, True), (300, 129, True), (1, 1000, False), (1000, 1, True),
@@ -219,7 +227,7 @@ def _qkv(B, H, K, S, D, dtype, device, seed=0, Skv=None):
             for shape in ((B, S, H, D), (B, Skv, K, D), (B, Skv, K, D))]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HEAD_DIMS + FLASH_F32_DIMS,
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_HEAD_DIMS + FLASH_F32_DIMS + FLASH_ANY_DIMS,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_kernel_matches_plain_version(cuda, case):
     B, H, K, S, D, causal, dtype = case
@@ -229,7 +237,7 @@ def test_flash_kernel_matches_plain_version(cuda, case):
     torch.cuda.synchronize()
     assert fa_ops.flash_attention.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    tol = FLASH_TOL[dtype]
     ref = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
@@ -261,12 +269,25 @@ def test_flash_bf16_kernel_is_deterministic(cuda):
     assert torch.equal(fa_ops.flash_attention(q, k, v), fa_ops.flash_attention(q, k, v))
 
 
+def _shifted_on(t, device):
+    """A contiguous copy of ``t`` on ``device`` starting one element past an
+    aligned address."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def test_flash_bf16_kernel_rejects_unaligned_operands(cuda):
+    """The bf16 kernel reads q through a TMA tensor map, whose base must be
+    16-byte aligned: the wrapper copies an operand 2 bytes off it once,
+    counted in ``copies``, and the result is the aligned call's."""
     q, k, v = _qkv(1, 4, 2, 64, 64, "bfloat16", cuda)
-    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
-    shifted.copy_(q)
-    with pytest.raises(ValueError, match="aligned"):
-        fa_ops.flash_attention(shifted, k, v)
+    shifted = _shifted_on(q, cuda)
+    want = fa_ops.flash_attention(q, k, v)
+    copies, launches = fa_ops.flash_attention.copies, fa_ops.flash_attention.launches
+    assert torch.equal(fa_ops.flash_attention(shifted, k, v), want)
+    assert fa_ops.flash_attention.copies == copies + 1
+    assert fa_ops.flash_attention.launches == launches + 1
 
 
 @pytest.mark.parametrize("D", [64, 112])
@@ -282,14 +303,24 @@ def test_flash_f32_kernel_query_and_key_lengths_differ(cuda, case, D):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("D", [100, 136, 4])
 def test_flash_kernels_refuse_head_dims_they_do_not_take(cuda, D, dtype):
-    """On the card D <= 128 with D % 8 == 0; the CPU takes any D."""
+    """Any D on the card: one launch of the kernel that ``kernel_of``
+    names (a D % 8 != 0 padded to the step: three operands and the output
+    copied), within the plain version's tolerance; the CPU gives the plain
+    version itself."""
     q, k, v = _qkv(1, 4, 2, 64, D, dtype, cuda)
     before = fa_ops.flash_attention.launches
-    with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_attention(q, k, v)
-    assert fa_ops.flash_attention.launches == before
-    got = fa_ops.flash_attention(*(t.cpu() for t in (q, k, v)))
-    assert torch.equal(got, attention_ref(*(t.cpu() for t in (q, k, v))))
+    kernel, _ = fa_ops.kernel_of(q.dtype, D)
+    by_kernel = fa_ops.flash_attention.launches_by_kernel[kernel]
+    copies = fa_ops.flash_attention.copies
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert fa_ops.flash_attention.launches_by_kernel[kernel] == by_kernel + 1
+    assert fa_ops.flash_attention.copies == copies + (4 if D % 8 else 0)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(), rtol=tol, atol=tol)
+    cpu = fa_ops.flash_attention(*(t.cpu() for t in (q, k, v)))
+    assert torch.equal(cpu, attention_ref(*(t.cpu() for t in (q, k, v))))
 
 
 @pytest.mark.parametrize("D", [32, 64, 112, 128])
@@ -300,13 +331,56 @@ def test_flash_f32_kernel_is_deterministic(cuda, D):
 
 
 def test_flash_f32_kernel_rejects_unaligned_operands(cuda):
-    """The f32 kernel copies K and V in 16-byte pieces: on the card the
-    wrapper raises rather than copy."""
+    """The f32 kernel copies K and V in 16-byte pieces: the wrapper copies
+    a K 4 bytes off a 16-byte boundary once, counted in ``copies``, and the
+    result is the aligned call's."""
     q, k, v = _qkv(1, 4, 2, 64, 64, "float32", cuda)
-    shifted = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view(k.shape)
-    shifted.copy_(k)
-    with pytest.raises(ValueError, match="aligned"):
-        fa_ops.flash_attention(q, shifted, v)
+    shifted = _shifted_on(k, cuda)
+    want = fa_ops.flash_attention(q, k, v)
+    copies = fa_ops.flash_attention.copies
+    assert torch.equal(fa_ops.flash_attention(q, shifted, v), want)
+    assert fa_ops.flash_attention.copies == copies + 1
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32"])
+@pytest.mark.parametrize("D", [256, 200, 320, 333])
+def test_flash_wide_head_kernels_are_deterministic(cuda, D, dtype):
+    """The DT = 256 tiles and the panel kernel (D > 256) have no atomics:
+    two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(2, 4, 2, 300, D, dtype, cuda, seed=8)
+    assert torch.equal(fa_ops.flash_attention(q, k, v), fa_ops.flash_attention(q, k, v))
+
+
+def test_flash_strided_operands_are_copied_once(cuda):
+    """A strided view (every other column of a wider tensor) computes as
+    its contiguous copy, one counted copy an operand."""
+    q, k, v = _qkv(1, 4, 2, 200, 64, "float16", cuda, seed=9)
+    wide = torch.zeros(q.shape[:-1] + (128,), dtype=q.dtype, device=cuda)
+    strided = wide[..., ::2]
+    strided.copy_(q)
+    copies = fa_ops.flash_attention.copies
+    assert torch.equal(fa_ops.flash_attention(strided, k, v), fa_ops.flash_attention(q, k, v))
+    assert fa_ops.flash_attention.copies == copies + 1
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32"])
+def test_flash_channels_last_strided_operand_at_a_padded_head_dim(cuda, dtype):
+    """k stored (B, K, D, S) and permuted to (B, S, K, D) has strides that
+    look channels_last; at D = 100 the wrapper pads it, and the padded copy
+    must still be row-major: the call is the plain version's result and the
+    contiguous call's bits, with the same 4 counted copies."""
+    B, H, K, S, D = 1, 4, 2, 257, 100
+    q, k, v = _qkv(B, H, K, S, D, dtype, cuda, seed=10)
+    permuted = torch.empty((B, K, D, S), dtype=k.dtype, device=cuda).permute(0, 3, 1, 2)
+    permuted.copy_(k)
+    want = fa_ops.flash_attention(q, k, v)
+    copies = fa_ops.flash_attention.copies
+    got = fa_ops.flash_attention(q, permuted, v)
+    assert fa_ops.flash_attention.copies == copies + 4
+    assert torch.equal(got, want)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, causal=True).float(),
+                               rtol=tol, atol=tol)
 
 
 def test_flash_kernel_gradients_are_the_plain_recompute(cuda):
@@ -618,20 +692,63 @@ def test_sort_kernel_matches_code_order(cuda, case):
 
 def test_backward_sizes_from_the_library(cuda):
     """The scratch holds the sort's offsets (m, c+1), rows (m, B) and 32
-    parts' (m, c) counts.  A count block's (m, c) int32 histogram and a
-    place block's (c*18 + 17) ints must fit a block's 227 KiB of shared
-    memory: m*c above 58,112 or c above 3,227 is refused before any launch,
-    whatever B."""
+    parts' (m, c) counts.  Where a count block's (m, c) histogram (m*c
+    above 58,112) or a place block's (c*18 + 17) ints (c above 3,227) would
+    pass a block's 227 KiB of shared memory, the blocks take the codes in
+    ranges: the gradient is the plain version's bits there too."""
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
     assert ops.sort_sizes(24_064, 16, 256) == (16 * 257 + 16 * 24_064 + 32 * 16 * 256,
                                                32 * 16 * 256)
     ops.sort_sizes(1, 32, 1_816)                         # m*c = 58,112
     ops.sort_sizes(1, 1, 3_227)
+    rng = np.random.default_rng(4)
     for m, c in ((32, 1_817), (1, 3_228), (256, 1024)):
-        with pytest.raises(ValueError, match="shared memory"):
-            ops.sort_sizes(8, m, c)
-        codes = torch.zeros(8, m, dtype=torch.int32, device=cuda)
-        with pytest.raises(ValueError, match="shared memory"):
-            ops.codebook_grad(codes, torch.zeros(8, 4, device=cuda), None, c, torch.float32)
+        assert ops.sort_sizes(8, m, c)[1] == 32 * m * c
+        codes = torch.from_numpy(rng.integers(-2, c + 2, (700, m)).astype(np.int32))
+        g = torch.from_numpy(rng.standard_normal((700, 4)).astype(np.float32))
+        got = ops.codebook_grad(codes.to(cuda), g.to(cuda), None, c, torch.float32)
+        assert torch.equal(got.cpu(), hash_decode_backward_ref(codes, g, None, c, torch.float32))
+
+
+@pytest.mark.parametrize("B", [4_096, 8_192, 61_696])
+def test_hash_decode_float16_bitwise(cuda, B):
+    """float16 codebooks: the forward (the launcher's variant and both
+    forced) is the gather backend's bits, and the codebook gradient (summed
+    in f32 from 0, rounded once to f16) its plain version's."""
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    codes, cb, w0, _ = _operands((B, 16, 256, 512), "float32+w0", cuda, seed=B)
+    cb = cb.half()
+    want = backend_mod.GatherBackend().decode(codes, cb, w0)
+    assert torch.equal(ops.hash_decode(codes, cb, w0), want)
+    for forced in ("staged", "direct"):
+        assert torch.equal(ops._forward(codes, cb, w0, None, variant=forced), want), forced
+    g = torch.randn(B, 512, generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    got = ops.codebook_grad(codes, g, w0, 256, torch.float16)
+    assert got.dtype == torch.float16
+    assert torch.equal(got.cpu(), hash_decode_backward_ref(codes.cpu(), g.cpu(), w0.cpu(), 256,
+                                                           torch.float16))
+
+
+def test_hash_decode_backward_at_12_bit_codes(cuda):
+    """(m, c) = (16, 4096): the sort places each codebook's 4,096 codes in
+    two ranges; the gradient is its plain version's bits, twice."""
+    from repro_torch.kernels.hash_decode.ref import hash_decode_backward_ref
+    rng = np.random.default_rng(5)
+    codes = torch.from_numpy(rng.integers(0, 4096, (8_192, 16)).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((8_192, 512)).astype(np.float32))
+    got = ops.codebook_grad(codes.to(cuda), g.to(cuda), None, 4096, torch.float32)
+    assert torch.equal(got, ops.codebook_grad(codes.to(cuda), g.to(cuda), None, 4096,
+                                              torch.float32))
+    assert torch.equal(got.cpu(), hash_decode_backward_ref(codes, g, None, 4096, torch.float32))
+
+
+def test_hash_decode_strided_codes_are_copied_once(cuda):
+    codes, cb, _, _ = _operands((5_000, 16, 256, 64), "float32", cuda)
+    strided = torch.zeros(5_000, 32, dtype=torch.int32, device=cuda)[:, ::2]
+    strided.copy_(codes)
+    copies = ops.hash_decode.copies
+    assert torch.equal(ops.hash_decode(strided, cb), ops.hash_decode(codes, cb))
+    assert ops.hash_decode.copies == copies + 1
 
 
 def _gnn_spec(n=3000, **kw):

@@ -174,6 +174,22 @@ def test_median_sample_draws_distinct_rows_after_each_projection():
                               median_sample=k)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_word_with_16_bit_operands_bitwise_pallas_interpret(dtype):
+    """A (and V) stored in 16 bits: widened to f32 as the JAX kernel's body
+    widens them; at integer inputs every sum is exact, so bitwise."""
+    A, V, t = _inputs(512, 128, 32, "integer", seed=11)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(j_word_kernel(jnp.asarray(A, jdt), jnp.asarray(V), jnp.asarray(t),
+                                   block_n=256, block_d=128, interpret=True)[:, 0])
+    got = ops.lsh_encode_word(torch.from_numpy(A).to(tdt), torch.from_numpy(V),
+                              torch.from_numpy(t))
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
+    both = ops.lsh_encode_word(torch.from_numpy(A).to(tdt), torch.from_numpy(V).to(tdt),
+                               torch.from_numpy(t))
+    np.testing.assert_array_equal(both.numpy(), ref.astype(np.int64))
+
+
 def test_wrapper_rejects_bad_operands_and_cuda_without_a_card():
     A, V, t = torch.zeros(10, 6), torch.zeros(6, 5), torch.zeros(5)
     assert torch.equal(ops.lsh_encode_word(A, V, t), torch.zeros(10, dtype=torch.int64))
@@ -185,8 +201,12 @@ def test_wrapper_rejects_bad_operands_and_cuda_without_a_card():
         ops.lsh_encode_word(torch.zeros(10, 6), torch.zeros(6, 33), torch.zeros(33))
     with pytest.raises(ValueError):
         ops.lsh_encode_word(A, V, torch.zeros(4))
-    with pytest.raises(ValueError):
-        ops.lsh_encode_word(torch.zeros(6, 10).t(), V, t)      # not contiguous
+    # a strided A computes as the contiguous one (the plain version reads it
+    # as it is; on the card the wrapper copies it)
+    At = torch.arange(60, dtype=torch.float32).reshape(6, 10).t() - 30
+    assert not At.is_contiguous()
+    assert torch.equal(ops.lsh_encode_word(At, V + 1, t), ops.lsh_encode_word(At.contiguous(),
+                                                                              V + 1, t))
     with pytest.raises(ValueError):
         ops.lsh_encode_word(A.to("meta"), V.to("meta"), t.to("meta"))
     if not torch.cuda.is_available():
